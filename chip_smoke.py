@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch/CUDA port (``raytpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py          (from the repository root)
+
+Phases, each of which raises on failure (exit code non-zero):
+  1. environment: torch, nvcc and the card (nvidia-smi name, power limit);
+  2. build every CUDA source of the port from this checkout;
+  3. RNG parity: the port's threefry stream on the card reproduces a table
+     of ``jax.random`` values (computed with JAX 0.9.0, pasted below);
+  4. the sphere megakernel (K1) against its plain PyTorch version on the
+     card, on four scenes at 64x48 rays, then timed at the main path's
+     shape (1200x900 rays, 6 bounces);
+  5. the main path: a 1200x900, 6-bounce Cornell frame through ``render``
+     over all block-ordered pixel ids, checked finite and lit, with one
+     K1 launch per sample; a small frame on the card against the same
+     frame on the CPU; the PPM through ``render_image``/``write_ppm``.
+The last lines are the card, a JSON line per kernel, and the result line.
+Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "smoke_out")
+
+# K1 vs its plain version (and card vs CPU): nvcc contracts FMAs where the
+# plain path rounds twice, so grazing hits on the radius-500 walls can
+# flip. A ray is an outlier if any channel differs by more than
+# ATOL + RTOL*|x|; at most OUTLIER_FRAC of the rays may be outliers
+# (the tolerance of tests/test_megakernel._compare).
+ATOL, RTOL, OUTLIER_FRAC = 1e-4, 1e-5, 0.02
+MAIN_SPP = 32
+
+# [seed, pixel, sample, fold_in(PRNGKey(seed), pixel),
+#  fold_in(that, sample), bits of uniform(that key, (22,)) as uint32]
+RNG_TABLE = [
+    [0, 0, 0, [1797259609, 2579123966], [4165894930, 804218099], [1049673900, 1061798078, 1053528080, 1064071826, 1050260700, 1025890848, 1044724104, 1058359588, 1048250688, 1046052600, 1058733790, 1059780606, 1043794264, 1063962254, 1059249112, 1065044316, 1055066396, 1063626636, 1064672592, 1056596272, 1059551074, 1048483128]],
+    [0, 1, 999, [928981903, 3453687069], [3928887806, 3004987596], [1043992896, 1061831198, 1060294770, 1054352512, 1063213902, 1064588136, 1048361136, 1027536384, 1051678888, 1041513664, 1055249624, 1036043872, 1059276698, 1052501464, 1053784884, 1061404174, 1063269374, 1062123202, 1057669568, 1024381440, 1057637820, 1064330264]],
+    [0, 540599, 31, [786321683, 1693347054], [3110285788, 155785014], [1060379896, 1012388096, 1062035042, 1055950036, 1048444560, 1058206510, 1062212958, 1050395284, 1060938566, 1057772090, 1041812640, 1057829536, 1055368476, 1041322712, 1059176900, 1037815968, 1053696800, 1044932232, 1029289728, 1047308032, 1045718456, 1041664608]],
+    [0, 1079999, 999, [4228442464, 1192574233], [2150462513, 2829808071], [1053553096, 1062811332, 1062249040, 1064036688, 1015264832, 1052916864, 1036224736, 1059167050, 1059753140, 1052793640, 1015950400, 1061221984, 1064925536, 1063537164, 1056653520, 1039343888, 1064285372, 1056930092, 1038976048, 1045708616, 1019089408, 1046362728]],
+    [0, 1079999, 0, [4228442464, 1192574233], [2991150274, 762749889], [1054866592, 1057896544, 1060069206, 1034478096, 1028723456, 1061344960, 1027789088, 1060693068, 1050015852, 1053561720, 1038074208, 1057652190, 1061510078, 1061157462, 1062465192, 1060471270, 1053629728, 1031296672, 1024987904, 1061370856, 1060142496, 1055146340]],
+    [42, 0, 0, [1832780943, 270669613], [1012194634, 3152801799], [1047624728, 1064341390, 1044956952, 1058754586, 1058194066, 1062587402, 1052474516, 1037287840, 1053991040, 1053513024, 1052074284, 1057685600, 1059441438, 1036222736, 1051960216, 1062179578, 1045239904, 1058495868, 1059865450, 1042662112, 1042060080, 1043877160]],
+    [42, 1, 999, [64467757, 2916123636], [2102076120, 2054111053], [1045576216, 1060926190, 1063959678, 1058653062, 1059655556, 1057386430, 1061669884, 1044911368, 1043365320, 1048313320, 1050656696, 1056214288, 1059758526, 1058555036, 1057691004, 1064147978, 1055798688, 1059646414, 1047107984, 1053869852, 1047806600, 1060769518]],
+    [42, 540599, 31, [86199957, 3704249531], [1532771041, 1800653709], [1049233940, 1061255458, 1059212478, 1035484352, 1062732164, 1054635860, 1029000448, 1042326864, 1059110530, 1058112986, 1057370398, 1063442594, 1026341888, 1048687460, 1053965988, 1050515628, 1057040884, 1057793098, 1044142256, 1059573538, 1035652752, 1050294256]],
+    [42, 1079999, 999, [2825038166, 1354660484], [2271441039, 1922877605], [1063518392, 1063911220, 1059135646, 1059721824, 1036204048, 1050283752, 1019035520, 1029112288, 1064648432, 1018002176, 1061733466, 1064840048, 1063100826, 1043392984, 1046790264, 1050940288, 1063934432, 1062814292, 1041620328, 1050754264, 1054227188, 1060728114]],
+    [42, 1079999, 0, [2825038166, 1354660484], [665299244, 1123881839], [1046532936, 1037213136, 1064472666, 1054613420, 1059793904, 1064894374, 1062959194, 1031821808, 1053003256, 1031546688, 1060949630, 1055991680, 1040441376, 1033804528, 1057365450, 1033211920, 1064810876, 1058303460, 1064253638, 1062363836, 1061029528, 1044157920]],
+]
+
+
+def _run(cmd) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _card() -> str:
+    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+
+
+def _outliers(x, y):
+    """(outlier fraction over rays, [max |x - y| per plane]) for (3, B)."""
+    diff = (x - y).abs()
+    bad = (diff > ATOL + RTOL * x.abs()).any(dim=0)
+    return bad.float().mean().item(), diff.max(dim=1).values.tolist()
+
+
+def _compare(name, ref, out):
+    """ref/out: (9, B). Raises on NaN or more than OUTLIER_FRAC outliers."""
+    if not (out.isfinite().all() and ref.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    worst = 0.0
+    for p, sl in (("radiance", slice(0, 3)), ("albedo", slice(3, 6)),
+                  ("normal", slice(6, 9))):
+        frac, mx = _outliers(ref[sl], out[sl])
+        worst = max(worst, *mx)
+        print(f"  {name:24s} {p:8s} outliers {frac:.5f}  max|diff| xyz "
+              + " ".join(f"{m:.3e}" for m in mx))
+        if frac > OUTLIER_FRAC:
+            raise AssertionError(f"{name} {p}: {frac:.2%} rays differ")
+    return worst
+
+
+def _time_ms(fn, iters):
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_rng(dev):
+    import torch
+
+    from raytpu_torch.core import rng
+
+    mask = 0xFFFFFFFF
+    for seed, pix, smp, kp_want, ks_want, bits_want in RNG_TABLE:
+        key = rng.prng_key(seed, device=dev)
+        kp = rng.pixel_keys(key, torch.tensor([pix], device=dev))
+        ks = rng.sample_keys(kp, smp)
+        cam, bounce = rng.ray_uniforms(ks, 4, 3, 6)
+        draws = torch.cat([cam.reshape(-1), bounce.reshape(-1)])
+        uni = rng.uniform(ks[0], (22,))
+        got = {
+            "pixel_keys": kp[0].tolist(), "sample_keys": ks[0].tolist(),
+            "ray_uniforms": (draws.view(torch.int32).long() & mask).tolist(),
+            "uniform": (uni.view(torch.int32).long() & mask).tolist(),
+        }
+        want = {"pixel_keys": kp_want, "sample_keys": ks_want,
+                "ray_uniforms": bits_want, "uniform": bits_want}
+        for k in got:
+            if got[k] != want[k]:
+                raise AssertionError(
+                    f"rng {k} seed={seed} pixel={pix} sample={smp}: "
+                    f"{got[k]} != {want[k]}"
+                )
+    print(f"rng parity: {len(RNG_TABLE)}/{len(RNG_TABLE)} (seed, pixel, "
+          "sample) rows bit-exact on the card (fold_in, uniform, "
+          "pixel_keys, sample_keys, ray_uniforms)")
+
+
+def _refractive_scene(dev):
+    from raytpu_torch.camera import make_camera
+    from raytpu_torch.core.types import RenderConfig, Scene
+    from raytpu_torch.scenes import BLACK, WHITE, spheres_from_rows
+
+    rows = [
+        ((0, -501, 0), 500.0, WHITE, BLACK, 0.0, 0.0, 1.0, 1.0),
+        ((0, 1.5, -3), 0.8, BLACK, (1.0, 0.9, 0.7), 5.0, 0.0, 1.0, 1.0),
+        ((0, 0, -3), 0.7, WHITE, BLACK, 0.0, 0.2, 0.1, 1.5),    # glass
+        ((0.9, 0, -2.2), 0.4, WHITE, BLACK, 0.0, 0.0, 0.0, 1.0),  # cutout
+    ]
+    cam = make_camera((0, 0, 1), (0, 0, -3), (0, 1, 0), 50.0, 1.5, device=dev)
+    return Scene(spheres_from_rows(rows, dev)), cam, RenderConfig(max_bounces=6)
+
+
+def _kernel_inputs(scene, cam, cfg, seed, dev):
+    """Camera rays and bounce draws from a numpy seed, on the card."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.integrator.render import n_bounce_draws, sample_rays
+
+    rs = np.random.default_rng(seed)
+    b = cfg.n_pixels
+    pids = torch.arange(b, device=dev)
+    cam_draws = torch.tensor(rs.random((4, b), np.float32), device=dev)
+    origin, direction = sample_rays(cam, cfg, pids, cam_draws)
+    draws = torch.tensor(
+        rs.random((cfg.max_bounces, n_bounce_draws(cfg), b), np.float32),
+        device=dev,
+    )
+    return origin, direction, draws
+
+
+def _both(scene, cfg, origin, direction, draws):
+    """(plain, kernel) outputs as (9, B) on the same card tensors."""
+    import torch
+
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    sph = ts.pack_spheres(scene)
+    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
+    ref = ts.trace_spheres_reference(sph, *origin, *direction,
+                                     draws.reshape(-1, draws.shape[-1]), k)
+    out = torch.cat([v.to_array().T for v in
+                     ts.trace_megakernel(scene, cfg, origin, direction, draws)])
+    return ref, out
+
+
+def phase_k1(dev):
+    from raytpu_torch import scenes
+
+    cases = [
+        ("cornell 6b", scenes.cornell_box(dev), dict(max_bounces=6)),
+        ("refractive+cutout 6b", _refractive_scene(dev), {}),
+        ("dof+ao ao_samples=1", scenes.cornell_box_dof_ao(dev),
+         dict(max_bounces=4, ao_samples=1)),
+        ("dof+ao ao_samples=2", scenes.cornell_box_dof_ao(dev),
+         dict(max_bounces=4, ao_samples=2)),
+        ("cornell_cuda hsl+ao", scenes.cornell_box_cuda(dev), {}),
+    ]
+    print(f"K1 vs plain at 64x48 rays (outlier: any channel > {ATOL} + "
+          f"{RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(cases):
+        cfg = cfg.replace(width=64, height=48, **over)
+        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 100 + i, dev)
+        ref, out = _both(scene, cfg, origin, direction, draws)
+        _compare(name, ref, out)
+
+
+def phase_k1_timing(dev):
+    """K1 and its plain version at the main path's shapes (one sample of
+    the 1200x900, 6-bounce Cornell frame, real RNG draws), plus the RNG
+    work of one sample, timed with CUDA events in turns."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.scenes import cornell_box
+
+    scene, cam, cfg = cornell_box(dev)
+    cfg = cfg.replace(width=1200, height=900, max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    pix_keys = rng.pixel_keys(rng.prng_key(0, device=dev), pids)
+
+    def rng_sample():
+        ks = rng.sample_keys(pix_keys, 0)
+        cam_d, bounce_d = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
+                                           cfg.max_bounces)
+        return sample_rays(cam, cfg, pids, cam_d), bounce_d
+
+    (origin, direction), draws = rng_sample()
+    ref, out = _both(scene, cfg, origin, direction, draws)
+    print("K1 vs plain at the main path's shape (1200x900 rays, 6 bounces):")
+    max_err = _compare("cornell 1200x900 6b", ref, out)
+    frac = max(_outliers(ref[s], out[s])[0]
+               for s in (slice(0, 3), slice(3, 6), slice(6, 9)))
+
+    sph = ts.pack_spheres(scene)
+    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
+    flat = draws.reshape(-1, draws.shape[-1])
+    rays = (*origin, *direction)
+    kernel = lambda: ts._launch(sph, rays, flat, k)
+    plain = lambda: ts.trace_spheres_reference(sph, *rays, flat, k)
+    kernel(), plain()                                  # warm up
+    t = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(_time_ms(kernel if which == "kernel" else plain,
+                                 20 if which == "kernel" else 3))
+    rng_ms = np.mean([_time_ms(rng_sample, 5) for _ in range(2)])
+    ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+    print(f"  K1 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call "
+          f"(turns: kernel {t['kernel']}, plain {t['plain']}); "
+          f"RNG + camera rays {rng_ms:.4f} ms per sample")
+    return dict(ms=ms, plain_ms=plain_ms, rng_ms=float(rng_ms),
+                max_abs_err=max_err, outlier_frac=frac)
+
+
+def phase_main(dev, card, timing):
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, render, render_image)
+    from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.scenes import cornell_box
+
+    scene, cam, cfg = cornell_box(dev)
+    cfg = cfg.replace(width=1200, height=900, spp=MAIN_SPP, max_bounces=6,
+                      use_megakernel=True)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
+    key = rng.prng_key(0)
+
+    ts.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = render(scene, cam, cfg, pids, key)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ts.launches
+
+    rad = sums.radiance.to_array()
+    mean = rad.double().mean().item() / cfg.spp
+    if not (rad.isfinite().all() and sums.albedo.to_array().isfinite().all()
+            and sums.normal.to_array().isfinite().all()):
+        raise AssertionError("main path: non-finite sums")
+    if not mean > 0.0:
+        raise AssertionError(f"main path: mean radiance {mean} is not > 0")
+    if launches != cfg.spp:
+        raise AssertionError(f"main path: {launches} K1 launches, want {cfg.spp}")
+    rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+    print(f"main path: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
+          f"bounces={cfg.max_bounces}: {elapsed:.4f} s, "
+          f"{rays / elapsed:.1f} rays/s end to end on {card}; "
+          f"K1 launches {launches}; mean radiance {mean:.6f}")
+    print(f"  per sample (CUDA events, same shapes): RNG + camera rays "
+          f"{timing['rng_ms']:.4f} ms, K1 {timing['ms']:.4f} ms -> "
+          f"RNG {cfg.spp * timing['rng_ms'] / 1e3:.4f} s, "
+          f"K1 {cfg.spp * timing['ms'] / 1e3:.4f} s of the frame; "
+          f"K1 alone {cfg.n_pixels * cfg.max_bounces / timing['ms'] * 1e3:.1f} rays/s")
+
+    # the same small frame on the card (K1) and on the CPU (plain path)
+    small = cfg.replace(width=40, height=30, spp=2)
+    cpu_scene, cpu_cam, _ = cornell_box("cpu")
+    small_ids = np.arange(small.n_pixels)
+    a = render(cpu_scene, cpu_cam, small, small_ids, rng.prng_key(3))
+    b = render(scene, cam, small, small_ids, rng.prng_key(3))
+    _compare("40x30x2spp card vs cpu",
+             torch.cat([v.to_array().T for v in a[:3]]),
+             torch.cat([v.to_array().T.cpu() for v in b[:3]]))
+
+    img = render_image(scene, cam, cfg.replace(pixel_tile=cfg.n_pixels), key)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "chip_smoke_cornell.ppm")
+    write_ppm(path, img.canvas)
+    means = img.canvas.reshape(-1, 3).mean(axis=0)
+    print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
+          f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from raytpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    nvcc = _run([_build.nvcc_path(), "--version"]).splitlines()[-1]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {nvcc}")
+    print(f"card: {card}")
+
+    t0 = time.perf_counter()
+    libs = _build.build_all(verbose=True)
+    print(f"build: {len(libs)} kernel libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    phase_rng(dev)
+    phase_k1(dev)
+    timing = phase_k1_timing(dev)
+    launches = phase_main(dev, card, timing)
+
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "trace_spheres", "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_spheres.cu",
+        "replaces": "raytpu/kernels/trace_spheres.py:421",
+        "launches": launches, "max_abs_err": timing["max_abs_err"],
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "outlier_frac": timing["outlier_frac"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,16 @@
+"""raytpu_torch: the raytpu path tracer in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper.
+
+The JAX package ``raytpu`` is the reference; this package mirrors its
+module names and is tested against it. It imports torch and numpy and
+never JAX. This slice renders sphere scenes forward through the sphere
+megakernel (``kernels/trace_spheres``).
+"""
+
+from raytpu_torch.camera import make_camera
+from raytpu_torch.core.types import RenderConfig, Scene
+from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.integrator.render import render, render_image
+
+__all__ = ["Vec3", "Scene", "RenderConfig", "make_camera", "render",
+           "render_image"]

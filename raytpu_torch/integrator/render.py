@@ -1,0 +1,149 @@
+"""Render orchestration: ray generation, sample accumulation, tiling.
+
+Port of ``raytpu/integrator/render.py``. For each sample index the
+per-(pixel, sample) threefry keys give the camera jitter and every
+bounce's draws, the camera makes one ray per pixel, and the sphere
+megakernel (K1) traces the whole bounce loop; sums accumulate in f32 in
+sample order, as ``raytpu``'s scan does. Pixel coordinates follow the
+reference: u = (i + U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted
+from the bottom row, and the aperture jitter is (U - .5) * aperture.
+
+The render runs on the device of the scene's tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from raytpu_torch.camera import Camera, get_rays
+from raytpu_torch.core import rng
+from raytpu_torch.core.color import quantize, tonemap
+from raytpu_torch.core.types import RenderConfig, Scene
+from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.kernels.trace_spheres import trace_megakernel
+
+
+class RenderSums(NamedTuple):
+    """Per-pixel sample sums (not means) and the sample count."""
+
+    radiance: Vec3
+    albedo: Vec3
+    normal: Vec3
+    samples: int
+
+
+def n_bounce_draws(cfg: RenderConfig) -> int:
+    """U(0,1) draws consumed per bounce (diffuse u/v, roulette, AO pairs)."""
+    return 3 + 2 * (cfg.ao_samples if cfg.use_ao else 0)
+
+
+def sample_rays(cam: Camera, cfg: RenderConfig, pixel_ids: Tensor,
+                draws: Tensor) -> tuple[Vec3, Vec3]:
+    """One camera ray per pixel id for one sample index.
+    draws: (4, B) U(0,1) camera draws from ``rng.ray_uniforms``."""
+    i = (pixel_ids % cfg.width).to(torch.float32)
+    j = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
+    u = (i + (draws[0] - 0.5)) / (cfg.width - 1)
+    v = (j + (draws[1] - 0.5)) / (cfg.height - 1)
+    dx = (draws[2] - 0.5) * cfg.aperture_x
+    dy = (draws[3] - 0.5) * cfg.aperture_y
+    return get_rays(cam, u, v, cfg.focus_distance, dx, dy)
+
+
+def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
+           key: Tensor, sample_offset: int = 0,
+           n_samples: Optional[int] = None,
+           init: Optional[RenderSums] = None) -> RenderSums:
+    """Accumulate ``n_samples`` samples (sample indices ``sample_offset``
+    ... ``sample_offset + n - 1``) for a batch of pixel ids.
+
+    ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
+    scene's device. One K1 call per sample.
+    """
+    dev = scene.device
+    n = cfg.spp if n_samples is None else n_samples
+    pixel_ids = torch.as_tensor(pixel_ids, device=dev).to(torch.int64)
+    pix_keys = rng.pixel_keys(key.to(dev), pixel_ids)
+    b = pixel_ids.shape[0]
+    if init is None:
+        zeros = Vec3.zeros((b,), device=dev)
+        init = RenderSums(zeros, zeros, zeros, 0)
+    rad, alb, nrm, count = init
+    for s in range(sample_offset, sample_offset + n):
+        ray_keys = rng.sample_keys(pix_keys, s)
+        cam_draws, bounce_draws = rng.ray_uniforms(
+            ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
+        )
+        origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
+        r, a, nm = trace_megakernel(scene, cfg, origin, direction, bounce_draws)
+        rad, alb, nrm = rad + r, alb + a, nrm + nm
+        count += 1
+    return RenderSums(rad, alb, nrm, count)
+
+
+def blocked_pixel_order(cfg: RenderConfig, block_w: int = 128,
+                        block_h: int = 64) -> np.ndarray:
+    """Pixel ids in screen-block-major order (128x64 blocks, row-major
+    inside each block). Keys hang off the pixel id, so the order does not
+    change any pixel's value."""
+    w, h = cfg.width, cfg.height
+    ids = np.arange(w * h, dtype=np.int32).reshape(h, w)
+    return np.concatenate([
+        ids[y0:y0 + block_h, x0:x0 + block_w].ravel()
+        for y0 in range(0, h, block_h)
+        for x0 in range(0, w, block_w)
+    ])
+
+
+class RenderOutput(NamedTuple):
+    image: np.ndarray      # (H, W, 3) linear float mean radiance, row 0 = top
+    canvas: np.ndarray     # (H, W, 3) quantized 0..255 ints
+    albedo: np.ndarray     # (H, W, 3) AOV mean
+    normal: np.ndarray     # (H, W, 3) AOV mean
+
+
+def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
+                 key: Tensor) -> RenderOutput:
+    """Full frame: tiles of ``cfg.pixel_tile`` pixel ids in block-major
+    order, each rendered with all ``cfg.spp`` samples. The last tile is
+    padded by repeating the last id; its duplicates compute identical
+    sums, so scattering back by id is idempotent."""
+    n_pix = cfg.n_pixels
+    tile = min(cfg.pixel_tile, n_pix)
+    n_tiles = (n_pix + tile - 1) // tile
+    all_ids = np.pad(blocked_pixel_order(cfg), (0, n_tiles * tile - n_pix),
+                     mode="edge")
+    rad = np.zeros((n_pix, 3), np.float32)
+    alb = np.zeros((n_pix, 3), np.float32)
+    nrm = np.zeros((n_pix, 3), np.float32)
+    for t in range(n_tiles):
+        ids = all_ids[t * tile:(t + 1) * tile]
+        sums = render(scene, cam, cfg, ids, key)
+        rad[ids] = sums.radiance.to_array().cpu().numpy()
+        alb[ids] = sums.albedo.to_array().cpu().numpy()
+        nrm[ids] = sums.normal.to_array().cpu().numpy()
+    return assemble_image(cfg, rad, alb, nrm)
+
+
+def assemble_image(cfg: RenderConfig, rad_sums: np.ndarray,
+                   alb_sums: np.ndarray, nrm_sums: np.ndarray,
+                   spp: Optional[int] = None) -> RenderOutput:
+    """Means, tone map, quantize; flips rows so row 0 is the top."""
+    spp = spp if spp is not None else cfg.spp
+    h, w = cfg.height, cfg.width
+    mean_rad = rad_sums.reshape(h, w, 3) / spp
+    mean_alb = alb_sums.reshape(h, w, 3) / spp
+    mean_nrm = nrm_sums.reshape(h, w, 3) / spp
+    toned = tonemap(Vec3.from_array(torch.from_numpy(mean_rad)))
+    canvas = quantize(toned).to_array().numpy()
+    flip = lambda a: a[::-1]   # bottom-up rows -> top-down image
+    return RenderOutput(
+        image=flip(mean_rad),
+        canvas=flip(canvas).astype(np.int32),
+        albedo=flip(mean_alb),
+        normal=flip(mean_nrm),
+    )
