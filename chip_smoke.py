@@ -11,10 +11,23 @@ Phases, each of which raises on failure (exit code non-zero):
   4. the sphere megakernel (K1) against its plain PyTorch version on the
      card, on four scenes at 64x48 rays, then timed at the main path's
      shape (1200x900 rays, 6 bounces);
-  5. the main path: a 1200x900, 6-bounce Cornell frame through ``render``
-     over all block-ordered pixel ids, checked finite and lit, with one
-     K1 launch per sample; a small frame on the card against the same
-     frame on the CPU; the PPM through ``render_image``/``write_ppm``.
+  5. the forward path: a 1200x900, 6-bounce Cornell frame through
+     ``render`` over all block-ordered pixel ids, checked finite and lit,
+     with one K1 launch per sample; a small frame on the card against the
+     same frame on the CPU; the PPM through ``render_image``/``write_ppm``;
+  6. K1 in recording mode against its plain version (winner indices, AO
+     factors) and against its own launch without recording, on the five
+     scenes of phase 4 at 64x48 rays;
+  7. the index-replay backward (K2) against its plain version (the replay
+     under autograd) on those five scenes plus the 19-bounce nested
+     refraction stack, at 64x48 rays; two launches give the same bits;
+     then K1 recording, K2 and K2's plain version timed at the main
+     path's shape;
+  8. the training path: value and gradient of the photometric loss
+     through ``render`` at 1200x900, 8 spp, 6 bounces with every sphere
+     leaf requiring grad (K2 launches == spp), where its time goes
+     (``torch.profiler``), then 3 Adam steps of ``train.make_train_step``
+     towards a target the port renders with perturbed colours.
 The last lines are the card, a JSON line per kernel, and the result line.
 Imports no JAX.
 """
@@ -22,6 +35,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,7 +50,27 @@ OUT_DIR = os.path.join(ROOT, "smoke_out")
 # ATOL + RTOL*|x|; at most OUTLIER_FRAC of the rays may be outliers
 # (the tolerance of tests/test_megakernel._compare).
 ATOL, RTOL, OUTLIER_FRAC = 1e-4, 1e-5, 0.02
+FRAME = (1200, 900)   # the flagship frame (bench.py), width x height
 MAIN_SPP = 32
+TRAIN_SPP = 8
+# K1 recording vs its plain version: the recorded winner of a (ray,
+# bounce) may flip for the same FMA reason, and a flipped winner sends
+# the ray elsewhere for the rest of its bounces; at least IDX_AGREE of
+# the (ray, bounce) entries must agree. Where they agree the AO factors
+# must agree too, up to the same OUTLIER_FRAC of entries (a grazing AO
+# probe can flip as well).
+IDX_AGREE = 0.98
+# K2 vs its plain version on the same recorded indices: the two sum the
+# same terms in another order and contract FMAs differently, and the
+# replay's knife-edge guard can turn a recorded hit into a miss on one
+# side only. A ray is an outlier if any of its six cotangents differs by
+# more than G_ATOL + G_RTOL*|x|; at most OUTLIER_FRAC of rays may be. The
+# sphere table's cotangent is a sum over all rays: each row may differ by
+# at most DSPH_REL times that row's largest |entry|.
+G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
+# H100 SXM peaks (NVIDIA data sheet; the on-chip-measurement guide):
+# HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
 # [seed, pixel, sample, fold_in(PRNGKey(seed), pixel),
 #  fold_in(that, sample), bits of uniform(that key, (22,)) as uint32]
@@ -214,7 +248,7 @@ def phase_k1_timing(dev):
     from raytpu_torch.scenes import cornell_box
 
     scene, cam, cfg = cornell_box(dev)
-    cfg = cfg.replace(width=1200, height=900, max_bounces=6)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
     pix_keys = rng.pixel_keys(rng.prng_key(0, device=dev), pids)
 
@@ -226,8 +260,9 @@ def phase_k1_timing(dev):
 
     (origin, direction), draws = rng_sample()
     ref, out = _both(scene, cfg, origin, direction, draws)
-    print("K1 vs plain at the main path's shape (1200x900 rays, 6 bounces):")
-    max_err = _compare("cornell 1200x900 6b", ref, out)
+    print(f"K1 vs plain at the main path's shape ({cfg.width}x{cfg.height} "
+          f"rays, 6 bounces):")
+    max_err = _compare(f"cornell {cfg.width}x{cfg.height} 6b", ref, out)
     frac = max(_outliers(ref[s], out[s])[0]
                for s in (slice(0, 3), slice(3, 6), slice(6, 9)))
 
@@ -259,22 +294,23 @@ def phase_main(dev, card, timing):
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, render, render_image)
     from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
 
     scene, cam, cfg = cornell_box(dev)
-    cfg = cfg.replace(width=1200, height=900, spp=MAIN_SPP, max_bounces=6,
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MAIN_SPP, max_bounces=6,
                       use_megakernel=True)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
     key = rng.prng_key(0)
 
-    ts.launches = 0
+    ts.launches = tb.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sums = render(scene, cam, cfg, pids, key)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = ts.launches
+    launches, k2_launches = ts.launches, tb.launches
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -283,8 +319,9 @@ def phase_main(dev, card, timing):
         raise AssertionError("main path: non-finite sums")
     if not mean > 0.0:
         raise AssertionError(f"main path: mean radiance {mean} is not > 0")
-    if launches != cfg.spp:
-        raise AssertionError(f"main path: {launches} K1 launches, want {cfg.spp}")
+    if launches != cfg.spp or k2_launches != 0:
+        raise AssertionError(f"main path: {launches} K1 and {k2_launches} K2 "
+                             f"launches, want {cfg.spp} and 0")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"main path: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}: {elapsed:.4f} s, "
@@ -313,7 +350,369 @@ def phase_main(dev, card, timing):
     means = img.canvas.reshape(-1, 3).mean(axis=0)
     print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
           f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
-    return launches
+    return launches, k2_launches
+
+
+def _stack_scene(dev):
+    """scenes/refraction_stack.toml as sphere rows: glass > water > dense
+    core, nested, under two lights; 19 bounces."""
+    from raytpu_torch.camera import make_camera
+    from raytpu_torch.core.types import RenderConfig, Scene
+    from raytpu_torch.scenes import BLACK, spheres_from_rows
+
+    rows = [
+        # center,        radius, diffuse, emission, e_str, refl, alpha, ior
+        ((0, -501, 0), 500.0, (0.9, 0.9, 0.9), BLACK, 0.0, 0.0, 1.0, 1.0),
+        ((0, 0, -504), 500.0, (0.85, 0.88, 0.95), BLACK, 0.0, 0.0, 1.0, 1.0),
+        ((0.0, 4.2, -1.0), 2.2, BLACK, (1.0, 0.97, 0.9), 3.0, 0.0, 1.0, 1.0),
+        ((-2.6, 0.6, 0.4), 0.7, BLACK, (1.0, 0.55, 0.25), 4.0, 0.0, 1.0, 1.0),
+        ((0.0, 0.0, -1.0), 1.0, (1.0, 1.0, 1.0), BLACK, 0.0, 0.3, 0.1, 1.5),
+        ((0.0, 0.0, -1.0), 0.65, (0.7, 0.85, 1.0), BLACK, 0.0, 0.93, 0.5, 1.33),
+        ((0.0, 0.0, -1.0), 0.35, (1.0, 0.95, 0.8), BLACK, 0.0, 0.1, 0.3, 2.4),
+    ]
+    cam = make_camera((0.0, 0.35, 2.4), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0),
+                      55.0, 480 / 360, device=dev)
+    cfg = RenderConfig(width=480, height=360, spp=200, max_bounces=19)
+    return Scene(spheres_from_rows(rows, dev)), cam, cfg
+
+
+def _record_cases(dev):
+    """The five scenes of phase 4 (same configurations)."""
+    from raytpu_torch import scenes
+
+    return [
+        ("cornell 6b", scenes.cornell_box(dev), dict(max_bounces=6)),
+        ("refractive+cutout 6b", _refractive_scene(dev), {}),
+        ("dof+ao ao_samples=1", scenes.cornell_box_dof_ao(dev),
+         dict(max_bounces=4, ao_samples=1)),
+        ("dof+ao ao_samples=2", scenes.cornell_box_dof_ao(dev),
+         dict(max_bounces=4, ao_samples=2)),
+        ("cornell_cuda hsl+ao", scenes.cornell_box_cuda(dev), {}),
+    ]
+
+
+def _record_both(scene, cfg, origin, direction, draws):
+    """K1 recording launch and its plain version on the same inputs:
+    (sph, rays, flat draws, knobs, kernel (out, idx, aof), plain ...)."""
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    sph = ts.pack_spheres(scene)
+    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
+    flat = draws.reshape(-1, draws.shape[-1])
+    rays = (*origin, *direction)
+    kern = ts._launch(sph, rays, flat, k, record=True)
+    plain = ts.trace_spheres_reference(sph, *rays, flat, k, record=True)
+    return sph, rays, flat, k, kern, plain
+
+
+def _check_record(name, kern, plain, forward):
+    """Raises unless the recording launch's planes equal the plain
+    launch's bit for bit, and its indices and AO factors agree with the
+    plain version's (IDX_AGREE, OUTLIER_FRAC)."""
+    import torch
+
+    out, idx, aof = kern
+    if not torch.equal(out, forward):
+        raise AssertionError(f"{name}: recording changed the 9 planes")
+    same = idx == plain[1]
+    agree = same.float().mean().item()
+    msg = (f"  {name:24s} idx agree {agree:.5f} "
+           f"(live entries {(idx >= 0).float().mean().item():.3f})")
+    if agree < IDX_AGREE:
+        raise AssertionError(f"{name}: recorded indices agree on "
+                             f"{agree:.2%} < {IDX_AGREE:.0%}")
+    if aof is not None:
+        bad = (aof != plain[2]) & same
+        frac = bad.float().mean().item()
+        msg += (f", AO factors differ on {frac:.5f} of entries where idx "
+                f"agree (max {(aof - plain[2])[same].abs().max().item():.3e})")
+        if frac > OUTLIER_FRAC:
+            raise AssertionError(f"{name}: AO factors differ on {frac:.2%}")
+    print(msg + "; planes bit-equal to the launch without recording")
+
+
+def phase_k1_record(dev):
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    print(f"K1 recording vs plain at 64x48 rays (idx agree >= "
+          f"{IDX_AGREE:.0%}; AO factors where idx agree)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(_record_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 100 + i, dev)
+        sph, rays, flat, k, kern, plain = _record_both(
+            scene, cfg, origin, direction, draws)
+        _check_record(name, kern, plain, ts._launch(sph, rays, flat, k))
+
+
+def _compare_grads(name, ref, got):
+    """ref/got: (d_sph (14, S), six ray cotangents). Raises on non-finite
+    values or on a difference past the K2 tolerance; returns (max |diff|,
+    outlier fraction of rays)."""
+    import torch
+
+    d_ref, r_ref = ref[0], torch.stack(ref[1])
+    d_got, r_got = got[0], torch.stack(got[1])
+    for t in (d_ref, r_ref, d_got, r_got):
+        if not t.isfinite().all():
+            raise AssertionError(f"{name}: non-finite cotangent")
+    diff = (r_got - r_ref).abs()
+    frac = (diff > G_ATOL + G_RTOL * r_ref.abs()).any(0).float().mean().item()
+    scale = d_ref.abs().amax(1)
+    row_err = (d_got - d_ref).abs().amax(1)
+    rel = (row_err / scale.clamp(min=1e-30)).max().item()
+    print(f"  {name:24s} ray outliers {frac:.5f}  max|d ray| diff "
+          f"{diff.max().item():.3e}  d_sph worst row err / row max "
+          f"{rel:.3e}")
+    if frac > OUTLIER_FRAC:
+        raise AssertionError(f"{name}: {frac:.2%} rays' cotangents differ")
+    if (row_err > DSPH_REL * scale).any():
+        raise AssertionError(f"{name}: d_sph differs by {rel:.3e} of a row")
+    return max(diff.max().item(), row_err.max().item()), frac
+
+
+def phase_k2(dev):
+    import numpy as np
+    import torch
+
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    cases = _record_cases(dev) + [("refraction stack 19b", _stack_scene(dev), {})]
+    print(f"K2 vs plain (replay under autograd) at 64x48 rays, same recorded "
+          f"idx/aof and random g (ray outlier: any > {G_ATOL} + {G_RTOL}|x|, "
+          f"limit {OUTLIER_FRAC:.0%}; d_sph rows within {DSPH_REL} x row max)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(cases):
+        cfg = cfg.replace(width=64, height=48, **over)
+        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 200 + i, dev)
+        sph, rays, flat, k, (_, idx, aof), _ = _record_both(
+            scene, cfg, origin, direction, draws)
+        g = torch.tensor(np.random.default_rng(300 + i).uniform(
+            -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
+        got = tb._launch(sph, rays, flat, idx, aof, g, k)
+        again = tb._launch(sph, rays, flat, idx, aof, g, k)
+        if not (torch.equal(got[0], again[0])
+                and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
+            raise AssertionError(f"{name}: two K2 launches differ")
+        ref = tb.replay_reference(sph, rays, flat, idx, aof, g, k)
+        _compare_grads(f"{name} ({cfg.max_bounces}b)", ref, got)
+    print("  two launches on the same inputs: bit-identical d_sph and ray "
+          "cotangents on every scene")
+
+
+def _k1_bound(b, bounces, n_live, n_spheres, record):
+    """Least K1 time: rays 24 B + draws 3 x 4 B per bounce + 9 planes out
+    (+ 4 B of index per bounce when recording) at HBM speed, against
+    (33 FLOP per sphere test + 130 for the shading) for every (ray,
+    bounce) that hit (this run's recorded indices) at the FP32 peak."""
+    nbytes = b * (24 + 12 * bounces + 36 + (4 * bounces if record else 0))
+    flops = n_live * (33 * n_spheres + 130)
+    return _bound(nbytes, flops)
+
+
+def _k2_bound(b, bounces, n_live, n_spheres):
+    """Least K2 time: rays 24 B, draws 0..2 (12 B), index (4 B) per bounce,
+    g 36 B and the ray cotangents 24 B per ray, the table twice; against
+    ~510 FLOP (replayed bounce ~165, its adjoint ~330, the 14 sums) per
+    (ray, bounce) that hit."""
+    nbytes = b * (24 + 16 * bounces + 36 + 24) + 2 * 14 * 4 * n_spheres
+    return _bound(nbytes, n_live * 510)
+
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_k2_timing(dev):
+    """At the main path's shape (one sample of the 1200x900, 6-bounce
+    Cornell frame, real RNG draws): K2 against its plain version, then
+    K1 recording, K2 and K2's plain version timed with CUDA events in
+    turns."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.scenes import cornell_box
+
+    scene, cam, cfg = cornell_box(dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
+    cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg), cfg.max_bounces)
+    origin, direction = sample_rays(cam, cfg, pids, cam_d)
+    sph, rays, flat, k, (out, idx, aof), plain = _record_both(
+        scene, cfg, origin, direction, draws)
+    name = f"cornell {cfg.width}x{cfg.height} 6b"
+    print(f"K1 recording and K2 at the main path's shape ({cfg.width}x"
+          f"{cfg.height} rays, 6 bounces):")
+    _check_record(name, (out, idx, aof), plain,
+                  ts._launch(sph, rays, flat, k))
+    g = torch.tensor(np.random.default_rng(7).uniform(
+        -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
+    got = tb._launch(sph, rays, flat, idx, aof, g, k)
+    ref = tb.replay_reference(sph, rays, flat, idx, aof, g, k)
+    max_err, frac = _compare_grads(name, ref, got)
+    del ref, plain
+
+    record = lambda: ts._launch(sph, rays, flat, k, record=True)
+    kernel = lambda: tb._launch(sph, rays, flat, idx, aof, g, k)
+    plain_fn = lambda: tb.replay_reference(sph, rays, flat, idx, aof, g, k)
+    t = {"record": [], "kernel": [], "plain": []}
+    for which in ("plain", "kernel", "record", "record", "kernel", "plain"):
+        fn = {"record": record, "kernel": kernel, "plain": plain_fn}[which]
+        t[which].append(_time_ms(fn, 3 if which == "plain" else 20))
+    n_live = int((idx >= 0).sum().item())
+    b, s = cfg.n_pixels, k.n_spheres
+    rec_bound = _k1_bound(b, cfg.max_bounces, n_live, s, record=True)
+    k2_bound = _k2_bound(b, cfg.max_bounces, n_live, s)
+    res = {w: float(np.mean(v)) for w, v in t.items()}
+    print(f"  K1 recording {res['record']:.4f} ms (bound {rec_bound[0]:.4f} "
+          f"ms, {rec_bound[1]}); K2 {res['kernel']:.4f} ms (bound "
+          f"{k2_bound[0]:.4f} ms, {k2_bound[1]}); K2 plain "
+          f"{res['plain']:.4f} ms per call (turns {t}); live (ray, bounce) "
+          f"entries {n_live} of {b * cfg.max_bounces}")
+    return dict(record_ms=res["record"], ms=res["kernel"],
+                plain_ms=res["plain"], max_abs_err=max_err,
+                outlier_frac=frac, bound=k2_bound, record_bound=rec_bound,
+                n_live=n_live, n_rays=b, bounces=cfg.max_bounces,
+                n_spheres=s)
+
+
+def _profile_fwd_bwd(loss_fn):
+    """Device time by kernel over one forward+backward, and the idle
+    share of the window: torch.profiler with CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss_fn().backward()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    buckets = {"K1 trace_spheres": 0.0, "K2 sphere_backward": 0.0,
+               "K2 sum_blocks": 0.0, "int64 (threefry)": 0.0, "other": 0.0}
+    n_kernels = 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type != torch.autograd.DeviceType.CUDA or not dev_us:
+            continue
+        n_kernels += ev.count
+        name = ev.key
+        if "trace_spheres_kernel" in name:
+            buckets["K1 trace_spheres"] += dev_us
+        elif "sphere_backward_kernel" in name:
+            buckets["K2 sphere_backward"] += dev_us
+        elif "sum_blocks_kernel" in name:
+            buckets["K2 sum_blocks"] += dev_us
+        elif "long" in name.lower() or "int64" in name.lower():
+            buckets["int64 (threefry)"] += dev_us
+        else:
+            buckets["other"] += dev_us
+    busy_ms = sum(buckets.values()) / 1e3
+    return wall_ms, busy_ms, n_kernels, {k: v / 1e3 for k, v in buckets.items()}
+
+
+def phase_train(dev, card):
+    """The training path: fwd+bwd of the photometric loss at the flagship
+    frame, where its time goes, then 3 Adam steps."""
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.scenes import cornell_box
+    from raytpu_torch.train import (combine_scene, make_train_step,
+                                    partition_scene, photometric_loss)
+
+    scene, cam, cfg = cornell_box(dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=TRAIN_SPP, max_bounces=6,
+                      use_megakernel=True)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+    key = rng.prng_key(0)
+    params, static = partition_scene(scene)
+    params = {n: p.detach().clone().requires_grad_() for n, p in params.items()}
+
+    def loss_fn(c=cfg):
+        sums = render(combine_scene(params, static), cam, c, pids, key)
+        return photometric_loss(sums.radiance * (1.0 / c.spp), target)
+
+    loss_fn(cfg.replace(spp=1)).backward()        # warm up
+    for p in params.values():
+        p.grad = None
+    ts.launches = tb.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn()
+    loss.backward()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1_launches, k2_launches = ts.launches, tb.launches
+
+    grads = {n: p.grad for n, p in params.items()}
+    if not (loss.isfinite().item()
+            and all(g is not None and g.isfinite().all() for g in grads.values())):
+        raise AssertionError("fwd+bwd: non-finite loss or gradient")
+    for leaf in ("spheres.mat.diffuse.x", "spheres.mat.emission.x"):
+        if not grads[leaf].abs().max().item() > 0.0:
+            raise AssertionError(f"fwd+bwd: d loss / d {leaf} is all zero")
+    if k2_launches != cfg.spp:
+        raise AssertionError(f"fwd+bwd: {k2_launches} K2 launches, want {cfg.spp}")
+    if k1_launches != 2 * cfg.spp:
+        raise AssertionError(f"fwd+bwd: {k1_launches} K1 launches, want "
+                             f"{2 * cfg.spp} (forward + checkpoint recompute)")
+    rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+    print(f"fwd+bwd: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
+          f"bounces={cfg.max_bounces}, d loss / d every sphere leaf: "
+          f"{elapsed:.4f} s, {rays / elapsed:.1f} rays/s on {card}; "
+          f"loss {loss.item():.6f}; K1 launches {k1_launches}, K2 launches "
+          f"{k2_launches}; max |d diffuse.x| "
+          f"{grads['spheres.mat.diffuse.x'].abs().max().item():.4e}, "
+          f"max |d emission.x| "
+          f"{grads['spheres.mat.emission.x'].abs().max().item():.4e}")
+
+    prof_cfg = cfg.replace(spp=2)
+    wall_ms, busy_ms, n_k, buckets = _profile_fwd_bwd(lambda: loss_fn(prof_cfg))
+    print(f"  where the time goes (torch.profiler, fwd+bwd at spp=2): wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.1%}), {n_k} kernels; "
+          + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})"
+                      for k, v in buckets.items()))
+
+    # 3 Adam steps towards a target with perturbed diffuse colours, with
+    # the target's key, so the loss measures the parameters and not noise
+    tparams = {n: p.detach().clone() for n, p in partition_scene(scene)[0].items()}
+    for c in "xyz":
+        tparams[f"spheres.mat.diffuse.{c}"] = (
+            tparams[f"spheres.mat.diffuse.{c}"] * 0.8).clamp(0.0, 1.0)
+    with torch.no_grad():
+        tsums = render(combine_scene(tparams, static), cam, cfg, pids, key)
+        tgt = (tsums.radiance * (1.0 / cfg.spp)).to_array()
+    init_fn, step_fn = make_train_step(cfg, 1e-2)
+    state, static = init_fn(scene, cam)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(3):
+        state, loss = step_fn(state, static, cam, pids, tgt, key)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    print(f"train: 3 Adam steps (lr 1e-2) at {cfg.width}x{cfg.height} "
+          f"spp={cfg.spp} towards a perturbed-diffuse target: losses "
+          + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
+    return dict(k1_launches=k1_launches, k2_launches=k2_launches,
+                rays_per_s=rays / elapsed)
 
 
 def main() -> int:
@@ -339,16 +738,37 @@ def main() -> int:
     phase_rng(dev)
     phase_k1(dev)
     timing = phase_k1_timing(dev)
-    launches = phase_main(dev, card, timing)
+    launches, render_k2 = phase_main(dev, card, timing)
+    phase_k1_record(dev)
+    phase_k2(dev)
+    k2 = phase_k2_timing(dev)
+    train = phase_train(dev, card)
 
+    k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
+                         k2["n_spheres"], record=False)
     print(card)
     print(json.dumps({"kernels": [{
         "name": "trace_spheres", "route": "cuda",
         "source": "raytpu_torch/csrc/trace_spheres.cu",
         "replaces": "raytpu/kernels/trace_spheres.py:421",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
+        "launches": train["k1_launches"],
+        "launches_by_path": {"render": launches, "fwd_bwd": train["k1_launches"]},
+        "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+        "ms_record": k2["record_ms"], "bound_ms_record": k2["record_bound"][0],
         "outlier_frac": timing["outlier_frac"],
+    }, {
+        "name": "trace_scene_bwd", "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_scene_bwd.cu",
+        "replaces": "raytpu/kernels/trace_scene_bwd.py:641",
+        "launches": train["k2_launches"],
+        "launches_by_path": {"render": render_k2,
+                             "fwd_bwd": train["k2_launches"]},
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
+        "library_ms": None, "outlier_frac": k2["outlier_frac"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

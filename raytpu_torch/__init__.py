@@ -3,8 +3,10 @@ kernels for NVIDIA Hopper.
 
 The JAX package ``raytpu`` is the reference; this package mirrors its
 module names and is tested against it. It imports torch and numpy and
-never JAX. This slice renders sphere scenes forward through the sphere
-megakernel (``kernels/trace_spheres``).
+never JAX. It renders sphere scenes through the sphere megakernel
+(``kernels/trace_spheres``), differentiates the render through the
+index-replay backward (``kernels/trace_scene_bwd``) and fits scene
+parameters to a target image (``train``).
 """
 
 from raytpu_torch.camera import make_camera

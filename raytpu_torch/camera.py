@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
+from raytpu_torch.core.device import resolve_device
 from raytpu_torch.core.vec3 import Vec3
 
 
@@ -28,7 +29,9 @@ class Camera:
 
 def make_camera(origin, target, up, vfov_deg, aspect_ratio,
                 device=None) -> Camera:
-    """init_camera, in f32 like ``raytpu.camera.make_camera``."""
+    """init_camera, in f32 like ``raytpu.camera.make_camera``, on
+    ``device`` (the CUDA card when ``None``)."""
+    device = resolve_device(device)
     origin, target, up = (Vec3.create(*c, device=device)
                           for c in (origin, target, up))
     theta = torch.tensor(vfov_deg, dtype=torch.float32, device=device) * (

@@ -1,11 +1,17 @@
-"""Command line: ``python -m raytpu_torch.cli render <scene> [options]``.
+"""Command line: ``python -m raytpu_torch.cli render|train <scene> [options]``.
 
     render cornell|cornell_cuda|cornell_dof_ao [--spp N --width W
            --height H --bounces B --seed S --out x.ppm --device cuda|cpu]
+    train  cornell|cornell_cuda|cornell_dof_ao --target t.ppm [--steps N
+           --lr LR --out x.ppm --log-every K --spp --width --height
+           --bounces --seed --device cuda|cpu]
 
-Renders a built-in sphere scene and writes a PPM. ``--device`` defaults to
-``cuda`` and fails when CUDA is absent; ``--device cpu`` runs the plain
-PyTorch path. Elapsed seconds and rays/s go to stderr.
+``render`` renders a built-in sphere scene and writes a PPM; elapsed
+seconds and rays/s go to stderr. ``train`` fits the scene's sphere
+parameters to a target image (ASCII PPM of the configured size) with
+Adam on the L2 loss in linear radiance, logs the loss, and writes the
+final render. ``--device`` defaults to ``cuda`` and fails when CUDA is
+absent; ``--device cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -15,26 +21,25 @@ import sys
 import time
 
 
-def cmd_render(argv) -> int:
+def _parser(prog: str) -> argparse.ArgumentParser:
     from raytpu_torch.scenes import BUILTIN
 
-    ap = argparse.ArgumentParser(prog="raytpu_torch render")
+    ap = argparse.ArgumentParser(prog=prog)
     ap.add_argument("scene", nargs="?", default="cornell", choices=sorted(BUILTIN))
     ap.add_argument("--spp", type=int)
     ap.add_argument("--bounces", type=int)
     ap.add_argument("--width", type=int)
     ap.add_argument("--height", type=int)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=None,
-                    help="output .ppm; default <scene>_<spp>RAYS_<bounces-1>RB.ppm")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def _setup(args):
+    """(device, scene, camera, config) for the parsed common options."""
     import torch
 
-    from raytpu_torch.core.rng import prng_key
-    from raytpu_torch.integrator.render import render_image
-    from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.scenes import BUILTIN
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -48,11 +53,31 @@ def cmd_render(argv) -> int:
     if dev.type == "cuda":
         # the kernel tiles the batch itself: one tile per frame up to ~1.2 M
         cfg = cfg.replace(pixel_tile=min(cfg.n_pixels, 1200 * 1024))
-    out_path = args.out or (
-        f"{args.scene}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB.ppm"
-    )
-    if not out_path.endswith(".ppm"):
+    return dev, scene, cam, cfg
+
+
+def _ppm_out(path: str) -> str:
+    if not path.endswith(".ppm"):
         raise SystemExit("raytpu_torch: only .ppm output is supported")
+    return path
+
+
+def cmd_render(argv) -> int:
+    ap = _parser("raytpu_torch render")
+    ap.add_argument("--out", default=None,
+                    help="output .ppm; default <scene>_<spp>RAYS_<bounces-1>RB.ppm")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from raytpu_torch.core.rng import prng_key
+    from raytpu_torch.integrator.render import render_image
+    from raytpu_torch.io.ppm import write_ppm
+
+    dev, scene, cam, cfg = _setup(args)
+    out_path = _ppm_out(args.out or (
+        f"{args.scene}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB.ppm"
+    ))
 
     t0 = time.perf_counter()
     out = render_image(scene, cam, cfg, prng_key(args.seed))  # ends in a copy to host
@@ -67,7 +92,54 @@ def cmd_render(argv) -> int:
     return 0
 
 
-COMMANDS = {"render": cmd_render}
+def cmd_train(argv) -> int:
+    ap = _parser("raytpu_torch train")
+    ap.add_argument("--target", required=True, help="target image (.ppm)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--out", default="trained.ppm")
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from raytpu_torch.core.rng import prng_key
+    from raytpu_torch.integrator.render import render_image
+    from raytpu_torch.io.image import load_rgb
+    from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.train import combine_scene, make_train_step
+
+    dev, scene, cam, cfg = _setup(args)
+    out_path = _ppm_out(args.out)
+    tgt = load_rgb(args.target)  # (H, W, 3) bottom-up, like pixel ids
+    if tgt.shape[:2] != (cfg.height, cfg.width):
+        raise SystemExit(f"target is {tgt.shape[1]}x{tgt.shape[0]}, "
+                         f"config is {cfg.width}x{cfg.height}")
+    # compare in linear space: undo the sqrt tone map
+    target = torch.as_tensor(tgt.reshape(-1, 3) ** 2.0, device=dev)
+
+    init_fn, step_fn = make_train_step(cfg, args.lr)
+    state, static = init_fn(scene, cam)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        state, loss = step_fn(state, static, cam, pids, target,
+                              prng_key(args.seed + step))
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:4d}  loss {float(loss):.6f}")
+    elapsed = time.perf_counter() - t0
+
+    out = render_image(combine_scene(state.params, static), cam, cfg,
+                       prng_key(args.seed))
+    write_ppm(out_path, out.canvas)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"trained {args.steps} steps of {cfg.width}x{cfg.height} "
+          f"spp={cfg.spp} bounces={cfg.max_bounces} on {where} in "
+          f"{elapsed:.3f}s; wrote {out_path}", file=sys.stderr)
+    return 0
+
+
+COMMANDS = {"render": cmd_render, "train": cmd_train}
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,706 @@
+// The index-replay backward (K2) for Hopper, sphere mode.
+//
+// Replaces raytpu/kernels/trace_scene_bwd.py:_bwd_kernel (the Pallas TPU
+// kernel launched by _bwd_call from mesh_backward) for sphere scenes
+// (n_tris == 0). The plain PyTorch version is
+// raytpu_torch/kernels/trace_scene_bwd.py:replay_reference, the replay
+// under autograd; the forward it reverses is replay_bounce there, which
+// is raytpu's _replay_bounce + shade_bounce op for op.
+//
+// What it computes: for each ray, the bounce loop replayed from the winner
+// indices and AO factors K1 recorded (no search), then the reverse sweep,
+// bounce N-1 down to 0, which pulls the cotangent of the (radiance,
+// albedo, normal) planes back to the 14 x S sphere table and to the ray
+// origin and direction. The TPU kernel gets that reverse from jax.vjp in
+// the kernel; CUDA has none, so replay_bounce below carries its adjoint,
+// derived by hand. Each adjoint follows only the branch the forward took
+// (the gradient of a select goes to the taken side), which also keeps the
+// untaken branches' 0 * inf out of the sums.
+//
+// What bounds it on this card: per live ray-bounce ~510 FP32 operations
+// (the replayed bounce, again in the reverse step, and its adjoint)
+// against 16 bytes of index and draws, so the bytes it must move and its
+// FP32 work set about the same least time (0.06 ms at the 1200x900,
+// 6-bounce frame). What holds it above that is the per-thread state: 115
+// registers, the saved carries in local memory and a 14 x S shared-memory
+// column per thread (72 KB for a 128-thread block at S = 10) leave ~3
+// blocks on an SM, too few warps to hide each thread's dependent chain
+// (0.65 ms at that frame, PERF.md). The design:
+//   * one thread per ray; the one-hot MXU winner extraction of the TPU
+//     kernel is an indexed load from the sphere table in shared memory;
+//   * the replay saves the carry each reverse step needs (origin,
+//     direction, throughput, medium IOR, flags: 11 words) at every bounce
+//     start, in a per-thread array in local memory (bounces <= 48), so
+//     the reverse sweep recomputes one bounce at a time;
+//   * the table cotangent is the transpose of the extraction, a sum into
+//     d_sph[k][winner]. It is deterministic without float atomics: each
+//     thread sums into its own column of a (14*S, T) shared array, each
+//     block sums the columns in a fixed order into a (blocks, 14*S)
+//     buffer, and a second kernel sums the blocks in a fixed tree order.
+//     Two launches on the same inputs give bit-identical d_sph.
+//
+// Numerics: a row of the table cotangent is a sum over rays in which a
+// few grazing hits weigh most (a hit's distance gradient grows as
+// 1/sqrt(disc), and a hit recomputed on the other side of the epsilon
+// gate drops out), so rounding differences are magnified there. Built
+// with -fmad=false, the replay rounds every operation as the plain
+// version and K1 do: on the card the two backward versions then agree to
+// ~1e-6 of each row, where FMA contraction left them up to a third of a
+// row apart.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py);
+// no fast-math flags.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxBounces = 48;   // MAX_BOUNCES in trace_scene_bwd.py
+constexpr int kMaxSpheres = 64;
+constexpr int kRows = 14;         // cx cy cz r | dif3 emi3 estr refl alpha ior
+constexpr int kReduceThreads = 256;
+constexpr int kSmemBudget = 160 * 1024;
+constexpr float kBig = 3.0e38f;
+constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
+
+struct Knobs {
+  int n_spheres, bounces, n_draws;
+  float sphere_eps, alpha_lo, alpha_hi, bright_boost, bright_threshold;
+  int use_ao;
+  float e_scale_mult;
+  int hsl_on;
+  float hsl_l, hsl_s;
+};
+
+// The carry a reverse step needs; radiance and AOV sums are never read.
+struct Carry {
+  float o[3], d[3], rc[3], med;
+  bool active, is_alpha;
+  int depth;
+};
+
+// Cotangents of the differentiable carry planes.
+struct Cot {
+  float o[3], d[3], rc[3], inc[3], alb[3], nrm[3];
+};
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float safe_denom(float x) {
+  return fabsf(x) > 1e-30f ? x : 1e-30f;
+}
+
+// Weights of torch.maximum / torch.minimum's backward: a tie splits the
+// cotangent in halves (as JAX's max does).
+__device__ __forceinline__ void tie_weights(float a, float b, bool is_max,
+                                            float& wa, float& wb) {
+  if (a == b) { wa = wb = 0.5f; return; }
+  const bool a_wins = is_max ? (a > b) : (a < b);
+  wa = a_wins ? 1.0f : 0.0f;
+  wb = a_wins ? 0.0f : 1.0f;
+}
+
+// Reverse of hue_to_rgb: adds d(out)/d(t1, t2, hue) * gout.
+__device__ void hue_to_rgb_bwd(float t1, float t2, float hue, float gout,
+                               float& gt1, float& gt2, float& ghue) {
+  hue = hue < 0.0f ? hue + 1.0f : hue;   // the wraps pass the cotangent on
+  hue = hue > 1.0f ? hue - 1.0f : hue;
+  if (6.0f * hue < 1.0f) {               // t1 + ((t2 - t1) * 6) * hue
+    gt1 += gout;
+    const float gdiff = gout * hue * 6.0f;
+    gt2 += gdiff; gt1 -= gdiff;
+    ghue += gout * ((t2 - t1) * 6.0f);
+  } else if (2.0f * hue < 1.0f) {        // t2
+    gt2 += gout;
+  } else if (3.0f * hue < 2.0f) {        // t1 + ((t2 - t1) * (2/3 - hue)) * 6
+    gt1 += gout;
+    const float gp = gout * 6.0f;
+    const float gdiff = gp * ((float)(2.0 / 3.0) - hue);
+    gt2 += gdiff; gt1 -= gdiff;
+    ghue -= gp * (t2 - t1);
+  } else {                               // t1
+    gt1 += gout;
+  }
+}
+
+// Reverse of raytpu/core/color.py:hsl_boost (rgb -> hsl, scale s and l,
+// hsl -> rgb) at (r, g, b): adds d(boost)/d(rgb)^T gout to grgb.
+__device__ void hsl_boost_bwd(float r, float g, float b, float l_f, float s_f,
+                              const float* gout, float* grgb) {
+  // ---- forward, rgb_to_hsl -------------------------------------------
+  const float inner_max = fmaxf(g, b), inner_min = fminf(g, b);
+  const float cmax = fmaxf(r, inner_max), cmin = fminf(r, inner_min);
+  const float l = (cmax + cmin) * 0.5f;
+  const float d = cmax - cmin;
+  const bool gray = cmax == cmin;
+  const float den_lo = safe_denom(cmax + cmin);
+  const float den_hi = safe_denom(2.0f - cmax - cmin);
+  const float s = gray ? 0.0f : (l < 0.5f ? d / den_lo : d / den_hi);
+  const float d_safe = safe_denom(d);
+  const int hsel = cmax == r ? 0 : (cmax == g ? 1 : 2);
+  const float h_r = (g - b) / d_safe + (g < b ? 6.0f : 0.0f);
+  const float h_g = (b - r) / d_safe + 2.0f;
+  const float h_b = (r - g) / d_safe + 4.0f;
+  const float h = gray ? 0.0f : (hsel == 0 ? h_r : (hsel == 1 ? h_g : h_b)) / 6.0f;
+  const float s2 = s * s_f, l2 = l * l_f;
+  const float t2 = l2 < 0.5f ? l2 * (1.0f + s2) : l2 + s2 - l2 * s2;
+  const float t1 = 2.0f * l2 - t2;
+  const float third = (float)(1.0 / 3.0);
+
+  // ---- reverse, hsl_to_rgb ----------------------------------------------
+  float gl2 = 0.0f, gs2 = 0.0f, gh = 0.0f;
+  if (s2 == 0.0f) {
+    gl2 = gout[0] + gout[1] + gout[2];
+  } else {
+    float gt1 = 0.0f, gt2 = 0.0f;
+    hue_to_rgb_bwd(t1, t2, h + third, gout[0], gt1, gt2, gh);
+    hue_to_rgb_bwd(t1, t2, h, gout[1], gt1, gt2, gh);
+    hue_to_rgb_bwd(t1, t2, h - third, gout[2], gt1, gt2, gh);
+    gl2 += 2.0f * gt1;
+    gt2 -= gt1;
+    if (l2 < 0.5f) {
+      gl2 += gt2 * (1.0f + s2);
+      gs2 += gt2 * l2;
+    } else {
+      gl2 += gt2 - gt2 * s2;
+      gs2 += gt2 - gt2 * l2;
+    }
+  }
+  const float gl = gl2 * l_f, gs = gs2 * s_f;
+
+  // ---- reverse, rgb_to_hsl ----------------------------------------------
+  float gr = 0.0f, gg = 0.0f, gb = 0.0f, gcmax = 0.0f, gcmin = 0.0f, gd = 0.0f;
+  if (!gray) {
+    const float ghs = gh / 6.0f;
+    float gds = 0.0f;
+    if (hsel == 0) {
+      gg += ghs / d_safe; gb -= ghs / d_safe;
+      gds -= ghs * ((g - b) / d_safe) / d_safe;
+    } else if (hsel == 1) {
+      gb += ghs / d_safe; gr -= ghs / d_safe;
+      gds -= ghs * ((b - r) / d_safe) / d_safe;
+    } else {
+      gr += ghs / d_safe; gg -= ghs / d_safe;
+      gds -= ghs * ((r - g) / d_safe) / d_safe;
+    }
+    if (fabsf(d) > 1e-30f) gd += gds;
+    if (l < 0.5f) {
+      gd += gs / den_lo;
+      const float gden = -gs * (d / den_lo) / den_lo;
+      if (fabsf(cmax + cmin) > 1e-30f) { gcmax += gden; gcmin += gden; }
+    } else {
+      gd += gs / den_hi;
+      const float gden = -gs * (d / den_hi) / den_hi;
+      if (fabsf(2.0f - cmax - cmin) > 1e-30f) { gcmax -= gden; gcmin -= gden; }
+    }
+  }
+  gcmax += gd; gcmin -= gd;
+  gcmax += gl * 0.5f; gcmin += gl * 0.5f;
+  float wa, wb, wg, wbb;
+  tie_weights(r, inner_max, true, wa, wb);        // cmax = max(r, max(g, b))
+  tie_weights(g, b, true, wg, wbb);
+  gr += gcmax * wa; gg += gcmax * wb * wg; gb += gcmax * wb * wbb;
+  tie_weights(r, inner_min, false, wa, wb);       // cmin = min(r, min(g, b))
+  tie_weights(g, b, false, wg, wbb);
+  gr += gcmin * wa; gg += gcmin * wb * wg; gb += gcmin * wb * wbb;
+  grgb[0] += gr; grgb[1] += gg; grgb[2] += gb;
+}
+
+// One replayed bounce (replay_bounce + shade_bounce of the plain version).
+// g == nullptr: forward; c becomes the carry after the bounce.
+// g != nullptr: reverse; c is the carry before the bounce, *g holds the
+// cotangent of the carry after it and is replaced by the cotangent of the
+// carry before it; gw receives the cotangent of the winner's 14 channels.
+__device__ void replay_bounce(int i, Carry& c, const float* w, bool hit0,
+                              float u_d, float v_d, float roulette, float aof,
+                              const Knobs& k, Cot* g, float* gw) {
+  const float* o = c.o;
+  const float* d = c.d;
+  const float cx = w[0], cy = w[1], cz = w[2], r = w[3];
+  const float df[3] = {w[4], w[5], w[6]};
+  const float em[3] = {w[7], w[8], w[9]};
+  const float estr = w[10], refl = w[11], alpha = w[12], ior = w[13];
+
+  // ---- the winner's distance, recomputed (sphere_distance_one) ---------
+  const float oc[3] = {o[0] - cx, o[1] - cy, o[2] - cz};
+  const float a_q = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  const float b_q = 2.0f * (oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]);
+  const float c_q = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - r * r;
+  const float disc = b_q * b_q - 4.0f * a_q * c_q;
+  const float sq = sqrtf(fmaxf(disc, 1e-30f));
+  const float a_sel = a_q > 1e-20f ? a_q : 1e-20f;
+  const float inv_2a = 0.5f / a_sel;
+  const float t1 = (-b_q - sq) * inv_2a;
+  const float t2 = (-b_q + sq) * inv_2a;
+  const bool s_hit = disc > 0.0f;
+  const int root = (s_hit && t1 >= k.sphere_eps) ? 1
+                 : ((s_hit && t2 >= k.sphere_eps) ? 2 : 0);
+  const float s_t = root == 1 ? t1 : (root == 2 ? t2 : kBig);
+  // knife-edge guard: a recorded hit that recomputes as invalid is a miss
+  const bool did_hit = hit0 && s_t < kBig;
+  const float safe_t = did_hit ? s_t : 0.0f;
+  const float p[3] = {o[0] + d[0] * safe_t, o[1] + d[1] * safe_t,
+                      o[2] + d[2] * safe_t};
+  const float v[3] = {p[0] - cx, p[1] - cy, p[2] - cz};
+  const float n2s = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
+  const bool ncond = n2s > 0.0f && did_hit;
+  const float s_inv = ncond ? 1.0f / sqrtf(n2s) : 0.0f;
+  const float n[3] = {v[0] * s_inv, v[1] * s_inv, v[2] * s_inv};
+
+  // ---- masks -------------------------------------------------------------
+  const bool active = c.active;
+  const bool at_depth = c.depth == i;
+  const bool aov_alpha = i > 0 && active && at_depth && c.is_alpha;
+  const bool emissive_ret = active && did_hit && at_depth && estr > 0.0f;
+  const bool live = active && !emissive_ret && did_hit;
+
+  // ---- scatter ------------------------------------------------------------
+  const float theta = kTwoPi * u_d;
+  const float cph = clampf(2.0f * v_d - 1.0f, -1.0f, 1.0f);
+  const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
+  const float ddr[3] = {n[0] + cosf(theta) * sph_, n[1] + sinf(theta) * sph_,
+                        n[2] + cph};
+  const float dn2 = ddr[0] * ddr[0] + ddr[1] * ddr[1] + ddr[2] * ddr[2];
+  const float dinv = dn2 > 0.0f ? 1.0f / sqrtf(fmaxf(dn2, 1e-38f)) : 0.0f;
+  const float dd[3] = {ddr[0] * dinv, ddr[1] * dinv, ddr[2] * dinv};
+  const float vdn = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
+  float rf[3], tdr[3];
+  for (int j = 0; j < 3; ++j) {
+    rf[j] = d[j] - 2.0f * vdn * n[j];
+    tdr[j] = rf[j] - dd[j];
+  }
+
+  // ---- refraction ---------------------------------------------------------
+  const bool refr_case = live && alpha <= k.alpha_hi && alpha >= k.alpha_lo;
+  const bool exiting = vdn > 0.0f;
+  const bool do_refract = refr_case && roulette > alpha;
+  const float sgn = exiting ? -1.0f : 1.0f;
+  const float ne[3] = {sgn * n[0], sgn * n[1], sgn * n[2]};
+  const float n1 = exiting ? ior : c.med;
+  const float n2 = exiting ? c.med : ior;
+  const float n1s = n1 * n1, n2s_ = n2 * n2;
+  const float n2s_safe = n2s_ > 1e-20f ? n2s_ : 1.0f;
+  const float q = n1s / n2s_safe;
+  const float ratio = clampf(q, 0.0f, 1e6f);
+  const float ndotv = ne[0] * d[0] + ne[1] * d[1] + ne[2] * d[2];
+  const float radical = 1.0f - (ratio * ratio) * (1.0f - ndotv * ndotv);
+  const bool tir = radical <= 0.0f;
+  const float sqr = sqrtf(fmaxf(radical, 1e-20f));
+  float wv[3];
+  for (int j = 0; j < 3; ++j) wv[j] = d[j] - ne[j] * ndotv;
+
+  const bool cutout = live && alpha < k.alpha_lo;
+  const bool opaque = live && alpha > k.alpha_hi;
+  const bool accum = live && !do_refract && !cutout;
+  const float th = k.bright_threshold, bb = k.bright_boost;
+  const bool bright = c.rc[0] > th || c.rc[1] > th || c.rc[2] > th;
+  const float e_scale = estr * k.e_scale_mult;
+
+  if (g == nullptr) {
+    // ---- forward: the next carry ---------------------------------------
+    float nd[3];
+    for (int j = 0; j < 3; ++j) {
+      if (do_refract) {
+        nd[j] = tir ? d[j] - 2.0f * ndotv * ne[j] : wv[j] * ratio - ne[j] * sqr;
+      } else {
+        nd[j] = accum ? dd[j] + tdr[j] * refl : d[j];
+      }
+    }
+    for (int j = 0; j < 3; ++j) {
+      if (live) c.o[j] = p[j];
+      c.d[j] = nd[j];
+      if (accum) {
+        float nb = bright ? df[j] * (df[j] * (c.rc[j] * bb)) : df[j] * c.rc[j];
+        if (k.use_ao) nb *= aof;
+        c.rc[j] = nb;
+      }
+    }
+    if (refr_case && !exiting) c.med = ior;
+    c.is_alpha = ((c.is_alpha && !aov_alpha) && !opaque) || cutout;
+    if (cutout) c.depth += 1;
+    c.active = active && !emissive_ret && did_hit;
+    return;
+  }
+
+  // ---- reverse -------------------------------------------------------------
+  Cot& G = *g;
+  float gn[3] = {0, 0, 0}, gp[3] = {0, 0, 0}, gdf[3] = {0, 0, 0};
+  float gem[3] = {0, 0, 0}, gb3[3] = {0, 0, 0};
+  float gd[3] = {0, 0, 0}, go[3] = {0, 0, 0};
+  float gestr = 0.0f, grefl = 0.0f, gior = 0.0f;
+
+  // radiance: emissive overwrite, or accumulation, or pass-through
+  float ge_scale = 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    if (emissive_ret) {
+      gb3[j] += G.inc[j];
+      G.inc[j] = 0.0f;
+    } else if (accum) {                      // inc + (em * e_scale) * rc
+      const float gt = G.inc[j] * c.rc[j];
+      gem[j] += gt * e_scale;
+      ge_scale += gt * em[j];
+    }
+  }
+  gestr += ge_scale * k.e_scale_mult;
+
+  // throughput: accum ? nb : rc
+  float grc[3];
+  for (int j = 0; j < 3; ++j) {
+    if (!accum) { grc[j] = G.rc[j]; continue; }
+    grc[j] = G.inc[j] * (em[j] * e_scale);
+    const float gnb = k.use_ao ? G.rc[j] * aof : G.rc[j];
+    if (bright) {                            // df * (df * (rc * bb))
+      const float s_ = c.rc[j] * bb, qv = df[j] * s_;
+      gdf[j] += gnb * qv;
+      const float gq = gnb * df[j];
+      gdf[j] += gq * s_;
+      grc[j] += gq * df[j] * bb;
+    } else {                                 // df * rc
+      gdf[j] += gnb * c.rc[j];
+      grc[j] += gnb * df[j];
+    }
+  }
+
+  // direction: refract ? ref : (accum ? dr : d); origin: live ? p : o
+  float gref[3] = {0, 0, 0}, gdr[3] = {0, 0, 0};
+  for (int j = 0; j < 3; ++j) {
+    if (do_refract) gref[j] = G.d[j];
+    else if (accum) gdr[j] = G.d[j];
+    else gd[j] += G.d[j];
+    if (live) gp[j] += G.o[j];
+    else go[j] += G.o[j];
+  }
+
+  // dr = dd + (rf - dd) * refl;  rf = d - (2 vdn) n;  vdn = d . n
+  float gdd[3] = {0, 0, 0}, grf[3] = {0, 0, 0};
+  if (accum) {
+    for (int j = 0; j < 3; ++j) {
+      gdd[j] += gdr[j];
+      const float gt = gdr[j] * refl;
+      grefl += gdr[j] * tdr[j];
+      grf[j] += gt;
+      gdd[j] -= gt;
+    }
+    float g2v = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      gd[j] += grf[j];
+      g2v -= grf[j] * n[j];
+      gn[j] -= grf[j] * (2.0f * vdn);
+    }
+    const float gvdn = 2.0f * g2v;
+    for (int j = 0; j < 3; ++j) {
+      gd[j] += gvdn * n[j];
+      gn[j] += gvdn * d[j];
+    }
+    // dd = ddr * dinv; dinv = 1/sqrt(max(dn2, 1e-38)) where dn2 > 0
+    float gdinv = 0.0f, gddr[3];
+    for (int j = 0; j < 3; ++j) {
+      gddr[j] = gdd[j] * dinv;
+      gdinv += gdd[j] * ddr[j];
+    }
+    if (dn2 >= 1e-38f) {
+      const float sm = sqrtf(dn2);
+      const float gdn2 = (-gdinv * dinv * dinv) / (2.0f * sm);
+      for (int j = 0; j < 3; ++j) gddr[j] += 2.0f * ddr[j] * gdn2;
+    }
+    for (int j = 0; j < 3; ++j) gn[j] += gddr[j];   // ddr = n + ru
+  }
+
+  // refraction: ref = tir ? d - (2 vdne) ne : (d - ne ct) ratio - ne sqr
+  if (do_refract) {
+    float gne[3] = {0, 0, 0};
+    if (tir) {
+      float g2v = 0.0f;
+      for (int j = 0; j < 3; ++j) {
+        gd[j] += gref[j];
+        g2v -= gref[j] * ne[j];
+        gne[j] -= gref[j] * (2.0f * ndotv);
+      }
+      const float gv = 2.0f * g2v;
+      for (int j = 0; j < 3; ++j) {
+        gd[j] += gv * ne[j];
+        gne[j] += gv * d[j];
+      }
+    } else {
+      float gsqr = 0.0f, gratio = 0.0f, gct = 0.0f;
+      for (int j = 0; j < 3; ++j) {
+        gne[j] -= gref[j] * sqr;
+        gsqr -= gref[j] * ne[j];
+        const float gw = gref[j] * ratio;
+        gratio += gref[j] * wv[j];
+        gd[j] += gw;
+        gne[j] -= gw * ndotv;
+        gct -= gw * ne[j];
+      }
+      float gndotv = gct;              // ct = d . ne is ndotv's value
+      if (radical >= 1e-20f) {
+        const float grad = gsqr / (2.0f * sqr);
+        const float h = 1.0f - ndotv * ndotv;
+        gratio += 2.0f * ratio * (-grad * h);
+        gndotv += -2.0f * ndotv * (-grad * (ratio * ratio));
+      }
+      for (int j = 0; j < 3; ++j) {
+        gne[j] += gndotv * d[j];
+        gd[j] += gndotv * ne[j];
+      }
+      if (q >= 0.0f && q <= 1e6f) {
+        const float gn1s = gratio / n2s_safe;
+        const float gn2s = n2s_ > 1e-20f ? -gratio * q / n2s_safe : 0.0f;
+        // n1 = exiting ? ior : med, n2 = exiting ? med : ior; the carried
+        // medium IOR is a constant
+        gior += exiting ? 2.0f * n1 * gn1s : 2.0f * n2 * gn2s;
+      }
+    }
+    for (int j = 0; j < 3; ++j) gn[j] += sgn * gne[j];
+  }
+
+  // albedo and normal AOVs: the last writer takes the cotangent
+  for (int j = 0; j < 3; ++j) {
+    if (emissive_ret) {
+      gb3[j] += G.alb[j];
+    } else if (i == 0) {
+      gdf[j] += G.alb[j];
+    } else if (aov_alpha) {
+      if (estr > 0.0f) gem[j] += G.alb[j];
+      else gdf[j] += G.alb[j];
+    }
+    if (emissive_ret || i == 0 || aov_alpha) {
+      gn[j] += G.nrm[j];
+      G.alb[j] = 0.0f;
+      G.nrm[j] = 0.0f;
+    }
+  }
+  if (emissive_ret && k.hsl_on) {
+    hsl_boost_bwd(em[0], em[1], em[2], k.hsl_l, k.hsl_s, gb3, gem);
+  } else if (emissive_ret) {
+    for (int j = 0; j < 3; ++j) gem[j] += gb3[j];
+  }
+
+  // normal: n = v / |v| where (n2s > 0 and did_hit), else 0
+  float gv[3] = {0, 0, 0};
+  if (ncond) {
+    float gs_inv = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      gv[j] = gn[j] * s_inv;
+      gs_inv += gn[j] * v[j];
+    }
+    const float gn2s = (-gs_inv * s_inv * s_inv) / (2.0f * sqrtf(n2s));
+    for (int j = 0; j < 3; ++j) gv[j] += 2.0f * v[j] * gn2s;
+  }
+  float gc[3], gr = 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    gp[j] += gv[j];
+    gc[j] = -gv[j];
+  }
+
+  // hit point: p = o + d * safe_t
+  float gsafe = 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    go[j] += gp[j];
+    gd[j] += gp[j] * safe_t;
+    gsafe += gp[j] * d[j];
+  }
+  if (did_hit && root != 0) {
+    const float gt1 = root == 1 ? gsafe : 0.0f;
+    const float gt2 = root == 2 ? gsafe : 0.0f;
+    const float gb = -(gt1 + gt2) * inv_2a;
+    const float gsq = (gt2 - gt1) * inv_2a;
+    const float ginv = gt1 * (-b_q - sq) + gt2 * (-b_q + sq);
+    float ga = a_q > 1e-20f ? -(ginv * 0.5f) * (1.0f / a_sel) * (1.0f / a_sel)
+                            : 0.0f;
+    const float gdisc = disc >= 1e-30f ? gsq / (2.0f * sq) : 0.0f;
+    const float gbq = gb + 2.0f * b_q * gdisc;
+    ga += -4.0f * c_q * gdisc;
+    const float gcq = -4.0f * a_q * gdisc;
+    for (int j = 0; j < 3; ++j) {
+      const float goc = 2.0f * oc[j] * gcq + 2.0f * gbq * d[j];
+      gd[j] += 2.0f * gbq * oc[j] + 2.0f * d[j] * ga;
+      go[j] += goc;
+      gc[j] -= goc;
+    }
+    gr -= 2.0f * r * gcq;
+  }
+
+  for (int j = 0; j < 3; ++j) {
+    G.o[j] = go[j];
+    G.d[j] = gd[j];
+    G.rc[j] = grc[j];
+  }
+  gw[0] = gc[0]; gw[1] = gc[1]; gw[2] = gc[2]; gw[3] = gr;
+  gw[4] = gdf[0]; gw[5] = gdf[1]; gw[6] = gdf[2];
+  gw[7] = gem[0]; gw[8] = gem[1]; gw[9] = gem[2];
+  gw[10] = gestr; gw[11] = grefl;
+  gw[12] = 0.0f;        // alpha enters only comparisons
+  gw[13] = gior;
+}
+
+// A recorded index outside [0, ns) is a miss: -1 is how K1 records one,
+// and any other value is kept from reading outside the table.
+__device__ __forceinline__ bool is_hit(int bidx, int ns) {
+  return (unsigned)bidx < (unsigned)ns;
+}
+
+__device__ __forceinline__ void load_winner(const float* tab, int ns, int bidx,
+                                            float* w) {
+  const bool hit = is_hit(bidx, ns);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) w[r] = hit ? tab[r * ns + bidx] : 0.0f;
+}
+
+__global__ void sphere_backward_kernel(
+    const float* __restrict__ sph, const float* __restrict__ ox,
+    const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const float* __restrict__ draws,
+    const int* __restrict__ idx, const float* __restrict__ aofs,
+    const float* __restrict__ gin, float* __restrict__ d_rays,
+    float* __restrict__ partial, int n_rays, Knobs k) {
+  extern __shared__ float smem[];
+  const int ns = k.n_spheres;
+  const int n_e = kRows * ns;
+  const int nt = blockDim.x;
+  const int stride = nt + 1;   // column pitch: conflict-free in both phases
+  const int tid = threadIdx.x;
+  float* tab = smem;
+  float* col = smem + n_e;     // col[e * stride + t]: thread t's sum of entry e
+  for (int e = tid; e < n_e; e += nt) tab[e] = sph[e];
+  for (int e = 0; e < n_e; ++e) col[e * stride + tid] = 0.0f;
+  __syncthreads();
+
+  const int ray = blockIdx.x * nt + tid;
+  if (ray < n_rays) {
+    const size_t B = (size_t)n_rays;
+    Carry saved[kMaxBounces];
+    Carry c;
+    c.o[0] = ox[ray]; c.o[1] = oy[ray]; c.o[2] = oz[ray];
+    c.d[0] = dx[ray]; c.d[1] = dy[ray]; c.d[2] = dz[ray];
+    c.rc[0] = c.rc[1] = c.rc[2] = 1.0f;
+    c.med = 1.0f;
+    c.active = true; c.is_alpha = false; c.depth = 0;
+    float w[kRows];
+    for (int i = 0; i < k.bounces; ++i) {
+      saved[i] = c;
+      const int bidx = idx[(size_t)i * B + ray];
+      load_winner(tab, ns, bidx, w);
+      const float* dr = draws + (size_t)i * k.n_draws * B + ray;
+      const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
+      replay_bounce(i, c, w, is_hit(bidx, ns), dr[0], dr[B], dr[2 * B], aof,
+                    k, nullptr, nullptr);
+    }
+
+    Cot g;
+    for (int j = 0; j < 3; ++j) {
+      g.o[j] = g.d[j] = g.rc[j] = 0.0f;
+      g.inc[j] = gin[j * B + ray];
+      g.alb[j] = gin[(3 + j) * B + ray];
+      g.nrm[j] = gin[(6 + j) * B + ray];
+    }
+    float gw[kRows];
+    for (int i = k.bounces - 1; i >= 0; --i) {
+      const int bidx = idx[(size_t)i * B + ray];
+      load_winner(tab, ns, bidx, w);
+      const float* dr = draws + (size_t)i * k.n_draws * B + ray;
+      const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
+      c = saved[i];
+      replay_bounce(i, c, w, is_hit(bidx, ns), dr[0], dr[B], dr[2 * B], aof,
+                    k, &g, gw);
+      if (is_hit(bidx, ns)) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) col[(r * ns + bidx) * stride + tid] += gw[r];
+      }
+    }
+    for (int j = 0; j < 3; ++j) {
+      d_rays[j * B + ray] = g.o[j];
+      d_rays[(3 + j) * B + ray] = g.d[j];
+    }
+  }
+  __syncthreads();
+
+  // this block's sums, each over the threads in a fixed order
+  for (int e = tid; e < n_e; e += nt) {
+    float s = 0.0f;
+    for (int t = 0; t < nt; ++t) s += col[e * stride + t];
+    partial[(size_t)blockIdx.x * n_e + e] = s;
+  }
+}
+
+// d_sph[e] = sum over blocks of partial[b][e], in a fixed tree order.
+__global__ void __launch_bounds__(kReduceThreads)
+sum_blocks_kernel(const float* __restrict__ partial, int blocks, int n_e,
+                  float* __restrict__ d_sph) {
+  __shared__ float red[kReduceThreads];
+  const int e = blockIdx.x, tid = threadIdx.x;
+  float s = 0.0f;
+  for (int b = tid; b < blocks; b += kReduceThreads) s += partial[(size_t)b * n_e + e];
+  red[tid] = s;
+  __syncthreads();
+  for (int half = kReduceThreads / 2; half > 0; half >>= 1) {
+    if (tid < half) red[tid] += red[tid + half];
+    __syncthreads();
+  }
+  if (tid == 0) d_sph[e] = red[0];
+}
+
+int threads_per_block(int n_spheres) {
+  int nt = 128;
+  while (nt > 32 &&
+         (size_t)kRows * n_spheres * (nt + 2) * sizeof(float) > kSmemBudget) {
+    nt /= 2;
+  }
+  return nt;
+}
+
+}  // namespace
+
+// Blocks of the reverse sweep for n_rays rays: the first dimension of the
+// (blocks, 14, n_spheres) `partial` buffer the caller allocates.
+extern "C" int raytpu_sphere_backward_blocks(int n_rays, int n_spheres) {
+  const int nt = threads_per_block(n_spheres);
+  return (n_rays + nt - 1) / nt;
+}
+
+// Plain C entry point, bound with ctypes. Device pointers: sph (14, S) f32;
+// ox..dz (n_rays,) f32; draws (bounces * n_draws, n_rays) f32, of which
+// draws 0..2 of each bounce are read; idx (bounces, n_rays) i32; aof
+// (bounces, n_rays) f32 when use_ao, else null; g (9, n_rays) f32, the
+// cotangent of (radiance, albedo, normal); d_rays (6, n_rays) f32 out;
+// partial (raytpu_sphere_backward_blocks(n_rays, S), 14, S) f32 scratch;
+// d_sph (14, S) f32 out. Launches both kernels on `stream` without
+// synchronising and returns the first cudaError_t.
+extern "C" int raytpu_sphere_backward(
+    const float* sph, const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, const float* draws,
+    const int* idx, const float* aof, const float* g, float* d_rays,
+    float* partial, int n_rays, int n_spheres, int bounces, int n_draws,
+    float sphere_eps, float alpha_lo, float alpha_hi, float bright_boost,
+    float bright_threshold, int use_ao, float e_scale_mult, int hsl_on,
+    float hsl_l, float hsl_s, float* d_sph, void* stream) {
+  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_rays < 0 || bounces < 0 ||
+      bounces > kMaxBounces || n_draws < 3 || (use_ao && aof == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Knobs k{n_spheres, bounces, n_draws, sphere_eps, alpha_lo, alpha_hi,
+          bright_boost, bright_threshold, use_ao, e_scale_mult, hsl_on,
+          hsl_l, hsl_s};
+  const int n_e = kRows * n_spheres;
+  const int nt = threads_per_block(n_spheres);
+  const int blocks = (n_rays + nt - 1) / nt;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (blocks > 0) {
+    const size_t smem = (size_t)n_e * (nt + 2) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        sphere_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sphere_backward_kernel<<<blocks, nt, smem, s>>>(
+        sph, ox, oy, oz, dx, dy, dz, draws, idx, aof, g, d_rays, partial,
+        n_rays, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  sum_blocks_kernel<<<n_e, kReduceThreads, 0, s>>>(partial, blocks, n_e, d_sph);
+  return (int)cudaGetLastError();
+}

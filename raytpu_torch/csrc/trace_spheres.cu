@@ -2,17 +2,22 @@
 // a sphere scene in one launch.
 //
 // Replaces raytpu/kernels/trace_spheres.py:_kernel (the Pallas TPU kernel
-// launched by _trace_call, body _forward_body) for the forward render
-// without sky slot or index recording. The plain PyTorch version is
+// launched by _trace_call, body _forward_body) without the sky slot, with
+// its recording mode (with_indices: per-bounce winner index and AO factor
+// for the index-replay backward, csrc/trace_scene_bwd.cu). The plain
+// PyTorch version is
 // raytpu_torch/kernels/trace_spheres.py:trace_spheres_reference; both keep
 // raytpu's arithmetic forms (0.5/max(a,1e-20) root scale, the 1e-30
 // discriminant floor, 1/sqrtf rather than rsqrtf, a strict t < best in
 // sphere order, the n2s_safe select, the bright test on the throughput
 // before its update) so the three implementations agree.
 //
-// What bounds it: FP32 ALU work, not memory. Per ray-bounce it solves
-// about 10 quadratics (10 more per AO probe) and does ~100 shading ops,
-// against ~22 bytes of draws read (three or five f32 per bounce). So:
+// What bounds it: per ray-bounce it solves about 10 quadratics (10 more
+// per AO probe) and does ~100 shading ops, against 12-20 bytes of draws
+// read, so at the 1200x900, 6-bounce frame the bytes it must move
+// (~143 MB) and its FP32 work set about the same least time, ~0.04 ms;
+// it takes ~0.22 ms (PERF.md), held by each thread's dependent chain and
+// by divergence between rays that end early and rays that go on. So:
 //   * one thread per ray on a 1-D grid, the ragged edge masked here;
 //   * the 14 x S sphere table (S <= 64, <= 3.6 KB) in shared memory,
 //     read as broadcasts by every thread of the block;
@@ -21,13 +26,15 @@
 //   * draws laid out (bounces * n_draws, B), so neighbouring threads read
 //     neighbouring addresses, each draw read once;
 //   * the refraction math only for rays that refract, the AO probes only
-//     for rays that accumulate (their results are discarded elsewhere).
+//     for rays that accumulate (their results are discarded elsewhere)
+//     unless recording, which stores the factor of every ray.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// -Xcompiler -fPIC (raytpu_torch/kernels/_build.py). No fast-math flags:
-// IEEE sqrtf/division and accurate cosf/sinf. nvcc contracts a*b+c into
-// FMAs where the plain version rounds twice, so grazing hits on the
-// radius-500 walls can flip on a small fraction of rays.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
+// No fast-math flags: IEEE sqrtf/division and accurate cosf/sinf. No FMA
+// contraction: every product and sum rounds on its own, as in the plain
+// version, so the recorded winners are the ones the plain version and the
+// backward's replay (built the same way) compute.
 
 #include <cuda_runtime.h>
 
@@ -103,12 +110,47 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   x *= inv; y *= inv; z *= inv;
 }
 
+// Ambient occlusion (main.c:94-116): hemisphere probes from the hit point,
+// any hit at t >= eps; occluded probes / (ao_samples * ao_intensity).
+__device__ float ao_factor(const float* CX, const float* CY, const float* CZ,
+                           const float* R, int ns, float px, float py,
+                           float pz, float nX, float nY, float nZ,
+                           const float* dr, size_t B, const Knobs& k) {
+  float occ = 0.0f;
+  for (int a = 0; a < k.ao_samples; ++a) {
+    const float au = dr[(3 + 2 * a) * B], av = dr[(4 + 2 * a) * B];
+    const float ath = kTwoPi * au;
+    const float acp = clampf(2.0f * av - 1.0f, -1.0f, 1.0f);
+    const float asp = sqrtf(fmaxf(1.0f - acp * acp, 0.0f));
+    float aox = nX + cosf(ath) * asp;
+    float aoy = nY + sinf(ath) * asp;
+    float aoz = nZ + acp;
+    normalize3(aox, aoy, aoz);
+    const float aq = aox * aox + aoy * aoy + aoz * aoz;
+    const float ai2a = 0.5f / fmaxf(aq, 1e-20f);
+    bool occ_hit = false;
+    for (int s = 0; s < ns && !occ_hit; ++s) {
+      const float ocx = px - CX[s], ocy = py - CY[s], ocz = pz - CZ[s];
+      const float b2 = 2.0f * (ocx * aox + ocy * aoy + ocz * aoz);
+      const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - R[s] * R[s];
+      const float d2 = b2 * b2 - 4.0f * aq * c2;
+      const float sq2 = sqrtf(fmaxf(d2, 1e-30f));
+      const float tt1 = (-b2 - sq2) * ai2a;
+      const float tt2 = (-b2 + sq2) * ai2a;
+      occ_hit = d2 > 0.0f && (tt1 >= k.sphere_eps || tt2 >= k.sphere_eps);
+    }
+    occ = occ + (occ_hit ? 1.0f : 0.0f);
+  }
+  return occ * k.ao_inv;
+}
+
 __global__ void __launch_bounds__(kThreads)
 trace_spheres_kernel(const float* __restrict__ sph,
                      const float* __restrict__ ox, const float* __restrict__ oy,
                      const float* __restrict__ oz, const float* __restrict__ dx,
                      const float* __restrict__ dy, const float* __restrict__ dz,
                      const float* __restrict__ draws, float* __restrict__ out,
+                     int* __restrict__ idx_out, float* __restrict__ aof_out,
                      int n_rays, Knobs k) {
   __shared__ float tab[kRows * kMaxSpheres];
   const int ns = k.n_spheres;
@@ -152,6 +194,10 @@ trace_spheres_kernel(const float* __restrict__ sph,
                     : ((hit && t2 >= k.sphere_eps) ? t2 : kBig);
       if (t < best) { best = t; bidx = s; }
     }
+
+    // recording: the winner of every ray still in its bounce loop, -1 for
+    // a miss and for rays whose loop is over (raytpu's with_indices)
+    if (idx_out != nullptr) idx_out[(size_t)i * B + ray] = active ? bidx : -1;
 
     // ---- winner data; a miss reads an all-zero winner ------------------
     const bool did_hit = bidx >= 0;
@@ -254,8 +300,16 @@ trace_spheres_kernel(const float* __restrict__ sph,
     if (opaque) is_alpha = false;
     if (cutout) { is_alpha = true; alpha_depth += 1; }
 
-    // ---- accumulate (reads the throughput before its update) ------------
+    // ---- AO factor: for the rays that accumulate, and for every ray when
+    // recording (the plain version records it on every lane) -------------
     const bool accum = live && !do_refract && !cutout;
+    float factor = 0.0f;
+    if (k.use_ao && (accum || aof_out != nullptr)) {
+      factor = ao_factor(CX, CY, CZ, R, ns, px, py, pz, nX, nY, nZ, dr, B, k);
+      if (aof_out != nullptr) aof_out[(size_t)i * B + ray] = factor;
+    }
+
+    // ---- accumulate (reads the throughput before its update) ------------
     if (accum) {
       const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
       ix = ix + emx * e_scale * rcx;
@@ -266,36 +320,7 @@ trace_spheres_kernel(const float* __restrict__ sph,
       float nbx = bright ? dfx * (dfx * (rcx * bb)) : dfx * rcx;
       float nby = bright ? dfy * (dfy * (rcy * bb)) : dfy * rcy;
       float nbz = bright ? dfz * (dfz * (rcz * bb)) : dfz * rcz;
-      if (k.use_ao) {
-        // hemisphere probes from the hit point: any hit at t >= eps
-        float occ = 0.0f;
-        for (int a = 0; a < k.ao_samples; ++a) {
-          const float au = dr[(3 + 2 * a) * B], av = dr[(4 + 2 * a) * B];
-          const float ath = kTwoPi * au;
-          const float acp = clampf(2.0f * av - 1.0f, -1.0f, 1.0f);
-          const float asp = sqrtf(fmaxf(1.0f - acp * acp, 0.0f));
-          float aox = nX + cosf(ath) * asp;
-          float aoy = nY + sinf(ath) * asp;
-          float aoz = nZ + acp;
-          normalize3(aox, aoy, aoz);
-          const float aq = aox * aox + aoy * aoy + aoz * aoz;
-          const float ai2a = 0.5f / fmaxf(aq, 1e-20f);
-          bool occ_hit = false;
-          for (int s = 0; s < ns && !occ_hit; ++s) {
-            const float ocx = px - CX[s], ocy = py - CY[s], ocz = pz - CZ[s];
-            const float b2 = 2.0f * (ocx * aox + ocy * aoy + ocz * aoz);
-            const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - R[s] * R[s];
-            const float d2 = b2 * b2 - 4.0f * aq * c2;
-            const float sq2 = sqrtf(fmaxf(d2, 1e-30f));
-            const float tt1 = (-b2 - sq2) * ai2a;
-            const float tt2 = (-b2 + sq2) * ai2a;
-            occ_hit = d2 > 0.0f && (tt1 >= k.sphere_eps || tt2 >= k.sphere_eps);
-          }
-          occ = occ + (occ_hit ? 1.0f : 0.0f);
-        }
-        const float factor = occ * k.ao_inv;
-        nbx = nbx * factor; nby = nby * factor; nbz = nbz * factor;
-      }
+      if (k.use_ao) { nbx *= factor; nby *= factor; nbz *= factor; }
       rcx = nbx; rcy = nby; rcz = nbz;
     }
 
@@ -320,17 +345,21 @@ trace_spheres_kernel(const float* __restrict__ sph,
 
 // Plain C entry point, bound with ctypes. All pointers are device
 // pointers to contiguous f32: sph (14, n_spheres); ox..dz (n_rays,);
-// draws (bounces * n_draws, n_rays); out (9, n_rays). Launches on
-// `stream` without synchronising and returns the launch's cudaError_t.
+// draws (bounces * n_draws, n_rays); out (9, n_rays). Recording mode when
+// idx_out is not null: idx_out (bounces, n_rays) i32 winner indices and,
+// with use_ao, aof_out (bounces, n_rays) f32 AO factors (else null).
+// Launches on `stream` without synchronising and returns the launch's
+// cudaError_t.
 extern "C" int raytpu_trace_spheres(
     const float* sph, const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz, const float* draws,
-    float* out, int n_rays, int n_spheres, int bounces, int n_draws,
+    float* out, int* idx_out, float* aof_out, int n_rays, int n_spheres, int bounces, int n_draws,
     float sphere_eps, float alpha_lo, float alpha_hi, float bright_boost,
     float bright_threshold, int use_ao, int ao_samples, float ao_e_scale,
     float ao_inv, int hsl_on, float hsl_l, float hsl_s, void* stream) {
   if (n_spheres < 1 || n_spheres > kMaxSpheres || n_rays < 0 || bounces < 0 ||
-      n_draws < 3 + (use_ao ? 2 * ao_samples : 0)) {
+      n_draws < 3 + (use_ao ? 2 * ao_samples : 0) ||
+      (aof_out != nullptr && (idx_out == nullptr || !use_ao))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rays == 0) return (int)cudaSuccess;
@@ -339,6 +368,6 @@ extern "C" int raytpu_trace_spheres(
           ao_inv, hsl_on, hsl_l, hsl_s};
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   trace_spheres_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      sph, ox, oy, oz, dx, dy, dz, draws, out, n_rays, k);
+      sph, ox, oy, oz, dx, dy, dz, draws, out, idx_out, aof_out, n_rays, k);
   return (int)cudaGetLastError();
 }

@@ -8,16 +8,20 @@ sample order, as ``raytpu``'s scan does. Pixel coordinates follow the
 reference: u = (i + U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted
 from the bottom row, and the aperture jitter is (U - .5) * aperture.
 
-The render runs on the device of the scene's tensors.
+The render runs on the device of the scene's tensors. It is
+differentiable in every scene and camera leaf that requires grad: the K1
+wrapper then records winner indices and the backward runs K2.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch.camera import Camera, get_rays
 from raytpu_torch.core import rng
@@ -62,7 +66,9 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     ... ``sample_offset + n - 1``) for a batch of pixel ids.
 
     ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
-    scene's device. One K1 call per sample.
+    scene's device. One K1 call per sample; when a scene or camera leaf
+    requires grad, the backward adds per sample one K1 call (the
+    checkpoint's recompute, in recording mode) and one K2 call.
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples
@@ -73,16 +79,47 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
         zeros = Vec3.zeros((b,), device=dev)
         init = RenderSums(zeros, zeros, zeros, 0)
     rad, alb, nrm, count = init
-    for s in range(sample_offset, sample_offset + n):
+
+    def one_sample(s):
         ray_keys = rng.sample_keys(pix_keys, s)
         cam_draws, bounce_draws = rng.ray_uniforms(
             ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
         )
         origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
         r, a, nm = trace_megakernel(scene, cfg, origin, direction, bounce_draws)
-        rad, alb, nrm = rad + r, alb + a, nrm + nm
+        return (*r, *a, *nm)
+
+    # Differentiated, each sample runs under checkpoint (raytpu's
+    # jax.checkpoint(mk_direct)): its residuals (draws, rays, recorded
+    # indices) are dropped after the forward and rebuilt from the keys in
+    # the backward, so memory holds one sample's worth, not spp's.
+    differentiate = torch.is_grad_enabled() and _requires_grad(scene, cam)
+    for s in range(sample_offset, sample_offset + n):
+        if differentiate:
+            # the draws hang off the keys, not torch's generator: no RNG
+            # state to stash for the recompute
+            out = checkpoint(one_sample, s, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = one_sample(s)
+        rad = rad + Vec3(*out[0:3])
+        alb = alb + Vec3(*out[3:6])
+        nrm = nrm + Vec3(*out[6:9])
         count += 1
     return RenderSums(rad, alb, nrm, count)
+
+
+def _requires_grad(*trees) -> bool:
+    """Whether any tensor leaf of these dataclass trees requires grad."""
+    for t in trees:
+        if isinstance(t, Tensor):
+            if t.requires_grad:
+                return True
+        elif dataclasses.is_dataclass(t):
+            if _requires_grad(*(getattr(t, f.name)
+                                for f in dataclasses.fields(t))):
+                return True
+    return False
 
 
 def blocked_pixel_order(cfg: RenderConfig, block_w: int = 128,
@@ -106,12 +143,14 @@ class RenderOutput(NamedTuple):
     normal: np.ndarray     # (H, W, 3) AOV mean
 
 
+@torch.no_grad()
 def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
                  key: Tensor) -> RenderOutput:
     """Full frame: tiles of ``cfg.pixel_tile`` pixel ids in block-major
     order, each rendered with all ``cfg.spp`` samples. The last tile is
     padded by repeating the last id; its duplicates compute identical
-    sums, so scattering back by id is idempotent."""
+    sums, so scattering back by id is idempotent. Not differentiated: the
+    frame leaves as numpy arrays."""
     n_pix = cfg.n_pixels
     tile = min(cfg.pixel_tile, n_pix)
     n_tiles = (n_pix + tile - 1) // tile

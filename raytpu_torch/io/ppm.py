@@ -1,7 +1,13 @@
-"""PPM (P3 ASCII) output, byte-identical to ``raytpu.io.ppm.write_ppm``:
-a header, then one "r g b" int triplet per line, rows top-down."""
+"""PPM (P3 ASCII) read/write, as ``raytpu.io.ppm``.
+
+``write_ppm`` is byte-identical to ``raytpu``'s: a header, then one
+"r g b" int triplet per line, rows top-down. ``read_ppm`` is its
+pure-Python reader (``raytpu``'s C++ fast path gives the same values).
+"""
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -13,3 +19,25 @@ def write_ppm(path: str, canvas: np.ndarray) -> None:
     with open(path, "w") as f:
         f.write(f"P3\n{w} {h}\n255\n")
         np.savetxt(f, flat, fmt="%d")
+
+
+def read_ppm(path: str, bottom_up: bool = True) -> np.ndarray:
+    """Read ASCII P3 -> (H, W, 3) float32 in [0, 1], samples scaled as
+    ``n * f32(1/maxval)``. ``bottom_up`` stores rows bottom-up (row 0 =
+    image bottom), the layout pixel ids and textures index."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if b"#" in data:      # comments run to the end of the line
+        data = re.sub(rb"#[^\n\r]*", b" ", data)
+    tokens = data.split()
+    if not tokens or tokens[0] != b"P3":
+        raise ValueError(f"{path}: not an ASCII P3 PPM "
+                         f"(got {tokens[0] if tokens else b''!r})")
+    w, h, maxval = int(tokens[1]), int(tokens[2]), int(tokens[3])
+    vals = np.array(tokens[4:4 + w * h * 3], dtype=np.float32)
+    if vals.size != w * h * 3:
+        raise ValueError(f"{path}: expected {w * h * 3} samples, got {vals.size}")
+    img = vals.reshape(h, w, 3) * np.float32(1.0 / maxval)
+    if bottom_up:
+        img = img[::-1]
+    return np.ascontiguousarray(img)

@@ -1,8 +1,8 @@
 """The sphere megakernel (K1): the whole forward bounce loop in one launch.
 
 Port of ``raytpu/kernels/trace_spheres.py`` (``_kernel`` ->
-``_forward_body``, the Pallas kernel ``_trace_call`` launches) for the
-forward render without sky slot or index recording. Per ray and bounce:
+``_forward_body``, the Pallas kernel ``_trace_call`` launches) without the
+sky slot, with its recording mode for the backward. Per ray and bounce:
 closest sphere hit, AOV base cases, emissive early return with the HSL
 boost, diffuse/specular lerp, probabilistic refraction with the reduced
 ``pile.h`` medium scalar, alpha cutout, the x1.3 bright quirk and the AO
@@ -14,25 +14,26 @@ hand-written kernel in ``csrc/trace_spheres.cu``; on CPU tensors it runs
 which the tests hold against ``raytpu`` and the chip check holds the
 kernel against. Random draws are made outside the kernel from the
 threefry stream (``core.rng.ray_uniforms``), as in ``raytpu``.
+
+Gradients: ``TraceSpheres`` joins K1 in recording mode to the
+index-replay backward K2 (``kernels/trace_scene_bwd``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 from torch import Tensor
 
-from raytpu_torch.core.color import hsl_boost
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.kernels.trace_scene import TWO_PI, initial_carry, shade_bounce
+from raytpu_torch.kernels.trace_scene_bwd import check_depth, sphere_backward
 
 MAX_SPHERES = 64
 BIG = 3.0e38
-TWO_PI = 2.0 * float(np.float32(math.pi))  # 2 * f32(pi), exact in f32
 
 launches = 0   # kernel launches by trace_megakernel (CPU calls do not count)
 
@@ -110,60 +111,106 @@ class Knobs:
         return not (self.hsl_l == 1.0 and self.hsl_s == 1.0)
 
     @property
+    def e_scale_mult(self) -> float:
+        return self.ao_e_scale if self.use_ao else 1.0
+
+    @property
+    def shade_kw(self) -> dict:
+        """The static knobs ``trace_scene.shade_bounce`` takes."""
+        return dict(alpha_lo=self.alpha_lo, alpha_hi=self.alpha_hi,
+                    bright_boost=self.bright_boost,
+                    bright_threshold=self.bright_threshold,
+                    hsl_l=self.hsl_l, hsl_s=self.hsl_s)
+
+    @property
     def draws_needed(self) -> int:
         return 3 + 2 * (self.ao_samples if self.use_ao else 0)
 
 
+def _closest_sphere(geo, n_s, rox, roy, roz, rdx, rdy, rdz, eps):
+    """(best t, winner index or -1): strict t < best in sphere order."""
+    a_quad = rdx * rdx + rdy * rdy + rdz * rdz
+    inv_2a = 0.5 / torch.clamp(a_quad, min=1e-20)
+    best = torch.full_like(rox, BIG)
+    bidx = torch.full_like(rox, -1, dtype=torch.int32)
+    for s in range(n_s):
+        cx, cy, cz, r = geo[0][s], geo[1][s], geo[2][s], geo[3][s]
+        ocx, ocy, ocz = rox - cx, roy - cy, roz - cz
+        b_ = 2.0 * (ocx * rdx + ocy * rdy + ocz * rdz)
+        c_ = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = b_ * b_ - 4.0 * a_quad * c_
+        sq = torch.sqrt(torch.clamp(disc, min=1e-30))
+        t1 = (-b_ - sq) * inv_2a
+        t2 = (-b_ + sq) * inv_2a
+        hit_s = disc > 0.0
+        t = torch.where(
+            hit_s & (t1 >= eps), t1,
+            torch.where(hit_s & (t2 >= eps), t2, BIG),
+        )
+        better = t < best
+        best = torch.where(better, t, best)
+        bidx = torch.where(better, s, bidx)
+    return best, bidx
+
+
+def _ao_factor(geo, n_s, px, py, pz, nX, nY, nZ, draws, row0, k: Knobs):
+    """Hemisphere probes from the hit point (any hit at t >= eps):
+    occluded probes / (ao_samples * ao_intensity)."""
+    occ = torch.zeros_like(px)
+    for s_i in range(k.ao_samples):
+        ath = TWO_PI * draws[row0 + 3 + 2 * s_i]
+        acp = torch.clamp(2.0 * draws[row0 + 4 + 2 * s_i] - 1.0, -1.0, 1.0)
+        asp = torch.sqrt(torch.clamp(1.0 - acp * acp, min=0.0))
+        aox, aoy, aoz = Vec3(
+            nX + torch.cos(ath) * asp, nY + torch.sin(ath) * asp, nZ + acp,
+        ).normalize()
+        aq = aox * aox + aoy * aoy + aoz * aoz
+        ai2a = 0.5 / torch.clamp(aq, min=1e-20)
+        occ_hit = torch.zeros_like(px, dtype=torch.bool)
+        for s2 in range(n_s):
+            scx, scy, scz, sr = geo[0][s2], geo[1][s2], geo[2][s2], geo[3][s2]
+            ocx, ocy, ocz = px - scx, py - scy, pz - scz
+            b2 = 2.0 * (ocx * aox + ocy * aoy + ocz * aoz)
+            c2 = ocx * ocx + ocy * ocy + ocz * ocz - sr * sr
+            d2 = b2 * b2 - 4.0 * aq * c2
+            sq2 = torch.sqrt(torch.clamp(d2, min=1e-30))
+            tt1 = (-b2 - sq2) * ai2a
+            tt2 = (-b2 + sq2) * ai2a
+            occ_hit = occ_hit | (
+                (d2 > 0.0) & ((tt1 >= k.sphere_eps) | (tt2 >= k.sphere_eps))
+            )
+        occ = occ + torch.where(occ_hit, 1.0, 0.0)
+    return occ * k.ao_inv
+
+
 def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
                             dx: Tensor, dy: Tensor, dz: Tensor,
-                            draws: Tensor, k: Knobs) -> Tensor:
+                            draws: Tensor, k: Knobs, record: bool = False):
     """Plain PyTorch version of the kernel (``_forward_body`` with
-    ``sky_idx=-1, record=False``), op for op in ``raytpu``'s forms.
+    ``sky_idx=-1``), op for op in ``raytpu``'s forms: the closest-hit
+    search, the winner's point and normal, the AO probes, then
+    ``trace_scene.shade_bounce``.
 
     sph (14, S); rays (B,) each; draws (bounces * n_draws, B).
-    Returns (9, B): radiance xyz, albedo xyz, normal xyz.
+    Returns (9, B): radiance xyz, albedo xyz, normal xyz. With ``record``
+    returns ``(out, idx, aof)``: the per-bounce winner index (bounces, B)
+    int32, -1 where the ray missed or its bounce loop is over, and with
+    ``use_ao`` the per-bounce AO factor (bounces, B) f32 (else None).
     """
     n_s = k.n_spheres
-    rox, roy, roz, rdx, rdy, rdz = ox, oy, oz, dx, dy, dz
-    f0 = torch.zeros_like(rox)
-    f1 = torch.ones_like(rox)
-    rcx = rcy = rcz = f1                               # throughput
-    ix = iy = iz = f0                                  # incoming radiance
-    ax_ = ay_ = az_ = f0                               # albedo AOV
-    nx_ = ny_ = nz_ = f0                               # normal AOV
-    active = torch.ones_like(rox, dtype=torch.bool)
-    is_alpha = torch.zeros_like(active)
-    alpha_depth = torch.zeros_like(rox, dtype=torch.int32)
-    medium_n2 = f1
+    carry = initial_carry(ox, oy, oz, dx, dy, dz)
     # winner table with a zero column for misses (the miss winner is all 0)
     tab = torch.cat([sph[:, :n_s], torch.zeros_like(sph[:, :1])], dim=1)
     geo = [[sph[r, s] for s in range(n_s)] for r in range(4)]
+    idx_rec, aof_rec = [], []
 
     for i in range(k.bounces):
-        # ---- closest sphere: strict t < best in sphere order ----------
-        a_quad = rdx * rdx + rdy * rdy + rdz * rdz
-        inv_2a = 0.5 / torch.clamp(a_quad, min=1e-20)
-        best = torch.full_like(rox, BIG)
-        bidx = torch.full_like(alpha_depth, -1)
-        for s in range(n_s):
-            cx, cy, cz, r = geo[0][s], geo[1][s], geo[2][s], geo[3][s]
-            ocx, ocy, ocz = rox - cx, roy - cy, roz - cz
-            b_ = 2.0 * (ocx * rdx + ocy * rdy + ocz * rdz)
-            c_ = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-            disc = b_ * b_ - 4.0 * a_quad * c_
-            sq = torch.sqrt(torch.clamp(disc, min=1e-30))
-            t1 = (-b_ - sq) * inv_2a
-            t2 = (-b_ + sq) * inv_2a
-            hit_s = disc > 0.0
-            t = torch.where(
-                hit_s & (t1 >= k.sphere_eps), t1,
-                torch.where(hit_s & (t2 >= k.sphere_eps), t2, BIG),
-            )
-            better = t < best
-            best = torch.where(better, t, best)
-            bidx = torch.where(better, s, bidx)
-
+        rox, roy, roz, rdx, rdy, rdz = carry[:6]
+        best, bidx = _closest_sphere(geo, n_s, rox, roy, roz, rdx, rdy, rdz,
+                                     k.sphere_eps)
         did_hit = bidx >= 0
+        if record:   # carry[18]: the ray is still in its bounce loop
+            idx_rec.append(torch.where(carry[18] > 0.0, bidx, -1))
         safe_t = torch.where(did_hit, best, 0.0)
         px = rox + rdx * safe_t
         py = roy + rdy * safe_t
@@ -180,152 +227,28 @@ def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
         inv_len = torch.where(did_hit, inv_len, 0.0)
         nX, nY, nZ = nvx * inv_len, nvy * inv_len, nvz * inv_len
 
-        # ---- AOV base cases ------------------------------------------
-        if i == 0:
-            ax_, ay_, az_ = dfx, dfy, dfz
-            nx_, ny_, nz_ = nX, nY, nZ
-        else:
-            aov_alpha = active & (alpha_depth == i) & is_alpha
-            em = estr > 0.0
-            ax_ = torch.where(aov_alpha, torch.where(em, emx, dfx), ax_)
-            ay_ = torch.where(aov_alpha, torch.where(em, emy, dfy), ay_)
-            az_ = torch.where(aov_alpha, torch.where(em, emz, dfz), az_)
-            nx_ = torch.where(aov_alpha, nX, nx_)
-            ny_ = torch.where(aov_alpha, nY, ny_)
-            nz_ = torch.where(aov_alpha, nZ, nz_)
-            is_alpha = is_alpha & ~aov_alpha
-
-        # ---- emissive early return + HSL boost -----------------------
-        emissive_ret = active & did_hit & (alpha_depth == i) & (estr > 0.0)
-        bx, by, bz = hsl_boost(Vec3(emx, emy, emz), k.hsl_l, k.hsl_s)
-        ix = torch.where(emissive_ret, bx, ix)
-        iy = torch.where(emissive_ret, by, iy)
-        iz = torch.where(emissive_ret, bz, iz)
-        ax_ = torch.where(emissive_ret, bx, ax_)
-        ay_ = torch.where(emissive_ret, by, ay_)
-        az_ = torch.where(emissive_ret, bz, az_)
-        nx_ = torch.where(emissive_ret, nX, nx_)
-        ny_ = torch.where(emissive_ret, nY, ny_)
-        nz_ = torch.where(emissive_ret, nZ, nz_)
-        active = active & ~emissive_ret
-        live = active & did_hit
-
-        # ---- scatter: diffuse/specular lerp --------------------------
-        u_d = draws[k.n_draws * i + 0]
-        v_d = draws[k.n_draws * i + 1]
-        roulette = draws[k.n_draws * i + 2]
-        theta = TWO_PI * u_d
-        cph = torch.clamp(2.0 * v_d - 1.0, -1.0, 1.0)
-        sph_ = torch.sqrt(torch.clamp(1.0 - cph * cph, min=0.0))
-        ddx, ddy, ddz = Vec3(
-            nX + torch.cos(theta) * sph_, nY + torch.sin(theta) * sph_, nZ + cph
-        ).normalize()
-        vdn = rdx * nX + rdy * nY + rdz * nZ
-        rfx = rdx - 2.0 * vdn * nX
-        rfy = rdy - 2.0 * vdn * nY
-        rfz = rdz - 2.0 * vdn * nZ
-        drx = ddx + (rfx - ddx) * refl
-        dry = ddy + (rfy - ddy) * refl
-        drz = ddz + (rfz - ddz) * refl
-
-        # ---- refraction (reduced pile.h medium stack) ----------------
-        refr_case = live & (alpha <= k.alpha_hi) & (alpha >= k.alpha_lo)
-        exiting = vdn > 0.0
-        nex = torch.where(exiting, -nX, nX)
-        ney = torch.where(exiting, -nY, nY)
-        nez = torch.where(exiting, -nZ, nZ)
-        n1_ = torch.where(exiting, ior, medium_n2)
-        n2_ = torch.where(exiting, medium_n2, ior)
-        medium_n2 = torch.where(refr_case & ~exiting, ior, medium_n2)
-        n1s = n1_ * n1_
-        n2s = n2_ * n2_
-        n2s_safe = torch.where(n2s > 1e-20, n2s, 1.0)
-        ratio = torch.clamp(n1s / n2s_safe, 0.0, 1e6)
-        ndotv = nex * rdx + ney * rdy + nez * rdz
-        radical = 1.0 - (ratio * ratio) * (1.0 - ndotv * ndotv)
-        ct_scale = rdx * nex + rdy * ney + rdz * nez
-        sqr = torch.sqrt(torch.clamp(radical, min=1e-20))
-        refx = (rdx - nex * ct_scale) * ratio - nex * sqr
-        refy = (rdy - ney * ct_scale) * ratio - ney * sqr
-        refz = (rdz - nez * ct_scale) * ratio - nez * sqr
-        # total internal reflection: mirror about the effective normal
-        vdne = rdx * nex + rdy * ney + rdz * nez
-        tir = radical <= 0.0
-        refx = torch.where(tir, rdx - 2.0 * vdne * nex, refx)
-        refy = torch.where(tir, rdy - 2.0 * vdne * ney, refy)
-        refz = torch.where(tir, rdz - 2.0 * vdne * nez, refz)
-        do_refract = refr_case & (roulette > alpha)
-
-        # ---- opaque / cutout -----------------------------------------
-        cutout = live & (alpha < k.alpha_lo)
-        opaque = live & (alpha > k.alpha_hi)
-        is_alpha = (is_alpha & ~opaque) | cutout
-        alpha_depth = torch.where(cutout, alpha_depth + 1, alpha_depth)
-
-        accum = live & ~do_refract & ~cutout
-        rox = torch.where(live, px, rox)
-        roy = torch.where(live, py, roy)
-        roz = torch.where(live, pz, roz)
-        rdx = torch.where(do_refract, refx, torch.where(accum, drx, rdx))
-        rdy = torch.where(do_refract, refy, torch.where(accum, dry, rdy))
-        rdz = torch.where(do_refract, refz, torch.where(accum, drz, rdz))
-
-        # ---- accumulate ----------------------------------------------
-        e_scale = estr * k.ao_e_scale if k.use_ao else estr
-        ix = torch.where(accum, ix + emx * e_scale * rcx, ix)
-        iy = torch.where(accum, iy + emy * e_scale * rcy, iy)
-        iz = torch.where(accum, iz + emz * e_scale * rcz, iz)
-        # the bright test reads the throughput before this bounce's update
-        th = k.bright_threshold
-        bright = (rcx > th) | (rcy > th) | (rcz > th)
-        bb = k.bright_boost
-        nbx = torch.where(bright, dfx * (dfx * (rcx * bb)), dfx * rcx)
-        nby = torch.where(bright, dfy * (dfy * (rcy * bb)), dfy * rcy)
-        nbz = torch.where(bright, dfz * (dfz * (rcz * bb)), dfz * rcz)
+        row0 = k.n_draws * i
+        aof = None
         if k.use_ao:
-            # hemisphere probes from the hit point: any hit at t >= eps
-            occ = f0
-            for s_i in range(k.ao_samples):
-                au = draws[k.n_draws * i + 3 + 2 * s_i]
-                av = draws[k.n_draws * i + 4 + 2 * s_i]
-                ath = TWO_PI * au
-                acp = torch.clamp(2.0 * av - 1.0, -1.0, 1.0)
-                asp = torch.sqrt(torch.clamp(1.0 - acp * acp, min=0.0))
-                aox, aoy, aoz = Vec3(
-                    nX + torch.cos(ath) * asp, nY + torch.sin(ath) * asp,
-                    nZ + acp,
-                ).normalize()
-                aq = aox * aox + aoy * aoy + aoz * aoz
-                ai2a = 0.5 / torch.clamp(aq, min=1e-20)
-                occ_hit = torch.zeros_like(active)
-                for s2 in range(n_s):
-                    scx, scy, scz, sr = (geo[0][s2], geo[1][s2], geo[2][s2],
-                                         geo[3][s2])
-                    ocx2, ocy2, ocz2 = px - scx, py - scy, pz - scz
-                    b2 = 2.0 * (ocx2 * aox + ocy2 * aoy + ocz2 * aoz)
-                    c2 = ocx2 * ocx2 + ocy2 * ocy2 + ocz2 * ocz2 - sr * sr
-                    d2 = b2 * b2 - 4.0 * aq * c2
-                    sq2 = torch.sqrt(torch.clamp(d2, min=1e-30))
-                    tt1 = (-b2 - sq2) * ai2a
-                    tt2 = (-b2 + sq2) * ai2a
-                    occ_hit = occ_hit | (
-                        (d2 > 0.0)
-                        & ((tt1 >= k.sphere_eps) | (tt2 >= k.sphere_eps))
-                    )
-                occ = occ + torch.where(occ_hit, 1.0, 0.0)
-            factor = occ * k.ao_inv
-            nbx, nby, nbz = nbx * factor, nby * factor, nbz * factor
-        rcx = torch.where(accum, nbx, rcx)
-        rcy = torch.where(accum, nby, rcy)
-        rcz = torch.where(accum, nbz, rcz)
+            aof = _ao_factor(geo, n_s, px, py, pz, nX, nY, nZ, draws, row0, k)
+            if record:
+                aof_rec.append(aof)
+        carry = shade_bounce(
+            i, carry, did_hit, px, py, pz, nX, nY, nZ,
+            dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior,
+            draws[row0], draws[row0 + 1], draws[row0 + 2],
+            e_scale_mult=k.e_scale_mult, ao_factor=aof, **k.shade_kw,
+        )
 
-        active = active & did_hit
-
-    return torch.stack([ix, iy, iz, ax_, ay_, az_, nx_, ny_, nz_])
+    out = torch.stack(carry[9:18])
+    if not record:
+        return out
+    return (out, torch.stack(idx_rec),
+            torch.stack(aof_rec) if k.use_ao else None)
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 9                  # sph, ox oy oz dx dy dz, draws, out
+    [ctypes.c_void_p] * 11                 # sph, ox..dz, draws, out, idx, aof
     + [ctypes.c_int] * 4                   # n_rays, n_spheres, bounces, n_draws
     + [ctypes.c_float] * 5                 # eps, alpha lo/hi, bright boost/threshold
     + [ctypes.c_int] * 2                   # use_ao, ao_samples
@@ -345,20 +268,29 @@ def _library():
     return fn
 
 
-def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs) -> Tensor:
-    """Launch ``csrc/trace_spheres.cu`` on the current stream."""
+def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs,
+            record: bool = False):
+    """Launch ``csrc/trace_spheres.cu`` on the current stream. Returns
+    what ``trace_spheres_reference`` returns for the same ``record``."""
     global launches
     tensors = (sph, *rays, draws)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("trace_spheres kernel needs contiguous inputs")
     b = rays[0].shape[0]
-    out = torch.empty((9, b), dtype=torch.float32, device=sph.device)
+    dev = sph.device
+    out = torch.empty((9, b), dtype=torch.float32, device=dev)
+    idx = aof = None
+    if record:
+        idx = torch.empty((k.bounces, b), dtype=torch.int32, device=dev)
+        if k.use_ao:
+            aof = torch.empty((k.bounces, b), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = _library()
-    stream = torch.cuda.current_stream(sph.device).cuda_stream
-    with torch.cuda.device(sph.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = fn(
-            *(t.data_ptr() for t in tensors), out.data_ptr(),
-            b, k.n_spheres, k.bounces, k.n_draws,
+            *(t.data_ptr() for t in tensors), out.data_ptr(), ptr(idx),
+            ptr(aof), b, k.n_spheres, k.bounces, k.n_draws,
             k.sphere_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold,
             int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
@@ -367,7 +299,49 @@ def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs) -> Tensor:
     if err != 0:
         raise RuntimeError(f"trace_spheres kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return (out, idx, aof) if record else out
+
+
+def _forward(sph, rays, draws, k: Knobs, record: bool = False):
+    """K1 on the device of ``sph``: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    dev = sph.device
+    if dev.type == "cuda":
+        return _launch(sph, rays, draws, k, record)
+    if dev.type == "cpu":
+        return trace_spheres_reference(sph, *rays, draws, k, record)
+    raise NotImplementedError(f"trace_spheres: no kernel for {dev}")
+
+
+class TraceSpheres(torch.autograd.Function):
+    """K1 in recording mode, then the index-replay backward K2.
+
+    Counterpart of ``raytpu``'s ``_mk_vjp`` / ``_mk_fwd`` / ``_mk_bwd``:
+    the forward records each bounce's winner index (and AO factor), the
+    backward replays the bounces from those indices without a search
+    (``trace_scene_bwd.sphere_backward``). Inputs: the (14, S) table of
+    ``pack_spheres``, the six ray planes, the (bounces * n_draws, B)
+    draws and the knobs; output (9, B). The draws get no cotangent (it is
+    zero by construction, ``trace_scene_bwd``).
+    """
+
+    @staticmethod
+    def forward(ctx, sph, ox, oy, oz, dx, dy, dz, draws, k: Knobs):
+        check_depth(k.bounces)
+        rays = (ox, oy, oz, dx, dy, dz)
+        out, idx, aof = _forward(sph, rays, draws, k, record=True)
+        ctx.k = k
+        ctx.save_for_backward(sph, *rays, draws, idx, aof)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        sph, ox, oy, oz, dx, dy, dz, draws, idx, aof = ctx.saved_tensors
+        d_sph, d_rays = sphere_backward(
+            sph, (ox, oy, oz, dx, dy, dz), draws, idx, aof,
+            g.contiguous(), ctx.k,
+        )
+        return (d_sph, *d_rays, None, None)
 
 
 def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
@@ -377,21 +351,16 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
 
     bounce_draws: (max_bounces, n_bounce_draws(cfg), B) U(0,1) draws.
     Runs on the device of the scene: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Raises ``NotImplementedError`` for
-    scenes the kernel does not cover and for inputs that require grad
-    (the backward kernel is not ported).
+    the plain version for CPU tensors. When the sphere table or a ray
+    requires grad, it runs ``TraceSpheres`` (K1 recording, then K2 in the
+    backward). Raises ``NotImplementedError`` for scenes the kernel does
+    not cover.
     """
     reasons = unsupported_reasons(scene, cfg)
     if reasons:
         raise NotImplementedError("trace_spheres: " + "; ".join(reasons))
     sph = pack_spheres(scene)
     rays = (*origin, *direction)
-    if sph.requires_grad or bounce_draws.requires_grad or any(
-        t.requires_grad for t in rays
-    ):
-        raise NotImplementedError(
-            "trace_spheres: gradients need the backward kernel, not ported"
-        )
     bn, nd, b = bounce_draws.shape
     k = Knobs.create(cfg, scene.spheres.count, nd)
     if bn != cfg.max_bounces or nd < k.draws_needed:
@@ -408,10 +377,10 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     draws = bounce_draws.reshape(bn * nd, b)
-    if dev.type == "cuda":
-        out = _launch(sph, rays, draws, k)
-    elif dev.type == "cpu":
-        out = trace_spheres_reference(sph, *rays, draws, k)
+    if torch.is_grad_enabled() and (
+        sph.requires_grad or any(t.requires_grad for t in rays)
+    ):
+        out = TraceSpheres.apply(sph, *rays, draws, k)
     else:
-        raise NotImplementedError(f"trace_spheres: no kernel for {dev}")
+        out = _forward(sph, rays, draws, k)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

@@ -3,7 +3,8 @@
 Port of ``raytpu/scenes.py``: the 10-sphere Cornell scene, the CUDA
 binary's variant (HSL boost + AO) and the DoF + AO configuration. Each
 function returns (Scene, Camera, RenderConfig) with the scene and camera
-tensors on ``device``.
+tensors on ``device``: the CUDA card when it is ``None``, ``"cpu"`` for
+the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from raytpu_torch.camera import Camera, make_camera
+from raytpu_torch.core.device import resolve_device
 from raytpu_torch.core.types import Materials, RenderConfig, Scene, Spheres
 from raytpu_torch.core.vec3 import Vec3
 
@@ -26,6 +28,7 @@ SKY = (0.784, 0.965, 1.0)
 def spheres_from_rows(rows, device=None) -> Spheres:
     """rows: (center(3), radius, diffuse(3), emission(3), emission_strength,
     reflection, alpha, ior) tuples."""
+    device = resolve_device(device)
     col = lambda k: np.array([r[k] for r in rows], np.float32)
     t = lambda a: torch.as_tensor(a, device=device)
     vec = lambda a: Vec3(t(a[:, 0]), t(a[:, 1]), t(a[:, 2]))
@@ -42,6 +45,7 @@ def spheres_from_rows(rows, device=None) -> Spheres:
 
 def cornell_box(device=None) -> tuple[Scene, Camera, RenderConfig]:
     """The 10-sphere Cornell-style scene (BASELINE config 1)."""
+    device = resolve_device(device)
     rows = [
         # center,              radius, diffuse, emission, e_str, refl, alpha, ior
         ((-501, 0, 0),   500.0, GREEN, BLACK, 0.0, 0.96, 1.0, 1.0),   # green wall
@@ -67,6 +71,7 @@ def cornell_box(device=None) -> tuple[Scene, Camera, RenderConfig]:
 def cornell_box_cuda(device=None) -> tuple[Scene, Camera, RenderConfig]:
     """The CUDA binary's default 10-sphere scene with its integrator knobs:
     emissive HSL boost L*=1.2 and AO at intensity 3."""
+    device = resolve_device(device)
     rows = [
         ((-501, 0, 0),   500.0, GREEN, BLACK, 0.0, 0.96, 1.0, 1.0),
         ((0, -501, 0),   500.0, WHITE, BLACK, 0.0, 0.4, 1.0, 1.0),

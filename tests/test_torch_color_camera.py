@@ -77,7 +77,7 @@ CAMERAS = [
 @pytest.mark.parametrize("spec", CAMERAS)
 def test_make_camera_matches(spec):
     jc = j_make_camera(**spec)
-    tc = t_make_camera(**spec)
+    tc = t_make_camera(**spec, device="cpu")
     for f in ("origin", "horizontal", "vertical", "lower_left"):
         _close(getattr(tc, f), getattr(jc, f))
 
@@ -88,7 +88,7 @@ def test_builtin_scene_cameras_match():
                   "cornell_cuda": jscenes.cornell_box_cuda,
                   "cornell_dof_ao": jscenes.cornell_box_dof_ao}[name]
         _, jc, jcfg = j_make()
-        _, tc, tcfg = t_make()
+        _, tc, tcfg = t_make(device="cpu")
         assert tcfg.__dict__ == jcfg.__dict__, name
         for f in ("origin", "horizontal", "vertical", "lower_left"):
             _close(getattr(tc, f), getattr(jc, f))
@@ -99,7 +99,7 @@ def test_get_rays_matches():
     u, v = rs.random((2, 300), np.float32)
     dx, dy = (rs.random((2, 300), np.float32) - 0.5) * 0.3
     jc = j_make_camera(**CAMERAS[0])
-    tc = convert.camera_from_arrays(_arrays(jc))
+    tc = convert.camera_from_arrays(_arrays(jc), device="cpu")
     jo, jd = j_get_rays(jc, *map(jnp.asarray, (u, v)), 3.0,
                         *map(jnp.asarray, (dx, dy)))
     to, td = t_get_rays(tc, *map(torch.tensor, (u, v)), 3.0,
@@ -117,7 +117,7 @@ def test_sample_rays_matches(aperture):
     ids = rs.permutation(jcfg.n_pixels).astype(np.int32)
     draws = rs.random((4, ids.size), np.float32)
     jc = j_make_camera(**CAMERAS[0])
-    tc = t_make_camera(**CAMERAS[0])
+    tc = t_make_camera(**CAMERAS[0], device="cpu")
     jo, jd = j_sample_rays(jc, jcfg, jnp.asarray(ids), jnp.asarray(draws))
     to, td = t_sample_rays(tc, tcfg, torch.tensor(ids), torch.tensor(draws))
     _close(to, jo)

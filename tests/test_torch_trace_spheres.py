@@ -78,7 +78,7 @@ def _inputs(name):
     draws = rs.random((cfg.max_bounces, n_bounce_draws(cfg), ids.size),
                       np.float32)
     tscene = convert.scene_from_arrays(
-        _arrays(scene, sky_sphere_index=scene.sky_sphere_index))
+        _arrays(scene, sky_sphere_index=scene.sky_sphere_index), device="cpu")
     tcfg = TConfig(**{f: getattr(cfg, f) for f in TConfig.__dataclass_fields__})
     return scene, cfg, tscene, tcfg, rays, draws
 
@@ -113,7 +113,7 @@ def test_reference_matches_raytpu(name, against):
 
 
 def test_cpu_wrapper_runs_plain_version_without_launching():
-    scene, cam, cfg = t_cornell_box()
+    scene, cam, cfg = t_cornell_box(device="cpu")
     cfg = cfg.replace(max_bounces=3)
     rs = np.random.default_rng(0)
     o = TVec3(*(torch.zeros(16) for _ in range(3)))
@@ -135,7 +135,7 @@ def _rays(n=8):
 
 
 def test_unsupported_scenes_raise():
-    scene, _, cfg = t_cornell_box()
+    scene, _, cfg = t_cornell_box(device="cpu")
     cfg = cfg.replace(max_bounces=2)
     o, d = _rays()
     draws = torch.rand(2, 3, 8)
@@ -150,7 +150,7 @@ def test_unsupported_scenes_raise():
             for i in range(65)]
     from raytpu_torch.scenes import spheres_from_rows
 
-    many = TScene(spheres_from_rows(rows))
+    many = TScene(spheres_from_rows(rows, device="cpu"))
     assert tts.unsupported_reasons(many, cfg) == ["65 spheres > 64"]
     with pytest.raises(NotImplementedError, match="65 spheres"):
         tts.trace_megakernel(many, cfg, o, d, draws)
@@ -161,34 +161,79 @@ def test_converted_mesh_and_sky_scenes_are_refused():
     port refuses such scenes instead of rendering their spheres alone."""
     scene, _, _ = jscenes.cornell_box()
     arrays = _arrays(scene, sky_sphere_index=-1)
-    assert tts.supported(convert.scene_from_arrays(arrays), TConfig())
+    assert tts.supported(convert.scene_from_arrays(arrays, device="cpu"), TConfig())
     mesh = dict(arrays, **{"triangles.mat_id": np.zeros(3, np.int32)})
-    assert convert.scene_from_arrays(mesh).n_triangles == 3
+    assert convert.scene_from_arrays(mesh, device="cpu").n_triangles == 3
     sky = dict(arrays, **{"sky.rgb.x": np.ones(4, np.float32)},
                sky_sphere_index=9)
-    assert convert.scene_from_arrays(sky).sky_sphere_index == 9
+    assert convert.scene_from_arrays(sky, device="cpu").sky_sphere_index == 9
     # a sky index with no sky texture is a plain emitter in raytpu too
     plain = dict(arrays, sky_sphere_index=9)
-    assert convert.scene_from_arrays(plain).sky_sphere_index == -1
+    assert convert.scene_from_arrays(plain, device="cpu").sky_sphere_index == -1
 
 
-def test_requires_grad_raises():
-    scene, _, cfg = t_cornell_box()
-    cfg = cfg.replace(max_bounces=2)
-    o, d = _rays()
-    draws = torch.rand(2, 3, 8)
-    leaf = d.z.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        tts.trace_megakernel(scene, cfg, o, TVec3(d.x, d.y, leaf), draws)
-    r = scene.spheres.radius.clone().requires_grad_()
-    grad_scene = TScene(type(scene.spheres)(scene.spheres.center, r,
-                                            scene.spheres.mat))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tts.trace_megakernel(grad_scene, cfg, o, d, draws)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_recording_matches_raytpu(name):
+    """The plain version's recording mode against raytpu's K1 with
+    ``with_indices`` in interpret mode: the same winner indices (-1 for a
+    miss or a finished ray) and AO factors on all but 2% of entries
+    (grazing-hit flips, as for the planes), and with recording on the nine
+    planes are unchanged."""
+    scene, cfg, tscene, tcfg, rays, draws = _inputs(name)
+    o, d = JVec3(*map(jnp.asarray, rays[:3])), JVec3(*map(jnp.asarray, rays[3:]))
+    _, want_idx, want_aof = jts._mk_forward(scene, cfg, o, d, jnp.asarray(draws),
+                                            True, with_indices=True)
+    k = tts.Knobs.create(tcfg, tscene.spheres.count, draws.shape[1])
+    sph = tts.pack_spheres(tscene)
+    trays = [torch.tensor(c) for c in rays]
+    flat = torch.tensor(draws.reshape(-1, draws.shape[-1]))
+    out, idx, aof = tts.trace_spheres_reference(sph, *trays, flat, k, record=True)
+    assert idx.dtype == torch.int32 and idx.shape == (cfg.max_bounces, flat.shape[1])
+    assert torch.equal(out, tts.trace_spheres_reference(sph, *trays, flat, k))
+    same = idx.numpy() == np.asarray(want_idx)
+    assert same.mean() >= 1 - OUTLIER_FRAC, f"{1 - same.mean():.2%} differ"
+    assert (idx >= 0).any() and (idx == -1).any() == (np.asarray(want_idx) == -1).any()
+    if cfg.use_ao:
+        diff = np.abs(aof.numpy() - np.asarray(want_aof))[same]
+        assert (diff > 0).mean() <= OUTLIER_FRAC
+    else:
+        assert aof is None and want_aof is None
+
+
+def test_requires_grad_runs_record_and_replay():
+    """With a leaf that requires grad the wrapper records winners and its
+    backward is the replay: on CPU tensors both plain versions, no launch,
+    the same cotangents as ``replay_reference`` and none for the draws."""
+    from raytpu_torch.kernels import trace_scene_bwd as tbwd
+
+    scene, _, cfg = t_cornell_box(device="cpu")
+    cfg = cfg.replace(max_bounces=3)
+    rs = np.random.default_rng(5)
+    o = TVec3(*(torch.zeros(16) for _ in range(3)))
+    d = TVec3(*torch.tensor(rs.normal(size=(3, 16)).astype(np.float32)))
+    draws = torch.tensor(rs.random((3, 3, 16), np.float32)).requires_grad_()
+    leaves = convert.scene_leaves(scene)
+    leaves = {n: v.clone().requires_grad_() for n, v in leaves.items()}
+    dz = d.z.clone().requires_grad_()
+    before = (tts.launches, tbwd.launches)
+    r, a, n = tts.trace_megakernel(convert.scene_from_leaves(leaves), cfg, o,
+                                   TVec3(d.x, d.y, dz), draws)
+    g = torch.tensor(rs.uniform(-1, 1, (9, 16)).astype(np.float32))
+    torch.autograd.backward([*r, *a, *n], list(g.unbind(0)))
+    assert (tts.launches, tbwd.launches) == before
+    assert draws.grad is None
+    k = tts.Knobs.create(cfg, 10, 3)
+    sph = tts.pack_spheres(scene)
+    flat = draws.detach().reshape(9, 16)
+    _, idx, aof = tts.trace_spheres_reference(sph, *o, *d, flat, k, record=True)
+    d_sph, d_rays = tbwd.replay_reference(sph, (*o, *d), flat, idx, aof, g, k)
+    got = torch.stack([leaves[p].grad for p in convert.SPHERE_LEAVES])
+    torch.testing.assert_close(got, d_sph, rtol=0, atol=0)
+    torch.testing.assert_close(dz.grad, d_rays[5], rtol=0, atol=0)
 
 
 def test_bad_draw_shapes_raise():
-    scene, _, cfg = t_cornell_box()
+    scene, _, cfg = t_cornell_box(device="cpu")
     cfg = cfg.replace(max_bounces=2, use_ao=True, ao_samples=2)
     o, d = _rays()
     with pytest.raises(ValueError, match="bounce_draws"):
