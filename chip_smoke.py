@@ -68,7 +68,7 @@ IDX_AGREE = 0.98
 # sphere table's cotangent is a sum over all rays: each row may differ by
 # at most DSPH_REL times that row's largest |entry|.
 G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
-# H100 SXM peaks (NVIDIA data sheet; the on-chip-measurement guide):
+# H100 SXM peaks (NVIDIA data sheet):
 # HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
