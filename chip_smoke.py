@@ -27,7 +27,20 @@ Phases, each of which raises on failure (exit code non-zero):
      through ``render`` at 1200x900, 8 spp, 6 bounces with every sphere
      leaf requiring grad (K2 launches == spp), where its time goes
      (``torch.profiler``), then 3 Adam steps of ``train.make_train_step``
-     towards a target the port renders with perturbed colours.
+     towards a target the port renders with perturbed colours;
+  9. the mesh megakernel (K3) against its plain PyTorch version at 64x48
+     rays on six scenes: block worlds written by
+     ``scenes.write_block_world`` (60 triangles with water, the same with
+     AO, the same untextured; 600 triangles; 2048, K3's limit) and the
+     4-triangle cutout / window / emissive scene;
+  10. K3 against its plain version at the main path's shape (the
+     600-triangle world, 1200x900 rays, 6 bounces, real RNG draws), both
+     timed, the plain version counting the search work for the bound;
+  11. the mesh forward path: the 600-triangle world at 1200x900, 16 spp,
+     6 bounces through ``render`` over all block-ordered pixel ids,
+     checked finite and lit, with one K3 launch per sample and no K1 or
+     K2 launch; where its time goes (``torch.profiler``); a small frame on
+     the card against the CPU; the PPM.
 The last lines are the card, a JSON line per kernel, and the result line.
 Imports no JAX.
 """
@@ -53,6 +66,8 @@ ATOL, RTOL, OUTLIER_FRAC = 1e-4, 1e-5, 0.02
 FRAME = (1200, 900)   # the flagship frame (bench.py), width x height
 MAIN_SPP = 32
 TRAIN_SPP = 8
+MESH_SPP = 16         # cut from bench.py's 50: per-sample work is the same
+MESH_WORLD = 600      # triangles of the mesh path's block world
 # K1 recording vs its plain version: the recorded winner of a (ray,
 # bounce) may flip for the same FMA reason, and a flipped winner sends
 # the ray elsewhere for the rest of its bounces; at least IDX_AGREE of
@@ -68,6 +83,11 @@ IDX_AGREE = 0.98
 # sphere table's cotangent is a sum over all rays: each row may differ by
 # at most DSPH_REL times that row's largest |entry|.
 G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
+# K3's FP32 operations (arithmetic and compares, as counted in
+# csrc/trace_scene.cu) per sphere test, slab test and Moller-Trumbore
+# triangle test, and per live (ray, bounce) for the winner's texel,
+# material and shading
+K3_OPS_SPHERE, K3_OPS_SLAB, K3_OPS_TRI, K3_OPS_SHADE = 33, 25, 46, 210
 # H100 SXM peaks (NVIDIA data sheet):
 # HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
@@ -294,6 +314,7 @@ def phase_main(dev, card, timing):
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, render, render_image)
     from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
@@ -304,13 +325,13 @@ def phase_main(dev, card, timing):
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
     key = rng.prng_key(0)
 
-    ts.launches = tb.launches = 0
+    ts.launches = tb.launches = tsc.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sums = render(scene, cam, cfg, pids, key)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches, k2_launches = ts.launches, tb.launches
+    launches, k2_launches, k3_launches = ts.launches, tb.launches, tsc.launches
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -319,9 +340,9 @@ def phase_main(dev, card, timing):
         raise AssertionError("main path: non-finite sums")
     if not mean > 0.0:
         raise AssertionError(f"main path: mean radiance {mean} is not > 0")
-    if launches != cfg.spp or k2_launches != 0:
-        raise AssertionError(f"main path: {launches} K1 and {k2_launches} K2 "
-                             f"launches, want {cfg.spp} and 0")
+    if launches != cfg.spp or k2_launches != 0 or k3_launches != 0:
+        raise AssertionError(f"main path: {launches} K1, {k2_launches} K2 and "
+                             f"{k3_launches} K3 launches, want {cfg.spp}, 0, 0")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"main path: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}: {elapsed:.4f} s, "
@@ -350,7 +371,7 @@ def phase_main(dev, card, timing):
     means = img.canvas.reshape(-1, 3).mean(axis=0)
     print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
           f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
-    return launches, k2_launches
+    return launches, k2_launches, k3_launches
 
 
 def _stack_scene(dev):
@@ -582,8 +603,8 @@ def phase_k2_timing(dev):
                 n_spheres=s)
 
 
-def _profile_fwd_bwd(loss_fn):
-    """Device time by kernel over one forward+backward, and the idle
+def _profile(work):
+    """Device time by kernel over one call of ``work``, and the idle
     share of the window: torch.profiler with CUDA activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -592,11 +613,12 @@ def _profile_fwd_bwd(loss_fn):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss_fn().backward()
+        work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     buckets = {"K1 trace_spheres": 0.0, "K2 sphere_backward": 0.0,
-               "K2 sum_blocks": 0.0, "int64 (threefry)": 0.0, "other": 0.0}
+               "K2 sum_blocks": 0.0, "K3 trace_scene": 0.0,
+               "int64 (threefry)": 0.0, "other": 0.0}
     n_kernels = 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -608,6 +630,8 @@ def _profile_fwd_bwd(loss_fn):
         name = ev.key
         if "trace_spheres_kernel" in name:
             buckets["K1 trace_spheres"] += dev_us
+        elif "trace_scene_kernel" in name:
+            buckets["K3 trace_scene"] += dev_us
         elif "sphere_backward_kernel" in name:
             buckets["K2 sphere_backward"] += dev_us
         elif "sum_blocks_kernel" in name:
@@ -620,6 +644,14 @@ def _profile_fwd_bwd(loss_fn):
     return wall_ms, busy_ms, n_kernels, {k: v / 1e3 for k, v in buckets.items()}
 
 
+def _print_profile(what, wall_ms, busy_ms, n_k, buckets):
+    print(f"  where the time goes (torch.profiler, {what}): wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.1%}), {n_k} kernels; "
+          + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})"
+                      for k, v in buckets.items() if v > 0.0))
+
+
 def phase_train(dev, card):
     """The training path: fwd+bwd of the photometric loss at the flagship
     frame, where its time goes, then 3 Adam steps."""
@@ -627,6 +659,7 @@ def phase_train(dev, card):
 
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
+    from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
@@ -649,14 +682,14 @@ def phase_train(dev, card):
     loss_fn(cfg.replace(spp=1)).backward()        # warm up
     for p in params.values():
         p.grad = None
-    ts.launches = tb.launches = 0
+    ts.launches = tb.launches = tsc.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = loss_fn()
     loss.backward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1_launches, k2_launches = ts.launches, tb.launches
+    k1_launches, k2_launches, k3_launches = ts.launches, tb.launches, tsc.launches
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item()
@@ -670,6 +703,8 @@ def phase_train(dev, card):
     if k1_launches != 2 * cfg.spp:
         raise AssertionError(f"fwd+bwd: {k1_launches} K1 launches, want "
                              f"{2 * cfg.spp} (forward + checkpoint recompute)")
+    if k3_launches != 0:
+        raise AssertionError(f"fwd+bwd: {k3_launches} K3 launches on a sphere scene")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"fwd+bwd: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}, d loss / d every sphere leaf: "
@@ -681,12 +716,8 @@ def phase_train(dev, card):
           f"{grads['spheres.mat.emission.x'].abs().max().item():.4e}")
 
     prof_cfg = cfg.replace(spp=2)
-    wall_ms, busy_ms, n_k, buckets = _profile_fwd_bwd(lambda: loss_fn(prof_cfg))
-    print(f"  where the time goes (torch.profiler, fwd+bwd at spp=2): wall "
-          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.1%}), {n_k} kernels; "
-          + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})"
-                      for k, v in buckets.items()))
+    _print_profile("fwd+bwd at spp=2",
+                   *_profile(lambda: loss_fn(prof_cfg).backward()))
 
     # 3 Adam steps towards a target with perturbed diffuse colours, with
     # the target's key, so the loss measures the parameters and not noise
@@ -712,7 +743,215 @@ def phase_train(dev, card):
           f"spp={cfg.spp} towards a perturbed-diffuse target: losses "
           + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
     return dict(k1_launches=k1_launches, k2_launches=k2_launches,
-                rays_per_s=rays / elapsed)
+                k3_launches=k3_launches, rays_per_s=rays / elapsed)
+
+
+def _block_world(n: int, seed: int = 0) -> str:
+    """The TOML of an n-triangle block world, written under OUT_DIR."""
+    from raytpu_torch.scenes import write_block_world
+
+    return write_block_world(os.path.join(OUT_DIR, f"block_world_{n}"),
+                             n_triangles=n, seed=seed)
+
+
+def _k3_cases(dev):
+    """The four scenes of tests/test_torch_trace_scene.py (a 60-triangle
+    block world with water; with AO; untextured; the 4-triangle branch
+    scene), the main path's 600-triangle world and a 2048-triangle one."""
+    import dataclasses
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core.types import TextureAtlas
+    from raytpu_torch.scenes import mesh_branch_scene
+
+    small = load_scene_file(_block_world(60, seed=3), dev)
+    bare = (dataclasses.replace(small[0], atlas=TextureAtlas.empty(dev)),
+            *small[1:])
+    return [
+        ("block world 60 6b", small, dict(max_bounces=6)),
+        ("block world 60 ao_samples=2", small,
+         dict(max_bounces=4, use_ao=True, ao_samples=2)),
+        ("untextured 60 6b", bare, dict(max_bounces=6)),
+        ("branches 4 tris 5b", mesh_branch_scene(dev), dict(max_bounces=5)),
+        (f"block world {MESH_WORLD} 6b",
+         load_scene_file(_block_world(MESH_WORLD), dev), {}),
+        ("block world 2048 6b", load_scene_file(_block_world(2048), dev), {}),
+    ]
+
+
+def _k3_both(scene, cfg, origin, direction, draws, counts=None):
+    """(plain, kernel) outputs of K3 as (9, B) on the same card tensors;
+    the kernel through its wrapper. ``counts`` goes to the plain version."""
+    import torch
+
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
+    ref = tsc.trace_scene_reference(tsc.pack_scene(scene), *origin,
+                                    *direction,
+                                    draws.reshape(-1, draws.shape[-1]), k,
+                                    counts)
+    out = torch.cat([v.to_array().T for v in tsc.trace_mesh_megakernel(
+        scene, cfg, origin, direction, draws)])
+    return ref, out
+
+
+def phase_k3(dev):
+    print(f"K3 vs plain at 64x48 rays (outlier: any channel > {ATOL} + "
+          f"{RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 400 + i, dev)
+        _compare(name, *_k3_both(scene, cfg, origin, direction, draws))
+
+
+def _k3_bound(b, bounces, counts, table_bytes):
+    """Least K3 time: rays 24 B, draws 3 x 4 B per bounce and 9 planes out
+    per ray plus the scene tables at HBM speed, against the operations of
+    this run's search (K3_OPS_*: the plain version's counts of sphere,
+    slab and entered-chunk triangle tests and live (ray, bounce) entries)
+    at the FP32 peak."""
+    nbytes = b * (24 + 12 * bounces + 36) + table_bytes
+    ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
+           + counts["tri"] * K3_OPS_TRI + counts["live"] * K3_OPS_SHADE)
+    return _bound(nbytes, ops)
+
+
+def phase_k3_timing(dev):
+    """K3 and its plain version at the main path's shape (one sample of
+    the 1200x900, 6-bounce block-world frame, real RNG draws), compared,
+    then timed with CUDA events in turns, with the RNG work of a sample."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    pix_keys = rng.pixel_keys(rng.prng_key(0, device=dev), pids)
+
+    def rng_sample():
+        ks = rng.sample_keys(pix_keys, 0)
+        cam_d, bounce_d = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
+                                           cfg.max_bounces)
+        return sample_rays(cam, cfg, pids, cam_d), bounce_d
+
+    (origin, direction), draws = rng_sample()
+    counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
+    ref, out = _k3_both(scene, cfg, origin, direction, draws, counts)
+    name = f"block world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
+    print(f"K3 vs plain at the main path's shape ({cfg.width}x{cfg.height} "
+          f"rays, 6 bounces, {scene.triangles.count} triangles):")
+    max_err = _compare(name, ref, out)
+    frac = max(_outliers(ref[s], out[s])[0]
+               for s in (slice(0, 3), slice(3, 6), slice(6, 9)))
+    del ref, out
+
+    tb = tsc.pack_scene(scene)
+    k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
+    flat = draws.reshape(-1, draws.shape[-1])
+    rays = (*origin, *direction)
+    kernel = lambda: tsc._launch(tb, rays, flat, k)
+    plain = lambda: tsc.trace_scene_reference(tb, *rays, flat, k)
+    kernel(), plain()                                  # warm up
+    t = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(_time_ms(kernel if which == "kernel" else plain,
+                                 20 if which == "kernel" else 2))
+    rng_ms = float(np.mean([_time_ms(rng_sample, 5) for _ in range(2)]))
+    ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+    table_bytes = 4 * sum(x.numel() for x in tb)
+    bound = _k3_bound(cfg.n_pixels, cfg.max_bounces, counts, table_bytes)
+    b = cfg.n_pixels
+    print(f"  K3 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call (turns: "
+          f"kernel {t['kernel']}, plain {t['plain']}); bound {bound[0]:.4f} "
+          f"ms ({bound[1]}); RNG + camera rays {rng_ms:.4f} ms per sample")
+    print(f"  search work (plain version's counts): {counts['live']} live "
+          f"(ray, bounce) entries of {b * cfg.max_bounces}; per live entry "
+          f"{counts['sphere'] / counts['live']:.2f} sphere, "
+          f"{counts['slab'] / counts['live']:.2f} slab and "
+          f"{counts['tri'] / counts['live']:.2f} triangle tests; "
+          f"{scene.triangles.count} triangles in {k.n_chunks} chunks")
+    return dict(ms=ms, plain_ms=plain_ms, rng_ms=rng_ms, max_abs_err=max_err,
+                outlier_frac=frac, bound=bound, counts=counts)
+
+
+def phase_mesh(dev, card, timing):
+    """The mesh forward path: the block world at the flagship frame
+    through ``render``, K3 once per sample."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, render, render_image)
+    from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    path = _block_world(MESH_WORLD)
+    scene, cam, cfg = load_scene_file(path, dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_SPP,
+                      max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
+    key = rng.prng_key(0)
+
+    ts.launches = tb.launches = tsc.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = render(scene, cam, cfg, pids, key)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1, k2, k3 = ts.launches, tb.launches, tsc.launches
+
+    rad = sums.radiance.to_array()
+    mean = rad.double().mean().item() / cfg.spp
+    if not (rad.isfinite().all() and sums.albedo.to_array().isfinite().all()
+            and sums.normal.to_array().isfinite().all()):
+        raise AssertionError("mesh path: non-finite sums")
+    if not mean > 0.0:
+        raise AssertionError(f"mesh path: mean radiance {mean} is not > 0")
+    if k3 != cfg.spp or k1 != 0 or k2 != 0:
+        raise AssertionError(f"mesh path: {k3} K3, {k1} K1 and {k2} K2 "
+                             f"launches, want {cfg.spp}, 0 and 0")
+    rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+    print(f"mesh path: block world ({scene.triangles.count} triangles, "
+          f"{scene.mat_table.count} materials) {cfg.width}x{cfg.height} "
+          f"spp={cfg.spp} bounces={cfg.max_bounces}: {elapsed:.4f} s, "
+          f"{rays / elapsed:.1f} rays/s end to end on {card}; K3 launches "
+          f"{k3}; mean radiance {mean:.6f}")
+    print(f"  per sample (CUDA events, same shapes): RNG + camera rays "
+          f"{timing['rng_ms']:.4f} ms, K3 {timing['ms']:.4f} ms -> "
+          f"RNG {cfg.spp * timing['rng_ms'] / 1e3:.4f} s, "
+          f"K3 {cfg.spp * timing['ms'] / 1e3:.4f} s of the frame")
+
+    _print_profile("the mesh frame at spp=2", *_profile(
+        lambda: render(scene, cam, cfg.replace(spp=2), pids, key)))
+
+    # the same small frame on the card (K3) and on the CPU (plain path)
+    small = cfg.replace(width=40, height=30, spp=2)
+    cpu_scene, cpu_cam, _ = load_scene_file(path, "cpu")
+    small_ids = np.arange(small.n_pixels)
+    a = render(cpu_scene, cpu_cam, small, small_ids, rng.prng_key(3))
+    b = render(scene, cam, small, small_ids, rng.prng_key(3))
+    _compare("block world 40x30x2spp card vs cpu",
+             torch.cat([v.to_array().T for v in a[:3]]),
+             torch.cat([v.to_array().T.cpu() for v in b[:3]]))
+
+    img = render_image(scene, cam, cfg.replace(pixel_tile=cfg.n_pixels), key)
+    out = os.path.join(OUT_DIR, "chip_smoke_block_world.ppm")
+    write_ppm(out, img.canvas)
+    means = img.canvas.reshape(-1, 3).mean(axis=0)
+    print(f"wrote {os.path.relpath(out, ROOT)}: canvas channel means "
+          f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
+    return dict(k1=k1, k2=k2, k3=k3, rays_per_s=rays / elapsed)
 
 
 def main() -> int:
@@ -738,11 +977,14 @@ def main() -> int:
     phase_rng(dev)
     phase_k1(dev)
     timing = phase_k1_timing(dev)
-    launches, render_k2 = phase_main(dev, card, timing)
+    launches, render_k2, render_k3 = phase_main(dev, card, timing)
     phase_k1_record(dev)
     phase_k2(dev)
     k2 = phase_k2_timing(dev)
     train = phase_train(dev, card)
+    phase_k3(dev)
+    k3 = phase_k3_timing(dev)
+    mesh = phase_mesh(dev, card, k3)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
                          k2["n_spheres"], record=False)
@@ -752,7 +994,8 @@ def main() -> int:
         "source": "raytpu_torch/csrc/trace_spheres.cu",
         "replaces": "raytpu/kernels/trace_spheres.py:421",
         "launches": train["k1_launches"],
-        "launches_by_path": {"render": launches, "fwd_bwd": train["k1_launches"]},
+        "launches_by_path": {"render": launches, "fwd_bwd": train["k1_launches"],
+                             "mesh_render": mesh["k1"]},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
@@ -764,11 +1007,24 @@ def main() -> int:
         "replaces": "raytpu/kernels/trace_scene_bwd.py:641",
         "launches": train["k2_launches"],
         "launches_by_path": {"render": render_k2,
-                             "fwd_bwd": train["k2_launches"]},
+                             "fwd_bwd": train["k2_launches"],
+                             "mesh_render": mesh["k2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
         "library_ms": None, "outlier_frac": k2["outlier_frac"],
+    }, {
+        "name": "trace_scene", "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_scene.cu",
+        "replaces": "raytpu/kernels/trace_scene.py:431",
+        "launches": mesh["k3"],
+        "launches_by_path": {"render": render_k3,
+                             "fwd_bwd": train["k3_launches"],
+                             "mesh_render": mesh["k3"]},
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
+        "library_ms": None, "outlier_frac": k3["outlier_frac"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Command line: ``python -m raytpu_torch.cli render|train <scene> [options]``.
 
-    render cornell|cornell_cuda|cornell_dof_ao [--spp N --width W
-           --height H --bounces B --seed S --out x.ppm --device cuda|cpu]
-    train  cornell|cornell_cuda|cornell_dof_ao --target t.ppm [--steps N
-           --lr LR --out x.ppm --log-every K --spp --width --height
-           --bounces --seed --device cuda|cpu]
+    render cornell|cornell_cuda|cornell_dof_ao|<scene.toml> [--spp N
+           --width W --height H --bounces B --seed S --out x.ppm
+           --device cuda|cpu]
+    train  cornell|cornell_cuda|cornell_dof_ao|<scene.toml> --target t.ppm
+           [--steps N --lr LR --out x.ppm --log-every K --spp --width
+           --height --bounces --seed --device cuda|cpu]
 
-``render`` renders a built-in sphere scene and writes a PPM; elapsed
-seconds and rays/s go to stderr. ``train`` fits the scene's sphere
+``render`` renders a built-in sphere scene or a TOML scene spec (spheres
+and a textured OBJ mesh, ``config.load_scene_file``) and writes a PPM;
+elapsed seconds and rays/s go to stderr. ``train`` fits the scene's sphere
 parameters to a target image (ASCII PPM of the configured size) with
 Adam on the L2 loss in linear radiance, logs the loss, and writes the
 final render. ``--device`` defaults to ``cuda`` and fails when CUDA is
@@ -17,6 +19,7 @@ absent; ``--device cpu`` runs the plain PyTorch path.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -25,7 +28,8 @@ def _parser(prog: str) -> argparse.ArgumentParser:
     from raytpu_torch.scenes import BUILTIN
 
     ap = argparse.ArgumentParser(prog=prog)
-    ap.add_argument("scene", nargs="?", default="cornell", choices=sorted(BUILTIN))
+    ap.add_argument("scene", nargs="?", default="cornell",
+                    help=f"{', '.join(sorted(BUILTIN))} or a .toml scene spec")
     ap.add_argument("--spp", type=int)
     ap.add_argument("--bounces", type=int)
     ap.add_argument("--width", type=int)
@@ -39,13 +43,16 @@ def _setup(args):
     """(device, scene, camera, config) for the parsed common options."""
     import torch
 
-    from raytpu_torch.scenes import BUILTIN
+    from raytpu_torch.config import load_scene
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("raytpu_torch: --device cuda, but CUDA is not "
                          "available (--device cpu runs the plain path)")
-    scene, cam, cfg = BUILTIN[args.scene](device=dev)
+    try:
+        scene, cam, cfg = load_scene(args.scene, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"raytpu_torch: {e}")
     over = {k: v for k, v in (("spp", args.spp), ("max_bounces", args.bounces),
                               ("width", args.width), ("height", args.height))
             if v is not None}
@@ -75,8 +82,9 @@ def cmd_render(argv) -> int:
     from raytpu_torch.io.ppm import write_ppm
 
     dev, scene, cam, cfg = _setup(args)
+    name = os.path.splitext(os.path.basename(args.scene))[0]
     out_path = _ppm_out(args.out or (
-        f"{args.scene}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB.ppm"
+        f"{name}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB.ppm"
     ))
 
     t0 = time.perf_counter()

@@ -2,12 +2,14 @@
 
 The JAX package's ``Scene`` and ``Camera`` are pytrees. A caller flattens
 them to a plain dict of numpy arrays keyed by attribute path
-(``"spheres.center.x"``, ``"spheres.mat.ior"``, ``"origin.x"``, ...; the
-names ``jax.tree_util.keystr(path, simple=True, separator=".")`` gives)
-and adds the static ``"sky_sphere_index"``. This module turns such a dict
-into the port's ``Scene`` and ``Camera`` on a given device (the CUDA card
-when ``device`` is ``None``); it imports no JAX. The same paths key the
-trainer's parameter dicts (``scene_leaves`` / ``scene_from_leaves``).
+(``"spheres.center.x"``, ``"triangles.mat_id"``, ``"atlas.rgb.x"``,
+``"mat_table.ior"``, ``"origin.x"``, ...; the names
+``jax.tree_util.keystr(path, simple=True, separator=".")`` gives) and adds
+the statics ``"sky_sphere_index"``, ``"atlas.width"`` and
+``"atlas.height"``. This module turns such a dict into the port's
+``Scene`` and ``Camera`` on a given device (the CUDA card when ``device``
+is ``None``); it imports no JAX. The sphere paths key the trainer's
+parameter dicts (``scene_leaves`` / ``scene_from_leaves``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from raytpu_torch.camera import Camera
 from raytpu_torch.core.device import resolve_device
-from raytpu_torch.core.types import Materials, Scene, Spheres
+from raytpu_torch.core.types import (Materials, MatTable, Scene, Spheres,
+                                     TextureAtlas, Triangles)
 from raytpu_torch.core.vec3 import Vec3
 
 
@@ -27,6 +30,19 @@ SPHERE_LEAVES = tuple(
         "mat.diffuse.x", "mat.diffuse.y", "mat.diffuse.z",
         "mat.emission.x", "mat.emission.y", "mat.emission.z",
         "mat.emission_strength", "mat.reflection", "mat.alpha", "mat.ior",
+    )
+)
+TRIANGLE_LEAVES = tuple(
+    "triangles." + k for k in (
+        "a.x", "a.y", "a.z", "b.x", "b.y", "b.z", "c.x", "c.y", "c.z",
+        "ua", "va", "ub", "vb", "uc", "vc",
+    )
+)
+ATLAS_LEAVES = ("atlas.rgb.x", "atlas.rgb.y", "atlas.rgb.z", "atlas.alpha")
+MAT_TABLE_LEAVES = tuple(
+    "mat_table." + k for k in (
+        "emission.x", "emission.y", "emission.z", "emission_strength",
+        "reflection", "ior", "alpha_const",
     )
 )
 CAMERA_LEAVES = tuple(f"{v}.{c}" for v in ("origin", "horizontal", "vertical",
@@ -46,9 +62,10 @@ def scene_leaves(scene: Scene) -> dict:
     )))
 
 
-def scene_from_leaves(leaves: dict, n_triangles: int = 0,
-                      sky_sphere_index: int = -1) -> Scene:
-    """Inverse of ``scene_leaves``: the tensors are used as they are."""
+def scene_from_leaves(leaves: dict, triangles=None, atlas=None,
+                      mat_table=None, sky_sphere_index: int = -1) -> Scene:
+    """Inverse of ``scene_leaves``: the tensors are used as they are; the
+    mesh parts default to none."""
     return Scene(
         Spheres(
             center=_vec(leaves, "spheres.center"),
@@ -62,7 +79,7 @@ def scene_from_leaves(leaves: dict, n_triangles: int = 0,
                 ior=leaves["spheres.mat.ior"],
             ),
         ),
-        n_triangles=n_triangles, sky_sphere_index=sky_sphere_index,
+        triangles, atlas, mat_table, sky_sphere_index,
     )
 
 
@@ -84,19 +101,49 @@ def _tensors(arrays: dict, keys, device) -> dict:
             for k in keys}
 
 
-def scene_from_arrays(arrays: dict, device=None) -> Scene:
-    """Port ``Scene`` from a flattened ``raytpu`` scene.
+def _mesh_from_arrays(arrays: dict, device):
+    """(Triangles, TextureAtlas, MatTable), or Nones for parts the dict
+    does not hold (a sphere-only scene)."""
+    tris = atlas = table = None
+    if np.size(arrays.get("triangles.mat_id", ())) > 0:
+        t = _tensors(arrays, TRIANGLE_LEAVES, device)
+        tris = Triangles(
+            *(_vec(t, "triangles." + v) for v in "abc"),
+            *(t["triangles." + k] for k in ("ua", "va", "ub", "vb", "uc", "vc")),
+            mat_id=torch.tensor(np.asarray(arrays["triangles.mat_id"],
+                                           np.int32), device=device),
+        )
+    if np.size(arrays.get("atlas.alpha", ())) > 0:
+        t = _tensors(arrays, ATLAS_LEAVES, device)
+        atlas = TextureAtlas(_vec(t, "atlas.rgb"), t["atlas.alpha"],
+                             int(arrays["atlas.width"]),
+                             int(arrays["atlas.height"]))
+    if "mat_table.ior" in arrays:
+        n = np.size(arrays["mat_table.ior"])
+        flag = lambda k: arrays.get("mat_table." + k, np.zeros(n, bool))
+        table = MatTable.from_arrays(
+            np.stack([arrays[f"mat_table.emission.{c}"] for c in "xyz"], -1),
+            *(arrays["mat_table." + k] for k in
+              ("emission_strength", "reflection", "ior", "alpha_const")),
+            flag("use_alpha_const"), flag("emission_from_texture"), device)
+    return tris, atlas, table
 
-    Triangles and an equirect sky are recorded, not converted: the sky is
-    on exactly when ``raytpu`` turns it on (a sky sphere index and a
-    non-empty sky texture, ``trace_spheres._sky_statics``), and the kernel
-    gates refuse both.
+
+def scene_from_arrays(arrays: dict, device=None) -> Scene:
+    """Port ``Scene`` from a flattened ``raytpu`` scene: spheres, the
+    triangle mesh, its atlas (``"atlas.width"`` / ``"atlas.height"`` give
+    the tile size) and material table.
+
+    An equirect sky is recorded, not converted: it is on exactly when
+    ``raytpu`` turns it on (a sky sphere index and a non-empty sky
+    texture, ``trace_spheres._sky_statics``), and the kernel gates refuse
+    it.
     """
-    n_tri = int(np.shape(arrays.get("triangles.mat_id", ()))[0])
+    device = resolve_device(device)
     sky_idx = int(arrays.get("sky_sphere_index", -1))
     sky_on = sky_idx >= 0 and np.size(arrays.get("sky.rgb.x", ())) > 0
     return scene_from_leaves(_tensors(arrays, SPHERE_LEAVES, device),
-                             n_triangles=n_tri,
+                             *_mesh_from_arrays(arrays, device),
                              sky_sphere_index=sky_idx if sky_on else -1)
 
 

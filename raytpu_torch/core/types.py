@@ -1,21 +1,30 @@
 """Scene representation: SoA dataclasses of tensors.
 
-Port of ``raytpu/core/types.py`` for the sphere-only slice: ``Materials``
-and ``Spheres`` keep the JAX package's structure-of-arrays layout, and
-``Scene`` holds the spheres plus the two facts the kernel gates read
-(triangle count, equirect-sky sphere). ``RenderConfig`` has the same
-fields and defaults as ``raytpu.core.types.RenderConfig``.
+Port of ``raytpu/core/types.py``: ``Materials``, ``Spheres``,
+``Triangles``, ``TextureAtlas`` and ``MatTable`` keep the JAX package's
+structure-of-arrays layout, and ``Scene`` holds them plus the
+equirect-sky sphere index, which the kernel gates refuse (the sky is not
+ported yet). ``TextureAtlas`` has no u8-packed twin: the port keeps f32
+texels, which equal the u8 codes times f32(1/255) that ``raytpu``'s
+packed fetch rebuilds. ``RenderConfig`` has the same fields and defaults
+as ``raytpu.core.types.RenderConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 from torch import Tensor
 
 from raytpu_torch.core.vec3 import Vec3
+
+
+def _f32(a, device) -> Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
 @dataclass(frozen=True)
@@ -42,25 +51,148 @@ class Spheres:
     def count(self) -> int:
         return self.radius.shape[0]
 
+    @staticmethod
+    def empty(device) -> "Spheres":
+        z = torch.zeros((0,), device=device)
+        v = Vec3(z, z, z)
+        return Spheres(v, z, Materials(v, v, z, z, z, z))
+
+
+@dataclass(frozen=True)
+class Triangles:
+    """Triangle SoA (struct Triangle): vertices a/b/c, per-vertex UVs and
+    the per-triangle material id into the atlas and the ``MatTable``."""
+
+    a: Vec3
+    b: Vec3
+    c: Vec3
+    ua: Tensor
+    va: Tensor
+    ub: Tensor
+    vb: Tensor
+    uc: Tensor
+    vc: Tensor
+    mat_id: Tensor   # (T,) int32
+
+    @property
+    def count(self) -> int:
+        return self.mat_id.shape[0]
+
+    @staticmethod
+    def empty(device) -> "Triangles":
+        z = torch.zeros((0,), device=device)
+        v = Vec3(z, z, z)
+        return Triangles(v, v, v, z, z, z, z, z, z,
+                         torch.zeros((0,), dtype=torch.int32, device=device))
+
+
+@dataclass(frozen=True)
+class TextureAtlas:
+    """All mesh textures concatenated: flat per-channel f32 planes of
+    length M*H*W indexed by mat_id*H*W + y*W + x (rows bottom-up). Every
+    texture shares one (H, W)."""
+
+    rgb: Vec3       # (M*H*W,) each channel
+    alpha: Tensor   # (M*H*W,)
+    width: int = 1
+    height: int = 1
+
+    @property
+    def count(self) -> int:
+        if self.width * self.height == 0:
+            return 0
+        return self.alpha.shape[0] // (self.width * self.height)
+
+    @staticmethod
+    def empty(device) -> "TextureAtlas":
+        z = torch.zeros((0,), device=device)
+        return TextureAtlas(Vec3(z, z, z), z, 1, 1)
+
+
+@dataclass(frozen=True)
+class MatTable:
+    """Per-material-id physics overrides (texture.h:71-88 as data)."""
+
+    emission: Vec3            # (M,) emission colour
+    emission_strength: Tensor
+    reflection: Tensor
+    ior: Tensor
+    alpha_const: Tensor       # used where use_alpha_const
+    use_alpha_const: Tensor   # (M,) bool: ignore the texel alpha
+    emission_from_texture: Tensor   # (M,) bool: emission *= texel colour
+
+    @property
+    def count(self) -> int:
+        return self.emission_strength.shape[0]
+
+    @staticmethod
+    def from_arrays(em, es, rf, io, ac, ua, eft, device) -> "MatTable":
+        """From numpy-like (M, 3) emission and (M,) columns."""
+        em = np.asarray(em, np.float32).reshape(-1, 3)
+        b = lambda a: torch.as_tensor(np.asarray(a, bool), device=device)
+        return MatTable(
+            emission=Vec3(*(_f32(em[:, i], device) for i in range(3))),
+            emission_strength=_f32(es, device), reflection=_f32(rf, device),
+            ior=_f32(io, device), alpha_const=_f32(ac, device),
+            use_alpha_const=b(ua), emission_from_texture=b(eft),
+        )
+
+    @staticmethod
+    def default(n: int, device) -> "MatTable":
+        return MatTable.from_arrays(
+            np.zeros((n, 3)), np.zeros(n), np.zeros(n), np.ones(n),
+            np.ones(n), np.zeros(n, bool), np.zeros(n, bool), device)
+
+    @staticmethod
+    def reference_overrides(n: int, device) -> "MatTable":
+        """The reference's hardcoded table (texture.h:71-88): id 1
+        emissive white 1.85 with alpha forced to 1; id 4 water (alpha .6,
+        ior 1.33, refl .93); id 3 glass (alpha .1, ior 1.5, refl .3)."""
+        em, es, rf = np.zeros((n, 3)), np.zeros(n), np.zeros(n)
+        io, ac, ua = np.ones(n), np.ones(n), np.zeros(n, bool)
+        if n > 1:
+            em[1], es[1], ac[1], ua[1] = 1.0, 1.85, 1.0, True
+        if n > 4:
+            ac[4], ua[4], io[4], rf[4] = 0.6, True, 1.33, 0.93
+        if n > 3:
+            ac[3], ua[3], io[3], rf[3] = 0.1, True, 1.50, 0.3
+        return MatTable.from_arrays(em, es, rf, io, ac, ua,
+                                    np.zeros(n, bool), device)
+
 
 @dataclass(frozen=True)
 class Scene:
-    """Sphere scene. The render runs on the device of these tensors.
+    """Spheres plus a textured triangle mesh. The render runs on the
+    device of these tensors.
 
-    ``n_triangles`` and ``sky_sphere_index`` carry over what a converted
-    ``raytpu`` scene holds beyond spheres; the port renders neither yet, so
-    a scene with triangles or an equirect sky is refused by the kernel
-    gates (``kernels.trace_spheres.supported``) instead of being rendered
-    without them.
+    ``triangles``, ``atlas`` and ``mat_table`` default to an empty mesh
+    and a one-entry default table on the spheres' device.
+    ``sky_sphere_index`` carries over a converted ``raytpu`` scene's
+    equirect-sky sphere; the port does not render the sky yet, so the
+    kernel gates refuse such a scene instead of rendering it without.
     """
 
     spheres: Spheres
-    n_triangles: int = 0
+    triangles: Optional[Triangles] = None
+    atlas: Optional[TextureAtlas] = None
+    mat_table: Optional[MatTable] = None
     sky_sphere_index: int = -1   # equirect-sky sphere, or -1
+
+    def __post_init__(self):
+        dev = self.device
+        for name, empty in (("triangles", Triangles.empty),
+                            ("atlas", TextureAtlas.empty),
+                            ("mat_table", lambda d: MatTable.default(1, d))):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, empty(dev))
 
     @property
     def device(self) -> torch.device:
         return self.spheres.radius.device
+
+    @property
+    def n_triangles(self) -> int:
+        return self.triangles.count
 
 
 @dataclass(frozen=True)
@@ -68,8 +200,11 @@ class RenderConfig:
     """Static render parameters; fields and defaults mirror
     ``raytpu.core.types.RenderConfig``. Fields that select JAX execution
     paths (``use_pallas``, ``pallas_interpret``, ``sample_chunk``,
-    ``use_megakernel``) and the mesh fields are kept for parity and not
-    read: the port has one trace path, the K1 wrapper."""
+    ``use_megakernel``) and the merged-quad fields (``merge_quads``,
+    ``quad_*``) are kept for parity and not read: the port has one trace
+    path per scene kind (K1 for spheres, K3 for meshes), and K3 searches
+    triangle by triangle, as ``raytpu``'s K3 does with
+    ``merge_quads=False``."""
 
     width: int = 400
     height: int = 300
@@ -109,3 +244,17 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+def requires_grad(*trees) -> bool:
+    """Whether any tensor leaf of these dataclass trees (or tensors)
+    requires grad."""
+    for t in trees:
+        if isinstance(t, Tensor):
+            if t.requires_grad:
+                return True
+        elif dataclasses.is_dataclass(t):
+            if requires_grad(*(getattr(t, f.name)
+                               for f in dataclasses.fields(t))):
+                return True
+    return False

@@ -1,0 +1,550 @@
+// The mesh megakernel (K3) for Hopper: the whole forward bounce loop of a
+// scene of spheres plus up to 2048 textured triangles in one launch.
+//
+// Replaces raytpu/kernels/trace_scene.py:_kernel (the Pallas TPU kernel
+// launched by _trace_call, body bounce_body, skip_body for finished rays)
+// without the sky slot, the recording mode and the merged-quad loops: it
+// computes what that kernel computes with merge_quads=False. The plain
+// PyTorch version is
+// raytpu_torch/kernels/trace_scene.py:trace_scene_reference; both keep
+// raytpu's arithmetic forms (0.5/max(a,1e-20) root scale, spheres scanned
+// before triangles with a strict t < best, inv_det = 1/where(det >=
+// det_eps, det, 1) then products, the 1e-5 relative box inflation, raw b/c
+// vertices in the barycentrics, the fmod wrap as u - trunc(u), the x1.3
+// bright quirk on the throughput before its update) so the three agree.
+//
+// What bounds it: per live (ray, bounce) it runs a sphere test per
+// sphere, one slab test per 32-triangle chunk and ~46 operations per
+// triangle of every chunk the ray enters (55 triangles on the
+// 600-triangle block world), against 12 bytes of draws read, so it is
+// bound by FP32 operations (PERF.md gives the count and the card's
+// time). So:
+//   * one thread per ray on a 1-D grid, the ragged edge masked here;
+//   * the search channels of every triangle (a, b - a, c - a, the raw
+//     normal: 12 x T f32, 96 KB at 2048 triangles), the chunk boxes, the
+//     sphere table and the material table staged in dynamic shared memory
+//     and read as broadcasts: every thread of a warp that tests a chunk
+//     reads the same triangle;
+//   * the cull decided per thread (a chunk is scanned only by the rays
+//     whose line enters its box before their current best, a conservative
+//     prune: a hit inside the box has t >= tmin), where the TPU decides per
+//     8192-ray tile; the slab's min/max propagate NaN as the plain
+//     version's torch.minimum/maximum do, so both skip the same chunks;
+//   * after the search only the winner's raw b and c, UVs and material id
+//     (global, cached) and its texel (the f32 atlas in global memory) are
+//     read: the TPU's bf16 limbs and one-hot MXU extraction and fetch
+//     become indexed loads;
+//   * a ray whose loop is over leaves it (exact: raytpu's skip_body and
+//     shade_bounce leave a finished ray's carry unchanged), and the AO
+//     probes run only for rays that accumulate (their factor is discarded
+//     elsewhere).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
+// No fast-math flags and no FMA contraction, as for K1 and K2: every
+// product and sum rounds on its own, as in the plain version.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxSpheres = 64;
+constexpr int kMaxTris = 2048;
+constexpr int kMaxMats = 64;
+constexpr int kChunk = 32;         // triangles per cull box
+constexpr int kSearch = 12;        // a3 ab3 ac3 n3 per triangle in shared memory
+constexpr int kSphRows = 14;       // cx cy cz r | dif3 emi3 estr refl alpha ior
+constexpr int kMatRows = 9;        // emi3 estr refl ior alpha_c use_c eft
+constexpr int kThreads = 256;
+constexpr float kBig = 3.0e38f;
+constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
+
+struct Knobs {
+  int n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces, n_draws;
+  float sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi, bright_boost,
+      bright_threshold;
+  int use_ao, ao_samples;
+  float ao_e_scale, ao_inv;
+  int hsl_on;
+  float hsl_l, hsl_s;
+};
+
+__device__ __forceinline__ float safe_denom(float x) {
+  return fabsf(x) > 1e-30f ? x : 1e-30f;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// torch.minimum / torch.maximum: NaN if either operand is NaN
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
+// raytpu/core/color.py:_hue_to_rgb
+__device__ float hue_to_rgb(float t1, float t2, float hue) {
+  hue = hue < 0.0f ? hue + 1.0f : hue;
+  hue = hue > 1.0f ? hue - 1.0f : hue;
+  const float r1 = t1 + (t2 - t1) * 6.0f * hue;
+  const float r3 = t1 + (t2 - t1) * ((float)(2.0 / 3.0) - hue) * 6.0f;
+  return 6.0f * hue < 1.0f ? r1
+       : (2.0f * hue < 1.0f ? t2 : (3.0f * hue < 2.0f ? r3 : t1));
+}
+
+// raytpu/core/color.py:hsl_boost (rgb_to_hsl, scale L and S, hsl_to_rgb)
+__device__ void hsl_boost(float& r, float& g, float& b, float l_f, float s_f) {
+  const float cmax = fmaxf(r, fmaxf(g, b));
+  const float cmin = fminf(r, fminf(g, b));
+  float l = (cmax + cmin) * 0.5f;
+  const float d = cmax - cmin;
+  const bool gray = cmax == cmin;
+  float s = gray ? 0.0f
+          : (l < 0.5f ? d / safe_denom(cmax + cmin)
+                      : d / safe_denom(2.0f - cmax - cmin));
+  const float d_safe = safe_denom(d);
+  const float h_r = (g - b) / d_safe + (g < b ? 6.0f : 0.0f);
+  const float h_g = (b - r) / d_safe + 2.0f;
+  const float h_b = (r - g) / d_safe + 4.0f;
+  float h = cmax == r ? h_r : (cmax == g ? h_g : h_b);
+  h = gray ? 0.0f : h / 6.0f;
+
+  s = s * s_f;
+  l = l * l_f;
+  const float t2 = l < 0.5f ? l * (1.0f + s) : l + s - l * s;
+  const float t1 = 2.0f * l - t2;
+  const float third = (float)(1.0 / 3.0);
+  if (s == 0.0f) {
+    r = g = b = l;
+  } else {
+    r = hue_to_rgb(t1, t2, h + third);
+    g = hue_to_rgb(t1, t2, h);
+    b = hue_to_rgb(t1, t2, h - third);
+  }
+}
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float n2 = x * x + y * y + z * z;
+  const float inv = n2 > 0.0f ? 1.0f / sqrtf(fmaxf(n2, 1e-38f)) : 0.0f;
+  x *= inv; y *= inv; z *= inv;
+}
+
+// Slab test of chunk c's box (rows lo3 hi3 of `box`, n_chunks columns):
+// whether the line o + t d meets it ahead of the origin, and its entry t.
+__device__ __forceinline__ bool slab(const float* box, int n_chunks, int c,
+                                     float ox, float oy, float oz,
+                                     float inv_x, float inv_y, float inv_z,
+                                     float& tmin) {
+  const float t0x = (box[c] - ox) * inv_x;
+  const float t1x = (box[3 * n_chunks + c] - ox) * inv_x;
+  const float t0y = (box[n_chunks + c] - oy) * inv_y;
+  const float t1y = (box[4 * n_chunks + c] - oy) * inv_y;
+  const float t0z = (box[2 * n_chunks + c] - oz) * inv_z;
+  const float t1z = (box[5 * n_chunks + c] - oz) * inv_z;
+  tmin = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                 nan_min(t0z, t1z));
+  const float tmax = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                             nan_max(t0z, t1z));
+  return tmax >= tmin && tmax >= 0.0f;
+}
+
+// Moller-Trumbore against one triangle's search channels s[0..11]: the
+// distance of a valid hit, or kBig.
+__device__ __forceinline__ float triangle_hit(const float* s, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz,
+                                              const Knobs& k) {
+  const float aox = ox - s[0], aoy = oy - s[1], aoz = oz - s[2];
+  const float daox = aoy * dz - aoz * dy;
+  const float daoy = aoz * dx - aox * dz;
+  const float daoz = aox * dy - aoy * dx;
+  const float det = -(dx * s[9] + dy * s[10] + dz * s[11]);
+  const float inv_det = 1.0f / (det >= k.det_eps ? det : 1.0f);
+  const float dst = (aox * s[9] + aoy * s[10] + aoz * s[11]) * inv_det;
+  const float u = (s[6] * daox + s[7] * daoy + s[8] * daoz) * inv_det;
+  const float v = -(s[3] * daox + s[4] * daoy + s[5] * daoz) * inv_det;
+  const float w = 1.0f - u - v;
+  const bool valid = det >= k.det_eps && dst >= k.tri_eps && u >= k.tri_eps &&
+                     v >= k.tri_eps && w >= k.tri_eps;
+  return valid ? dst : kBig;
+}
+
+// Ambient occlusion (main.c:94-116): hemisphere probes from the hit point,
+// occluded by any sphere root at t >= eps or any valid triangle of the
+// chunks the probe enters; occluded probes / (ao_samples * ao_intensity).
+__device__ float ao_factor(const float* sph, const float* tri_s,
+                           const float* box, int n_chunks, float px,
+                           float py, float pz, float nX, float nY, float nZ,
+                           const float* dr, size_t B, const Knobs& k) {
+  const int ns = k.n_spheres;
+  float occ = 0.0f;
+  for (int a = 0; a < k.ao_samples; ++a) {
+    const float au = dr[(3 + 2 * a) * B], av = dr[(4 + 2 * a) * B];
+    const float ath = kTwoPi * au;
+    const float acp = clampf(2.0f * av - 1.0f, -1.0f, 1.0f);
+    const float asp = sqrtf(fmaxf(1.0f - acp * acp, 0.0f));
+    float aox = nX + cosf(ath) * asp;
+    float aoy = nY + sinf(ath) * asp;
+    float aoz = nZ + acp;
+    normalize3(aox, aoy, aoz);
+    const float aq = aox * aox + aoy * aoy + aoz * aoz;
+    const float ai2a = 0.5f / fmaxf(aq, 1e-20f);
+    bool hit = false;
+    for (int s = 0; s < ns && !hit; ++s) {
+      const float ocx = px - sph[s], ocy = py - sph[ns + s];
+      const float ocz = pz - sph[2 * ns + s], r = sph[3 * ns + s];
+      const float b2 = 2.0f * (ocx * aox + ocy * aoy + ocz * aoz);
+      const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+      const float d2 = b2 * b2 - 4.0f * aq * c2;
+      const float sq2 = sqrtf(fmaxf(d2, 0.0f));
+      const float tt1 = (-b2 - sq2) * ai2a;
+      const float tt2 = (-b2 + sq2) * ai2a;
+      hit = d2 > 0.0f && (tt1 >= k.sphere_eps || tt2 >= k.sphere_eps);
+    }
+    const float inv_x = 1.0f / aox, inv_y = 1.0f / aoy, inv_z = 1.0f / aoz;
+    for (int c = 0; c < n_chunks && !hit; ++c) {
+      float tmin;
+      if (!slab(box, n_chunks, c, px, py, pz, inv_x, inv_y, inv_z, tmin)) continue;
+      const int end = min(k.n_tris, (c + 1) * kChunk);
+      for (int t = c * kChunk; t < end && !hit; ++t) {
+        hit = triangle_hit(tri_s + t * kSearch, px, py, pz, aox, aoy, aoz, k) < kBig;
+      }
+    }
+    occ = occ + (hit ? 1.0f : 0.0f);
+  }
+  return occ * k.ao_inv;
+}
+
+__global__ void __launch_bounds__(kThreads)
+trace_scene_kernel(const float* __restrict__ sph_g,
+                   const float* __restrict__ search_g,
+                   const float* __restrict__ tri,
+                   const float* __restrict__ box_g,
+                   const float* __restrict__ mat_g,
+                   const float* __restrict__ atlas,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ oz, const float* __restrict__ dx,
+                   const float* __restrict__ dy, const float* __restrict__ dz,
+                   const float* __restrict__ draws, float* __restrict__ out,
+                   int n_rays, Knobs k) {
+  // shared: tri search (T x 12) | spheres (14 x S) | boxes (6 x C) | mats (9 x M)
+  extern __shared__ float smem[];
+  const int ns = k.n_spheres, nt = k.n_tris, nm = k.n_mats;
+  const int n_chunks = (nt + kChunk - 1) / kChunk;
+  float* tri_s = smem;
+  float* sph = tri_s + kSearch * nt;
+  float* box = sph + kSphRows * ns;
+  float* mats = box + 6 * n_chunks;
+  for (int e = threadIdx.x; e < kSearch * nt; e += blockDim.x) tri_s[e] = search_g[e];
+  for (int e = threadIdx.x; e < kSphRows * ns; e += blockDim.x) sph[e] = sph_g[e];
+  for (int e = threadIdx.x; e < 6 * n_chunks; e += blockDim.x) box[e] = box_g[e];
+  for (int e = threadIdx.x; e < kMatRows * nm; e += blockDim.x) mats[e] = mat_g[e];
+  __syncthreads();
+
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= n_rays) return;
+  const size_t B = (size_t)n_rays;
+  const size_t n_tex = (size_t)k.n_tex;
+
+  float rox = ox[ray], roy = oy[ray], roz = oz[ray];
+  float rdx = dx[ray], rdy = dy[ray], rdz = dz[ray];
+  float rcx = 1.0f, rcy = 1.0f, rcz = 1.0f;      // throughput
+  float ix = 0.0f, iy = 0.0f, iz = 0.0f;         // incoming radiance
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;         // albedo AOV
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;         // normal AOV
+  bool active = true, is_alpha = false;
+  int alpha_depth = 0;
+  float medium_n2 = 1.0f;
+
+  for (int i = 0; i < k.bounces && active; ++i) {
+    // ---- closest sphere: strict t < best in sphere order -------------
+    const float a_quad = rdx * rdx + rdy * rdy + rdz * rdz;
+    const float inv_2a = 0.5f / fmaxf(a_quad, 1e-20f);
+    float best = kBig;
+    int bidx = -1;
+    for (int s = 0; s < ns; ++s) {
+      const float ocx = rox - sph[s], ocy = roy - sph[ns + s];
+      const float ocz = roz - sph[2 * ns + s], r = sph[3 * ns + s];
+      const float b_ = 2.0f * (ocx * rdx + ocy * rdy + ocz * rdz);
+      const float c_ = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+      const float disc = b_ * b_ - 4.0f * a_quad * c_;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float t1 = (-b_ - sq) * inv_2a;
+      const float t2 = (-b_ + sq) * inv_2a;
+      const bool hit = disc > 0.0f;
+      const float t = (hit && t1 >= k.sphere_eps) ? t1
+                    : ((hit && t2 >= k.sphere_eps) ? t2 : kBig);
+      if (t < best) { best = t; bidx = s; }
+    }
+
+    // ---- triangles of the chunks the ray enters before its best ------
+    const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
+    for (int c = 0; c < n_chunks; ++c) {
+      float tmin;
+      if (!slab(box, n_chunks, c, rox, roy, roz, inv_x, inv_y, inv_z, tmin) ||
+          !(tmin < best)) {
+        continue;
+      }
+      const int end = min(nt, (c + 1) * kChunk);
+      for (int t = c * kChunk; t < end; ++t) {
+        const float d = triangle_hit(tri_s + t * kSearch, rox, roy, roz, rdx,
+                                     rdy, rdz, k);
+        if (d < best) { best = d; bidx = ns + t; }
+      }
+    }
+
+    // ---- winner: point, normal, material ------------------------------
+    const bool did_hit = bidx >= 0;
+    const bool tri_wins = bidx >= ns;
+    const float safe_t = did_hit ? best : 0.0f;
+    const float px = rox + rdx * safe_t;
+    const float py = roy + rdy * safe_t;
+    const float pz = roz + rdz * safe_t;
+    float nX, nY, nZ, dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior;
+    if (!tri_wins) {
+      // a sphere, or a miss, which reads an all-zero winner
+      float w[kSphRows];
+#pragma unroll
+      for (int r = 0; r < kSphRows; ++r) w[r] = did_hit ? sph[r * ns + bidx] : 0.0f;
+      const float svx = px - w[0], svy = py - w[1], svz = pz - w[2];
+      const float n2 = svx * svx + svy * svy + svz * svz;
+      const float inv = (n2 > 0.0f && did_hit) ? 1.0f / sqrtf(fmaxf(n2, 1e-38f)) : 0.0f;
+      nX = svx * inv; nY = svy * inv; nZ = svz * inv;
+      dfx = w[4]; dfy = w[5]; dfz = w[6];
+      emx = w[7]; emy = w[8]; emz = w[9];
+      estr = w[10]; refl = w[11]; alpha = w[12]; ior = w[13];
+    } else {
+      const int t = bidx - ns;
+      const size_t T = (size_t)nt;
+      const float* s = tri_s + t * kSearch;
+      const float wax = s[0], way = s[1], waz = s[2];
+      float tnX = s[9], tnY = s[10], tnZ = s[11];
+      normalize3(tnX, tnY, tnZ);
+      float wt[13];   // raw b3 c3, ua va ub vb uc vc, mat (rows 12-24)
+#pragma unroll
+      for (int r = 0; r < 13; ++r) wt[r] = tri[(12 + r) * T + t];
+      // area-ratio barycentrics (texture.h:16-27) with the raw vertices
+      auto area = [&](float p1x, float p1y, float p1z, float qx, float qy,
+                      float qz) {
+        const float cxx = p1y * qz - p1z * qy;
+        const float cyy = p1z * qx - p1x * qz;
+        const float czz = p1x * qy - p1y * qx;
+        return tnX * cxx + tnY * cyy + tnZ * czz;
+      };
+      const float area_abc = area(wt[0] - wax, wt[1] - way, wt[2] - waz,
+                                  wt[3] - wax, wt[4] - way, wt[5] - waz);
+      const float area_pbc = area(wt[0] - px, wt[1] - py, wt[2] - pz,
+                                  wt[3] - px, wt[4] - py, wt[5] - pz);
+      const float area_pca = area(wt[3] - px, wt[4] - py, wt[5] - pz,
+                                  wax - px, way - py, waz - pz);
+      const float inv_area = 1.0f / (fabsf(area_abc) > 1e-20f ? area_abc : 1.0f);
+      const float w_a = area_pbc * inv_area;
+      const float w_b = area_pca * inv_area;
+      const float w_c = 1.0f - w_a - w_b;
+      float uu = w_a * wt[6] + w_b * wt[8] + w_c * wt[10];
+      float vv = w_a * wt[7] + w_b * wt[9] + w_c * wt[11];
+      uu = uu - truncf(uu);     // fmod(u, 1), exactly
+      uu = uu < 0.0f ? uu + 1.0f : uu;
+      vv = vv - truncf(vv);
+      vv = vv < 0.0f ? vv + 1.0f : vv;
+      const int mat = (int)wt[12];
+
+      // nearest texel (texture.h:61-69); outside the atlas reads zeros
+      float tr, tg, tb, ta;
+      if (n_tex > 0) {
+        const int w = k.atlas_w, h = k.atlas_h;
+        const int tx = min(max((int)floorf(uu * (float)w), 0), w - 1);
+        const int ty = min(max((int)floorf(vv * (float)h), 0), h - 1);
+        const long long idx = (long long)(ty * w + tx) + (long long)h * w * mat;
+        const bool in = idx >= 0 && idx < (long long)n_tex;
+        tr = in ? atlas[idx] : 0.0f;
+        tg = in ? atlas[n_tex + idx] : 0.0f;
+        tb = in ? atlas[2 * n_tex + idx] : 0.0f;
+        ta = in ? atlas[3 * n_tex + idx] : 0.0f;
+      } else {            // untextured mesh: mesh.h:207's default material
+        tr = 0.784f; tg = 0.965f; tb = 1.0f; ta = 1.0f;
+      }
+      // material table (texture.h:71-88 as data); outside it reads zeros
+      float mt[kMatRows];
+#pragma unroll
+      for (int r = 0; r < kMatRows; ++r) {
+        mt[r] = (mat >= 0 && mat < nm) ? mats[r * nm + mat] : 0.0f;
+      }
+      const bool eft = mt[8] > 0.0f;
+      nX = tnX; nY = tnY; nZ = tnZ;
+      dfx = tr; dfy = tg; dfz = tb;
+      emx = eft ? mt[0] * tr : mt[0];
+      emy = eft ? mt[1] * tg : mt[1];
+      emz = eft ? mt[2] * tb : mt[2];
+      estr = mt[3]; refl = mt[4]; ior = mt[5];
+      alpha = mt[7] > 0.0f ? mt[6] : ta;
+    }
+
+    // ---- AOV base cases -------------------------------------------------
+    if (i == 0) {
+      ax = dfx; ay = dfy; az = dfz;
+      nx = nX; ny = nY; nz = nZ;
+    } else {
+      const bool aov_alpha = i == alpha_depth && is_alpha;
+      if (aov_alpha) {
+        const bool em = estr > 0.0f;
+        ax = em ? emx : dfx; ay = em ? emy : dfy; az = em ? emz : dfz;
+        nx = nX; ny = nY; nz = nZ;
+      }
+      is_alpha = is_alpha && !aov_alpha;
+    }
+
+    // ---- emissive early return + HSL boost ------------------------------
+    const bool emissive_ret = did_hit && i == alpha_depth && estr > 0.0f;
+    if (emissive_ret) {
+      float bx = emx, by = emy, bz = emz;
+      if (k.hsl_on) hsl_boost(bx, by, bz, k.hsl_l, k.hsl_s);
+      ix = bx; iy = by; iz = bz;
+      ax = bx; ay = by; az = bz;
+      nx = nX; ny = nY; nz = nZ;
+    }
+    active = !emissive_ret;
+    const bool live = active && did_hit;
+
+    // ---- scatter: diffuse/specular lerp ---------------------------------
+    const float* dr = draws + (size_t)i * k.n_draws * B + ray;
+    const float u_d = dr[0], v_d = dr[B], roulette = dr[2 * B];
+    const float theta = kTwoPi * u_d;
+    const float cph = clampf(2.0f * v_d - 1.0f, -1.0f, 1.0f);
+    const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
+    float ddx = nX + cosf(theta) * sph_;
+    float ddy = nY + sinf(theta) * sph_;
+    float ddz = nZ + cph;
+    normalize3(ddx, ddy, ddz);
+    const float vdn = rdx * nX + rdy * nY + rdz * nZ;
+    const float rfx = rdx - 2.0f * vdn * nX;
+    const float rfy = rdy - 2.0f * vdn * nY;
+    const float rfz = rdz - 2.0f * vdn * nZ;
+
+    // ---- refraction (reduced pile.h medium stack) -----------------------
+    const bool refr_case = live && alpha <= k.alpha_hi && alpha >= k.alpha_lo;
+    const bool exiting = vdn > 0.0f;
+    const bool do_refract = refr_case && roulette > alpha;
+    float refx = 0.0f, refy = 0.0f, refz = 0.0f;
+    if (do_refract) {
+      const float nex = exiting ? -nX : nX;
+      const float ney = exiting ? -nY : nY;
+      const float nez = exiting ? -nZ : nZ;
+      const float n1_ = exiting ? ior : medium_n2;
+      const float n2_ = exiting ? medium_n2 : ior;
+      const float n1s = n1_ * n1_;
+      const float n2s = n2_ * n2_;
+      const float n2s_safe = n2s > 1e-20f ? n2s : 1.0f;
+      const float ratio = clampf(n1s / n2s_safe, 0.0f, 1e6f);
+      const float ndotv = nex * rdx + ney * rdy + nez * rdz;
+      const float radical = 1.0f - (ratio * ratio) * (1.0f - ndotv * ndotv);
+      if (radical <= 0.0f) {
+        // total internal reflection: mirror about the effective normal
+        const float vdne = rdx * nex + rdy * ney + rdz * nez;
+        refx = rdx - 2.0f * vdne * nex;
+        refy = rdy - 2.0f * vdne * ney;
+        refz = rdz - 2.0f * vdne * nez;
+      } else {
+        const float ct_scale = rdx * nex + rdy * ney + rdz * nez;
+        const float sqr = sqrtf(fmaxf(radical, 1e-20f));
+        refx = (rdx - nex * ct_scale) * ratio - nex * sqr;
+        refy = (rdy - ney * ct_scale) * ratio - ney * sqr;
+        refz = (rdz - nez * ct_scale) * ratio - nez * sqr;
+      }
+    }
+    if (refr_case && !exiting) medium_n2 = ior;
+
+    // ---- opaque / cutout --------------------------------------------------
+    const bool cutout = live && alpha < k.alpha_lo;
+    const bool opaque = live && alpha > k.alpha_hi;
+    if (opaque) is_alpha = false;
+    if (cutout) { is_alpha = true; alpha_depth += 1; }
+
+    // ---- accumulate (reads the throughput before its update) ------------
+    const bool accum = live && !do_refract && !cutout;
+    if (accum) {
+      const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
+      ix = ix + emx * e_scale * rcx;
+      iy = iy + emy * e_scale * rcy;
+      iz = iz + emz * e_scale * rcz;
+      const float th = k.bright_threshold, bb = k.bright_boost;
+      const bool bright = rcx > th || rcy > th || rcz > th;
+      float nbx = bright ? dfx * (dfx * (rcx * bb)) : dfx * rcx;
+      float nby = bright ? dfy * (dfy * (rcy * bb)) : dfy * rcy;
+      float nbz = bright ? dfz * (dfz * (rcz * bb)) : dfz * rcz;
+      if (k.use_ao) {
+        const float f = ao_factor(sph, tri_s, box, n_chunks, px, py, pz, nX,
+                                  nY, nZ, dr, B, k);
+        nbx *= f; nby *= f; nbz *= f;
+      }
+      rcx = nbx; rcy = nby; rcz = nbz;
+    }
+
+    // ---- next ray -------------------------------------------------------
+    if (live) { rox = px; roy = py; roz = pz; }
+    if (do_refract) {
+      rdx = refx; rdy = refy; rdz = refz;
+    } else if (accum) {
+      rdx = ddx + (rfx - ddx) * refl;
+      rdy = ddy + (rfy - ddy) * refl;
+      rdz = ddz + (rfz - ddz) * refl;
+    }
+    active = active && did_hit;
+  }
+
+  out[0 * B + ray] = ix; out[1 * B + ray] = iy; out[2 * B + ray] = iz;
+  out[3 * B + ray] = ax; out[4 * B + ray] = ay; out[5 * B + ray] = az;
+  out[6 * B + ray] = nx; out[7 * B + ray] = ny; out[8 * B + ray] = nz;
+}
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes. All pointers are device
+// pointers to contiguous f32: sph (14, n_spheres); search (n_tris, 12);
+// tri (25, n_tris); boxes (6, ceil(n_tris / 32)); mats (9, n_mats); atlas
+// (4, n_tex), unread when n_tex is 0; ox..dz (n_rays,); draws
+// (bounces * n_draws, n_rays); out (9, n_rays). Sets the kernel's dynamic
+// shared memory (up to ~105 KB at 2048 triangles, above the 48 KB default),
+// launches on `stream` without synchronising and returns the launch's
+// cudaError_t.
+extern "C" int raytpu_trace_scene(
+    const float* sph, const float* search, const float* tri,
+    const float* boxes, const float* mats, const float* atlas,
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* draws, float* out,
+    int n_rays, int n_spheres, int n_tris, int n_mats, int n_tex,
+    int atlas_w, int atlas_h, int bounces, int n_draws, float sphere_eps,
+    float det_eps, float tri_eps, float alpha_lo, float alpha_hi,
+    float bright_boost, float bright_threshold, int use_ao, int ao_samples,
+    float ao_e_scale, float ao_inv, int hsl_on, float hsl_l, float hsl_s,
+    void* stream) {
+  if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 1 ||
+      n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
+      (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
+      n_rays < 0 || bounces < 0 ||
+      n_draws < 3 + (use_ao ? 2 * ao_samples : 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_rays == 0) return (int)cudaSuccess;
+  Knobs k{n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces,
+          n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
+          bright_boost, bright_threshold, use_ao, ao_samples, ao_e_scale,
+          ao_inv, hsl_on, hsl_l, hsl_s};
+  const int n_chunks = (n_tris + kChunk - 1) / kChunk;
+  const size_t smem = sizeof(float) * ((size_t)kSearch * n_tris +
+                                       (size_t)kSphRows * n_spheres +
+                                       6 * (size_t)n_chunks +
+                                       (size_t)kMatRows * n_mats);
+  cudaError_t err = cudaFuncSetAttribute(
+      trace_scene_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  trace_scene_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
+      out, n_rays, k);
+  return (int)cudaGetLastError();
+}

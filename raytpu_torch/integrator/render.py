@@ -2,20 +2,21 @@
 
 Port of ``raytpu/integrator/render.py``. For each sample index the
 per-(pixel, sample) threefry keys give the camera jitter and every
-bounce's draws, the camera makes one ray per pixel, and the sphere
-megakernel (K1) traces the whole bounce loop; sums accumulate in f32 in
+bounce's draws, the camera makes one ray per pixel, and one megakernel
+traces the whole bounce loop: the mesh kernel (K3) for a scene with
+triangles, the sphere kernel (K1) otherwise. Sums accumulate in f32 in
 sample order, as ``raytpu``'s scan does. Pixel coordinates follow the
 reference: u = (i + U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted
 from the bottom row, and the aperture jitter is (U - .5) * aperture.
 
-The render runs on the device of the scene's tensors. It is
-differentiable in every scene and camera leaf that requires grad: the K1
-wrapper then records winner indices and the backward runs K2.
+The render runs on the device of the scene's tensors. A sphere scene's
+render is differentiable in every scene and camera leaf that requires
+grad: the K1 wrapper then records winner indices and the backward runs
+K2.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,8 +27,9 @@ from torch.utils.checkpoint import checkpoint
 from raytpu_torch.camera import Camera, get_rays
 from raytpu_torch.core import rng
 from raytpu_torch.core.color import quantize, tonemap
-from raytpu_torch.core.types import RenderConfig, Scene
+from raytpu_torch.core.types import RenderConfig, Scene, requires_grad
 from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.kernels.trace_scene import trace_mesh_megakernel
 from raytpu_torch.kernels.trace_spheres import trace_megakernel
 
 
@@ -66,9 +68,11 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     ... ``sample_offset + n - 1``) for a batch of pixel ids.
 
     ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
-    scene's device. One K1 call per sample; when a scene or camera leaf
-    requires grad, the backward adds per sample one K1 call (the
-    checkpoint's recompute, in recording mode) and one K2 call.
+    scene's device. One kernel call per sample: K3 for a scene with
+    triangles, K1 for a sphere scene. When a sphere scene's or the
+    camera's leaf requires grad, the backward adds per sample one K1 call
+    (the checkpoint's recompute, in recording mode) and one K2 call;
+    gradients through a mesh scene raise (K2's mesh mode is not ported).
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples
@@ -79,6 +83,8 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
         zeros = Vec3.zeros((b,), device=dev)
         init = RenderSums(zeros, zeros, zeros, 0)
     rad, alb, nrm, count = init
+    # meshes go to K3, sphere scenes to K1
+    trace = trace_mesh_megakernel if scene.n_triangles else trace_megakernel
 
     def one_sample(s):
         ray_keys = rng.sample_keys(pix_keys, s)
@@ -86,14 +92,14 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
             ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
         )
         origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
-        r, a, nm = trace_megakernel(scene, cfg, origin, direction, bounce_draws)
+        r, a, nm = trace(scene, cfg, origin, direction, bounce_draws)
         return (*r, *a, *nm)
 
     # Differentiated, each sample runs under checkpoint (raytpu's
     # jax.checkpoint(mk_direct)): its residuals (draws, rays, recorded
     # indices) are dropped after the forward and rebuilt from the keys in
     # the backward, so memory holds one sample's worth, not spp's.
-    differentiate = torch.is_grad_enabled() and _requires_grad(scene, cam)
+    differentiate = torch.is_grad_enabled() and requires_grad(scene, cam)
     for s in range(sample_offset, sample_offset + n):
         if differentiate:
             # the draws hang off the keys, not torch's generator: no RNG
@@ -107,19 +113,6 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
         nrm = nrm + Vec3(*out[6:9])
         count += 1
     return RenderSums(rad, alb, nrm, count)
-
-
-def _requires_grad(*trees) -> bool:
-    """Whether any tensor leaf of these dataclass trees requires grad."""
-    for t in trees:
-        if isinstance(t, Tensor):
-            if t.requires_grad:
-                return True
-        elif dataclasses.is_dataclass(t):
-            if _requires_grad(*(getattr(t, f.name)
-                                for f in dataclasses.fields(t))):
-                return True
-    return False
 
 
 def blocked_pixel_order(cfg: RenderConfig, block_w: int = 128,

@@ -1,30 +1,178 @@
-"""One bounce's shading, shared by the sphere forward and the backward replay.
+"""The mesh megakernel (K3) and the bounce shading its kernels share.
 
-Port of ``raytpu/kernels/trace_scene.py:shade_bounce`` op for op. The mesh
-forward megakernel (K3) that ``raytpu`` keeps in the same module is not
-ported yet; this module holds only the shading both plain versions run:
-``trace_spheres_reference`` (K1's plain version) after its closest-hit
-search, and ``trace_scene_bwd.replay_bounce`` (K2's plain version) after
-it rebuilds the recorded winner. Sharing it keeps the two in step, which
-the gradient tests rely on.
+Port of ``raytpu/kernels/trace_scene.py``: the whole forward bounce loop
+over spheres plus up to 2048 textured triangles in one launch (``_kernel``
+-> ``bounce_body``, launched by ``_trace_call``), without the sky slot,
+without the recording mode and without the merged-quad loops, so it
+computes what ``raytpu``'s K3 computes with ``merge_quads=False``. Per ray
+and bounce: the closest sphere (scanned first, strict t < best), then the
+triangles of every 32-triangle chunk whose box the ray enters before its
+current best (Moller-Trumbore), the winner's barycentric UVs, nearest
+texel and material-table row, the AO probes, and ``shade_bounce``.
 
-The carry is the 22-plane tuple of ``raytpu``'s replay:
-``(ro xyz, rd xyz, throughput xyz, radiance xyz, albedo AOV xyz,
-normal AOV xyz, active, is_alpha, alpha_depth, medium_n2)``, with the two
-masks as f32 0/1 planes and ``alpha_depth`` as int32.
+``trace_mesh_megakernel`` is the entry point. On CUDA tensors it launches
+the hand-written kernel in ``csrc/trace_scene.cu``; on CPU tensors it runs
+``trace_scene_reference``, the plain PyTorch version of the same loop,
+which the tests hold against ``raytpu`` and the chip check holds the
+kernel against. The packers (``pack_tri``, ``chunk_boxes``, ``pack_mats``,
+``pack_atlas``) fix the tables both read; ``raytpu``'s bf16 limbs and
+one-hot layouts are TPU tricks and become plain indexed loads.
+
+``shade_bounce`` (``raytpu``'s, op for op) is everything after the winner's
+(point, normal, material) is known. Three plain versions run it: K3's and
+K1's (``trace_spheres_reference``) after their searches, and K2's
+(``trace_scene_bwd.replay_bounce``) after it rebuilds the recorded winner;
+sharing it keeps them in step, which the gradient tests rely on. Its
+carry is the 22-plane tuple of ``raytpu``'s replay: ``(ro xyz, rd xyz,
+throughput xyz, radiance xyz, albedo AOV xyz, normal AOV xyz, active,
+is_alpha, alpha_depth, medium_n2)``, with the two masks as f32 0/1 planes
+and ``alpha_depth`` as int32.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from raytpu_torch.core.color import hsl_boost
+from raytpu_torch.core.types import (MatTable, RenderConfig, Scene, TextureAtlas,
+                                     requires_grad)
 from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.geometry.triangle import precompute
+from raytpu_torch.materials.texture import triangle_material
 
 TWO_PI = 2.0 * float(np.float32(math.pi))  # 2 * f32(pi), exact in f32
+BIG = 3.0e38
+MAX_SPHERES = 64
+MAX_TRIS = 2048     # raytpu's SMEM budget; kept so both take the same scenes
+MAX_MATS = 64
+MAX_TEX_W4 = 256    # raytpu's texture-row fetch bounds (4 * atlas width,
+MAX_TEX_ROWS = 512  # texture rows), kept for the same reason
+CULL_CHUNK = 32     # triangles per cull box
+
+launches = 0   # kernel launches by trace_mesh_megakernel (CPU calls do not count)
+
+
+@dataclass(frozen=True)
+class Knobs:
+    """The loop's static parameters (``_statics``), with the two
+    products ``raytpu`` forms in double precision before rounding to f32."""
+
+    n_spheres: int
+    bounces: int
+    n_draws: int
+    sphere_eps: float
+    alpha_lo: float
+    alpha_hi: float
+    bright_boost: float
+    bright_threshold: float
+    use_ao: bool
+    ao_samples: int
+    ao_e_scale: float   # ao_emission_factor * ao_intensity
+    ao_inv: float       # 1 / (ao_samples * ao_intensity)
+    hsl_l: float
+    hsl_s: float
+
+    @staticmethod
+    def create(cfg: RenderConfig, n_spheres: int, n_draws: int) -> "Knobs":
+        return Knobs(
+            n_spheres=n_spheres, bounces=cfg.max_bounces, n_draws=n_draws,
+            sphere_eps=cfg.sphere_eps, alpha_lo=cfg.refr_alpha_lo,
+            alpha_hi=cfg.refr_alpha_hi, bright_boost=cfg.bright_boost,
+            bright_threshold=cfg.bright_threshold, use_ao=cfg.use_ao,
+            ao_samples=cfg.ao_samples,
+            ao_e_scale=cfg.ao_emission_factor * cfg.ao_intensity,
+            ao_inv=1.0 / (cfg.ao_samples * cfg.ao_intensity),
+            hsl_l=cfg.hsl_l_factor, hsl_s=cfg.hsl_s_factor,
+        )
+
+    @property
+    def hsl_on(self) -> bool:
+        return not (self.hsl_l == 1.0 and self.hsl_s == 1.0)
+
+    @property
+    def e_scale_mult(self) -> float:
+        return self.ao_e_scale if self.use_ao else 1.0
+
+    @property
+    def shade_kw(self) -> dict:
+        """The static knobs ``trace_scene.shade_bounce`` takes."""
+        return dict(alpha_lo=self.alpha_lo, alpha_hi=self.alpha_hi,
+                    bright_boost=self.bright_boost,
+                    bright_threshold=self.bright_threshold,
+                    hsl_l=self.hsl_l, hsl_s=self.hsl_s)
+
+    @property
+    def draws_needed(self) -> int:
+        return 3 + 2 * (self.ao_samples if self.use_ao else 0)
+
+
+@dataclass(frozen=True)
+class MeshKnobs(Knobs):
+    """K3's static parameters: K1's plus the triangle epsilons and the
+    table sizes."""
+
+    n_tris: int
+    n_mats: int
+    n_tex: int          # atlas texels (0: untextured)
+    atlas_w: int
+    atlas_h: int
+    det_eps: float
+    tri_eps: float
+
+    @staticmethod
+    def for_scene(cfg: RenderConfig, scene: Scene, n_draws: int) -> "MeshKnobs":
+        base = Knobs.create(cfg, scene.spheres.count, n_draws)
+        return MeshKnobs(
+            **base.__dict__, n_tris=scene.triangles.count,
+            n_mats=scene.mat_table.count, n_tex=scene.atlas.alpha.shape[0],
+            atlas_w=scene.atlas.width, atlas_h=scene.atlas.height,
+            det_eps=cfg.tri_det_eps, tri_eps=cfg.tri_eps,
+        )
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.n_tris // CULL_CHUNK)
+
+
+def supported(scene: Scene, cfg: RenderConfig) -> bool:
+    """K3's gates: ``raytpu``'s (1 to 2048 triangles, at most 64 spheres
+    and 64 materials, nearest textures within the texture-row bounds) and
+    no equirect sky (the sky slot is not ported yet)."""
+    return not unsupported_reasons(scene, cfg)
+
+
+def unsupported_reasons(scene: Scene, cfg: RenderConfig) -> list[str]:
+    """Human-readable failed gates of ``supported``."""
+    n_tex = scene.atlas.alpha.shape[0]
+    w = max(scene.atlas.width, 1)
+    n_t, n_s, n_m = scene.triangles.count, scene.spheres.count, scene.mat_table.count
+    r = []
+    if n_t == 0:
+        r.append("no triangles (sphere kernel territory)")
+    if n_t > MAX_TRIS:
+        r.append(f"{n_t} triangles > {MAX_TRIS}")
+    if n_s > MAX_SPHERES:
+        r.append(f"{n_s} spheres > {MAX_SPHERES}")
+    if scene.sky_sphere_index >= n_s:
+        r.append("sky_sphere_index out of range")
+    elif scene.sky_sphere_index >= 0:
+        r.append("equirect sky (sky slot not ported)")
+    if n_tex > 0 and cfg.bilinear_textures:
+        r.append("bilinear texture filtering")
+    if n_m > MAX_MATS:
+        r.append(f"{n_m} materials > {MAX_MATS}")
+    if 4 * w > MAX_TEX_W4:
+        r.append(f"atlas width {w} > {MAX_TEX_W4 // 4} (texture-row fetch bound)")
+    if -(-n_tex // w) > MAX_TEX_ROWS:
+        r.append(f"{-(-n_tex // w)} texture rows > {MAX_TEX_ROWS}")
+    return r
 
 
 def initial_carry(rox, roy, roz, rdx, rdy, rdz) -> tuple:
@@ -170,3 +318,360 @@ def shade_bounce(i: int, carry, did_hit, px, py, pz, nX, nY, nZ,
     return (rox, roy, roz, rdx, rdy, rdz, rcx, rcy, rcz, ix, iy, iz,
             ax_, ay_, az_, nx_, ny_, nz_,
             active_f, is_alpha_f, alpha_depth, medium_n2)
+
+
+class MeshTables(NamedTuple):
+    """The tables K3 and its plain version read (``pack_scene``)."""
+
+    sph: Tensor     # (14, S): cx cy cz r | diffuse3 emission3 estr refl alpha ior
+    tri: Tensor     # (25, T): a3 ab3 ac3 n3 b3 c3 ua va ub vb uc vc mat
+    search: Tensor  # (T, 12): rows 0-11 of tri per triangle (the kernel's
+                    # shared-memory layout)
+    boxes: Tensor   # (6, ceil(T / 32)): per-chunk box lo3 hi3
+    mats: Tensor    # (9, M): emission3 estr refl ior alpha_c use_c eft
+    atlas: Tensor   # (4, n_tex): r g b alpha texel planes
+
+
+def pack_tri(scene: Scene) -> Tensor:
+    """(25, T) f32 triangle table (``raytpu``'s ``pack_tri25`` without the
+    padding): the search channels a, b - a, c - a and the raw normal, then
+    the raw b and c that the barycentrics read, the UVs and the material
+    id."""
+    t = scene.triangles
+    g = precompute(t)
+    return torch.stack([
+        *g.a, *g.edge_ab, *g.edge_ac, *g.normal_raw, *t.b, *t.c,
+        t.ua, t.va, t.ub, t.vb, t.uc, t.vc, t.mat_id.to(torch.float32),
+    ]).to(torch.float32).contiguous()
+
+
+def chunk_boxes(xs, ys, zs, n: int) -> Tensor:
+    """(6, ceil(n / 32)) boxes lo3 hi3 over each run of CULL_CHUNK
+    primitives. ``xs``/``ys``/``zs`` list each corner's (n,) coordinate.
+    Every box grows by 1e-5 (|x| + 1) per side, which keeps the cull
+    conservative for the f32-recomputed corners."""
+    n_chunks = -(-n // CULL_CHUNK)
+    pad = n_chunks * CULL_CHUNK - n
+    lo, hi = [], []
+    for parts in (xs, ys, zs):
+        stack = torch.stack(parts)                      # (corners, n)
+        chunks = lambda v: torch.nn.functional.pad(stack, (0, pad), value=v) \
+            .reshape(len(parts), n_chunks, CULL_CHUNK)
+        lo.append(chunks(math.inf).amin(dim=(0, 2)))
+        hi.append(chunks(-math.inf).amax(dim=(0, 2)))
+    boxes = torch.stack(lo + hi)
+    eps = 1e-5 * (boxes.abs() + 1.0)
+    return (boxes + torch.cat([-eps[:3], eps[3:]])).contiguous()
+
+
+def pack_mats(scene: Scene) -> Tensor:
+    """(9, M) f32 material table: emission3 estr refl ior alpha_c
+    use_alpha_const emission_from_texture."""
+    m = scene.mat_table
+    return torch.stack([
+        *m.emission, m.emission_strength, m.reflection, m.ior, m.alpha_const,
+        m.use_alpha_const.to(torch.float32),
+        m.emission_from_texture.to(torch.float32),
+    ]).to(torch.float32).contiguous()
+
+
+def pack_scene(scene: Scene) -> MeshTables:
+    """K3's tables for ``scene``; the cull boxes span the recomputed
+    corners a, a + ab and a + ac, as ``raytpu``'s ``pack_scene``."""
+    from raytpu_torch.kernels.trace_spheres import pack_spheres
+
+    tri = pack_tri(scene)
+    corners = [(tri[r], tri[r] + tri[r + 3], tri[r] + tri[r + 6])
+               for r in range(3)]
+    a = scene.atlas
+    return MeshTables(
+        sph=pack_spheres(scene), tri=tri, search=tri[:12].T.contiguous(),
+        boxes=chunk_boxes(*map(list, corners), scene.triangles.count),
+        mats=pack_mats(scene),
+        atlas=torch.stack([*a.rgb, a.alpha]).to(torch.float32).contiguous(),
+    )
+
+
+def _closest_sphere(geo, n_s, rox, roy, roz, rdx, rdy, rdz, eps):
+    """(best t, winner index or -1) over the spheres: strict t < best.
+    ``raytpu``'s K3 takes sqrt(max(disc, 0)) where its K1 clamps at 1e-30,
+    so this is not ``trace_spheres._closest_sphere``."""
+    a_quad = rdx * rdx + rdy * rdy + rdz * rdz
+    inv_2a = 0.5 / torch.clamp(a_quad, min=1e-20)
+    best = torch.full_like(rox, BIG)
+    bidx = torch.full_like(rox, -1, dtype=torch.int32)
+    for s in range(n_s):
+        cx, cy, cz, r = geo[0][s], geo[1][s], geo[2][s], geo[3][s]
+        ocx, ocy, ocz = rox - cx, roy - cy, roz - cz
+        b_ = 2.0 * (ocx * rdx + ocy * rdy + ocz * rdz)
+        c_ = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = b_ * b_ - 4.0 * a_quad * c_
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t1 = (-b_ - sq) * inv_2a
+        t2 = (-b_ + sq) * inv_2a
+        hit = disc > 0.0
+        t = torch.where(hit & (t1 >= eps), t1,
+                        torch.where(hit & (t2 >= eps), t2, BIG))
+        better = t < best
+        best = torch.where(better, t, best)
+        bidx = torch.where(better, s, bidx)
+    return best, bidx
+
+
+def _slab(boxes: Tensor, c: int, ox, oy, oz, inv_x, inv_y, inv_z):
+    """(the ray's line meets box c ahead of the origin, entry t)."""
+    t0x, t1x = (boxes[0, c] - ox) * inv_x, (boxes[3, c] - ox) * inv_x
+    t0y, t1y = (boxes[1, c] - oy) * inv_y, (boxes[4, c] - oy) * inv_y
+    t0z, t1z = (boxes[2, c] - oz) * inv_z, (boxes[5, c] - oz) * inv_z
+    tmin = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                       torch.minimum(t0y, t1y)),
+                         torch.minimum(t0z, t1z))
+    tmax = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                       torch.maximum(t0y, t1y)),
+                         torch.maximum(t0z, t1z))
+    return (tmax >= tmin) & (tmax >= 0.0), tmin
+
+
+def _triangle_hits(tri: Tensor, lo: int, hi: int, o, d, k: MeshKnobs):
+    """Moller-Trumbore of every ray against triangles lo..hi-1: (B, L)
+    distances (BIG where there is no valid hit) and validity."""
+    (ax, ay, az, abx, aby, abz, acx, acy, acz, nx, ny, nz) = (
+        tri[r, lo:hi][None, :] for r in range(12))
+    ox, oy, oz, dx, dy, dz = (c[:, None] for c in (*o, *d))
+    aox, aoy, aoz = ox - ax, oy - ay, oz - az
+    daox = aoy * dz - aoz * dy
+    daoy = aoz * dx - aox * dz
+    daoz = aox * dy - aoy * dx
+    det = -(dx * nx + dy * ny + dz * nz)
+    inv_det = 1.0 / torch.where(det >= k.det_eps, det, 1.0)
+    dst = (aox * nx + aoy * ny + aoz * nz) * inv_det
+    u = (acx * daox + acy * daoy + acz * daoz) * inv_det
+    v = -(abx * daox + aby * daoy + abz * daoz) * inv_det
+    w = 1.0 - u - v
+    valid = ((det >= k.det_eps) & (dst >= k.tri_eps) & (u >= k.tri_eps)
+             & (v >= k.tri_eps) & (w >= k.tri_eps))
+    return torch.where(valid, dst, BIG), valid
+
+
+def _chunks(k: MeshKnobs):
+    for c in range(k.n_chunks):
+        yield c, c * CULL_CHUNK, min(k.n_tris, (c + 1) * CULL_CHUNK)
+
+
+def _closest_triangle(tb: MeshTables, k: MeshKnobs, o, d, active, best,
+                      bidx, counts):
+    """Continue the search over the triangle chunks that a live ray's
+    line enters before its current best (the kernel's per-ray cull, so
+    a skipped chunk never holds the winner); winners are n_spheres + t."""
+    inv = [1.0 / c for c in d]
+    for c, lo, hi in _chunks(k):
+        hit_box, tmin = _slab(tb.boxes, c, *o, *inv)
+        enter = hit_box & active & (tmin < best)
+        if counts is not None:
+            counts["tri"] += int(enter.sum()) * (hi - lo)
+        if not bool(enter.any()):
+            continue
+        t, _ = _triangle_hits(tb.tri, lo, hi, o, d, k)
+        t_c, j = torch.min(t, dim=1)        # the first of equal minima
+        better = enter & (t_c < best)
+        best = torch.where(better, t_c, best)
+        bidx = torch.where(better, (k.n_spheres + lo + j).to(torch.int32), bidx)
+    return best, bidx
+
+
+def _ao_factor(tb: MeshTables, geo, k: MeshKnobs, p: Vec3, n: Vec3, active,
+               draws: Tensor, row0: int) -> Tensor:
+    """Hemisphere probes from the hit point: any sphere hit at t >= eps
+    (either root), then any valid triangle of the chunks the probe enters;
+    occluded probes / (ao_samples * ao_intensity)."""
+    occ = torch.zeros_like(p.x)
+    for s_i in range(k.ao_samples):
+        ath = TWO_PI * draws[row0 + 3 + 2 * s_i]
+        acp = torch.clamp(2.0 * draws[row0 + 4 + 2 * s_i] - 1.0, -1.0, 1.0)
+        asp = torch.sqrt(torch.clamp(1.0 - acp * acp, min=0.0))
+        ao = Vec3(n.x + torch.cos(ath) * asp, n.y + torch.sin(ath) * asp,
+                  n.z + acp).normalize()
+        aq = ao.dot(ao)
+        ai2a = 0.5 / torch.clamp(aq, min=1e-20)
+        hit = torch.zeros_like(active)
+        for s in range(k.n_spheres):
+            ocx, ocy, ocz = p.x - geo[0][s], p.y - geo[1][s], p.z - geo[2][s]
+            b2 = 2.0 * (ocx * ao.x + ocy * ao.y + ocz * ao.z)
+            c2 = ocx * ocx + ocy * ocy + ocz * ocz - geo[3][s] * geo[3][s]
+            d2 = b2 * b2 - 4.0 * aq * c2
+            sq2 = torch.sqrt(torch.clamp(d2, min=0.0))
+            tt1, tt2 = (-b2 - sq2) * ai2a, (-b2 + sq2) * ai2a
+            hit = hit | ((d2 > 0.0) & ((tt1 >= k.sphere_eps)
+                                       | (tt2 >= k.sphere_eps)))
+        inv = [1.0 / c for c in ao]
+        for c, lo, hi in _chunks(k):
+            enter = _slab(tb.boxes, c, *p, *inv)[0] & active & ~hit
+            if bool(enter.any()):
+                valid = _triangle_hits(tb.tri, lo, hi, p, ao, k)[1]
+                hit = hit | (enter & valid.any(dim=1))
+        occ = occ + torch.where(hit, 1.0, 0.0)
+    return occ * k.ao_inv
+
+
+def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
+                          dx: Tensor, dy: Tensor, dz: Tensor, draws: Tensor,
+                          k: MeshKnobs, counts: Optional[dict] = None) -> Tensor:
+    """Plain PyTorch version of the kernel (``raytpu``'s ``bounce_body``
+    with ``sky_idx=-1`` and no quads), triangles a chunk of 32 at a time
+    so memory stays O(rays x chunk).
+
+    rays (B,) each; draws (bounces * n_draws, B). Returns (9, B):
+    radiance xyz, albedo xyz, normal xyz. ``counts``, a dict, receives
+    the search work this input needs: ``live`` (ray, bounce) entries,
+    ``sphere`` and ``slab`` tests, and ``tri`` tests of entered chunks
+    (AO probes not counted).
+    """
+    n_s = k.n_spheres
+    carry = initial_carry(ox, oy, oz, dx, dy, dz)
+    # sphere winner table with a zero column n_s for triangle winners and misses
+    stab = torch.cat([tb.sph[:, :n_s], tb.sph.new_zeros((14, 1))], dim=1)
+    geo = [[stab[r, s] for s in range(n_s)] for r in range(4)]
+    atlas = TextureAtlas(Vec3(*tb.atlas[:3]), tb.atlas[3], k.atlas_w, k.atlas_h)
+    table = MatTable(Vec3(*tb.mats[:3]), tb.mats[3], tb.mats[4], tb.mats[5],
+                     tb.mats[6], tb.mats[7] > 0.0, tb.mats[8] > 0.0)
+    for i in range(k.bounces):
+        o, d = carry[0:3], carry[3:6]
+        active = carry[18] > 0.0
+        if counts is not None:
+            live = int(active.sum())
+            counts["live"] += live
+            counts["sphere"] += live * n_s
+            counts["slab"] += live * k.n_chunks
+        best, bidx = _closest_sphere(geo, n_s, *o, *d, k.sphere_eps)
+        best, bidx = _closest_triangle(tb, k, o, d, active, best, bidx, counts)
+        did_hit = bidx >= 0
+        tri_wins = bidx >= n_s
+        safe_t = torch.where(did_hit, best, 0.0)
+        p = Vec3(*(oc + dc * safe_t for oc, dc in zip(o, d)))
+
+        sph_wins = did_hit & ~tri_wins
+        (scx, scy, scz, _, sdfx, sdfy, sdfz, semx, semy, semz, sestr, srefl,
+         salpha, sior) = stab[:, torch.where(sph_wins, bidx, n_s).long()].unbind(0)
+        svx, svy, svz = p.x - scx, p.y - scy, p.z - scz
+        n2s = svx * svx + svy * svy + svz * svz
+        s_inv = torch.where((n2s > 0) & sph_wins,
+                            1.0 / torch.sqrt(torch.clamp(n2s, min=1e-38)), 0.0)
+
+        w = tb.tri[:, torch.where(tri_wins, bidx - n_s, 0).long()]   # (25, B)
+        tn = Vec3(w[9], w[10], w[11]).normalize()
+        m = triangle_material(Vec3(w[0], w[1], w[2]), Vec3(w[12], w[13], w[14]),
+                              Vec3(w[15], w[16], w[17]), (w[18], w[19]),
+                              (w[20], w[21]), (w[22], w[23]), tn, p, w[24],
+                              atlas, table)
+        sel = lambda t, s: torch.where(tri_wins, t, s)
+        nrm = Vec3(sel(tn.x, svx * s_inv), sel(tn.y, svy * s_inv),
+                   sel(tn.z, svz * s_inv))
+        row0 = k.n_draws * i
+        aof = (_ao_factor(tb, geo, k, p, nrm, active, draws, row0)
+               if k.use_ao else None)
+        carry = shade_bounce(
+            i, carry, did_hit, *p, *nrm,
+            sel(m.diffuse.x, sdfx), sel(m.diffuse.y, sdfy),
+            sel(m.diffuse.z, sdfz), sel(m.emission.x, semx),
+            sel(m.emission.y, semy), sel(m.emission.z, semz),
+            sel(m.emission_strength, sestr), sel(m.reflection, srefl),
+            sel(m.alpha, salpha), sel(m.ior, sior),
+            draws[row0], draws[row0 + 1], draws[row0 + 2],
+            e_scale_mult=k.e_scale_mult, ao_factor=aof, **k.shade_kw,
+        )
+    return torch.stack(carry[9:18])
+
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 14                 # 6 tables, 6 rays, draws, out
+    + [ctypes.c_int] * 9                   # n_rays n_spheres n_tris n_mats n_tex
+                                           # atlas_w atlas_h bounces n_draws
+    + [ctypes.c_float] * 7                 # sphere/det/tri eps, alpha lo/hi,
+                                           # bright boost/threshold
+    + [ctypes.c_int] * 2                   # use_ao, ao_samples
+    + [ctypes.c_float] * 2                 # ao_e_scale, ao_inv
+    + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
+    + [ctypes.c_void_p]                    # stream
+)
+
+
+def _library():
+    from raytpu_torch.kernels import _build
+
+    fn = _build.load("trace_scene").raytpu_trace_scene
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs) -> Tensor:
+    """Launch ``csrc/trace_scene.cu`` on the current stream: (9, B)."""
+    global launches
+    tensors = (tb.sph, tb.search, tb.tri, tb.boxes, tb.mats, tb.atlas,
+               *rays, draws)
+    if not all(t.is_contiguous() and t.dtype == torch.float32 for t in tensors):
+        raise ValueError("trace_scene kernel needs contiguous f32 inputs")
+    b = rays[0].shape[0]
+    dev = rays[0].device
+    out = torch.empty((9, b), dtype=torch.float32, device=dev)
+    fn = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(
+            *(t.data_ptr() for t in tensors), out.data_ptr(),
+            b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex, k.atlas_w,
+            k.atlas_h, k.bounces, k.n_draws,
+            k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
+            k.bright_boost, k.bright_threshold,
+            int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
+            int(k.hsl_on), k.hsl_l, k.hsl_s, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"trace_scene kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
+                          direction: Vec3, bounce_draws: Tensor
+                          ) -> tuple[Vec3, Vec3, Vec3]:
+    """(radiance, albedo AOV, normal AOV) for a batch of rays through a
+    mesh scene.
+
+    bounce_draws: (max_bounces, n_bounce_draws(cfg), B) U(0,1) draws.
+    Runs on the device of the scene: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. Raises ``NotImplementedError`` for
+    scenes the kernel does not cover (``unsupported_reasons``) and when a
+    scene leaf or a ray requires grad: the mesh backward (K2's mesh mode,
+    with K3's recording mode) is not ported yet.
+    """
+    reasons = unsupported_reasons(scene, cfg)
+    if reasons:
+        raise NotImplementedError("trace_scene: " + "; ".join(reasons))
+    rays = (*origin, *direction)
+    if torch.is_grad_enabled() and requires_grad(scene, *rays):
+        raise NotImplementedError(
+            "trace_scene: gradients through a mesh scene need the mesh "
+            "backward (K2's mesh mode), which is not ported yet")
+    bn, nd, b = bounce_draws.shape
+    k = MeshKnobs.for_scene(cfg, scene, nd)
+    if bn != cfg.max_bounces or nd < k.draws_needed:
+        raise ValueError(f"bounce_draws {tuple(bounce_draws.shape)}: need "
+                         f"({cfg.max_bounces}, >={k.draws_needed}, B)")
+    dev = scene.device
+    for t in (*rays, bounce_draws):
+        if (t.device != dev or t.dtype != torch.float32 or t.shape[-1] != b
+                or (t is not bounce_draws and t.dim() != 1)):
+            raise ValueError(
+                f"trace_scene: rays and draws must be f32 with B={b} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    tb = pack_scene(scene)
+    draws = bounce_draws.reshape(bn * nd, b)
+    if dev.type == "cuda":
+        out = _launch(tb, tuple(t.contiguous() for t in rays),
+                      draws.contiguous(), k)
+    elif dev.type == "cpu":
+        out = trace_scene_reference(tb, *rays, draws, k)
+    else:
+        raise NotImplementedError(f"trace_scene: no kernel for {dev}")
+    return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

@@ -22,14 +22,14 @@ index-replay backward K2 (``kernels/trace_scene_bwd``).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 from torch import Tensor
 
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.core.vec3 import Vec3
-from raytpu_torch.kernels.trace_scene import TWO_PI, initial_carry, shade_bounce
+from raytpu_torch.kernels.trace_scene import (TWO_PI, Knobs, initial_carry,
+                                             shade_bounce)
 from raytpu_torch.kernels.trace_scene_bwd import check_depth, sphere_backward
 
 MAX_SPHERES = 64
@@ -49,7 +49,8 @@ def unsupported_reasons(scene: Scene, cfg: RenderConfig) -> list[str]:
     r = []
     n = scene.spheres.count
     if scene.n_triangles != 0:
-        r.append("scene has triangles (mesh kernel not ported)")
+        r.append("scene has triangles (the mesh kernel, "
+                 "kernels/trace_scene, traces them)")
     if n == 0:
         r.append("no spheres")
     if n > MAX_SPHERES:
@@ -71,60 +72,6 @@ def pack_spheres(scene: Scene) -> Tensor:
         m.emission.x, m.emission.y, m.emission.z,
         m.emission_strength, m.reflection, m.alpha, m.ior,
     ]).to(torch.float32).contiguous()
-
-
-@dataclass(frozen=True)
-class Knobs:
-    """The loop's static parameters (``_statics``), with the two
-    products ``raytpu`` forms in double precision before rounding to f32."""
-
-    n_spheres: int
-    bounces: int
-    n_draws: int
-    sphere_eps: float
-    alpha_lo: float
-    alpha_hi: float
-    bright_boost: float
-    bright_threshold: float
-    use_ao: bool
-    ao_samples: int
-    ao_e_scale: float   # ao_emission_factor * ao_intensity
-    ao_inv: float       # 1 / (ao_samples * ao_intensity)
-    hsl_l: float
-    hsl_s: float
-
-    @staticmethod
-    def create(cfg: RenderConfig, n_spheres: int, n_draws: int) -> "Knobs":
-        return Knobs(
-            n_spheres=n_spheres, bounces=cfg.max_bounces, n_draws=n_draws,
-            sphere_eps=cfg.sphere_eps, alpha_lo=cfg.refr_alpha_lo,
-            alpha_hi=cfg.refr_alpha_hi, bright_boost=cfg.bright_boost,
-            bright_threshold=cfg.bright_threshold, use_ao=cfg.use_ao,
-            ao_samples=cfg.ao_samples,
-            ao_e_scale=cfg.ao_emission_factor * cfg.ao_intensity,
-            ao_inv=1.0 / (cfg.ao_samples * cfg.ao_intensity),
-            hsl_l=cfg.hsl_l_factor, hsl_s=cfg.hsl_s_factor,
-        )
-
-    @property
-    def hsl_on(self) -> bool:
-        return not (self.hsl_l == 1.0 and self.hsl_s == 1.0)
-
-    @property
-    def e_scale_mult(self) -> float:
-        return self.ao_e_scale if self.use_ao else 1.0
-
-    @property
-    def shade_kw(self) -> dict:
-        """The static knobs ``trace_scene.shade_bounce`` takes."""
-        return dict(alpha_lo=self.alpha_lo, alpha_hi=self.alpha_hi,
-                    bright_boost=self.bright_boost,
-                    bright_threshold=self.bright_threshold,
-                    hsl_l=self.hsl_l, hsl_s=self.hsl_s)
-
-    @property
-    def draws_needed(self) -> int:
-        return 3 + 2 * (self.ao_samples if self.use_ao else 0)
 
 
 def _closest_sphere(geo, n_s, rox, roy, roz, rdx, rdy, rdz, eps):

@@ -1,0 +1,72 @@
+"""Texture lookup and material resolution for triangle hits.
+
+Port of ``raytpu/materials/texture.py`` (``wrap_uv``, the nearest
+``atlas_fetch`` and ``triangle_material``, tri_uvmapping in
+texture.h:44-89): barycentric UVs with the fmod wrap, the nearest texel
+of the flat atlas (index y*W + x + W*H*mat_id) and the per-material-id
+table. An index outside the atlas or the table reads zeros, as ``raytpu``'s
+mesh kernel (K3) does. Bilinear filtering and the equirect sky fetch are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from raytpu_torch.core.types import Materials, MatTable, TextureAtlas
+from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.geometry.triangle import barycentric
+
+UNTEXTURED_RGB = (0.784, 0.965, 1.0)   # mesh.h:207's default material
+
+
+def wrap_uv(u: Tensor) -> Tensor:
+    """fmod wrap to [0, 1) with the negative correction (texture.h:53-60)."""
+    u = torch.fmod(u, 1.0)
+    return torch.where(u < 0.0, u + 1.0, u)
+
+
+def _take(plane: Tensor, idx: Tensor, zero=0.0) -> Tensor:
+    """plane[idx], and ``zero`` where idx is outside the plane."""
+    ok = (idx >= 0) & (idx < plane.shape[0])
+    return torch.where(ok, plane[torch.where(ok, idx, 0)], zero)
+
+
+def atlas_fetch(atlas: TextureAtlas, mat_id: Tensor, u: Tensor,
+                v: Tensor) -> tuple[Vec3, Tensor]:
+    """Nearest texel (texture.h:61-69): (rgb, alpha) per ray. x and y are
+    clamped for u or v that round to 1.0."""
+    w, h = atlas.width, atlas.height
+    x = torch.clamp(torch.floor(u * w).to(torch.int64), 0, w - 1)
+    y = torch.clamp(torch.floor(v * h).to(torch.int64), 0, h - 1)
+    idx = (y * w + x) + (h * w) * mat_id.to(torch.int64)
+    r, g, b, alpha = (_take(c, idx) for c in (*atlas.rgb, atlas.alpha))
+    return Vec3(r, g, b), alpha
+
+
+def triangle_material(tri_a: Vec3, tri_b: Vec3, tri_c: Vec3,
+                      uv_a: tuple, uv_b: tuple, uv_c: tuple, normal: Vec3,
+                      hit_point: Vec3, mat_id: Tensor, atlas: TextureAtlas,
+                      table: MatTable) -> Materials:
+    """tri_uvmapping for per-ray winning triangles (all (B,))."""
+    w_a, w_b, w_c = barycentric(tri_a, tri_b, tri_c, normal, hit_point)
+    u = wrap_uv(w_a * uv_a[0] + w_b * uv_b[0] + w_c * uv_c[0])
+    v = wrap_uv(w_a * uv_a[1] + w_b * uv_b[1] + w_c * uv_c[1])
+    if atlas.count > 0:
+        rgb, tex_alpha = atlas_fetch(atlas, mat_id, u, v)
+    else:
+        full = lambda c: torch.full_like(u, c)
+        rgb, tex_alpha = Vec3(*map(full, UNTEXTURED_RGB)), full(1.0)
+    m = mat_id.to(torch.int64)
+    em = Vec3(*(_take(c, m) for c in table.emission))
+    eft = _take(table.emission_from_texture, m, False)
+    use_const = _take(table.use_alpha_const, m, False)
+    return Materials(
+        diffuse=rgb,
+        emission=Vec3(*(torch.where(eft, e * t, e) for e, t in zip(em, rgb))),
+        emission_strength=_take(table.emission_strength, m),
+        reflection=_take(table.reflection, m),
+        alpha=torch.where(use_const, _take(table.alpha_const, m), tex_alpha),
+        ior=_take(table.ior, m),
+    )

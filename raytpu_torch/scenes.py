@@ -1,13 +1,20 @@
-"""Built-in sphere scenes, as data.
+"""Built-in sphere scenes, as data, and a block-world scene writer.
 
 Port of ``raytpu/scenes.py``: the 10-sphere Cornell scene, the CUDA
 binary's variant (HSL boost + AO) and the DoF + AO configuration. Each
 function returns (Scene, Camera, RenderConfig) with the scene and camera
 tensors on ``device``: the CUDA card when it is ``None``, ``"cpu"`` for
 the plain PyTorch path.
+
+``write_block_world`` writes a textured mesh scene as files (OBJ, MTL,
+PPM textures, TOML) for ``config.load_scene_file``: the reference's mesh
+assets are not part of the repository, and this procedural world has the
+shape of its largest one.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -112,3 +119,248 @@ BUILTIN = {
     "cornell_cuda": cornell_box_cuda,
     "cornell_dof_ao": cornell_box_dof_ao,
 }
+
+
+# Block-world materials in usemtl order (slot = index): name, base colour,
+# textured. Slots 6 and 7 are water and 9 is emissive, set in the TOML as
+# scenes/mcworld_water.toml sets its water; 8 has an alpha companion of
+# 0 / 128 / 255 texels (cutout, refraction window, opaque); 10 has no
+# texture, so the atlas gets a solid tile of its Kd.
+BLOCK_MATERIALS = (
+    ("grass", (0.35, 0.62, 0.22), True), ("dirt", (0.55, 0.38, 0.24), True),
+    ("stone", (0.5, 0.5, 0.52), True), ("sand", (0.86, 0.8, 0.56), True),
+    ("planks", (0.7, 0.52, 0.3), True), ("leaves", (0.2, 0.45, 0.15), True),
+    ("water_still", (0.2, 0.35, 0.8), True),
+    ("water_flow", (0.25, 0.4, 0.85), True),
+    ("glass", (0.8, 0.9, 0.95), True), ("glowstone", (0.95, 0.8, 0.45), True),
+    ("snow", (0.94, 0.95, 0.97), False),
+)
+BLOCK_TILE = 16   # texels per texture side
+_BLOCK_TOML = """\
+# Procedural block world at the shape of BASELINE config 5
+# (scenes/mcworld_water.toml): {n_tris} textured triangles, 11 materials of
+# {tile}x{tile} texels, water slots 6 and 7 with the reference's water
+# physics (alpha .6, ior 1.33, refl .93), a glass slot with a cut-out /
+# window / opaque alpha texture and an emissive slot lit by its texels.
+# Written by raytpu_torch.scenes.write_block_world(seed={seed}).
+[render]
+width = 1200
+height = 900
+spp = 1000
+bounces = 6
+
+[camera]
+origin = [2.4, 2.6, 3.2]
+target = [0.07, 0.9, 0.0]
+up = [0.0, 1.0, 0.0]
+vfov = 38.0
+
+[mesh]
+obj = "block_world.obj"
+mtl = "block_world.mtl"
+
+[[mesh.materials]]   # water_still
+id = 6
+alpha = 0.6
+ior = 1.33
+reflection = 0.93
+
+[[mesh.materials]]   # water_flow
+id = 7
+alpha = 0.6
+ior = 1.33
+reflection = 0.93
+
+[[mesh.materials]]   # glass: the alpha texture picks the branch
+id = 8
+ior = 1.5
+reflection = 0.1
+
+[[mesh.materials]]   # glowstone
+id = 9
+emission = [1.0, 0.85, 0.6]
+emission_strength = 4.0
+emission_from_texture = true
+
+[[spheres]]   # ground
+center = [0, -500.0, 0]
+radius = 500.0
+diffuse = [0.55, 0.6, 0.45]
+
+[[spheres]]   # sun
+center = [8.0, 12.0, 6.0]
+radius = 2.0
+emission = [1.0, 0.98, 0.9]
+emission_strength = 40.0
+
+[[spheres]]   # sky dome
+center = [0.0, 0.0, 0.0]
+radius = 100000.0
+emission = [0.784, 0.965, 1.0]
+emission_strength = 1.0
+"""
+
+
+def _block_faces(n: int, seed: int):
+    """Exposed faces of an n x n heightmap of cubes: (material, corner,
+    edge 1, edge 2) in block units, cross(edge 1, edge 2) outward."""
+    rs = np.random.default_rng([seed, n])
+    top = max(3, n // 2)
+    i, k = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    wave = np.sin(0.9 * i + rs.uniform(0, 6)) * np.cos(0.7 * k + rs.uniform(0, 6))
+    h = np.clip(np.rint(1 + (top - 1) * (0.5 + 0.45 * wave)
+                        + rs.normal(0, 0.4, (n, n))), 1, top).astype(int)
+    # the first columns of a seeded order get glass, glowstone, planks
+    # and leaves blocks on top; the rest sand, grass or snow by height
+    tops = np.where(h == 1, 3, np.where(h == top, 10, 0))
+    for slot, c in zip((8, 9, 4, 5), rs.permutation(n * n)):
+        tops.flat[c] = slot
+    faces = []
+    for x in range(n):
+        for z in range(n):
+            hc, mt = h[x, z], tops[x, z]
+            faces.append((mt, (x, hc, z), (0, 0, 1), (1, 0, 0)))
+            for (dx, dz), p0, e1, e2 in (
+                ((1, 0), (x + 1, 0, z), (0, 1, 0), (0, 0, 1)),
+                ((-1, 0), (x, 0, z), (0, 0, 1), (0, 1, 0)),
+                ((0, 1), (x, 0, z + 1), (1, 0, 0), (0, 1, 0)),
+                ((0, -1), (x, 0, z), (0, 1, 0), (1, 0, 0)),
+            ):
+                nx, nz = x + dx, z + dz
+                hn = h[nx, nz] if 0 <= nx < n and 0 <= nz < n else 0
+                for y in range(hn, hc):
+                    m = (mt if y == hc - 1 and mt in (4, 5, 8, 9)
+                         else 1 if y == 0 else 2)
+                    faces.append((m, (p0[0], y, p0[2]), e1, e2))
+    return faces
+
+
+def _water_tiles(n: int, count: int):
+    """``count`` water surface tiles in rings around the n x n columns,
+    0.4 blocks above the ground, alternating the two water slots."""
+    tiles = []
+    d = 0
+    while len(tiles) < count:
+        ring = [(x, z) for x in range(-d - 1, n + d + 1)
+                for z in range(-d - 1, n + d + 1)
+                if max(-x - 1, x - n, -z - 1, z - n) == d]
+        tiles += [(6 + (x + z) % 2, (x, 0.4, z), (0, 0, 1), (1, 0, 0))
+                  for x, z in ring]
+        d += 1
+    return tiles[:count]
+
+
+def write_block_world(directory: str, n_triangles: int = 600,
+                      seed: int = 0) -> str:
+    """Write a procedural block world in the reference's file formats
+    (OBJ, MTL, 16x16 P3 PPM textures with an ``_alpha.ppm`` companion,
+    TOML spec) into ``directory`` and return the TOML's path.
+
+    The world is the shape of the reference's largest mesh scene, BASELINE
+    config 5 (mcworld, ``scenes/mcworld_water.toml``): the exposed faces
+    of a heightmap of cubes, two triangles per face, in a ring of water
+    tiles, under the same camera, ground, sun and sky-dome spheres, at
+    1200x900 and 6 bounces. Everything is made from ``seed`` with numpy.
+    The heightmap is the widest that fits ``n_triangles`` (an even count);
+    water tiles make up the rest, so the OBJ holds exactly
+    ``n_triangles`` triangles, each material's faces written together
+    after its ``usemtl``.
+    """
+    from raytpu_torch.io.ppm import write_ppm
+
+    if n_triangles % 2:
+        raise ValueError(f"n_triangles={n_triangles}: need an even count")
+    n_faces = n_triangles // 2
+    n = 1
+    while len(_block_faces(n + 1, seed)) + 2 <= n_faces:
+        n += 1
+    faces = _block_faces(n, seed)
+    if len(faces) + 2 > n_faces:
+        raise ValueError(f"n_triangles={n_triangles} is below the smallest world")
+    faces += _water_tiles(n, n_faces - len(faces))
+    size = 2.4 / n                 # the columns span [-1.2, 1.2] in x and z
+    to_world = lambda p: (-1.2 + size * p[0], size * p[1], -1.2 + size * p[2])
+
+    os.makedirs(os.path.join(directory, "tex"), exist_ok=True)
+    obj = ["# block world: exposed cube faces, 2 triangles each",
+           "mtllib block_world.mtl",
+           "vt 0 0", "vt 1 0", "vt 1 1", "vt 0 1"]
+    mtl = []
+    rs = np.random.default_rng(seed)
+    n_v = 0
+    for slot, (name, base, textured) in enumerate(BLOCK_MATERIALS):
+        obj.append(f"usemtl {name}")
+        for m, p0, e1, e2 in faces:
+            if m != slot:
+                continue
+            corners = (p0, np.add(p0, e1), np.add(np.add(p0, e1), e2),
+                       np.add(p0, e2))
+            obj += ["v %.6f %.6f %.6f" % to_world(c) for c in corners]
+            obj += [f"f {n_v + 1}/1 {n_v + 2}/2 {n_v + 3}/3",
+                    f"f {n_v + 1}/1 {n_v + 3}/3 {n_v + 4}/4"]
+            n_v += 4
+        mtl += [f"newmtl {name}", "Kd %.3f %.3f %.3f" % base, "d 1.0"]
+        if not textured:
+            continue
+        mtl.append(f"map_Kd tex/{name}.png")   # read as tex/<name>.ppm
+        shade = np.asarray(base) * rs.uniform(0.55, 1.0, (BLOCK_TILE, BLOCK_TILE, 1))
+        write_ppm(os.path.join(directory, "tex", f"{name}.ppm"),
+                  np.rint(255 * shade).astype(np.int64))
+        if name == "glass":
+            a = rs.choice([0, 128, 255], size=(BLOCK_TILE, BLOCK_TILE),
+                          p=[0.3, 0.3, 0.4])
+            write_ppm(os.path.join(directory, "tex", "glass_alpha.ppm"),
+                      np.repeat(a[..., None], 3, -1))
+    with open(os.path.join(directory, "block_world.obj"), "w") as f:
+        f.write("\n".join(obj) + "\n")
+    with open(os.path.join(directory, "block_world.mtl"), "w") as f:
+        f.write("\n".join(mtl) + "\n")
+    path = os.path.join(directory, "block_world.toml")
+    with open(path, "w") as f:
+        f.write(_BLOCK_TOML.format(n_tris=n_triangles, tile=BLOCK_TILE,
+                                   seed=seed))
+    return path
+
+
+def mesh_branch_scene(device=None) -> tuple[Scene, Camera, RenderConfig]:
+    """Two textured quads (4 triangles, 2 materials, an 8x8 atlas) over
+    ground, sun and sky-dome spheres: ``tests/test_mesh_megakernel``'s
+    synthetic scene in the port's types. Its atlas alpha holds cutout
+    (0), refraction-window (0.5) and opaque (1) texels, and material 1
+    is emissive with texture-modulated emission, so every shading branch
+    of a triangle hit runs."""
+    from raytpu_torch.core.types import MatTable, TextureAtlas, Triangles
+
+    device = resolve_device(device)
+    rs = np.random.default_rng(7)
+    w = h = 8
+    rgb = rs.random((2 * h * w, 3), np.float32)
+    alpha = rs.choice(np.float32([0.0, 0.5, 1.0]), size=2 * h * w,
+                      p=[0.2, 0.2, 0.6])
+
+    def quad(x0, z0):
+        # two triangles spanning [x0, x0+1] x [z0, z0+1], rising to y=0.5
+        return ([(x0, 0.0, z0), (x0, 0.5, z0 + 1), (x0 + 1, 0.0, z0)],
+                [(x0 + 1, 0.5, z0 + 1), (x0 + 1, 0.0, z0), (x0, 0.5, z0 + 1)])
+
+    t = np.float32([*quad(-1.0, -2.5), *quad(0.2, -2.0)])        # (4, 3, 3)
+    u = np.float32([[(0, 0), (0, 1), (1, 0)], [(1, 1), (1, 0), (0, 1)]] * 2)
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    v3 = lambda a: Vec3(f(a[:, 0]), f(a[:, 1]), f(a[:, 2]))
+    tris = Triangles(v3(t[:, 0]), v3(t[:, 1]), v3(t[:, 2]),
+                     *(f(u[:, i, j]) for i in range(3) for j in range(2)),
+                     mat_id=f(np.int32([0, 0, 1, 1])))
+    atlas = TextureAtlas(v3(rgb), f(alpha), w, h)
+    table = MatTable.from_arrays([(0, 0, 0), (1, 1, 0.8)], [0.0, 2.0],
+                                 [0.3, 0.0], [1.33, 1.0], [1.0, 1.0],
+                                 [False, False], [False, True], device)
+    rows = [
+        ((0, -501, 0), 500.0, (0.8, 0.8, 0.75), BLACK, 0.0, 0.0, 1.0, 1.0),
+        ((4, 6, 2), 1.0, BLACK, WHITE, 20.0, 0.0, 1.0, 1.0),
+        ((0, 0, 0), 1e4, BLACK, SKY, 1.0, 0.0, 1.0, 1.0),
+    ]
+    scene = Scene(spheres_from_rows(rows, device), tris, atlas, table)
+    cam = make_camera(origin=(0.3, 0.8, 1.5), target=(0, 0.2, -2),
+                      up=(0, 1, 0), vfov_deg=55.0, aspect_ratio=1.5,
+                      device=device)
+    return scene, cam, RenderConfig(width=14, height=10, spp=4, max_bounces=5)

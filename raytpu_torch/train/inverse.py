@@ -38,10 +38,12 @@ ADAM_EPS = 1e-8
 
 
 def partition_scene(scene: Scene) -> tuple[dict, dict]:
-    """(params, static): params maps each float leaf's path to its
-    tensor, static holds the scene's non-float facts. Recombine with
+    """(params, static): params maps each sphere leaf's path to its
+    tensor; static holds the rest of the scene (the mesh, which this
+    trainer does not fit, and the sky index). Recombine with
     ``combine_scene``."""
-    static = {"n_triangles": scene.n_triangles,
+    static = {"triangles": scene.triangles, "atlas": scene.atlas,
+              "mat_table": scene.mat_table,
               "sky_sphere_index": scene.sky_sphere_index}
     return scene_leaves(scene), static
 

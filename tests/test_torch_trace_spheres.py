@@ -139,8 +139,12 @@ def test_unsupported_scenes_raise():
     cfg = cfg.replace(max_bounces=2)
     o, d = _rays()
     draws = torch.rand(2, 3, 8)
+    from raytpu_torch.scenes import mesh_branch_scene
+
+    mesh = mesh_branch_scene(device="cpu")[0]
     for bad, why in (
-        (TScene(scene.spheres, n_triangles=2), "triangles"),
+        (TScene(scene.spheres, mesh.triangles, mesh.atlas, mesh.mat_table),
+         "triangles"),
         (TScene(scene.spheres, sky_sphere_index=8), "sky"),
     ):
         assert not tts.supported(bad, cfg)
@@ -162,8 +166,12 @@ def test_converted_mesh_and_sky_scenes_are_refused():
     scene, _, _ = jscenes.cornell_box()
     arrays = _arrays(scene, sky_sphere_index=-1)
     assert tts.supported(convert.scene_from_arrays(arrays, device="cpu"), TConfig())
-    mesh = dict(arrays, **{"triangles.mat_id": np.zeros(3, np.int32)})
-    assert convert.scene_from_arrays(mesh, device="cpu").n_triangles == 3
+    mesh = dict(arrays, **{k: np.zeros(3, np.float32)
+                           for k in convert.TRIANGLE_LEAVES},
+                **{"triangles.mat_id": np.zeros(3, np.int32)})
+    mesh_scene = convert.scene_from_arrays(mesh, device="cpu")
+    assert mesh_scene.n_triangles == 3
+    assert not tts.supported(mesh_scene, TConfig())
     sky = dict(arrays, **{"sky.rgb.x": np.ones(4, np.float32)},
                sky_sphere_index=9)
     assert convert.scene_from_arrays(sky, device="cpu").sky_sphere_index == 9

@@ -97,7 +97,10 @@ def test_partition_combine_and_loss():
     scene, _, _ = tscenes.cornell_box(device="cpu")
     params, static = partition_scene(scene)
     assert tuple(params) == convert.SPHERE_LEAVES
-    assert static == {"n_triangles": 0, "sky_sphere_index": -1}
+    assert sorted(static) == ["atlas", "mat_table", "sky_sphere_index",
+                              "triangles"]
+    assert static["triangles"].count == 0 and static["atlas"].count == 0
+    assert static["mat_table"].count == 1 and static["sky_sphere_index"] == -1
     back = combine_scene(params, static)
     assert all(a is b for a, b in zip(convert.scene_leaves(back).values(),
                                       params.values()))
