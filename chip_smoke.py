@@ -40,7 +40,23 @@ Phases, each of which raises on failure (exit code non-zero):
      6 bounces through ``render`` over all block-ordered pixel ids,
      checked finite and lit, with one K3 launch per sample and no K1 or
      K2 launch; where its time goes (``torch.profiler``); a small frame on
-     the card against the CPU; the PPM.
+     the card against the CPU; the PPM;
+  12. K3 in recording mode against its plain version on the six mesh
+     scenes of phase 9 (planes unchanged, winners, AO factors where used);
+  13. K2's mesh mode against its plain version on those scenes, with the
+     winners K3 recorded: ray cotangents and every row of the four table
+     cotangents (the rows that get no cotangent, ``QUIET_ROWS``, at
+     rounding level on both sides), and two launches against each other;
+  14. K3 recording and K2 mesh mode at the main path's shape (the
+     600-triangle world, 1200x900 rays, 6 bounces), compared and timed
+     beside their plain versions and bounds;
+  15. the mesh training path: value and gradient of the photometric loss
+     through ``render`` on that world at 1200x900, 4 spp, 6 bounces with
+     every float leaf requiring grad (K3 recording launches == 2 x spp,
+     K2 mesh launches == spp), where its time goes, then 3 Adam steps
+     towards a target with perturbed atlas and material colours, whose
+     losses must fall;
+  16. the bounds of K4 and K5, which are not ported yet.
 The last lines are the card, a JSON line per kernel, and the result line.
 Imports no JAX.
 """
@@ -68,6 +84,8 @@ MAIN_SPP = 32
 TRAIN_SPP = 8
 MESH_SPP = 16         # cut from bench.py's 50: per-sample work is the same
 MESH_WORLD = 600      # triangles of the mesh path's block world
+MESH_TRAIN_SPP = 4    # the mesh fwd+bwd frame (cut like TRAIN_SPP)
+MESH_STEP_SPP = 2     # the mesh Adam steps
 # K1 recording vs its plain version: the recorded winner of a (ray,
 # bounce) may flip for the same FMA reason, and a flipped winner sends
 # the ray elsewhere for the rest of its bounces; at least IDX_AGREE of
@@ -83,11 +101,31 @@ IDX_AGREE = 0.98
 # sphere table's cotangent is a sum over all rays: each row may differ by
 # at most DSPH_REL times that row's largest |entry|.
 G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
+# K2's mesh mode sums d_tri and d_atlas with float atomics, whose order
+# changes between launches: two launches may differ by at most ATOMIC_REL
+# of each row's largest |entry| (d_sph, d_mat and the ray cotangents stay
+# bit-identical). QUIET_ROWS get no cotangent: the rows that enter only
+# comparisons, indices and floor() (csrc/trace_scene_bwd.cu's header), and
+# d_tri's rows 0-2, the vertex a, which is zero in exact arithmetic: a
+# triangle's hit distance reaches the output only as the next ray's
+# origin, whose cotangent is zero or (after a cutout, which keeps the
+# direction) orthogonal to the direction. Both sides must hold them under
+# ZERO_ROW of their table's largest |entry|; every other row is measured
+# against its largest |entry|, floored at ZERO_ROW of the table's.
+ATOMIC_REL, ZERO_ROW = 1e-5, 1e-6
+QUIET_ROWS = {"d_sph": [12], "d_tri": [*range(9), *range(12, 25)],
+              "d_mat": [6, 7, 8], "d_atlas": [3]}
 # K3's FP32 operations (arithmetic and compares, as counted in
 # csrc/trace_scene.cu) per sphere test, slab test and Moller-Trumbore
 # triangle test, and per live (ray, bounce) for the winner's texel,
 # material and shading
 K3_OPS_SPHERE, K3_OPS_SLAB, K3_OPS_TRI, K3_OPS_SHADE = 33, 25, 46, 210
+# K2's FP32 operations per live (ray, bounce): sphere mode's ~510 (the
+# replayed bounce, again in the reverse step, and its adjoint) for a
+# sphere winner or a miss, ~1,000 for a triangle winner (its distance,
+# normal, barycentrics, texel and material replayed twice, plus the
+# adjoint of the distance, the normal and the material)
+K2_OPS_SPHERE, K2_OPS_TRI = 510, 1000
 # H100 SXM peaks (NVIDIA data sheet):
 # HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
@@ -491,6 +529,25 @@ def _compare_grads(name, ref, got):
     return max(diff.max().item(), row_err.max().item()), frac
 
 
+def _sphere_reference(sph, rays, flat, idx, aof, g, k):
+    """K2's plain version in sphere mode: (d_sph, six ray cotangents)."""
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    d_sph, *_, d_rays = tb.replay_reference(tb.Tables.of_spheres(sph), rays,
+                                            flat, idx, aof, g, k)
+    return d_sph, d_rays
+
+
+def _sphere_kernel(sph, rays, flat, idx, aof, g, k):
+    """K2's kernel in sphere mode: (d_sph, six ray cotangents)."""
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    d_sph, *_, d_rays = tb._launch(tb.Tables.of_spheres(sph), rays, flat, idx,
+                                   aof, g, tsc.MeshKnobs.of_spheres(k))
+    return d_sph, d_rays
+
+
 def phase_k2(dev):
     import numpy as np
     import torch
@@ -508,12 +565,12 @@ def phase_k2(dev):
             scene, cfg, origin, direction, draws)
         g = torch.tensor(np.random.default_rng(300 + i).uniform(
             -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-        got = tb._launch(sph, rays, flat, idx, aof, g, k)
-        again = tb._launch(sph, rays, flat, idx, aof, g, k)
+        got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+        again = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
         if not (torch.equal(got[0], again[0])
                 and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
             raise AssertionError(f"{name}: two K2 launches differ")
-        ref = tb.replay_reference(sph, rays, flat, idx, aof, g, k)
+        ref = _sphere_reference(sph, rays, flat, idx, aof, g, k)
         _compare_grads(f"{name} ({cfg.max_bounces}b)", ref, got)
     print("  two launches on the same inputs: bit-identical d_sph and ray "
           "cotangents on every scene")
@@ -535,7 +592,7 @@ def _k2_bound(b, bounces, n_live, n_spheres):
     ~510 FLOP (replayed bounce ~165, its adjoint ~330, the 14 sums) per
     (ray, bounce) that hit."""
     nbytes = b * (24 + 16 * bounces + 36 + 24) + 2 * 14 * 4 * n_spheres
-    return _bound(nbytes, n_live * 510)
+    return _bound(nbytes, n_live * K2_OPS_SPHERE)
 
 
 def _bound(nbytes, flops):
@@ -574,14 +631,14 @@ def phase_k2_timing(dev):
                   ts._launch(sph, rays, flat, k))
     g = torch.tensor(np.random.default_rng(7).uniform(
         -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-    got = tb._launch(sph, rays, flat, idx, aof, g, k)
-    ref = tb.replay_reference(sph, rays, flat, idx, aof, g, k)
+    got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+    ref = _sphere_reference(sph, rays, flat, idx, aof, g, k)
     max_err, frac = _compare_grads(name, ref, got)
     del ref, plain
 
     record = lambda: ts._launch(sph, rays, flat, k, record=True)
-    kernel = lambda: tb._launch(sph, rays, flat, idx, aof, g, k)
-    plain_fn = lambda: tb.replay_reference(sph, rays, flat, idx, aof, g, k)
+    kernel = lambda: _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+    plain_fn = lambda: _sphere_reference(sph, rays, flat, idx, aof, g, k)
     t = {"record": [], "kernel": [], "plain": []}
     for which in ("plain", "kernel", "record", "record", "kernel", "plain"):
         fn = {"record": record, "kernel": kernel, "plain": plain_fn}[which]
@@ -616,7 +673,7 @@ def _profile(work):
         work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    buckets = {"K1 trace_spheres": 0.0, "K2 sphere_backward": 0.0,
+    buckets = {"K1 trace_spheres": 0.0, "K2 backward": 0.0,
                "K2 sum_blocks": 0.0, "K3 trace_scene": 0.0,
                "int64 (threefry)": 0.0, "other": 0.0}
     n_kernels = 0
@@ -632,8 +689,8 @@ def _profile(work):
             buckets["K1 trace_spheres"] += dev_us
         elif "trace_scene_kernel" in name:
             buckets["K3 trace_scene"] += dev_us
-        elif "sphere_backward_kernel" in name:
-            buckets["K2 sphere_backward"] += dev_us
+        elif "::backward_kernel" in name:
+            buckets["K2 backward"] += dev_us
         elif "sum_blocks_kernel" in name:
             buckets["K2 sum_blocks"] += dev_us
         elif "long" in name.lower() or "int64" in name.lower():
@@ -954,6 +1011,390 @@ def phase_mesh(dev, card, timing):
     return dict(k1=k1, k2=k2, k3=k3, rays_per_s=rays / elapsed)
 
 
+def _mesh_inputs(scene, cfg, origin, direction, draws):
+    """K3's tables, rays, flat draws and knobs for one batch."""
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
+    return (tsc.pack_scene(scene), (*origin, *direction),
+            draws.reshape(-1, draws.shape[-1]), k)
+
+
+def _check_mesh_record(name, kern, plain, forward):
+    """K3's recording launch against its plain version and its own launch
+    without recording: the nine planes bit-equal, at least IDX_AGREE of
+    the winners equal, and the AO factors equal where they are used (a
+    bounce that accumulates has a recorded hit, so this compares them on
+    every entry where both record the same hit) up to OUTLIER_FRAC of
+    those entries (a flipped winner earlier on the ray moves its later
+    hit points). Returns (winner agreement, max |diff| of the planes and
+    the AO factors compared)."""
+    import torch
+
+    out, idx, aof = kern
+    if not torch.equal(out, forward):
+        raise AssertionError(f"{name}: recording changed the 9 planes")
+    max_err = (out - plain[0]).abs().max().item()
+    same = idx == plain[1]
+    agree = same.float().mean().item()
+    msg = (f"  {name:28s} idx agree {agree:.5f} (live entries "
+           f"{(idx >= 0).float().mean().item():.3f})")
+    if agree < IDX_AGREE:
+        raise AssertionError(f"{name}: recorded winners agree on "
+                             f"{agree:.2%} < {IDX_AGREE:.0%}")
+    if aof is not None:
+        live = same & (idx >= 0)
+        bad = (aof != plain[2]) & live
+        frac = bad.float().sum().item() / max(live.sum().item(), 1)
+        aof_err = (aof - plain[2])[live].abs().max().item()
+        max_err = max(max_err, aof_err)
+        msg += (f", AO factors differ on {frac:.5f} of the live entries "
+                f"(max {aof_err:.3e})")
+        if frac > OUTLIER_FRAC:
+            raise AssertionError(f"{name}: AO factors differ on {frac:.2%}")
+    print(msg + f"; planes bit-equal to the launch without recording, max "
+          f"|diff| vs plain {max_err:.3e}")
+    return agree, max_err
+
+
+def phase_k3_record(dev):
+    """K3 in recording mode against its plain version on the six mesh
+    scenes of phase 9 at 64x48 rays."""
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    print(f"K3 recording vs plain at 64x48 rays (idx agree >= {IDX_AGREE:.0%};"
+          f" AO factors where used)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        o, d, draws = _kernel_inputs(scene, cam, cfg, 500 + i, dev)
+        tb, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        _check_mesh_record(
+            name, tsc._launch(tb, rays, flat, k, record=True),
+            tsc.trace_scene_reference(tb, *rays, flat, k, record=True),
+            tsc._launch(tb, rays, flat, k))
+
+
+def _compare_mesh_grads(name, ref, got, again):
+    """ref/got/again: (d_sph, d_tri, d_mat, d_atlas, six ray cotangents).
+    Raises on non-finite values, on ray cotangents past the K2 tolerance,
+    on a QUIET_ROWS row over ZERO_ROW of its table's largest |entry| on
+    either side, on d_tri's normal rows (9-11) under it where there are
+    triangle winners, on another row off by more than DSPH_REL of its
+    largest |entry| (at least ZERO_ROW of the table's), and on two
+    launches whose d_tri or d_atlas rows differ by more than ATOMIC_REL of
+    that (the atomics' order) or whose d_sph, d_mat or ray cotangents
+    differ at all. Returns (max |diff|, outlier fraction of rays, worst
+    launch-to-launch difference / row scale, largest quiet row / table
+    max)."""
+    import torch
+
+    r_ref, r_got = torch.stack(ref[4]), torch.stack(got[4])
+    for t in (*ref[:4], *got[:4], r_ref, r_got):
+        if not t.isfinite().all():
+            raise AssertionError(f"{name}: non-finite cotangent")
+    diff = (r_got - r_ref).abs()
+    frac = (diff > G_ATOL + G_RTOL * r_ref.abs()).any(0).float().mean().item()
+    worst, rerun, quiet, max_err = {}, 0.0, 0.0, diff.max().item()
+    for tname, a, w, b in zip(("d_sph", "d_tri", "d_mat", "d_atlas"),
+                              got[:4], ref[:4], again[:4]):
+        if w.numel() == 0:
+            continue
+        top = w.abs().max().item()
+        floor = ZERO_ROW * top
+        rows = QUIET_ROWS[tname]
+        loud = [r for r in range(w.shape[0]) if r not in rows]
+        q = max(a[rows].abs().max().item(), w[rows].abs().max().item())
+        quiet = max(quiet, q / max(top, 1e-30))
+        if q > floor:
+            raise AssertionError(f"{name}: {tname} rows {rows} reach {q:.3e}, "
+                                 f"over {ZERO_ROW} of the table's {top:.3e}")
+        if tname == "d_tri" and top > 0 and not (
+                w[9:12].abs().amax(1) > floor).all():
+            raise AssertionError(f"{name}: d_tri's normal rows carry no "
+                                 "cotangent")
+        scale = w[loud].abs().amax(1).clamp(min=floor)
+        row_err = (a[loud] - w[loud]).abs().amax(1)
+        worst[tname] = (row_err / scale.clamp(min=1e-30)).max().item()
+        max_err = max(max_err, row_err.max().item())
+        if (row_err > DSPH_REL * scale).any():
+            raise AssertionError(f"{name}: {tname} differs by "
+                                 f"{worst[tname]:.3e} of a row")
+        run_err = (a[loud] - b[loud]).abs().amax(1)
+        rerun = max(rerun, (run_err / scale.clamp(min=1e-30)).max().item())
+        if (run_err > ATOMIC_REL * scale).any():
+            raise AssertionError(f"{name}: two launches' {tname} differ by "
+                                 f"more than {ATOMIC_REL} of a row")
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+            and all(torch.equal(x, y) for x, y in zip(got[4], again[4]))):
+        raise AssertionError(f"{name}: two launches' d_sph, d_mat or ray "
+                             "cotangents differ")
+    print(f"  {name:28s} ray outliers {frac:.5f}  max|d ray| diff "
+          f"{diff.max().item():.3e}  worst row err / row max "
+          + " ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; quiet rows / table max {quiet:.3e}; two launches {rerun:.3e}")
+    if frac > OUTLIER_FRAC:
+        raise AssertionError(f"{name}: {frac:.2%} rays' cotangents differ")
+    return max_err, frac, rerun, quiet
+
+
+def phase_k2_mesh(dev):
+    """K2's mesh mode against its plain version (the replay under
+    autograd) on the six mesh scenes at 64x48 rays, with the winners and
+    AO factors K3 recorded on the card; two launches compared."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    print(f"K2 mesh mode vs plain at 64x48 rays, K3's recorded idx/aof, random "
+          f"g (ray outlier: any > {G_ATOL} + {G_RTOL}|x|, limit "
+          f"{OUTLIER_FRAC:.0%}; every table row within {DSPH_REL} x row max; "
+          f"two launches within {ATOMIC_REL} x row max)")
+    rerun = 0.0
+    for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        o, d, draws = _kernel_inputs(scene, cam, cfg, 600 + i, dev)
+        mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        _, idx, aof = tsc._launch(mt, rays, flat, k, record=True)
+        tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
+        g = torch.tensor(np.random.default_rng(700 + i).uniform(
+            -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
+        got = tb._launch(tabs, rays, flat, idx, aof, g, k)
+        again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+        ref = tb.replay_reference(tabs, rays, flat, idx, aof, g, k)
+        rerun = max(rerun, _compare_mesh_grads(
+            f"{name} ({cfg.max_bounces}b)", ref, got, again)[2])
+    return rerun
+
+
+def _k2_mesh_bound(b, bounces, idx, n_spheres, table_bytes):
+    """Least K2 mesh-mode time: per ray its rays 24 B, draws 0..2 (12 B)
+    and index (4 B) per bounce, g 36 B and the ray cotangents 24 B; the
+    tables read once and their cotangents written once; against
+    K2_OPS_TRI FLOP per live (ray, bounce) with a triangle winner and
+    K2_OPS_SPHERE per other live entry (this run's recorded winners)."""
+    n_tri = int((idx >= n_spheres).sum().item())
+    n_sph = int(((idx >= 0) & (idx < n_spheres)).sum().item())
+    nbytes = b * (24 + 16 * bounces + 36 + 24) + 2 * table_bytes
+    return _bound(nbytes, n_tri * K2_OPS_TRI + n_sph * K2_OPS_SPHERE)
+
+
+def phase_mesh_bwd_timing(dev):
+    """At the main path's shape (one sample of the 600-triangle block world
+    at 1200x900 rays, 6 bounces, real RNG draws): K3 recording and K2 mesh
+    mode against their plain versions, then each timed with CUDA events
+    in turns beside its plain version."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
+    cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg), cfg.max_bounces)
+    origin, direction = sample_rays(cam, cfg, pids, cam_d)
+    mt, rays, flat, k = _mesh_inputs(scene, cfg, origin, direction, draws)
+    name = f"block world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
+    print(f"K3 recording and K2 mesh mode at the main path's shape "
+          f"({cfg.width}x{cfg.height} rays, 6 bounces, "
+          f"{scene.triangles.count} triangles):")
+    counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
+    kern = tsc._launch(mt, rays, flat, k, record=True)
+    plain = tsc.trace_scene_reference(mt, *rays, flat, k, counts, record=True)
+    rec_agree, rec_err = _check_mesh_record(name, kern, plain,
+                                            tsc._launch(mt, rays, flat, k))
+    del plain
+    _, idx, aof = kern
+    tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
+    g = torch.tensor(np.random.default_rng(8).uniform(
+        -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
+    got = tb._launch(tabs, rays, flat, idx, aof, g, k)
+    again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+    ref = tb.replay_reference(tabs, rays, flat, idx, aof, g, k)
+    max_err, frac, rerun, quiet = _compare_mesh_grads(name, ref, got, again)
+    del ref, got, again
+
+    fns = {
+        "record": lambda: tsc._launch(mt, rays, flat, k, record=True),
+        "record_plain": lambda: tsc.trace_scene_reference(
+            mt, *rays, flat, k, record=True),
+        "k2": lambda: tb._launch(tabs, rays, flat, idx, aof, g, k),
+        "k2_plain": lambda: tb.replay_reference(tabs, rays, flat, idx, aof,
+                                                g, k),
+    }
+    t = {w: [] for w in fns}
+    for which in ("record_plain", "record", "record", "record_plain",
+                  "k2_plain", "k2", "k2", "k2_plain"):
+        t[which].append(_time_ms(fns[which],
+                                 2 if which.endswith("plain") else 20))
+    res = {w: float(np.mean(v)) for w, v in t.items()}
+    table_bytes = 4 * sum(x.numel() for x in tabs)
+    b = cfg.n_pixels
+    # K3's bound with the recorded winners written: 4 B per ray and bounce
+    rec_bound = _k3_bound(b, cfg.max_bounces, counts,
+                          4 * sum(x.numel() for x in mt) + 4 * b * cfg.max_bounces)
+    k2_bound = _k2_mesh_bound(b, cfg.max_bounces, idx, k.n_spheres,
+                              table_bytes)
+    n_tri = int((idx >= k.n_spheres).sum().item())
+    print(f"  K3 recording {res['record']:.4f} ms (plain "
+          f"{res['record_plain']:.4f} ms; bound {rec_bound[0]:.4f} ms, "
+          f"{rec_bound[1]}); K2 mesh {res['k2']:.4f} ms (plain "
+          f"{res['k2_plain']:.4f} ms; bound {k2_bound[0]:.4f} ms, "
+          f"{k2_bound[1]}) per call (turns {t}); live (ray, bounce) entries "
+          f"{int((idx >= 0).sum().item())} of {b * cfg.max_bounces}, "
+          f"{n_tri} with a triangle winner")
+    return dict(record_ms=res["record"], record_plain_ms=res["record_plain"],
+                record_bound=rec_bound, record_agree=rec_agree,
+                record_err=rec_err,
+                ms=res["k2"], plain_ms=res["k2_plain"], bound=k2_bound,
+                max_abs_err=max_err, outlier_frac=frac, rerun=rerun)
+
+
+def unported_bounds(dev, k2):
+    """Bounds of the two TPU kernels not ported yet, from this run's data
+    (their launches are 0 on every path). K4 (raytpu/kernels/intersect.py
+    :56, a selection-only closest hit: one search, no shading) for the
+    1200x900 camera rays of the 600-triangle world, its search work counted
+    by K3's plain version over one bounce, against the rays read and
+    (t, index) written. K5 (raytpu/kernels/trace_spheres.py:460, jax.vjp of
+    K1's loop) at the flagship fwd+bwd shape: K1's forward operations three
+    times per live entry of phase 7's Cornell recording (the loop, then its
+    reverse at about twice the forward), against K2's bytes."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import blocked_pixel_order, sample_rays
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=1)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
+    cam_d, draws = rng.ray_uniforms(ks, 4, 3, 1)
+    mt, rays, flat, k = _mesh_inputs(scene, cfg, *sample_rays(cam, cfg, pids,
+                                                              cam_d), draws)
+    counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
+    tsc.trace_scene_reference(mt, *rays, flat, k, counts)
+    b = cfg.n_pixels
+    k4 = _bound(b * (24 + 8) + 4 * (mt.sph.numel() + mt.search.numel()
+                                    + mt.boxes.numel()),
+                counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
+                + counts["tri"] * K3_OPS_TRI)
+    k5_bytes = (k2["n_rays"] * (24 + 16 * k2["bounces"] + 36 + 24)
+                + 2 * 14 * 4 * k2["n_spheres"])
+    k5 = _bound(k5_bytes, 3 * k2["n_live"] * (33 * k2["n_spheres"] + 130))
+    print(f"bounds of the kernels still to port: K4 {k4[0]:.4f} ms ({k4[1]}; "
+          f"{counts['tri']} triangle and {counts['slab']} slab tests for "
+          f"{b} camera rays of the {scene.triangles.count}-triangle world); "
+          f"K5 {k5[0]:.4f} ms ({k5[1]}; {k2['n_live']} live entries at "
+          f"{k2['n_rays']} rays x {k2['bounces']} bounces)")
+    return k4, k5
+
+
+def phase_mesh_train(dev, card):
+    """The mesh training path: fwd+bwd of the photometric loss through
+    ``render`` on the block world at the flagship frame, every float leaf
+    requiring grad, where its time goes, then 3 Adam steps."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.train import (combine_scene, make_train_step,
+                                    partition_scene, photometric_loss)
+
+    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_TRAIN_SPP,
+                      max_bounces=6)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+    key = rng.prng_key(0)
+    params, static = partition_scene(scene)
+    params = {n: p.detach().clone().requires_grad_() for n, p in params.items()}
+
+    def loss_fn(c=cfg):
+        sums = render(combine_scene(params, static), cam, c, pids, key)
+        return photometric_loss(sums.radiance * (1.0 / c.spp), target)
+
+    loss_fn(cfg.replace(spp=1)).backward()        # warm up
+    for p in params.values():
+        p.grad = None
+    ts.launches = tb.launches = tsc.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn()
+    loss.backward()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1, k2, k3 = ts.launches, tb.launches, tsc.launches
+
+    grads = {n: p.grad for n, p in params.items()}
+    if not (loss.isfinite().item() and all(
+            g is not None and g.isfinite().all() for g in grads.values())):
+        raise AssertionError("mesh fwd+bwd: non-finite loss or gradient")
+    for leaf in ("atlas.rgb.x", "mat_table.emission_strength",
+                 "spheres.mat.emission.x"):
+        if not grads[leaf].abs().max().item() > 0.0:
+            raise AssertionError(f"mesh fwd+bwd: d loss / d {leaf} is all zero")
+    if (k3, k2, k1) != (2 * cfg.spp, cfg.spp, 0):
+        raise AssertionError(
+            f"mesh fwd+bwd: {k3} K3, {k2} K2 and {k1} K1 launches, want "
+            f"{2 * cfg.spp} (recording: forward + checkpoint recompute), "
+            f"{cfg.spp} and 0")
+    rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+    print(f"mesh fwd+bwd: block world {cfg.width}x{cfg.height} spp={cfg.spp} "
+          f"bounces={cfg.max_bounces}, d loss / d every float leaf "
+          f"({len(params)} leaves): {elapsed:.4f} s, {rays / elapsed:.1f} "
+          f"rays/s on {card}; loss {loss.item():.6f}; K3 (recording) "
+          f"launches {k3}, K2 (mesh mode) launches {k2}, K1 launches {k1}; "
+          f"max |d atlas.rgb.x| {grads['atlas.rgb.x'].abs().max().item():.4e}"
+          f", max |d mat_table.emission_strength| "
+          f"{grads['mat_table.emission_strength'].abs().max().item():.4e}")
+    _print_profile("mesh fwd+bwd at spp=2",
+                   *_profile(lambda: loss_fn(cfg.replace(spp=2)).backward()))
+
+    # 3 Adam steps towards a target with perturbed atlas and material
+    # colours, with the target's key, so the loss measures the parameters
+    tparams = {n: p.detach().clone()
+               for n, p in partition_scene(scene)[0].items()}
+    for c in "xyz":
+        tparams[f"atlas.rgb.{c}"] = (tparams[f"atlas.rgb.{c}"] * 0.8).clamp(0, 1)
+        tparams[f"mat_table.emission.{c}"] = tparams[f"mat_table.emission.{c}"] * 0.8
+    tcfg = cfg.replace(spp=MESH_STEP_SPP)
+    with torch.no_grad():
+        tsums = render(combine_scene(tparams, static), cam, tcfg, pids, key)
+        tgt = (tsums.radiance * (1.0 / tcfg.spp)).to_array()
+    init_fn, step_fn = make_train_step(tcfg, 1e-2)
+    state, static = init_fn(scene, cam)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(3):
+        state, loss = step_fn(state, static, cam, pids, tgt, key)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh train: non-finite loss {losses}")
+    if not losses[0] > losses[1] > losses[2]:
+        raise AssertionError(f"mesh train: losses do not fall: {losses}")
+    print(f"mesh train: 3 Adam steps (lr 1e-2) at {tcfg.width}x{tcfg.height} "
+          f"spp={tcfg.spp} towards a perturbed atlas/material target: losses "
+          + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
+    return dict(k1=k1, k2=k2, k3=k3, rays_per_s=rays / elapsed)
+
+
 def main() -> int:
     import torch
 
@@ -985,6 +1426,11 @@ def main() -> int:
     phase_k3(dev)
     k3 = phase_k3_timing(dev)
     mesh = phase_mesh(dev, card, k3)
+    phase_k3_record(dev)
+    rerun = phase_k2_mesh(dev)
+    mbwd = phase_mesh_bwd_timing(dev)
+    mtrain = phase_mesh_train(dev, card)
+    unported_bounds(dev, k2)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
                          k2["n_spheres"], record=False)
@@ -995,7 +1441,8 @@ def main() -> int:
         "replaces": "raytpu/kernels/trace_spheres.py:421",
         "launches": train["k1_launches"],
         "launches_by_path": {"render": launches, "fwd_bwd": train["k1_launches"],
-                             "mesh_render": mesh["k1"]},
+                             "mesh_render": mesh["k1"],
+                             "mesh_fwd_bwd": mtrain["k1"]},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
@@ -1008,7 +1455,8 @@ def main() -> int:
         "launches": train["k2_launches"],
         "launches_by_path": {"render": render_k2,
                              "fwd_bwd": train["k2_launches"],
-                             "mesh_render": mesh["k2"]},
+                             "mesh_render": mesh["k2"],
+                             "mesh_fwd_bwd": mtrain["k2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
@@ -1020,11 +1468,32 @@ def main() -> int:
         "launches": mesh["k3"],
         "launches_by_path": {"render": render_k3,
                              "fwd_bwd": train["k3_launches"],
-                             "mesh_render": mesh["k3"]},
+                             "mesh_render": mesh["k3"],
+                             "mesh_fwd_bwd": mtrain["k3"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
         "library_ms": None, "outlier_frac": k3["outlier_frac"],
+    }, {
+        "name": "trace_scene (recording mode)", "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_scene.cu",
+        "replaces": "raytpu/kernels/trace_scene.py:431",
+        "launches": mtrain["k3"],
+        "max_abs_err": mbwd["record_err"],
+        "idx_agree": mbwd["record_agree"],
+        "ms": mbwd["record_ms"], "plain_ms": mbwd["record_plain_ms"],
+        "bound_ms": mbwd["record_bound"][0],
+        "bound_by": mbwd["record_bound"][1], "library_ms": None,
+    }, {
+        "name": "trace_scene_bwd (mesh mode)", "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_scene_bwd.cu",
+        "replaces": "raytpu/kernels/trace_scene_bwd.py:641",
+        "launches": mtrain["k2"],
+        "max_abs_err": mbwd["max_abs_err"],
+        "ms": mbwd["ms"], "plain_ms": mbwd["plain_ms"],
+        "bound_ms": mbwd["bound"][0], "bound_by": mbwd["bound"][1],
+        "library_ms": None, "outlier_frac": mbwd["outlier_frac"],
+        "two_launches_rel": max(rerun, mbwd["rerun"]),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@
 
 ``render`` renders a built-in sphere scene or a TOML scene spec (spheres
 and a textured OBJ mesh, ``config.load_scene_file``) and writes a PPM;
-elapsed seconds and rays/s go to stderr. ``train`` fits the scene's sphere
-parameters to a target image (ASCII PPM of the configured size) with
+elapsed seconds and rays/s go to stderr. ``train`` fits every float
+parameter of the scene (spheres; a mesh's vertices, UVs, texels and
+material table) to a target image (ASCII PPM of the configured size) with
 Adam on the L2 loss in linear radiance, logs the loss, and writes the
 final render. ``--device`` defaults to ``cuda`` and fails when CUDA is
 absent; ``--device cpu`` runs the plain PyTorch path.

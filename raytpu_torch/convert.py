@@ -8,7 +8,7 @@ them to a plain dict of numpy arrays keyed by attribute path
 the statics ``"sky_sphere_index"``, ``"atlas.width"`` and
 ``"atlas.height"``. This module turns such a dict into the port's
 ``Scene`` and ``Camera`` on a given device (the CUDA card when ``device``
-is ``None``); it imports no JAX. The sphere paths key the trainer's
+is ``None``); it imports no JAX. The float leaves' paths key the trainer's
 parameter dicts (``scene_leaves`` / ``scene_from_leaves``).
 """
 
@@ -54,18 +54,50 @@ def _vec(leaves: dict, k: str) -> Vec3:
 
 
 def scene_leaves(scene: Scene) -> dict:
-    """The scene's float tensors keyed by attribute path (``SPHERE_LEAVES``)."""
+    """The scene's float tensors keyed by attribute path: ``SPHERE_LEAVES``
+    and, where the scene has them, ``TRIANGLE_LEAVES`` and
+    ``MAT_TABLE_LEAVES`` (a scene with triangles) and ``ATLAS_LEAVES`` (a
+    textured one). ``mat_id``, the table's two flags and the atlas size
+    are not float leaves."""
     s, m = scene.spheres, scene.spheres.mat
-    return dict(zip(SPHERE_LEAVES, (
+    leaves = dict(zip(SPHERE_LEAVES, (
         *s.center, s.radius, *m.diffuse, *m.emission, m.emission_strength,
         m.reflection, m.alpha, m.ior,
     )))
+    if scene.n_triangles > 0:
+        t, mt = scene.triangles, scene.mat_table
+        leaves.update(zip(TRIANGLE_LEAVES, (
+            *t.a, *t.b, *t.c, t.ua, t.va, t.ub, t.vb, t.uc, t.vc)))
+        leaves.update(zip(MAT_TABLE_LEAVES, (
+            *mt.emission, mt.emission_strength, mt.reflection, mt.ior,
+            mt.alpha_const)))
+    if scene.atlas.alpha.shape[0] > 0:
+        leaves.update(zip(ATLAS_LEAVES, (*scene.atlas.rgb, scene.atlas.alpha)))
+    return leaves
 
 
 def scene_from_leaves(leaves: dict, triangles=None, atlas=None,
                       mat_table=None, sky_sphere_index: int = -1) -> Scene:
-    """Inverse of ``scene_leaves``: the tensors are used as they are; the
-    mesh parts default to none."""
+    """Inverse of ``scene_leaves``: the tensors are used as they are. A
+    mesh part whose leaves ``leaves`` holds is rebuilt from them, taking
+    its other fields (``mat_id``, the flags, the atlas size) from the
+    part given here; a part whose leaves it does not hold is the part
+    given here as it is, and the mesh parts default to none."""
+    if triangles is not None and TRIANGLE_LEAVES[0] in leaves:
+        triangles = Triangles(
+            *(_vec(leaves, "triangles." + v) for v in "abc"),
+            *(leaves["triangles." + k] for k in ("ua", "va", "ub", "vb",
+                                                  "uc", "vc")),
+            mat_id=triangles.mat_id)
+    if mat_table is not None and MAT_TABLE_LEAVES[0] in leaves:
+        mat_table = MatTable(
+            _vec(leaves, "mat_table.emission"),
+            *(leaves["mat_table." + k] for k in (
+                "emission_strength", "reflection", "ior", "alpha_const")),
+            mat_table.use_alpha_const, mat_table.emission_from_texture)
+    if atlas is not None and ATLAS_LEAVES[0] in leaves:
+        atlas = TextureAtlas(_vec(leaves, "atlas.rgb"), leaves["atlas.alpha"],
+                             atlas.width, atlas.height)
     return Scene(
         Spheres(
             center=_vec(leaves, "spheres.center"),

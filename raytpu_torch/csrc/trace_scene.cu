@@ -3,8 +3,9 @@
 //
 // Replaces raytpu/kernels/trace_scene.py:_kernel (the Pallas TPU kernel
 // launched by _trace_call, body bounce_body, skip_body for finished rays)
-// without the sky slot, the recording mode and the merged-quad loops: it
-// computes what that kernel computes with merge_quads=False. The plain
+// with its recording mode (with_indices) and without the sky slot and the
+// merged-quad loops: it computes what that kernel computes with
+// merge_quads=False. The plain
 // PyTorch version is
 // raytpu_torch/kernels/trace_scene.py:trace_scene_reference; both keep
 // raytpu's arithmetic forms (0.5/max(a,1e-20) root scale, spheres scanned
@@ -37,7 +38,16 @@
 //   * a ray whose loop is over leaves it (exact: raytpu's skip_body and
 //     shade_bounce leave a finished ray's carry unchanged), and the AO
 //     probes run only for rays that accumulate (their factor is discarded
-//     elsewhere).
+//     elsewhere);
+//   * recording mode (kRecord, for the backward K2; a separate
+//     instantiation, so the forward keeps its registers): each bounce
+//     writes the winner (n_spheres + t for triangle t, -1 for a miss) and
+//     with AO the factor, which is then computed for every ray still in
+//     its loop, as K1 does when recording (the plain version and raytpu
+//     compute it on every lane; K2 reads it only where the bounce
+//     accumulates, and a hit recorded here is a ray in its loop). The
+//     bounces a ray skips after its loop is over record -1 and 0, as
+//     raytpu's skip_body does.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
@@ -218,6 +228,7 @@ __device__ float ao_factor(const float* sph, const float* tri_s,
   return occ * k.ao_inv;
 }
 
+template <bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 trace_scene_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ search_g,
@@ -229,6 +240,7 @@ trace_scene_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ oz, const float* __restrict__ dx,
                    const float* __restrict__ dy, const float* __restrict__ dz,
                    const float* __restrict__ draws, float* __restrict__ out,
+                   int* __restrict__ idx_out, float* __restrict__ aof_out,
                    int n_rays, Knobs k) {
   // shared: tri search (T x 12) | spheres (14 x S) | boxes (6 x C) | mats (9 x M)
   extern __shared__ float smem[];
@@ -259,7 +271,8 @@ trace_scene_kernel(const float* __restrict__ sph_g,
   int alpha_depth = 0;
   float medium_n2 = 1.0f;
 
-  for (int i = 0; i < k.bounces && active; ++i) {
+  int i = 0;
+  for (; i < k.bounces && active; ++i) {
     // ---- closest sphere: strict t < best in sphere order -------------
     const float a_quad = rdx * rdx + rdy * rdy + rdz * rdz;
     const float inv_2a = 0.5f / fmaxf(a_quad, 1e-20f);
@@ -295,6 +308,8 @@ trace_scene_kernel(const float* __restrict__ sph_g,
         if (d < best) { best = d; bidx = ns + t; }
       }
     }
+
+    if (kRecord) idx_out[(size_t)i * B + ray] = bidx;
 
     // ---- winner: point, normal, material ------------------------------
     const bool did_hit = bidx >= 0;
@@ -463,8 +478,17 @@ trace_scene_kernel(const float* __restrict__ sph_g,
     if (opaque) is_alpha = false;
     if (cutout) { is_alpha = true; alpha_depth += 1; }
 
-    // ---- accumulate (reads the throughput before its update) ------------
+    // ---- AO factor: for the rays that accumulate, and for every ray in
+    // its loop when recording ---------------------------------------------
     const bool accum = live && !do_refract && !cutout;
+    float factor = 0.0f;
+    if (k.use_ao && (accum || kRecord)) {
+      factor = ao_factor(sph, tri_s, box, n_chunks, px, py, pz, nX, nY, nZ,
+                         dr, B, k);
+      if (kRecord) aof_out[(size_t)i * B + ray] = factor;
+    }
+
+    // ---- accumulate (reads the throughput before its update) ------------
     if (accum) {
       const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
       ix = ix + emx * e_scale * rcx;
@@ -475,11 +499,7 @@ trace_scene_kernel(const float* __restrict__ sph_g,
       float nbx = bright ? dfx * (dfx * (rcx * bb)) : dfx * rcx;
       float nby = bright ? dfy * (dfy * (rcy * bb)) : dfy * rcy;
       float nbz = bright ? dfz * (dfz * (rcz * bb)) : dfz * rcz;
-      if (k.use_ao) {
-        const float f = ao_factor(sph, tri_s, box, n_chunks, px, py, pz, nX,
-                                  nY, nZ, dr, B, k);
-        nbx *= f; nby *= f; nbz *= f;
-      }
+      if (k.use_ao) { nbx *= factor; nby *= factor; nbz *= factor; }
       rcx = nbx; rcy = nby; rcz = nbz;
     }
 
@@ -494,6 +514,10 @@ trace_scene_kernel(const float* __restrict__ sph_g,
     }
     active = active && did_hit;
   }
+  for (; kRecord && i < k.bounces; ++i) {   // skip_body
+    idx_out[(size_t)i * B + ray] = -1;
+    if (k.use_ao) aof_out[(size_t)i * B + ray] = 0.0f;
+  }
 
   out[0 * B + ray] = ix; out[1 * B + ray] = iy; out[2 * B + ray] = iz;
   out[3 * B + ray] = ax; out[4 * B + ray] = ay; out[5 * B + ray] = az;
@@ -506,7 +530,10 @@ trace_scene_kernel(const float* __restrict__ sph_g,
 // pointers to contiguous f32: sph (14, n_spheres); search (n_tris, 12);
 // tri (25, n_tris); boxes (6, ceil(n_tris / 32)); mats (9, n_mats); atlas
 // (4, n_tex), unread when n_tex is 0; ox..dz (n_rays,); draws
-// (bounces * n_draws, n_rays); out (9, n_rays). Sets the kernel's dynamic
+// (bounces * n_draws, n_rays); out (9, n_rays). Recording mode when
+// idx_out is not null: idx_out (bounces, n_rays) i32 winners and, with
+// use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). Sets the
+// kernel's dynamic
 // shared memory (up to ~105 KB at 2048 triangles, above the 48 KB default),
 // launches on `stream` without synchronising and returns the launch's
 // cudaError_t.
@@ -515,7 +542,7 @@ extern "C" int raytpu_trace_scene(
     const float* boxes, const float* mats, const float* atlas,
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const float* draws, float* out,
-    int n_rays, int n_spheres, int n_tris, int n_mats, int n_tex,
+    int* idx_out, float* aof_out, int n_rays, int n_spheres, int n_tris, int n_mats, int n_tex,
     int atlas_w, int atlas_h, int bounces, int n_draws, float sphere_eps,
     float det_eps, float tri_eps, float alpha_lo, float alpha_hi,
     float bright_boost, float bright_threshold, int use_ao, int ao_samples,
@@ -525,7 +552,9 @@ extern "C" int raytpu_trace_scene(
       n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
       (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
       n_rays < 0 || bounces < 0 ||
-      n_draws < 3 + (use_ao ? 2 * ao_samples : 0)) {
+      n_draws < 3 + (use_ao ? 2 * ao_samples : 0) ||
+      (idx_out != nullptr && use_ao && aof_out == nullptr) ||
+      (aof_out != nullptr && (idx_out == nullptr || !use_ao))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rays == 0) return (int)cudaSuccess;
@@ -538,13 +567,14 @@ extern "C" int raytpu_trace_scene(
                                        (size_t)kSphRows * n_spheres +
                                        6 * (size_t)n_chunks +
                                        (size_t)kMatRows * n_mats);
+  const auto kernel = idx_out != nullptr ? trace_scene_kernel<true>
+                                          : trace_scene_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      trace_scene_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
-  trace_scene_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
-      out, n_rays, k);
+      out, idx_out, aof_out, n_rays, k);
   return (int)cudaGetLastError();
 }

@@ -1,52 +1,84 @@
-// The index-replay backward (K2) for Hopper, sphere mode.
+// The index-replay backward (K2) for Hopper: sphere mode and mesh mode.
 //
 // Replaces raytpu/kernels/trace_scene_bwd.py:_bwd_kernel (the Pallas TPU
-// kernel launched by _bwd_call from mesh_backward) for sphere scenes
-// (n_tris == 0). The plain PyTorch version is
+// kernel launched by _bwd_call from mesh_backward): sphere mode for sphere
+// scenes (n_tris == 0, after K1), mesh mode for spheres plus textured
+// triangles (after K3). The plain PyTorch version is
 // raytpu_torch/kernels/trace_scene_bwd.py:replay_reference, the replay
 // under autograd; the forward it reverses is replay_bounce there, which
 // is raytpu's _replay_bounce + shade_bounce op for op.
 //
 // What it computes: for each ray, the bounce loop replayed from the winner
-// indices and AO factors K1 recorded (no search), then the reverse sweep,
-// bounce N-1 down to 0, which pulls the cotangent of the (radiance,
-// albedo, normal) planes back to the 14 x S sphere table and to the ray
-// origin and direction. The TPU kernel gets that reverse from jax.vjp in
-// the kernel; CUDA has none, so replay_bounce below carries its adjoint,
-// derived by hand. Each adjoint follows only the branch the forward took
-// (the gradient of a select goes to the taken side), which also keeps the
-// untaken branches' 0 * inf out of the sums.
+// indices and AO factors K1 or K3 recorded (no search), then the reverse
+// sweep, bounce N-1 down to 0, which pulls the cotangent of the
+// (radiance, albedo, normal) planes back to the tables (the 14 x S sphere
+// table; in mesh mode also the 25 x T triangle table, the 9 x M material
+// table and the 4 x n_tex atlas) and to the ray origin and direction. The
+// TPU kernel gets that reverse from jax.vjp in the kernel; CUDA has none,
+// so each step below carries its adjoint, derived by hand. Each adjoint
+// follows only the branch the forward took (the gradient of a select goes
+// to the taken side), which also keeps the untaken branches' 0 * inf out
+// of the sums. A bounce is split in two: the winner's surface (the
+// sphere's or the triangle's hit point, normal and material; surface_*)
+// and the shading every winner shares (shade).
+//
+// Rows of the mesh tables that get no cotangent, by construction: a
+// triangle's raw b and c and its UVs reach only floor() and the texel
+// index, and its edges b - a and c - a only the validity compares; its
+// alpha texel, alpha_const, the two material flags and the material id
+// enter only comparisons and indices. The triangle table's cotangent
+// lives in rows 9-11 (the raw normal), the material table's in rows 0-5,
+// the atlas's in rows 0-2. Rows 0-2 (the vertex a) get the hit distance's
+// cotangent, which is zero in exact arithmetic: a triangle's hit point
+// reaches the output only as the next ray's origin, and that origin's
+// cotangent is zero, or, after a cutout (which keeps the direction, so
+// moving the origin along the ray leaves the next hit where it is),
+// orthogonal to the direction. They come out at rounding level, in this
+// kernel as in the plain version. The CPU tests and the chip check compare
+// every row with the plain version under autograd, and the chip check
+// holds these rows under 1e-6 of the table's largest entry on both sides.
 //
 // What bounds it on this card: per live ray-bounce ~510 FP32 operations
-// (the replayed bounce, again in the reverse step, and its adjoint)
-// against 16 bytes of index and draws, so the bytes it must move and its
-// FP32 work set about the same least time (0.06 ms at the 1200x900,
-// 6-bounce frame). What holds it above that is the per-thread state: 115
-// registers, the saved carries in local memory and a 14 x S shared-memory
-// column per thread (72 KB for a 128-thread block at S = 10) leave ~3
-// blocks on an SM, too few warps to hide each thread's dependent chain
-// (0.65 ms at that frame, PERF.md). The design:
+// in sphere mode, ~1,000 in mesh mode (the replayed bounce, again in the
+// reverse step, and its adjoint) against 16 bytes of index and draws, so
+// the bytes it must move and its FP32 work set about the same least time
+// (0.06 ms at the 1200x900, 6-bounce frame). What holds it above that is
+// the per-thread state: ~118 registers (~160 in mesh mode), the saved
+// carries in local memory and a 14 x S shared-memory column per thread
+// leave few blocks on an SM,
+// too few warps to hide each thread's dependent chain (PERF.md). The
+// design:
 //   * one thread per ray; the one-hot MXU winner extraction of the TPU
-//     kernel is an indexed load from the sphere table in shared memory;
+//     kernel is an indexed load: the sphere and material tables from
+//     shared memory, the winner triangle's 25 channels and its texel from
+//     global memory (cached), reloaded in the reverse step rather than
+//     carried;
 //   * the replay saves the carry each reverse step needs (origin,
 //     direction, throughput, medium IOR, flags: 11 words) at every bounce
 //     start, in a per-thread array in local memory (bounces <= 48), so
 //     the reverse sweep recomputes one bounce at a time;
-//   * the table cotangent is the transpose of the extraction, a sum into
-//     d_sph[k][winner]. It is deterministic without float atomics: each
-//     thread sums into its own column of a (14*S, T) shared array, each
-//     block sums the columns in a fixed order into a (blocks, 14*S)
-//     buffer, and a second kernel sums the blocks in a fixed tree order.
-//     Two launches on the same inputs give bit-identical d_sph.
+//   * the sphere-table cotangent is the transpose of the extraction, a sum
+//     into d_sph[k][winner], and so are the material table's rows 0-5. Both
+//     are deterministic without float atomics: each thread sums into its
+//     own column of a (14*S + 6*M, T) shared array, each block sums the
+//     columns in a fixed order into a (blocks, 14*S + 6*M) buffer, and a
+//     second kernel sums the blocks in a fixed tree order. Two launches on
+//     the same inputs give bit-identical d_sph and d_mat;
+//   * d_tri (25 x 2048 floats at most) and d_atlas (4 x n_tex) do not fit
+//     that scheme: they take global float atomicAdd (winners spread over
+//     hundreds of triangles and thousands of texels, so few collide).
+//     Atomics add in an order that changes from launch to launch, so two
+//     mesh-mode launches agree on d_tri and d_atlas only to rounding (the
+//     chip check bounds the difference); everything else is bit-identical.
 //
 // Numerics: a row of the table cotangent is a sum over rays in which a
 // few grazing hits weigh most (a hit's distance gradient grows as
 // 1/sqrt(disc), and a hit recomputed on the other side of the epsilon
 // gate drops out), so rounding differences are magnified there. Built
 // with -fmad=false, the replay rounds every operation as the plain
-// version and K1 do: on the card the two backward versions then agree to
-// ~1e-6 of each row, where FMA contraction left them up to a third of a
-// row apart.
+// version and K1/K3 do: on the card the two backward versions then agree
+// to ~1e-6 of each row, where FMA contraction left them up to a third of
+// a row apart.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py);
@@ -58,15 +90,20 @@ namespace {
 
 constexpr int kMaxBounces = 48;   // MAX_BOUNCES in trace_scene_bwd.py
 constexpr int kMaxSpheres = 64;
+constexpr int kMaxTris = 2048;
+constexpr int kMaxMats = 64;
 constexpr int kRows = 14;         // cx cy cz r | dif3 emi3 estr refl alpha ior
+constexpr int kTriRows = 25;      // a3 ab3 ac3 n3 b3 c3 ua va ub vb uc vc mat
+constexpr int kMatRows = 9;       // emi3 estr refl ior alpha_c use_c eft
 constexpr int kReduceThreads = 256;
 constexpr int kSmemBudget = 160 * 1024;
 constexpr float kBig = 3.0e38f;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
 
 struct Knobs {
-  int n_spheres, bounces, n_draws;
-  float sphere_eps, alpha_lo, alpha_hi, bright_boost, bright_threshold;
+  int n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces, n_draws;
+  float sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi, bright_boost,
+      bright_threshold;
   int use_ao;
   float e_scale_mult;
   int hsl_on;
@@ -83,6 +120,17 @@ struct Carry {
 // Cotangents of the differentiable carry planes.
 struct Cot {
   float o[3], d[3], rc[3], inc[3], alb[3], nrm[3];
+};
+
+// The winner's surface at one bounce: what shade reads.
+struct Surf {
+  bool did_hit;
+  float safe_t, p[3], n[3], df[3], em[3], estr, refl, alpha, ior;
+};
+
+// Cotangents of the surface (alpha enters only comparisons).
+struct SurfCot {
+  float p[3], n[3], df[3], em[3], estr, refl, ior;
 };
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -209,46 +257,24 @@ __device__ void hsl_boost_bwd(float r, float g, float b, float l_f, float s_f,
   grgb[0] += gr; grgb[1] += gg; grgb[2] += gb;
 }
 
-// One replayed bounce (replay_bounce + shade_bounce of the plain version).
+// One replayed bounce's shading (shade_bounce of the plain version) at
+// the winner's surface s.
 // g == nullptr: forward; c becomes the carry after the bounce.
 // g != nullptr: reverse; c is the carry before the bounce, *g holds the
-// cotangent of the carry after it and is replaced by the cotangent of the
-// carry before it; gw receives the cotangent of the winner's 14 channels.
-__device__ void replay_bounce(int i, Carry& c, const float* w, bool hit0,
-                              float u_d, float v_d, float roulette, float aof,
-                              const Knobs& k, Cot* g, float* gw) {
-  const float* o = c.o;
+// cotangent of the carry after it. On return g->rc, inc, alb and nrm hold
+// the cotangents before it, gs the cotangent of the surface, and go / gd
+// the cotangent of the origin and direction by every route but the
+// surface's own dependence on them (g->o and g->d are left to the caller).
+__device__ __forceinline__ void shade(int i, Carry& c, const Surf& s,
+                                      float u_d, float v_d, float roulette,
+                                      float aof, const Knobs& k, Cot* g,
+                                      SurfCot* gs, float* go, float* gd) {
   const float* d = c.d;
-  const float cx = w[0], cy = w[1], cz = w[2], r = w[3];
-  const float df[3] = {w[4], w[5], w[6]};
-  const float em[3] = {w[7], w[8], w[9]};
-  const float estr = w[10], refl = w[11], alpha = w[12], ior = w[13];
-
-  // ---- the winner's distance, recomputed (sphere_distance_one) ---------
-  const float oc[3] = {o[0] - cx, o[1] - cy, o[2] - cz};
-  const float a_q = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  const float b_q = 2.0f * (oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]);
-  const float c_q = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - r * r;
-  const float disc = b_q * b_q - 4.0f * a_q * c_q;
-  const float sq = sqrtf(fmaxf(disc, 1e-30f));
-  const float a_sel = a_q > 1e-20f ? a_q : 1e-20f;
-  const float inv_2a = 0.5f / a_sel;
-  const float t1 = (-b_q - sq) * inv_2a;
-  const float t2 = (-b_q + sq) * inv_2a;
-  const bool s_hit = disc > 0.0f;
-  const int root = (s_hit && t1 >= k.sphere_eps) ? 1
-                 : ((s_hit && t2 >= k.sphere_eps) ? 2 : 0);
-  const float s_t = root == 1 ? t1 : (root == 2 ? t2 : kBig);
-  // knife-edge guard: a recorded hit that recomputes as invalid is a miss
-  const bool did_hit = hit0 && s_t < kBig;
-  const float safe_t = did_hit ? s_t : 0.0f;
-  const float p[3] = {o[0] + d[0] * safe_t, o[1] + d[1] * safe_t,
-                      o[2] + d[2] * safe_t};
-  const float v[3] = {p[0] - cx, p[1] - cy, p[2] - cz};
-  const float n2s = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
-  const bool ncond = n2s > 0.0f && did_hit;
-  const float s_inv = ncond ? 1.0f / sqrtf(n2s) : 0.0f;
-  const float n[3] = {v[0] * s_inv, v[1] * s_inv, v[2] * s_inv};
+  const float* n = s.n;
+  const float* df = s.df;
+  const float* em = s.em;
+  const float estr = s.estr, refl = s.refl, alpha = s.alpha, ior = s.ior;
+  const bool did_hit = s.did_hit;
 
   // ---- masks -------------------------------------------------------------
   const bool active = c.active;
@@ -310,7 +336,7 @@ __device__ void replay_bounce(int i, Carry& c, const float* w, bool hit0,
       }
     }
     for (int j = 0; j < 3; ++j) {
-      if (live) c.o[j] = p[j];
+      if (live) c.o[j] = s.p[j];
       c.d[j] = nd[j];
       if (accum) {
         float nb = bright ? df[j] * (df[j] * (c.rc[j] * bb)) : df[j] * c.rc[j];
@@ -329,7 +355,6 @@ __device__ void replay_bounce(int i, Carry& c, const float* w, bool hit0,
   Cot& G = *g;
   float gn[3] = {0, 0, 0}, gp[3] = {0, 0, 0}, gdf[3] = {0, 0, 0};
   float gem[3] = {0, 0, 0}, gb3[3] = {0, 0, 0};
-  float gd[3] = {0, 0, 0}, go[3] = {0, 0, 0};
   float gestr = 0.0f, grefl = 0.0f, gior = 0.0f;
 
   // radiance: emissive overwrite, or accumulation, or pass-through
@@ -479,31 +504,87 @@ __device__ void replay_bounce(int i, Carry& c, const float* w, bool hit0,
     for (int j = 0; j < 3; ++j) gem[j] += gb3[j];
   }
 
-  // normal: n = v / |v| where (n2s > 0 and did_hit), else 0
-  float gv[3] = {0, 0, 0};
-  if (ncond) {
-    float gs_inv = 0.0f;
-    for (int j = 0; j < 3; ++j) {
-      gv[j] = gn[j] * s_inv;
-      gs_inv += gn[j] * v[j];
-    }
-    const float gn2s = (-gs_inv * s_inv * s_inv) / (2.0f * sqrtf(n2s));
-    for (int j = 0; j < 3; ++j) gv[j] += 2.0f * v[j] * gn2s;
-  }
-  float gc[3], gr = 0.0f;
   for (int j = 0; j < 3; ++j) {
-    gp[j] += gv[j];
-    gc[j] = -gv[j];
+    G.rc[j] = grc[j];
+    gs->p[j] = gp[j]; gs->n[j] = gn[j]; gs->df[j] = gdf[j]; gs->em[j] = gem[j];
   }
+  gs->estr = gestr; gs->refl = grefl; gs->ior = gior;
+}
 
-  // hit point: p = o + d * safe_t
+// Reverse of the hit point p = o + d * safe_t: adds to go and gd, returns
+// the cotangent of safe_t.
+__device__ __forceinline__ float hit_point_bwd(const float* gp, const float* d,
+                                               float safe_t, float* go,
+                                               float* gd) {
   float gsafe = 0.0f;
   for (int j = 0; j < 3; ++j) {
     go[j] += gp[j];
     gd[j] += gp[j] * safe_t;
     gsafe += gp[j] * d[j];
   }
-  if (did_hit && root != 0) {
+  return gsafe;
+}
+
+// A sphere winner's surface (or a miss's: hit0 false, w all zero), with
+// the recomputed distance (sphere_distance_one's floors) and the knife-
+// edge guard. With gs: the reverse, which adds the cotangent of (o, d)
+// to go / gd and writes the winner's 14-channel cotangent to gw.
+__device__ __forceinline__ void surface_sphere(const Carry& c, const float* w,
+                                               bool hit0, const Knobs& k,
+                                               Surf& s, const SurfCot* gs,
+                                               float* go, float* gd,
+                                               float* gw) {
+  const float* o = c.o;
+  const float* d = c.d;
+  const float cx = w[0], cy = w[1], cz = w[2], r = w[3];
+  const float oc[3] = {o[0] - cx, o[1] - cy, o[2] - cz};
+  const float a_q = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  const float b_q = 2.0f * (oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]);
+  const float c_q = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - r * r;
+  const float disc = b_q * b_q - 4.0f * a_q * c_q;
+  const float sq = sqrtf(fmaxf(disc, 1e-30f));
+  const float a_sel = a_q > 1e-20f ? a_q : 1e-20f;
+  const float inv_2a = 0.5f / a_sel;
+  const float t1 = (-b_q - sq) * inv_2a;
+  const float t2 = (-b_q + sq) * inv_2a;
+  const bool s_hit = disc > 0.0f;
+  const int root = (s_hit && t1 >= k.sphere_eps) ? 1
+                 : ((s_hit && t2 >= k.sphere_eps) ? 2 : 0);
+  const float s_t = root == 1 ? t1 : (root == 2 ? t2 : kBig);
+  // knife-edge guard: a recorded hit that recomputes as invalid is a miss
+  s.did_hit = hit0 && s_t < kBig;
+  s.safe_t = s.did_hit ? s_t : 0.0f;
+  for (int j = 0; j < 3; ++j) s.p[j] = o[j] + d[j] * s.safe_t;
+  const float v[3] = {s.p[0] - cx, s.p[1] - cy, s.p[2] - cz};
+  const float n2s = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
+  const bool ncond = n2s > 0.0f && s.did_hit;
+  const float s_inv = ncond ? 1.0f / sqrtf(n2s) : 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    s.n[j] = v[j] * s_inv;
+    s.df[j] = w[4 + j];
+    s.em[j] = w[7 + j];
+  }
+  s.estr = w[10]; s.refl = w[11]; s.alpha = w[12]; s.ior = w[13];
+  if (gs == nullptr) return;
+
+  // normal: n = v / |v| where (n2s > 0 and did_hit), else 0
+  float gp[3], gv[3] = {0, 0, 0};
+  if (ncond) {
+    float gs_inv = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      gv[j] = gs->n[j] * s_inv;
+      gs_inv += gs->n[j] * v[j];
+    }
+    const float gn2s = (-gs_inv * s_inv * s_inv) / (2.0f * sqrtf(n2s));
+    for (int j = 0; j < 3; ++j) gv[j] += 2.0f * v[j] * gn2s;
+  }
+  float gc[3], gr = 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    gp[j] = gs->p[j] + gv[j];
+    gc[j] = -gv[j];
+  }
+  const float gsafe = hit_point_bwd(gp, d, s.safe_t, go, gd);
+  if (s.did_hit && root != 0) {
     const float gt1 = root == 1 ? gsafe : 0.0f;
     const float gt2 = root == 2 ? gsafe : 0.0f;
     const float gb = -(gt1 + gt2) * inv_2a;
@@ -523,22 +604,158 @@ __device__ void replay_bounce(int i, Carry& c, const float* w, bool hit0,
     }
     gr -= 2.0f * r * gcq;
   }
-
-  for (int j = 0; j < 3; ++j) {
-    G.o[j] = go[j];
-    G.d[j] = gd[j];
-    G.rc[j] = grc[j];
-  }
   gw[0] = gc[0]; gw[1] = gc[1]; gw[2] = gc[2]; gw[3] = gr;
-  gw[4] = gdf[0]; gw[5] = gdf[1]; gw[6] = gdf[2];
-  gw[7] = gem[0]; gw[8] = gem[1]; gw[9] = gem[2];
-  gw[10] = gestr; gw[11] = grefl;
+  for (int j = 0; j < 3; ++j) {
+    gw[4 + j] = gs->df[j];
+    gw[7 + j] = gs->em[j];
+  }
+  gw[10] = gs->estr; gw[11] = gs->refl;
   gw[12] = 0.0f;        // alpha enters only comparisons
-  gw[13] = gior;
+  gw[13] = gs->ior;
 }
 
-// A recorded index outside [0, ns) is a miss: -1 is how K1 records one,
-// and any other value is kept from reading outside the table.
+// Where a triangle winner's cotangents go: the triangle's rows 0-2 and
+// 9-11, its material's rows 0-5 and its texel's rows 0-2 (the others get
+// none, see the header); -1 marks a material or texel that was not read.
+struct TriCot {
+  float a[3], nraw[3], mat[6], tex[3];
+  int mat_id, texel;
+};
+
+// A triangle winner's surface (row w, 25 channels): the recomputed
+// Moller-Trumbore distance and the knife-edge guard, the unit normal, the
+// barycentric UVs and nearest texel (only for a ray in its loop, as
+// raytpu's fetch), and the material row, raytpu's _replay_bounce op for
+// op. With gs: the reverse, which adds the cotangent of (o, d) to go / gd
+// and fills gt.
+__device__ __forceinline__ void surface_triangle(
+    const Carry& c, const float* w, const float* mats, const float* atlas,
+    const Knobs& k, Surf& s, const SurfCot* gs, float* go, float* gd,
+    TriCot* gt) {
+  const float* o = c.o;
+  const float* d = c.d;
+  const float ao[3] = {o[0] - w[0], o[1] - w[1], o[2] - w[2]};
+  const float daox = ao[1] * d[2] - ao[2] * d[1];
+  const float daoy = ao[2] * d[0] - ao[0] * d[2];
+  const float daoz = ao[0] * d[1] - ao[1] * d[0];
+  const float det = -(d[0] * w[9] + d[1] * w[10] + d[2] * w[11]);
+  const float inv_det = 1.0f / (det >= k.det_eps ? det : 1.0f);
+  const float num = ao[0] * w[9] + ao[1] * w[10] + ao[2] * w[11];
+  const float t_dst = num * inv_det;
+  const float t_u = (w[6] * daox + w[7] * daoy + w[8] * daoz) * inv_det;
+  const float t_v = -(w[3] * daox + w[4] * daoy + w[5] * daoz) * inv_det;
+  const float t_w = 1.0f - t_u - t_v;
+  const bool valid = det >= k.det_eps && t_dst >= k.tri_eps &&
+                     t_u >= k.tri_eps && t_v >= k.tri_eps && t_w >= k.tri_eps;
+  const float dst = valid ? t_dst : kBig;
+  s.did_hit = dst < kBig;
+  s.safe_t = s.did_hit ? dst : 0.0f;
+  for (int j = 0; j < 3; ++j) s.p[j] = o[j] + d[j] * s.safe_t;
+
+  // unit normal, select-floored: a zero-area triangle has a zero normal
+  const float tn2 = w[9] * w[9] + w[10] * w[10] + w[11] * w[11];
+  const float t_inv = tn2 > 0.0f ? 1.0f / sqrtf(tn2) : 0.0f;
+  for (int j = 0; j < 3; ++j) s.n[j] = w[9 + j] * t_inv;
+
+  // area-ratio barycentrics (texture.h:16-27) with the raw vertices
+  const float* n = s.n;
+  auto area = [&](float p1x, float p1y, float p1z, float qx, float qy,
+                  float qz) {
+    const float cxx = p1y * qz - p1z * qy;
+    const float cyy = p1z * qx - p1x * qz;
+    const float czz = p1x * qy - p1y * qx;
+    return n[0] * cxx + n[1] * cyy + n[2] * czz;
+  };
+  const float* p = s.p;
+  const float area_abc = area(w[12] - w[0], w[13] - w[1], w[14] - w[2],
+                              w[15] - w[0], w[16] - w[1], w[17] - w[2]);
+  const float area_pbc = area(w[12] - p[0], w[13] - p[1], w[14] - p[2],
+                              w[15] - p[0], w[16] - p[1], w[17] - p[2]);
+  const float area_pca = area(w[15] - p[0], w[16] - p[1], w[17] - p[2],
+                              w[0] - p[0], w[1] - p[1], w[2] - p[2]);
+  const float inv_area = 1.0f / (fabsf(area_abc) > 1e-20f ? area_abc : 1.0f);
+  const float w_a = area_pbc * inv_area;
+  const float w_b = area_pca * inv_area;
+  const float w_c = 1.0f - w_a - w_b;
+  float uu = w_a * w[18] + w_b * w[20] + w_c * w[22];
+  float vv = w_a * w[19] + w_b * w[21] + w_c * w[23];
+  uu = uu - truncf(uu);
+  uu = uu < 0.0f ? uu + 1.0f : uu;
+  vv = vv - truncf(vv);
+  vv = vv < 0.0f ? vv + 1.0f : vv;
+  const int mat = (int)w[24];
+
+  // nearest texel of a ray in its loop; outside the atlas reads zeros
+  float tex[4];
+  long long texel = -1;
+  if (k.n_tex > 0) {
+    const int aw = k.atlas_w, ah = k.atlas_h;
+    const int tx = min(max((int)floorf(uu * (float)aw), 0), aw - 1);
+    const int ty = min(max((int)floorf(vv * (float)ah), 0), ah - 1);
+    const long long tid = ((long long)ty + (long long)ah * mat) * aw + tx;
+    if (c.active && tid >= 0 && tid < (long long)k.n_tex) texel = tid;
+    const size_t nt = (size_t)k.n_tex;
+    for (int j = 0; j < 4; ++j) tex[j] = texel >= 0 ? atlas[j * nt + texel] : 0.0f;
+  } else {            // untextured mesh: mesh.h:207's default material
+    tex[0] = 0.784f; tex[1] = 0.965f; tex[2] = 1.0f; tex[3] = 1.0f;
+  }
+  // material table (texture.h:71-88 as data); outside it reads zeros
+  const bool m_ok = mat >= 0 && mat < k.n_mats;
+  float mt[kMatRows];
+  for (int r = 0; r < kMatRows; ++r) mt[r] = m_ok ? mats[r * k.n_mats + mat] : 0.0f;
+  const bool eft = mt[8] > 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    s.df[j] = tex[j];
+    s.em[j] = eft ? mt[j] * tex[j] : mt[j];
+  }
+  s.estr = mt[3]; s.refl = mt[4]; s.ior = mt[5];
+  s.alpha = mt[7] > 0.0f ? mt[6] : tex[3];
+  if (gs == nullptr) return;
+
+  // ---- reverse: material and texel ---------------------------------------
+  gt->mat_id = m_ok ? mat : -1;
+  gt->texel = (int)texel;
+  for (int j = 0; j < 3; ++j) {
+    gt->tex[j] = gs->df[j] + (eft ? gs->em[j] * mt[j] : 0.0f);
+    gt->mat[j] = eft ? gs->em[j] * tex[j] : gs->em[j];
+  }
+  gt->mat[3] = gs->estr; gt->mat[4] = gs->refl; gt->mat[5] = gs->ior;
+
+  // normal: n = nraw / |nraw| where tn2 > 0 (the barycentrics' use of n
+  // reaches only the texel index)
+  float gn2 = 0.0f;
+  for (int j = 0; j < 3; ++j) gt->nraw[j] = 0.0f;
+  if (tn2 > 0.0f) {
+    float gtinv = 0.0f;
+    for (int j = 0; j < 3; ++j) {
+      gt->nraw[j] = gs->n[j] * t_inv;
+      gtinv += gs->n[j] * w[9 + j];
+    }
+    gn2 = (-gtinv * t_inv * t_inv) / (2.0f * sqrtf(tn2));
+    for (int j = 0; j < 3; ++j) gt->nraw[j] += 2.0f * w[9 + j] * gn2;
+  }
+
+  // hit point, then t_dst = (ao . nraw) * (1 / det)
+  const float gsafe = hit_point_bwd(gs->p, d, s.safe_t, go, gd);
+  for (int j = 0; j < 3; ++j) gt->a[j] = 0.0f;
+  if (s.did_hit) {
+    const float gnum = gsafe * inv_det;
+    const float ginv = gsafe * num;
+    const float gdet = -ginv * inv_det * inv_det;
+    for (int j = 0; j < 3; ++j) {
+      const float gao = gnum * w[9 + j];
+      gt->nraw[j] += gnum * ao[j];
+      gd[j] -= gdet * w[9 + j];
+      gt->nraw[j] -= gdet * d[j];
+      go[j] += gao;
+      gt->a[j] -= gao;
+    }
+  }
+}
+
+// A recorded index in [0, ns) is a sphere; -1 (a miss, or a ray whose
+// loop is over) and, in sphere mode, any other value read the zero
+// winner.
 __device__ __forceinline__ bool is_hit(int bidx, int ns) {
   return (unsigned)bidx < (unsigned)ns;
 }
@@ -550,64 +767,180 @@ __device__ __forceinline__ void load_winner(const float* tab, int ns, int bidx,
   for (int r = 0; r < kRows; ++r) w[r] = hit ? tab[r * ns + bidx] : 0.0f;
 }
 
-__global__ void sphere_backward_kernel(
-    const float* __restrict__ sph, const float* __restrict__ ox,
-    const float* __restrict__ oy, const float* __restrict__ oz,
-    const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const float* __restrict__ draws,
-    const int* __restrict__ idx, const float* __restrict__ aofs,
-    const float* __restrict__ gin, float* __restrict__ d_rays,
-    float* __restrict__ partial, int n_rays, Knobs k) {
-  extern __shared__ float smem[];
+// Mesh mode: an index >= ns is triangle bidx - ns (raytpu's tri_wins); one
+// past the table reads the zero row, whose distance recomputes as invalid.
+__device__ __forceinline__ void load_triangle(const float* tri, int nt,
+                                              int t, float* w) {
+  const bool in = (unsigned)t < (unsigned)nt;
+#pragma unroll
+  for (int r = 0; r < kTriRows; ++r) w[r] = in ? tri[(size_t)r * nt + t] : 0.0f;
+}
+
+// Draws 0..2 of bounce i (u, v of the scatter direction, the refraction
+// roulette) for one ray.
+__device__ __forceinline__ void load_draws(const float* draws, int i,
+                                           int n_draws, size_t B, int ray,
+                                           float* dr) {
+  const float* p = draws + (size_t)i * n_draws * B + ray;
+  dr[0] = p[0]; dr[1] = p[B]; dr[2] = p[2 * B];
+}
+
+__device__ __forceinline__ void init_carry(Carry& c, int ray,
+                                           const float* ox, const float* oy,
+                                           const float* oz, const float* dx,
+                                           const float* dy, const float* dz) {
+  c.o[0] = ox[ray]; c.o[1] = oy[ray]; c.o[2] = oz[ray];
+  c.d[0] = dx[ray]; c.d[1] = dy[ray]; c.d[2] = dz[ray];
+  c.rc[0] = c.rc[1] = c.rc[2] = 1.0f;
+  c.med = 1.0f;
+  c.active = true; c.is_alpha = false; c.depth = 0;
+}
+
+__device__ __forceinline__ void init_cot(Cot& g, int ray, size_t B,
+                                         const float* gin) {
+  for (int j = 0; j < 3; ++j) {
+    g.o[j] = g.d[j] = g.rc[j] = 0.0f;
+    g.inc[j] = gin[j * B + ray];
+    g.alb[j] = gin[(3 + j) * B + ray];
+    g.nrm[j] = gin[(6 + j) * B + ray];
+  }
+}
+
+// One replayed bounce from the recorded winner (kMesh: mesh mode, where an
+// index >= n_spheres is a triangle) with the bounce's draws dr[0..2].
+// Forward (g == nullptr):
+// c becomes the next carry. Reverse: c is the bounce's saved carry, *g the
+// cotangent after it becomes the one before it, gw receives the sphere
+// winner's cotangent (when the winner is a sphere) and gt a triangle
+// winner's (when it is a triangle). Returns whether the winner was a
+// triangle.
+template <bool kMesh>
+__device__ __forceinline__ bool replay_bounce(
+    int i, Carry& c, int bidx, const float* tab, const float* tri,
+    const float* mats, const float* atlas, const float* dr, float aof,
+    const Knobs& k, Cot* g, float* gw, TriCot* gt) {
   const int ns = k.n_spheres;
-  const int n_e = kRows * ns;
+  const bool tri_wins = kMesh && bidx >= ns;
+  Surf s;
+  float go[3] = {0, 0, 0}, gd[3] = {0, 0, 0};
+  float w[kTriRows];
+  if (tri_wins) {
+    load_triangle(tri, k.n_tris, bidx - ns, w);
+    surface_triangle(c, w, mats, atlas, k, s, nullptr, nullptr, nullptr,
+                     nullptr);
+  } else {
+    load_winner(tab, ns, bidx, w);
+    surface_sphere(c, w, is_hit(bidx, ns), k, s, nullptr, nullptr, nullptr,
+                   nullptr);
+  }
+  if (g == nullptr) {
+    shade(i, c, s, dr[0], dr[1], dr[2], aof, k, nullptr, nullptr, nullptr,
+          nullptr);
+    return tri_wins;
+  }
+  SurfCot gs;
+  shade(i, c, s, dr[0], dr[1], dr[2], aof, k, g, &gs, go, gd);
+  if (tri_wins) {
+    surface_triangle(c, w, mats, atlas, k, s, &gs, go, gd, gt);
+  } else {
+    surface_sphere(c, w, is_hit(bidx, ns), k, s, &gs, go, gd, gw);
+  }
+  for (int j = 0; j < 3; ++j) {
+    g->o[j] = go[j];
+    g->d[j] = gd[j];
+  }
+  return tri_wins;
+}
+
+// Entries of the per-thread columns: the sphere table's 14 x S, then rows
+// 0-5 of the material table (6 x M; M is 0 in sphere mode).
+__host__ __device__ inline int column_entries(int ns, int nm) {
+  return kRows * ns + 6 * nm;
+}
+
+// Shared memory of both modes: the sphere table (14 x S) and the material
+// table (9 x M), then the per-thread columns (entries x (threads + 1)).
+__host__ __device__ inline size_t shared_floats(int ns, int nm, int threads) {
+  return (size_t)kRows * ns + (size_t)kMatRows * nm +
+         (size_t)column_entries(ns, nm) * (threads + 1);
+}
+
+// The reverse sweep, one thread per ray; kMesh selects mesh mode (a
+// separate instantiation, so sphere mode keeps its registers).
+template <bool kMesh>
+__global__ void backward_kernel(
+    const float* __restrict__ sph, const float* __restrict__ tri,
+    const float* __restrict__ mat_g, const float* __restrict__ atlas,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ draws, const int* __restrict__ idx,
+    const float* __restrict__ aofs, const float* __restrict__ gin,
+    float* __restrict__ d_rays, float* __restrict__ partial,
+    float* __restrict__ d_tri, float* __restrict__ d_mat,
+    float* __restrict__ d_atlas, int n_rays, Knobs k) {
+  extern __shared__ float smem[];
+  const int ns = k.n_spheres, nm = k.n_mats;
+  const int n_sph = kRows * ns;
+  const int n_e = column_entries(ns, nm);
   const int nt = blockDim.x;
   const int stride = nt + 1;   // column pitch: conflict-free in both phases
   const int tid = threadIdx.x;
   float* tab = smem;
-  float* col = smem + n_e;     // col[e * stride + t]: thread t's sum of entry e
-  for (int e = tid; e < n_e; e += nt) tab[e] = sph[e];
+  float* mats = tab + n_sph;
+  float* col = mats + kMatRows * nm;   // col[e * stride + t]: thread t's sum
+  for (int e = tid; e < n_sph; e += nt) tab[e] = sph[e];
+  for (int e = tid; e < kMatRows * nm; e += nt) mats[e] = mat_g[e];
   for (int e = 0; e < n_e; ++e) col[e * stride + tid] = 0.0f;
   __syncthreads();
 
   const int ray = blockIdx.x * nt + tid;
   if (ray < n_rays) {
     const size_t B = (size_t)n_rays;
+    const size_t n_tex = (size_t)k.n_tex;
     Carry saved[kMaxBounces];
     Carry c;
-    c.o[0] = ox[ray]; c.o[1] = oy[ray]; c.o[2] = oz[ray];
-    c.d[0] = dx[ray]; c.d[1] = dy[ray]; c.d[2] = dz[ray];
-    c.rc[0] = c.rc[1] = c.rc[2] = 1.0f;
-    c.med = 1.0f;
-    c.active = true; c.is_alpha = false; c.depth = 0;
-    float w[kRows];
+    init_carry(c, ray, ox, oy, oz, dx, dy, dz);
+    // the bounce's scatter draws, read ahead of its replay so the loads
+    // overlap the winner's surface (read inside the replay, after it,
+    // they left sphere mode 11% slower: PERF.md)
+    float dr[3];
     for (int i = 0; i < k.bounces; ++i) {
       saved[i] = c;
       const int bidx = idx[(size_t)i * B + ray];
-      load_winner(tab, ns, bidx, w);
-      const float* dr = draws + (size_t)i * k.n_draws * B + ray;
       const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
-      replay_bounce(i, c, w, is_hit(bidx, ns), dr[0], dr[B], dr[2 * B], aof,
-                    k, nullptr, nullptr);
+      load_draws(draws, i, k.n_draws, B, ray, dr);
+      replay_bounce<kMesh>(i, c, bidx, tab, tri, mats, atlas, dr, aof, k,
+                           nullptr, nullptr, nullptr);
     }
 
     Cot g;
-    for (int j = 0; j < 3; ++j) {
-      g.o[j] = g.d[j] = g.rc[j] = 0.0f;
-      g.inc[j] = gin[j * B + ray];
-      g.alb[j] = gin[(3 + j) * B + ray];
-      g.nrm[j] = gin[(6 + j) * B + ray];
-    }
+    init_cot(g, ray, B, gin);
     float gw[kRows];
+    TriCot gt;
     for (int i = k.bounces - 1; i >= 0; --i) {
       const int bidx = idx[(size_t)i * B + ray];
-      load_winner(tab, ns, bidx, w);
-      const float* dr = draws + (size_t)i * k.n_draws * B + ray;
       const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
+      load_draws(draws, i, k.n_draws, B, ray, dr);
       c = saved[i];
-      replay_bounce(i, c, w, is_hit(bidx, ns), dr[0], dr[B], dr[2 * B], aof,
-                    k, &g, gw);
-      if (is_hit(bidx, ns)) {
+      if (replay_bounce<kMesh>(i, c, bidx, tab, tri, mats, atlas, dr, aof, k,
+                               &g, gw, &gt)) {
+        const size_t t = (size_t)(bidx - ns);
+        if (t < (size_t)k.n_tris) {
+          for (int j = 0; j < 3; ++j) {
+            atomicAdd(&d_tri[j * k.n_tris + t], gt.a[j]);
+            atomicAdd(&d_tri[(9 + j) * k.n_tris + t], gt.nraw[j]);
+          }
+        }
+        if (gt.mat_id >= 0) {
+          for (int r = 0; r < 6; ++r) {
+            col[(n_sph + r * nm + gt.mat_id) * stride + tid] += gt.mat[r];
+          }
+        }
+        if (gt.texel >= 0) {
+          for (int j = 0; j < 3; ++j) atomicAdd(&d_atlas[j * n_tex + gt.texel], gt.tex[j]);
+        }
+      } else if (is_hit(bidx, ns)) {
 #pragma unroll
         for (int r = 0; r < kRows; ++r) col[(r * ns + bidx) * stride + tid] += gw[r];
       }
@@ -619,7 +952,7 @@ __global__ void sphere_backward_kernel(
   }
   __syncthreads();
 
-  // this block's sums, each over the threads in a fixed order
+  // this block's column sums, each over the threads in a fixed order
   for (int e = tid; e < n_e; e += nt) {
     float s = 0.0f;
     for (int t = 0; t < nt; ++t) s += col[e * stride + t];
@@ -627,10 +960,12 @@ __global__ void sphere_backward_kernel(
   }
 }
 
-// d_sph[e] = sum over blocks of partial[b][e], in a fixed tree order.
+// The sum over blocks of partial[b][e], in a fixed tree order, into d_sph
+// (e < n_sph) or rows 0-5 of d_mat (the rest).
 __global__ void __launch_bounds__(kReduceThreads)
 sum_blocks_kernel(const float* __restrict__ partial, int blocks, int n_e,
-                  float* __restrict__ d_sph) {
+                  int n_sph, float* __restrict__ d_sph,
+                  float* __restrict__ d_mat) {
   __shared__ float red[kReduceThreads];
   const int e = blockIdx.x, tid = threadIdx.x;
   float s = 0.0f;
@@ -641,13 +976,16 @@ sum_blocks_kernel(const float* __restrict__ partial, int blocks, int n_e,
     if (tid < half) red[tid] += red[tid + half];
     __syncthreads();
   }
-  if (tid == 0) d_sph[e] = red[0];
+  if (tid == 0) {
+    if (e < n_sph) d_sph[e] = red[0];
+    else d_mat[e - n_sph] = red[0];
+  }
 }
 
-int threads_per_block(int n_spheres) {
+int threads_per_block(int n_spheres, int n_mats) {
   int nt = 128;
-  while (nt > 32 &&
-         (size_t)kRows * n_spheres * (nt + 2) * sizeof(float) > kSmemBudget) {
+  while (nt > 32 && shared_floats(n_spheres, n_mats, nt) * sizeof(float) >
+                        (size_t)kSmemBudget) {
     nt /= 2;
   }
   return nt;
@@ -656,51 +994,82 @@ int threads_per_block(int n_spheres) {
 }  // namespace
 
 // Blocks of the reverse sweep for n_rays rays: the first dimension of the
-// (blocks, 14, n_spheres) `partial` buffer the caller allocates.
-extern "C" int raytpu_sphere_backward_blocks(int n_rays, int n_spheres) {
-  const int nt = threads_per_block(n_spheres);
+// (blocks, 14 * n_spheres + 6 * n_mats) `partial` buffer the caller
+// allocates (n_mats is 0 in sphere mode).
+extern "C" int raytpu_backward_blocks(int n_rays, int n_spheres, int n_mats) {
+  const int nt = threads_per_block(n_spheres, n_mats);
   return (n_rays + nt - 1) / nt;
 }
 
-// Plain C entry point, bound with ctypes. Device pointers: sph (14, S) f32;
-// ox..dz (n_rays,) f32; draws (bounces * n_draws, n_rays) f32, of which
-// draws 0..2 of each bounce are read; idx (bounces, n_rays) i32; aof
-// (bounces, n_rays) f32 when use_ao, else null; g (9, n_rays) f32, the
-// cotangent of (radiance, albedo, normal); d_rays (6, n_rays) f32 out;
-// partial (raytpu_sphere_backward_blocks(n_rays, S), 14, S) f32 scratch;
-// d_sph (14, S) f32 out. Launches both kernels on `stream` without
+// Plain C entry point, bound with ctypes. Device pointers: sph (14, S),
+// tri (25, T), mats (9, M) and atlas (4, n_tex) f32 (T = M = n_tex = 0 in
+// sphere mode; atlas unread when n_tex is 0); ox..dz (n_rays,) f32; draws
+// (bounces * n_draws, n_rays) f32, of which draws 0..2 of each bounce are
+// read; idx (bounces, n_rays) i32, the winners K1 or K3 recorded (triangle
+// t as n_spheres + t); aof (bounces, n_rays) f32 when use_ao, else null; g
+// (9, n_rays) f32, the cotangent of (radiance, albedo, normal); d_rays
+// (6, n_rays) f32 out; partial (raytpu_backward_blocks(n_rays, S, M),
+// 14 * S + 6 * M) f32 scratch; d_sph (14, S), d_tri (25, T), d_mat (9, M)
+// and d_atlas (4, n_tex) f32 out. It zeroes d_tri, d_atlas and d_mat's rows
+// 6-8 on `stream`, then the kernels add into the first two and write d_sph
+// and d_mat's rows 0-5. Launches its kernels on `stream` without
 // synchronising and returns the first cudaError_t.
-extern "C" int raytpu_sphere_backward(
-    const float* sph, const float* ox, const float* oy, const float* oz,
-    const float* dx, const float* dy, const float* dz, const float* draws,
-    const int* idx, const float* aof, const float* g, float* d_rays,
-    float* partial, int n_rays, int n_spheres, int bounces, int n_draws,
-    float sphere_eps, float alpha_lo, float alpha_hi, float bright_boost,
+extern "C" int raytpu_backward(
+    const float* sph, const float* tri, const float* mats, const float* atlas,
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* draws, const int* idx,
+    const float* aof, const float* g, float* d_rays, float* partial,
+    int n_rays, int n_spheres, int n_tris, int n_mats, int n_tex, int atlas_w,
+    int atlas_h, int bounces, int n_draws, float sphere_eps, float det_eps,
+    float tri_eps, float alpha_lo, float alpha_hi, float bright_boost,
     float bright_threshold, int use_ao, float e_scale_mult, int hsl_on,
-    float hsl_l, float hsl_s, float* d_sph, void* stream) {
-  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_rays < 0 || bounces < 0 ||
-      bounces > kMaxBounces || n_draws < 3 || (use_ao && aof == nullptr)) {
+    float hsl_l, float hsl_s, float* d_sph, float* d_tri, float* d_mat,
+    float* d_atlas, void* stream) {
+  if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 0 ||
+      n_tris > kMaxTris || n_spheres + n_tris < 1 || n_mats < 0 ||
+      n_mats > kMaxMats || n_tex < 0 ||
+      (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
+      n_rays < 0 || bounces < 0 || bounces > kMaxBounces || n_draws < 3 ||
+      (use_ao && aof == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Knobs k{n_spheres, bounces, n_draws, sphere_eps, alpha_lo, alpha_hi,
-          bright_boost, bright_threshold, use_ao, e_scale_mult, hsl_on,
-          hsl_l, hsl_s};
-  const int n_e = kRows * n_spheres;
-  const int nt = threads_per_block(n_spheres);
-  const int blocks = (n_rays + nt - 1) / nt;
   const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (n_tris > 0) {
+    err = cudaMemsetAsync(d_tri, 0, sizeof(float) * kTriRows * n_tris, s);
+  }
+  if (err == cudaSuccess && n_mats > 0) {
+    err = cudaMemsetAsync(d_mat + 6 * n_mats, 0, sizeof(float) * 3 * n_mats, s);
+  }
+  if (err == cudaSuccess && n_tex > 0) {
+    err = cudaMemsetAsync(d_atlas, 0, sizeof(float) * 4 * (size_t)n_tex, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const Knobs k{n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces,
+                n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
+                bright_boost, bright_threshold, use_ao, e_scale_mult, hsl_on,
+                hsl_l, hsl_s};
+  // the reverse sweep, then the fixed-order sum of the column entries
+  // over blocks
+  const int n_e = column_entries(n_spheres, n_mats);
+  const int nt = threads_per_block(n_spheres, n_mats);
+  const int blocks = (n_rays + nt - 1) / nt;
   if (blocks > 0) {
-    const size_t smem = (size_t)n_e * (nt + 2) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        sphere_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const size_t smem = shared_floats(n_spheres, n_mats, nt) * sizeof(float);
+    const auto kernel = n_tris > 0 ? backward_kernel<true>
+                                   : backward_kernel<false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    sphere_backward_kernel<<<blocks, nt, smem, s>>>(
-        sph, ox, oy, oz, dx, dy, dz, draws, idx, aof, g, d_rays, partial,
-        n_rays, k);
+    kernel<<<blocks, nt, smem, s>>>(
+        sph, tri, mats, atlas, ox, oy, oz, dx, dy, dz, draws, idx, aof, g,
+        d_rays, partial, d_tri, d_mat, d_atlas, n_rays, k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  sum_blocks_kernel<<<n_e, kReduceThreads, 0, s>>>(partial, blocks, n_e, d_sph);
+  if (n_e > 0) {
+    sum_blocks_kernel<<<n_e, kReduceThreads, 0, s>>>(
+        partial, blocks, n_e, kRows * n_spheres, d_sph, d_mat);
+  }
   return (int)cudaGetLastError();
 }

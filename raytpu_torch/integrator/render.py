@@ -9,10 +9,10 @@ sample order, as ``raytpu``'s scan does. Pixel coordinates follow the
 reference: u = (i + U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted
 from the bottom row, and the aperture jitter is (U - .5) * aperture.
 
-The render runs on the device of the scene's tensors. A sphere scene's
-render is differentiable in every scene and camera leaf that requires
-grad: the K1 wrapper then records winner indices and the backward runs
-K2.
+The render runs on the device of the scene's tensors. It is
+differentiable in every scene and camera leaf that requires grad: the K1
+wrapper (sphere scenes) or the K3 wrapper (mesh scenes) then records
+winner indices, and the backward runs K2 in sphere or mesh mode.
 """
 
 from __future__ import annotations
@@ -69,10 +69,10 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
 
     ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
     scene's device. One kernel call per sample: K3 for a scene with
-    triangles, K1 for a sphere scene. When a sphere scene's or the
-    camera's leaf requires grad, the backward adds per sample one K1 call
-    (the checkpoint's recompute, in recording mode) and one K2 call;
-    gradients through a mesh scene raise (K2's mesh mode is not ported).
+    triangles, K1 for a sphere scene. When a scene or camera leaf
+    requires grad, the forward's call records winners, and the backward
+    adds per sample one more recording call of the same kernel (the
+    checkpoint's recompute) and one K2 call.
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples

@@ -2,13 +2,14 @@
 
 Port of ``raytpu/kernels/trace_scene.py``: the whole forward bounce loop
 over spheres plus up to 2048 textured triangles in one launch (``_kernel``
--> ``bounce_body``, launched by ``_trace_call``), without the sky slot,
-without the recording mode and without the merged-quad loops, so it
-computes what ``raytpu``'s K3 computes with ``merge_quads=False``. Per ray
-and bounce: the closest sphere (scanned first, strict t < best), then the
-triangles of every 32-triangle chunk whose box the ray enters before its
-current best (Moller-Trumbore), the winner's barycentric UVs, nearest
-texel and material-table row, the AO probes, and ``shade_bounce``.
+-> ``bounce_body``, launched by ``_trace_call``), with its recording mode
+for the backward, without the sky slot and without the merged-quad loops,
+so it computes what ``raytpu``'s K3 computes with ``merge_quads=False``.
+Per ray and bounce: the closest sphere (scanned first, strict t < best),
+then the triangles of every 32-triangle chunk whose box the ray enters
+before its current best (Moller-Trumbore), the winner's barycentric UVs,
+nearest texel and material-table row, the AO probes, and
+``shade_bounce``.
 
 ``trace_mesh_megakernel`` is the entry point. On CUDA tensors it launches
 the hand-written kernel in ``csrc/trace_scene.cu``; on CPU tensors it runs
@@ -17,6 +18,11 @@ which the tests hold against ``raytpu`` and the chip check holds the
 kernel against. The packers (``pack_tri``, ``chunk_boxes``, ``pack_mats``,
 ``pack_atlas``) fix the tables both read; ``raytpu``'s bf16 limbs and
 one-hot layouts are TPU tricks and become plain indexed loads.
+
+Gradients: ``TraceMesh`` joins K3 in recording mode (each bounce's winner
+index and AO factor) to K2's mesh mode (``trace_scene_bwd.mesh_backward``);
+autograd pulls the table cotangents back through the packers onto the
+scene leaves.
 
 ``shade_bounce`` (``raytpu``'s, op for op) is everything after the winner's
 (point, normal, material) is known. Three plain versions run it: K3's and
@@ -135,6 +141,12 @@ class MeshKnobs(Knobs):
             atlas_w=scene.atlas.width, atlas_h=scene.atlas.height,
             det_eps=cfg.tri_det_eps, tri_eps=cfg.tri_eps,
         )
+
+    @staticmethod
+    def of_spheres(k: Knobs) -> "MeshKnobs":
+        """K1's knobs ``k`` with no triangles, materials or texels."""
+        return MeshKnobs(**k.__dict__, n_tris=0, n_mats=0, n_tex=0,
+                         atlas_w=1, atlas_h=1, det_eps=0.0, tri_eps=0.0)
 
     @property
     def n_chunks(self) -> int:
@@ -375,21 +387,33 @@ def pack_mats(scene: Scene) -> Tensor:
     ]).to(torch.float32).contiguous()
 
 
-def pack_scene(scene: Scene) -> MeshTables:
-    """K3's tables for ``scene``; the cull boxes span the recomputed
-    corners a, a + ab and a + ac, as ``raytpu``'s ``pack_scene``."""
-    from raytpu_torch.kernels.trace_spheres import pack_spheres
+def pack_atlas(scene: Scene) -> Tensor:
+    """(4, n_tex) f32 atlas: r g b alpha texel planes."""
+    a = scene.atlas
+    return torch.stack([*a.rgb, a.alpha]).to(torch.float32).contiguous()
 
-    tri = pack_tri(scene)
+
+def mesh_tables(sph: Tensor, tri: Tensor, mats: Tensor,
+                atlas: Tensor) -> MeshTables:
+    """K3's tables from the four packed ones: the search channels and the
+    cull boxes are derived from ``tri`` (selection only; the boxes span
+    the recomputed corners a, a + ab and a + ac, as ``raytpu``'s
+    ``pack_scene``)."""
     corners = [(tri[r], tri[r] + tri[r + 3], tri[r] + tri[r + 6])
                for r in range(3)]
-    a = scene.atlas
     return MeshTables(
-        sph=pack_spheres(scene), tri=tri, search=tri[:12].T.contiguous(),
-        boxes=chunk_boxes(*map(list, corners), scene.triangles.count),
-        mats=pack_mats(scene),
-        atlas=torch.stack([*a.rgb, a.alpha]).to(torch.float32).contiguous(),
+        sph=sph, tri=tri, search=tri[:12].T.contiguous(),
+        boxes=chunk_boxes(*map(list, corners), tri.shape[1]),
+        mats=mats, atlas=atlas,
     )
+
+
+def pack_scene(scene: Scene) -> MeshTables:
+    """K3's tables for ``scene``."""
+    from raytpu_torch.kernels.trace_spheres import pack_spheres
+
+    return mesh_tables(pack_spheres(scene), pack_tri(scene), pack_mats(scene),
+                       pack_atlas(scene))
 
 
 def _closest_sphere(geo, n_s, rox, roy, roz, rdx, rdy, rdz, eps):
@@ -515,7 +539,8 @@ def _ao_factor(tb: MeshTables, geo, k: MeshKnobs, p: Vec3, n: Vec3, active,
 
 def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
                           dx: Tensor, dy: Tensor, dz: Tensor, draws: Tensor,
-                          k: MeshKnobs, counts: Optional[dict] = None) -> Tensor:
+                          k: MeshKnobs, counts: Optional[dict] = None,
+                          record: bool = False):
     """Plain PyTorch version of the kernel (``raytpu``'s ``bounce_body``
     with ``sky_idx=-1`` and no quads), triangles a chunk of 32 at a time
     so memory stays O(rays x chunk).
@@ -525,9 +550,17 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     the search work this input needs: ``live`` (ray, bounce) entries,
     ``sphere`` and ``slab`` tests, and ``tri`` tests of entered chunks
     (AO probes not counted).
+
+    With ``record`` returns ``(out, idx, aof)`` as ``raytpu``'s
+    ``with_indices``: the per-bounce winner (bounces, B) int32, a triangle
+    t as ``n_spheres + t``, -1 where the ray missed or its loop is over;
+    with ``use_ao`` the per-bounce AO factor (bounces, B) f32, computed on
+    every lane as ``raytpu`` does (else None). A bounce after every ray
+    has finished records -1 and 0 (``skip_body``).
     """
     n_s = k.n_spheres
     carry = initial_carry(ox, oy, oz, dx, dy, dz)
+    idx_rec, aof_rec = [], []
     # sphere winner table with a zero column n_s for triangle winners and misses
     stab = torch.cat([tb.sph[:, :n_s], tb.sph.new_zeros((14, 1))], dim=1)
     geo = [[stab[r, s] for s in range(n_s)] for r in range(4)]
@@ -537,6 +570,11 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     for i in range(k.bounces):
         o, d = carry[0:3], carry[3:6]
         active = carry[18] > 0.0
+        if not bool(active.any()):
+            # skip_body: a finished ray's carry is left as it is
+            idx_rec.append(torch.full_like(ox, -1, dtype=torch.int32))
+            aof_rec.append(torch.zeros_like(ox))
+            continue
         if counts is not None:
             live = int(active.sum())
             counts["live"] += live
@@ -544,6 +582,7 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
             counts["slab"] += live * k.n_chunks
         best, bidx = _closest_sphere(geo, n_s, *o, *d, k.sphere_eps)
         best, bidx = _closest_triangle(tb, k, o, d, active, best, bidx, counts)
+        idx_rec.append(torch.where(active, bidx, -1))
         did_hit = bidx >= 0
         tri_wins = bidx >= n_s
         safe_t = torch.where(did_hit, best, 0.0)
@@ -569,6 +608,7 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
         row0 = k.n_draws * i
         aof = (_ao_factor(tb, geo, k, p, nrm, active, draws, row0)
                if k.use_ao else None)
+        aof_rec.append(aof)
         carry = shade_bounce(
             i, carry, did_hit, *p, *nrm,
             sel(m.diffuse.x, sdfx), sel(m.diffuse.y, sdfy),
@@ -579,11 +619,16 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
             draws[row0], draws[row0 + 1], draws[row0 + 2],
             e_scale_mult=k.e_scale_mult, ao_factor=aof, **k.shade_kw,
         )
-    return torch.stack(carry[9:18])
+    out = torch.stack(carry[9:18])
+    if not record:
+        return out
+    return (out, torch.stack(idx_rec),
+            torch.stack(aof_rec) if k.use_ao else None)
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 14                 # 6 tables, 6 rays, draws, out
+    [ctypes.c_void_p] * 16                 # 6 tables, 6 rays, draws, out,
+                                           # idx_out, aof_out
     + [ctypes.c_int] * 9                   # n_rays n_spheres n_tris n_mats n_tex
                                            # atlas_w atlas_h bounces n_draws
     + [ctypes.c_float] * 7                 # sphere/det/tri eps, alpha lo/hi,
@@ -604,8 +649,10 @@ def _library():
     return fn
 
 
-def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs) -> Tensor:
-    """Launch ``csrc/trace_scene.cu`` on the current stream: (9, B)."""
+def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
+            record: bool = False):
+    """Launch ``csrc/trace_scene.cu`` on the current stream. Returns what
+    ``trace_scene_reference`` returns for the same ``record``."""
     global launches
     tensors = (tb.sph, tb.search, tb.tri, tb.boxes, tb.mats, tb.atlas,
                *rays, draws)
@@ -614,13 +661,19 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs) -> Tensor:
     b = rays[0].shape[0]
     dev = rays[0].device
     out = torch.empty((9, b), dtype=torch.float32, device=dev)
+    idx = aof = None
+    if record:
+        idx = torch.empty((k.bounces, b), dtype=torch.int32, device=dev)
+        if k.use_ao:
+            aof = torch.empty((k.bounces, b), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            *(t.data_ptr() for t in tensors), out.data_ptr(),
-            b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex, k.atlas_w,
-            k.atlas_h, k.bounces, k.n_draws,
+            *(t.data_ptr() for t in tensors), out.data_ptr(), ptr(idx),
+            ptr(aof), b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex,
+            k.atlas_w, k.atlas_h, k.bounces, k.n_draws,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold,
             int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
@@ -629,7 +682,57 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs) -> Tensor:
     if err != 0:
         raise RuntimeError(f"trace_scene kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return (out, idx, aof) if record else out
+
+
+def _forward(tb: MeshTables, rays, draws: Tensor, k: MeshKnobs,
+             record: bool = False):
+    """K3 on the device of the tables: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    dev = tb.sph.device
+    if dev.type == "cuda":
+        return _launch(tb, rays, draws, k, record)
+    if dev.type == "cpu":
+        return trace_scene_reference(tb, *rays, draws, k, record=record)
+    raise NotImplementedError(f"trace_scene: no kernel for {dev}")
+
+
+class TraceMesh(torch.autograd.Function):
+    """K3 in recording mode, then K2's mesh mode.
+
+    Counterpart of ``raytpu``'s ``_mkm_vjp`` / ``_mkm_fwd`` / ``_mkm_bwd``:
+    the forward records each bounce's winner index (and AO factor), the
+    backward replays the bounces from them without a search
+    (``trace_scene_bwd.mesh_backward``). Inputs: the packed tables sph
+    (14, S), tri (25, T), mats (9, M) and atlas (4, n_tex), the six ray
+    planes, the (bounces * n_draws, B) draws and the knobs; output (9, B).
+    The search channels and cull boxes are derived from ``tri`` inside:
+    they are selection and carry no cotangent. The table cotangents go
+    back through the packers by autograd, as ``raytpu``'s ``jax.vjp`` of
+    ``_pack_diff``; the draws get none (zero by construction).
+    """
+
+    @staticmethod
+    def forward(ctx, sph, tri, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
+                k: MeshKnobs):
+        from raytpu_torch.kernels.trace_scene_bwd import check_depth
+
+        check_depth(k.bounces)
+        rays = (ox, oy, oz, dx, dy, dz)
+        out, idx, aof = _forward(mesh_tables(sph, tri, mats, atlas), rays,
+                                 draws, k, record=True)
+        ctx.k = k
+        ctx.save_for_backward(sph, tri, mats, atlas, *rays, draws, idx, aof)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from raytpu_torch.kernels.trace_scene_bwd import Tables, mesh_backward
+
+        sph, tri, mats, atlas, *rays, draws, idx, aof = ctx.saved_tensors
+        *d_tabs, d_rays = mesh_backward(Tables(sph, tri, mats, atlas), rays,
+                                        draws, idx, aof, g.contiguous(), ctx.k)
+        return (*d_tabs, *d_rays, None, None)
 
 
 def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
@@ -640,19 +743,17 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
 
     bounce_draws: (max_bounces, n_bounce_draws(cfg), B) U(0,1) draws.
     Runs on the device of the scene: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Raises ``NotImplementedError`` for
-    scenes the kernel does not cover (``unsupported_reasons``) and when a
-    scene leaf or a ray requires grad: the mesh backward (K2's mesh mode,
-    with K3's recording mode) is not ported yet.
+    the plain version for CPU tensors. When a scene leaf or a ray
+    requires grad it runs ``TraceMesh`` (K3 recording, then K2's mesh
+    mode in the backward). Raises ``NotImplementedError`` for scenes the
+    kernel does not cover (``unsupported_reasons``).
     """
+    from raytpu_torch.kernels.trace_spheres import pack_spheres
+
     reasons = unsupported_reasons(scene, cfg)
     if reasons:
         raise NotImplementedError("trace_scene: " + "; ".join(reasons))
     rays = (*origin, *direction)
-    if torch.is_grad_enabled() and requires_grad(scene, *rays):
-        raise NotImplementedError(
-            "trace_scene: gradients through a mesh scene need the mesh "
-            "backward (K2's mesh mode), which is not ported yet")
     bn, nd, b = bounce_draws.shape
     k = MeshKnobs.for_scene(cfg, scene, nd)
     if bn != cfg.max_bounces or nd < k.draws_needed:
@@ -665,13 +766,12 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
             raise ValueError(
                 f"trace_scene: rays and draws must be f32 with B={b} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    tb = pack_scene(scene)
-    draws = bounce_draws.reshape(bn * nd, b)
-    if dev.type == "cuda":
-        out = _launch(tb, tuple(t.contiguous() for t in rays),
-                      draws.contiguous(), k)
-    elif dev.type == "cpu":
-        out = trace_scene_reference(tb, *rays, draws, k)
+    tabs = (pack_spheres(scene), pack_tri(scene), pack_mats(scene),
+            pack_atlas(scene))
+    draws = bounce_draws.reshape(bn * nd, b).contiguous()
+    rays = tuple(t.contiguous() for t in rays)
+    if torch.is_grad_enabled() and requires_grad(scene, *rays):
+        out = TraceMesh.apply(*tabs, *rays, draws, k)
     else:
-        raise NotImplementedError(f"trace_scene: no kernel for {dev}")
+        out = _forward(mesh_tables(*tabs), rays, draws, k)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

@@ -1,21 +1,23 @@
 """Differentiable-rendering train step.
 
 Port of ``raytpu/train/inverse.py`` without sharding (its ``mesh=None``
-path). One step renders the frame (``integrator.render``: K1 records
-each bounce's winner, the backward replays it in K2), takes the L2
-photometric loss of the mean radiance against a target, pulls gradients
-back to every float sphere leaf (and, with ``train_camera``, the camera)
-and applies one Adam update.
+path). One step renders the frame (``integrator.render``: K1 or, for a
+mesh scene, K3 records each bounce's winner, the backward replays it in
+K2), takes the L2 photometric loss of the mean radiance against a
+target, pulls gradients back to every float scene leaf (spheres and,
+where the scene has them, triangles, atlas and material table; and with
+``train_camera`` the camera) and applies one Adam update.
 
 Parameters are plain dicts of leaf tensors keyed by attribute path
-(``"spheres.center.x"``, ``"spheres.mat.ior"``, ``"origin.x"``, ...; the
-names of ``convert``). They live on the scene's device: the CUDA card
-when the scene was built with the default ``device``.
+(``"spheres.center.x"``, ``"triangles.a.y"``, ``"atlas.rgb.x"``,
+``"mat_table.ior"``, ``"origin.x"``, ...; the names of ``convert``). They
+live on the scene's device: the CUDA card when the scene was built with
+the default ``device``.
 
 As in ``raytpu``, radiance is piecewise constant in geometry (sphere
-centres and radii, camera pose): those gradients are zero almost
-everywhere, and colours, emission and emission strength carry the
-signal.
+centres and radii, triangle vertices, camera pose) under nearest-texel
+fetch: those gradients are zero almost everywhere, and colours, texels,
+emission and emission strength carry the signal.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ ADAM_EPS = 1e-8
 
 
 def partition_scene(scene: Scene) -> tuple[dict, dict]:
-    """(params, static): params maps each sphere leaf's path to its
-    tensor; static holds the rest of the scene (the mesh, which this
-    trainer does not fit, and the sky index). Recombine with
-    ``combine_scene``."""
+    """(params, static): params maps every float leaf's path to its
+    tensor (``convert.scene_leaves``: ``raytpu``'s float leaves but the
+    sky's, which the port does not render); static holds the mesh parts,
+    whose ``mat_id``, flags and atlas size stay fixed, and the sky index.
+    Recombine with ``combine_scene``."""
     static = {"triangles": scene.triangles, "atlas": scene.atlas,
               "mat_table": scene.mat_table,
               "sky_sphere_index": scene.sky_sphere_index}

@@ -209,26 +209,42 @@ def _wrapper_args(world):
 
 
 def test_sky_and_gradient_requests_raise(world):
+    """The sky gate raises; a gradient request runs ``TraceMesh`` (the
+    plain K3 recording, then K2's plain mesh mode) on CPU tensors, with
+    finite gradients and no kernel launch; bad draws raise."""
+    from raytpu_torch.kernels import trace_scene_bwd as tbwd
+
     ts, cfg, to, td, tdraws = _wrapper_args(world)
     sky = dataclasses.replace(ts, sky_sphere_index=2)
     assert not tts.supported(sky, cfg)
     with pytest.raises(NotImplementedError, match="sky"):
         tts.trace_mesh_megakernel(sky, cfg, to, td, tdraws)
-    a = ts.triangles.a
-    leaf = TVec3(a.x.clone().requires_grad_(), a.y, a.z)
-    grad_scene = dataclasses.replace(
-        ts, triangles=dataclasses.replace(ts.triangles, a=leaf))
-    with pytest.raises(NotImplementedError, match="mesh backward"):
-        tts.trace_mesh_megakernel(grad_scene, cfg, to, td, tdraws)
-    grad_rays = TVec3(to.x.clone().requires_grad_(), to.y, to.z)
-    with pytest.raises(NotImplementedError, match="mesh backward"):
-        tts.trace_mesh_megakernel(ts, cfg, grad_rays, td, tdraws)
-    with torch.no_grad():      # no gradient requested: it renders
-        out = tts.trace_mesh_megakernel(grad_scene, cfg, to, td, tdraws)
-    assert torch.equal(out[0].x, tts.trace_mesh_megakernel(
-        ts, cfg, to, td, tdraws)[0].x)
     with pytest.raises(ValueError, match="bounce_draws"):
         tts.trace_mesh_megakernel(ts, cfg, to, td, tdraws[:1])
+    _, jc, ts, _, jcfg = _scenes(world)["block_world"]
+    cfg = TConfig(**dataclasses.asdict(jcfg.replace(width=8, height=6,
+                                                    max_bounces=3)))
+    _, (to, td, tdraws) = _inputs(jc, cfg, 5)
+    a, rgb = ts.triangles.a, ts.atlas.rgb
+    leaf = TVec3(a.x.clone().requires_grad_(), a.y, a.z)
+    texels = rgb.x.clone().requires_grad_()
+    grad_scene = dataclasses.replace(
+        ts, triangles=dataclasses.replace(ts.triangles, a=leaf),
+        atlas=dataclasses.replace(ts.atlas, rgb=TVec3(texels, rgb.y, rgb.z)))
+    grad_rays = TVec3(to.x.clone().requires_grad_(), to.y, to.z)
+    before = (tts.launches, tbwd.launches)
+    out = tts.trace_mesh_megakernel(grad_scene, cfg, grad_rays, td, tdraws)
+    assert out[0].x.grad_fn is not None
+    with torch.no_grad():      # the same planes as without a gradient
+        plain = tts.trace_mesh_megakernel(ts, cfg, to, td, tdraws)
+    for got, want in zip(out, plain):
+        assert torch.equal(torch.stack(list(got)), torch.stack(list(want)))
+    loss = sum(v.sum() for vec in out for v in vec)
+    loss.backward()
+    assert (tts.launches, tbwd.launches) == before
+    for g in (leaf.x.grad, texels.grad, grad_rays.x.grad):
+        assert g is not None and torch.isfinite(g).all()
+    assert float(texels.grad.abs().sum()) > 0.0
 
 
 def test_search_counts(world):

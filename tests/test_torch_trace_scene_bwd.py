@@ -162,8 +162,9 @@ def test_replay_is_finite_on_misses_and_zero_emitters():
     for r in (rays, away):
         _, idx, _ = tts.trace_spheres_reference(sph, *r, draws, k, record=True)
         misses += int((idx[0] == -1).sum())
-        d_sph, d_rays = tbwd.replay_reference(sph, r, draws, idx, None,
-                                              torch.ones(9, 16), k)
+        d_sph, *_, d_rays = tbwd.replay_reference(
+            tbwd.Tables.of_spheres(sph), r, draws, idx, None,
+            torch.ones(9, 16), k)
         assert torch.isfinite(d_sph).all()
         assert all(torch.isfinite(t).all() for t in d_rays)
     assert misses > 0
@@ -175,5 +176,6 @@ def test_replay_forward_equals_recording_forward():
     sph = tts.pack_spheres(tscene)
     out, idx, aof = tts.trace_spheres_reference(sph, *rays, draws, k,
                                                 record=True)
-    replayed = tbwd.replay_forward(sph, rays, draws, idx, aof, k)
+    replayed = tbwd.replay_forward(tbwd.Tables.of_spheres(sph), rays, draws,
+                                   idx, aof, k)
     torch.testing.assert_close(replayed, out, rtol=1e-6, atol=1e-6)

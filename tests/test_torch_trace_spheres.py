@@ -234,7 +234,8 @@ def test_requires_grad_runs_record_and_replay():
     sph = tts.pack_spheres(scene)
     flat = draws.detach().reshape(9, 16)
     _, idx, aof = tts.trace_spheres_reference(sph, *o, *d, flat, k, record=True)
-    d_sph, d_rays = tbwd.replay_reference(sph, (*o, *d), flat, idx, aof, g, k)
+    d_sph, *_, d_rays = tbwd.replay_reference(tbwd.Tables.of_spheres(sph),
+                                              (*o, *d), flat, idx, aof, g, k)
     got = torch.stack([leaves[p].grad for p in convert.SPHERE_LEAVES])
     torch.testing.assert_close(got, d_sph, rtol=0, atol=0)
     torch.testing.assert_close(dz.grad, d_rays[5], rtol=0, atol=0)

@@ -5,9 +5,16 @@
   rate (raytpu on its scan path), same scene, target and keys: the losses
   within 1e-5 relative and every parameter within 1e-6 + 1e-5*|x| (Adam
   moves a leaf by about lr * sign(grad), so the parameters agree as
-  closely as the signs of their gradients do).
+  closely as the signs of their gradients do). On sphere scenes, and on
+  the 60-triangle block world of ``test_torch_mesh_grad`` (its sky dome
+  shrunk as there) over every float leaf, with ``partition_scene`` giving
+  raytpu's float-leaf paths but the sky's. There raytpu's scan runs
+  eagerly (``jax.disable_jit``): compiled, it takes the other branch of a
+  water refraction on 1-2% of the rays (``ROADMAP.md`` F7), and Adam turns
+  a gradient of the other sign into a step of 2 lr.
 * ``read_ppm`` / ``load_rgb`` against raytpu's readers; PNG refused.
-* ``cli train --device cpu`` on a tiny PPM target.
+* ``cli train --device cpu`` on a tiny PPM target, for a built-in sphere
+  scene and for a block-world TOML.
 * The default-device repair: without ``device`` the constructors put
   their tensors on the CUDA card, and raise where there is none.
 """
@@ -27,9 +34,11 @@ import torch
 from raytpu import scenes as jscenes
 from raytpu.core.vec3 import Vec3 as JVec3
 from raytpu.io.ppm import read_ppm as j_read_ppm
+from raytpu.train import partition_scene as j_partition
 from raytpu.train import make_train_step as j_make_train_step
 from raytpu.train import photometric_loss as j_photometric_loss
 from raytpu_torch import camera as tcamera
+from raytpu_torch import config as tconfig
 from raytpu_torch import convert
 from raytpu_torch import scenes as tscenes
 from raytpu_torch.core import rng as trng
@@ -40,6 +49,7 @@ from raytpu_torch.io.image import load_rgb
 from raytpu_torch.io.ppm import read_ppm, write_ppm
 from raytpu_torch.train import (combine_scene, make_train_step,
                                 partition_scene, photometric_loss)
+from tests.test_torch_mesh_grad import _scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,6 +133,63 @@ def test_train_camera_updates_camera_leaves():
                           trng.prng_key(0))
     assert torch.isfinite(loss)
     assert all(p.grad is not None for p in state.cam_params.values())
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    return tscenes.write_block_world(str(tmp_path_factory.mktemp("bw")),
+                                     n_triangles=60, seed=3)
+
+
+def test_mesh_adam_steps_match_raytpu(world):
+    js, jc, ts, tc, cfg = _scene(world, "block_world")
+    cfg = cfg.replace(width=8, height=6, spp=1, max_bounces=3)
+    lr = 1e-2
+    pids = np.arange(cfg.n_pixels, dtype=np.int32)
+    target = np.random.default_rng(6).uniform(
+        0.0, 0.5, (cfg.n_pixels, 3)).astype(np.float32)
+    j_paths = {p for p in _arrays(j_partition(js)[0])
+               if not p.startswith("sky.")}
+    assert set(partition_scene(ts)[0]) == j_paths
+
+    j_init, j_step = j_make_train_step(cfg, optax.adam(lr))
+    t_init, t_step = make_train_step(TConfig(**dataclasses.asdict(cfg)), lr)
+    j_state, j_static = j_init(js, jc)
+    t_state, t_static = t_init(ts, tc)
+    start = convert.scene_leaves(ts)
+    for step in range(2):
+        with jax.disable_jit():
+            j_state, j_loss = j_step(j_state, j_static, jc, jnp.asarray(pids),
+                                     jnp.asarray(target),
+                                     jax.random.PRNGKey(step))
+        t_state, t_loss = t_step(t_state, t_static, tc, pids, target,
+                                 trng.prng_key(step))
+        np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-5)
+        want = _arrays(j_state.params)
+        moved = set()
+        for path, p in t_state.params.items():
+            got = p.detach().numpy()
+            np.testing.assert_allclose(got, want[path], rtol=1e-5, atol=1e-6,
+                                       err_msg=f"step {step} {path}")
+            if (got != start[path].numpy()).any():
+                moved.add(path.split(".")[0])
+        assert {"atlas", "mat_table", "spheres"} <= moved
+
+
+def test_cli_train_mesh_on_cpu(world, tmp_path):
+    ts, tc, cfg = tconfig.load_scene_file(world, device="cpu")
+    cfg = cfg.replace(width=8, height=6, spp=1, max_bounces=2, pixel_tile=48)
+    target = tmp_path / "target.ppm"
+    write_ppm(str(target), render_image(ts, tc, cfg, trng.prng_key(9)).canvas)
+    out = tmp_path / "trained.ppm"
+    res = _cli("train", world, "--target", str(target), "--steps", "2",
+               "--log-every", "1", "--out", str(out), "--device", "cpu",
+               "--width", "8", "--height", "6", "--spp", "1", "--bounces", "2")
+    assert res.returncode == 0, res.stderr
+    losses = [float(line.split()[-1]) for line in res.stdout.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert out.read_text().startswith("P3\n8 6\n255\n")
 
 
 _PPM = b"""P3
