@@ -56,9 +56,34 @@ Phases, each of which raises on failure (exit code non-zero):
      K2 mesh launches == spp), where its time goes, then 3 Adam steps
      towards a target with perturbed atlas and material colours, whose
      losses must fall;
-  16. the bounds of K4 and K5, which are not ported yet.
-The last lines are the card, a JSON line per kernel, and the result line.
-Imports no JAX.
+  16. the scan path's closest-hit kernel (K4) against its plain version,
+     winners and distances bit-equal, at 64x48 rays (random rays with
+     axis-aligned directions, camera rays and each bounce's rays through
+     the scan path) on Cornell, the six mesh scenes of phase 9 and a
+     4096-triangle world (K4's limit, twice K3's);
+  17. K4 on the 1200x900 camera rays of the 600- and 4096-triangle worlds,
+     compared and timed beside its plain version and its bound;
+  18. the scan path against the megakernels on the card (the 600-triangle
+     world against K3, Cornell against K1, 64x48x2spp) and against the
+     CPU (the 4096-triangle world, 40x30x2spp);
+  19. the scan-path forward frame: the 4096-triangle world at 1200x900, 4
+     spp, 6 bounces through ``render`` (``use_megakernel`` off), finite
+     and lit, K4 launches == spp x bounces x (1 + AO probes) and no K1,
+     K2 or K3; where its time goes; the PPM; the same frame on the
+     600-triangle world beside phase 11's K3 frame;
+  20. the scan-path training path: value and gradient of the photometric
+     loss on the 4096-triangle world at 1200x900, 2 spp, 6 bounces with
+     bilinear textures and every float leaf requiring grad (K4 launches
+     == 2 x spp x bounces: the forward and the checkpoint's recompute;
+     the triangle vertices' gradients non-zero), where its time goes,
+     then bilinear Adam steps towards a target with perturbed atlas and
+     material colours: 2 of every float leaf, printed, and 3 of all but
+     those that place a surface or turn a ray (``SCAN_STEP_FROZEN``),
+     whose losses must fall;
+  21. the bound of K5, the one TPU kernel not ported yet.
+Each path's launch counts (K1-K4) are set to 0 just before it and read
+just after. The last lines are the card, a JSON line per kernel (K5's
+bound under "unported"), and the result line. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -86,6 +111,23 @@ MESH_SPP = 16         # cut from bench.py's 50: per-sample work is the same
 MESH_WORLD = 600      # triangles of the mesh path's block world
 MESH_TRAIN_SPP = 4    # the mesh fwd+bwd frame (cut like TRAIN_SPP)
 MESH_STEP_SPP = 2     # the mesh Adam steps
+SCAN_WORLD = 4096     # triangles of the scan path's world: K4's limit, K3's x2
+SCAN_SPP = 4          # the scan-path forward frame (cut like MESH_SPP)
+SCAN_TRAIN_SPP = 2    # the scan-path fwd+bwd frame
+SCAN_STEP_SPP = 1     # its Adam steps
+SCAN_STEP_LR = 1e-2
+# Leaves the scan-path Adam steps keep fixed. Under bilinear fetch every
+# leaf that places a surface or turns a ray gets gradient through later
+# bounces' texel lookups, but Adam moves each leaf by about lr whatever
+# its gradient, and a 1e-2 move of these crosses the knife edges (a
+# bounce ray meeting its own surface again or not, cracks between
+# faces), and the loss rises: phase 20 prints two steps of every leaf
+# beside the three that must fall. tests/test_torch_scan_grad.py shows
+# the vertex gradient to be a descent direction where no knife edge lies
+# in the way.
+SCAN_STEP_FROZEN = ("spheres.center.", "spheres.radius", "spheres.mat.ior",
+                    "spheres.mat.reflection", "triangles.a.", "triangles.b.",
+                    "triangles.c.", "mat_table.ior", "mat_table.reflection")
 # K1 recording vs its plain version: the recorded winner of a (ray,
 # bounce) may flip for the same FMA reason, and a flipped winner sends
 # the ray elsewhere for the rest of its bounces; at least IDX_AGREE of
@@ -352,9 +394,6 @@ def phase_main(dev, card, timing):
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, render, render_image)
     from raytpu_torch.io.ppm import write_ppm
-    from raytpu_torch.kernels import trace_scene as tsc
-    from raytpu_torch.kernels import trace_scene_bwd as tb
-    from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
 
     scene, cam, cfg = cornell_box(dev)
@@ -363,13 +402,13 @@ def phase_main(dev, card, timing):
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
     key = rng.prng_key(0)
 
-    ts.launches = tb.launches = tsc.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sums = render(scene, cam, cfg, pids, key)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches, k2_launches, k3_launches = ts.launches, tb.launches, tsc.launches
+    launches, k2_launches, k3_launches, k4_launches = _launches()
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -378,9 +417,10 @@ def phase_main(dev, card, timing):
         raise AssertionError("main path: non-finite sums")
     if not mean > 0.0:
         raise AssertionError(f"main path: mean radiance {mean} is not > 0")
-    if launches != cfg.spp or k2_launches != 0 or k3_launches != 0:
-        raise AssertionError(f"main path: {launches} K1, {k2_launches} K2 and "
-                             f"{k3_launches} K3 launches, want {cfg.spp}, 0, 0")
+    if (launches, k2_launches, k3_launches, k4_launches) != (cfg.spp, 0, 0, 0):
+        raise AssertionError(f"main path: {launches} K1, {k2_launches} K2, "
+                             f"{k3_launches} K3 and {k4_launches} K4 launches, "
+                             f"want {cfg.spp}, 0, 0, 0")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"main path: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}: {elapsed:.4f} s, "
@@ -409,7 +449,7 @@ def phase_main(dev, card, timing):
     means = img.canvas.reshape(-1, 3).mean(axis=0)
     print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
           f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
-    return launches, k2_launches, k3_launches
+    return launches, k2_launches, k3_launches, k4_launches
 
 
 def _stack_scene(dev):
@@ -675,6 +715,7 @@ def _profile(work):
         wall_ms = (time.perf_counter() - t0) * 1e3
     buckets = {"K1 trace_spheres": 0.0, "K2 backward": 0.0,
                "K2 sum_blocks": 0.0, "K3 trace_scene": 0.0,
+               "K4 intersect": 0.0, "index gather/scatter": 0.0,
                "int64 (threefry)": 0.0, "other": 0.0}
     n_kernels = 0
     for ev in prof.key_averages():
@@ -689,6 +730,12 @@ def _profile(work):
             buckets["K1 trace_spheres"] += dev_us
         elif "trace_scene_kernel" in name:
             buckets["K3 trace_scene"] += dev_us
+        elif "intersect_kernel" in name:
+            buckets["K4 intersect"] += dev_us
+        elif any(w in name.lower() for w in ("index", "scatter", "gather")):
+            # the scan path's winner gathers (index_select) and their
+            # backward (index_add); their int64 indices are not threefry
+            buckets["index gather/scatter"] += dev_us
         elif "::backward_kernel" in name:
             buckets["K2 backward"] += dev_us
         elif "sum_blocks_kernel" in name:
@@ -716,9 +763,6 @@ def phase_train(dev, card):
 
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
-    from raytpu_torch.kernels import trace_scene as tsc
-    from raytpu_torch.kernels import trace_scene_bwd as tb
-    from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
     from raytpu_torch.train import (combine_scene, make_train_step,
                                     partition_scene, photometric_loss)
@@ -739,14 +783,14 @@ def phase_train(dev, card):
     loss_fn(cfg.replace(spp=1)).backward()        # warm up
     for p in params.values():
         p.grad = None
-    ts.launches = tb.launches = tsc.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = loss_fn()
     loss.backward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1_launches, k2_launches, k3_launches = ts.launches, tb.launches, tsc.launches
+    k1_launches, k2_launches, k3_launches, k4_launches = _launches()
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item()
@@ -760,8 +804,9 @@ def phase_train(dev, card):
     if k1_launches != 2 * cfg.spp:
         raise AssertionError(f"fwd+bwd: {k1_launches} K1 launches, want "
                              f"{2 * cfg.spp} (forward + checkpoint recompute)")
-    if k3_launches != 0:
-        raise AssertionError(f"fwd+bwd: {k3_launches} K3 launches on a sphere scene")
+    if k3_launches != 0 or k4_launches != 0:
+        raise AssertionError(f"fwd+bwd: {k3_launches} K3 and {k4_launches} K4 "
+                             "launches on the megakernel path")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"fwd+bwd: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}, d loss / d every sphere leaf: "
@@ -800,7 +845,7 @@ def phase_train(dev, card):
           f"spp={cfg.spp} towards a perturbed-diffuse target: losses "
           + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
     return dict(k1_launches=k1_launches, k2_launches=k2_launches,
-                k3_launches=k3_launches, rays_per_s=rays / elapsed)
+                k3_launches=k3_launches, k4_launches=k4_launches, rays_per_s=rays / elapsed)
 
 
 def _block_world(n: int, seed: int = 0) -> str:
@@ -949,24 +994,21 @@ def phase_mesh(dev, card, timing):
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, render, render_image)
     from raytpu_torch.io.ppm import write_ppm
-    from raytpu_torch.kernels import trace_scene as tsc
-    from raytpu_torch.kernels import trace_scene_bwd as tb
-    from raytpu_torch.kernels import trace_spheres as ts
 
     path = _block_world(MESH_WORLD)
     scene, cam, cfg = load_scene_file(path, dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_SPP,
-                      max_bounces=6)
+                      max_bounces=6, use_megakernel=True)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
     key = rng.prng_key(0)
 
-    ts.launches = tb.launches = tsc.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sums = render(scene, cam, cfg, pids, key)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1, k2, k3 = ts.launches, tb.launches, tsc.launches
+    k1, k2, k3, k4 = _launches()
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -975,9 +1017,9 @@ def phase_mesh(dev, card, timing):
         raise AssertionError("mesh path: non-finite sums")
     if not mean > 0.0:
         raise AssertionError(f"mesh path: mean radiance {mean} is not > 0")
-    if k3 != cfg.spp or k1 != 0 or k2 != 0:
-        raise AssertionError(f"mesh path: {k3} K3, {k1} K1 and {k2} K2 "
-                             f"launches, want {cfg.spp}, 0 and 0")
+    if (k3, k1, k2, k4) != (cfg.spp, 0, 0, 0):
+        raise AssertionError(f"mesh path: {k3} K3, {k1} K1, {k2} K2 and {k4} "
+                             f"K4 launches, want {cfg.spp}, 0, 0 and 0")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"mesh path: block world ({scene.triangles.count} triangles, "
           f"{scene.mat_table.count} materials) {cfg.width}x{cfg.height} "
@@ -1008,7 +1050,8 @@ def phase_mesh(dev, card, timing):
     means = img.canvas.reshape(-1, 3).mean(axis=0)
     print(f"wrote {os.path.relpath(out, ROOT)}: canvas channel means "
           f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
-    return dict(k1=k1, k2=k2, k3=k3, rays_per_s=rays / elapsed)
+    return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed,
+                ms_per_sample=elapsed / cfg.spp * 1e3)
 
 
 def _mesh_inputs(scene, cfg, origin, direction, draws):
@@ -1258,46 +1301,20 @@ def phase_mesh_bwd_timing(dev):
                 max_abs_err=max_err, outlier_frac=frac, rerun=rerun)
 
 
-def unported_bounds(dev, k2):
-    """Bounds of the two TPU kernels not ported yet, from this run's data
-    (their launches are 0 on every path). K4 (raytpu/kernels/intersect.py
-    :56, a selection-only closest hit: one search, no shading) for the
-    1200x900 camera rays of the 600-triangle world, its search work counted
-    by K3's plain version over one bounce, against the rays read and
-    (t, index) written. K5 (raytpu/kernels/trace_spheres.py:460, jax.vjp of
-    K1's loop) at the flagship fwd+bwd shape: K1's forward operations three
-    times per live entry of phase 7's Cornell recording (the loop, then its
-    reverse at about twice the forward), against K2's bytes."""
-    import torch
-
-    from raytpu_torch.config import load_scene_file
-    from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import blocked_pixel_order, sample_rays
-    from raytpu_torch.kernels import trace_scene as tsc
-
-    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
-    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=1)
-    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
-    cam_d, draws = rng.ray_uniforms(ks, 4, 3, 1)
-    mt, rays, flat, k = _mesh_inputs(scene, cfg, *sample_rays(cam, cfg, pids,
-                                                              cam_d), draws)
-    counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
-    tsc.trace_scene_reference(mt, *rays, flat, k, counts)
-    b = cfg.n_pixels
-    k4 = _bound(b * (24 + 8) + 4 * (mt.sph.numel() + mt.search.numel()
-                                    + mt.boxes.numel()),
-                counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
-                + counts["tri"] * K3_OPS_TRI)
+def k5_bound(k2):
+    """The bound of the one TPU kernel not ported yet, from this run's data
+    (its launches are 0 on every path): K5 (raytpu/kernels/trace_spheres.py
+    :460, jax.vjp of K1's loop) at the flagship fwd+bwd shape: K1's forward
+    operations three times per live entry of phase 7's Cornell recording
+    (the loop, then its reverse at about twice the forward), against K2's
+    bytes."""
     k5_bytes = (k2["n_rays"] * (24 + 16 * k2["bounces"] + 36 + 24)
                 + 2 * 14 * 4 * k2["n_spheres"])
     k5 = _bound(k5_bytes, 3 * k2["n_live"] * (33 * k2["n_spheres"] + 130))
-    print(f"bounds of the kernels still to port: K4 {k4[0]:.4f} ms ({k4[1]}; "
-          f"{counts['tri']} triangle and {counts['slab']} slab tests for "
-          f"{b} camera rays of the {scene.triangles.count}-triangle world); "
-          f"K5 {k5[0]:.4f} ms ({k5[1]}; {k2['n_live']} live entries at "
-          f"{k2['n_rays']} rays x {k2['bounces']} bounces)")
-    return k4, k5
+    print(f"bound of the kernel still to port: K5 {k5[0]:.4f} ms ({k5[1]}; "
+          f"{k2['n_live']} live entries at {k2['n_rays']} rays x "
+          f"{k2['bounces']} bounces)")
+    return k5
 
 
 def phase_mesh_train(dev, card):
@@ -1309,15 +1326,12 @@ def phase_mesh_train(dev, card):
     from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
-    from raytpu_torch.kernels import trace_scene as tsc
-    from raytpu_torch.kernels import trace_scene_bwd as tb
-    from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.train import (combine_scene, make_train_step,
                                     partition_scene, photometric_loss)
 
     scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_TRAIN_SPP,
-                      max_bounces=6)
+                      max_bounces=6, use_megakernel=True)
     pids = torch.arange(cfg.n_pixels, device=dev)
     target = torch.zeros((cfg.n_pixels, 3), device=dev)
     key = rng.prng_key(0)
@@ -1331,14 +1345,14 @@ def phase_mesh_train(dev, card):
     loss_fn(cfg.replace(spp=1)).backward()        # warm up
     for p in params.values():
         p.grad = None
-    ts.launches = tb.launches = tsc.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = loss_fn()
     loss.backward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1, k2, k3 = ts.launches, tb.launches, tsc.launches
+    k1, k2, k3, k4 = _launches()
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item() and all(
@@ -1348,11 +1362,11 @@ def phase_mesh_train(dev, card):
                  "spheres.mat.emission.x"):
         if not grads[leaf].abs().max().item() > 0.0:
             raise AssertionError(f"mesh fwd+bwd: d loss / d {leaf} is all zero")
-    if (k3, k2, k1) != (2 * cfg.spp, cfg.spp, 0):
+    if (k3, k2, k1, k4) != (2 * cfg.spp, cfg.spp, 0, 0):
         raise AssertionError(
-            f"mesh fwd+bwd: {k3} K3, {k2} K2 and {k1} K1 launches, want "
-            f"{2 * cfg.spp} (recording: forward + checkpoint recompute), "
-            f"{cfg.spp} and 0")
+            f"mesh fwd+bwd: {k3} K3, {k2} K2, {k1} K1 and {k4} K4 launches, "
+            f"want {2 * cfg.spp} (recording: forward + checkpoint recompute), "
+            f"{cfg.spp}, 0 and 0")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"mesh fwd+bwd: block world {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}, d loss / d every float leaf "
@@ -1392,7 +1406,381 @@ def phase_mesh_train(dev, card):
     print(f"mesh train: 3 Adam steps (lr 1e-2) at {tcfg.width}x{tcfg.height} "
           f"spp={tcfg.spp} towards a perturbed atlas/material target: losses "
           + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
-    return dict(k1=k1, k2=k2, k3=k3, rays_per_s=rays / elapsed)
+    return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed)
+
+
+def _k4_ray_sets(scene, cam, cfg, seed, dev):
+    """(name, origin, direction) on the card: random rays (a quarter with
+    d.x = 0, a quarter with d.z = 0), then the camera rays of a
+    ``cfg``-sized frame and each later bounce's rays through the scan
+    path."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core.vec3 import Vec3
+    from raytpu_torch.geometry.triangle import precompute
+    from raytpu_torch.integrator import path
+
+    rs = np.random.default_rng(seed)
+    b = cfg.n_pixels
+    o = rs.uniform(-2.0, 2.0, (3, b)).astype(np.float32)
+    o[1] = np.abs(o[1])
+    d = rs.normal(size=(3, b)).astype(np.float32)
+    d[0, : b // 4] = 0.0
+    d[2, b // 4: b // 2] = 0.0
+    d /= np.linalg.norm(d, axis=0)
+    card = lambda a: Vec3(*(torch.tensor(c, device=dev) for c in a))
+    yield "random", card(o), card(d)
+    origin, direction, draws = _kernel_inputs(scene, cam, cfg, seed, dev)
+    geom = precompute(scene.triangles) if scene.n_triangles else None
+    state = path.init_state(origin, direction)
+    for i in range(cfg.max_bounces):
+        yield f"bounce {i}", state.origin, state.direction
+        state = path.bounce(scene, geom, cfg, i, state, draws[i])
+
+
+def phase_k4(dev):
+    """K4 against its plain version at 64x48 rays, bit for bit: Cornell
+    (spheres only, use_pallas=True), the six mesh scenes of phase 9 and
+    the 4096-triangle world."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.geometry.triangle import precompute
+    from raytpu_torch.kernels import intersect
+    from raytpu_torch.scenes import cornell_box
+
+    print("K4 vs plain at 64x48 rays (random, camera and bounce rays): "
+          "winners and t bit-equal")
+    cases = [("cornell 10 spheres", cornell_box(dev), {}), *_k3_cases(dev),
+             (f"block world {SCAN_WORLD} 6b",
+              load_scene_file(_block_world(SCAN_WORLD), dev), {})]
+    for i, (name, (scene, cam, cfg), over) in enumerate(cases):
+        cfg = cfg.replace(width=64, height=48, use_pallas=True, **over)
+        geom = precompute(scene.triangles) if scene.n_triangles else None
+        tabs = intersect.pack_tables(scene, geom)
+        eps = (cfg.sphere_eps, cfg.tri_det_eps, cfg.tri_eps)
+        hits = []
+        for what, o, d in _k4_ray_sets(scene, cam, cfg, 500 + i, dev):
+            kt, ki = intersect.pallas_select(scene, geom, o, d, *eps)
+            pt, pi = intersect.intersect_reference(*tabs, *o, *d, *eps)
+            if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+                raise AssertionError(
+                    f"K4 {name} {what}: {(ki != pi).sum().item()} winners and "
+                    f"{(kt != pt).sum().item()} distances differ")
+            hits.append((ki >= 0).float().mean().item())
+        print(f"  {name:28s} {len(hits)} ray sets equal; hit fractions "
+              + " ".join(f"{h:.3f}" for h in hits))
+
+
+def _k4_bound(b, counts, table_bytes):
+    """Least K4 time: rays 24 B in and (t, index) 8 B out per ray plus the
+    tables at HBM speed, against this input's work at ray granularity (the
+    plain version's counts: a sphere test per sphere, a slab test per
+    chunk, a triangle test per triangle of every chunk the ray enters, at
+    K3's operation counts for the same tests) at the FP32 peak."""
+    ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
+           + counts["tri"] * K3_OPS_TRI)
+    return _bound(b * (24 + 8) + table_bytes, ops)
+
+
+def phase_k4_timing(dev):
+    """K4 and its plain version on the 1200x900 camera rays of the 600- and
+    4096-triangle worlds: compared bit for bit, then timed with CUDA
+    events in turns, beside the bound from this input's work."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.geometry.triangle import precompute
+    from raytpu_torch.integrator.render import blocked_pixel_order, sample_rays
+    from raytpu_torch.kernels import intersect
+
+    res = {}
+    for n in (MESH_WORLD, SCAN_WORLD):
+        scene, cam, cfg = load_scene_file(_block_world(n), dev)
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1])
+        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
+        cam_d, _ = rng.ray_uniforms(ks, 4, 3, 1)
+        o, d = sample_rays(cam, cfg, pids, cam_d)
+        rays = tuple(c.contiguous() for c in (*o, *d))
+        tabs = intersect.pack_tables(scene, precompute(scene.triangles))
+        eps = (cfg.sphere_eps, cfg.tri_det_eps, cfg.tri_eps)
+        counts = {"sphere": 0, "slab": 0, "tri": 0}
+        pt, pi = intersect.intersect_reference(*tabs, *rays, *eps, counts)
+        kt, ki = intersect._launch(*tabs, rays, *eps)
+        if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+            raise AssertionError(f"K4 {n} triangles at {cfg.width}x"
+                                 f"{cfg.height}: {(ki != pi).sum().item()} "
+                                 "winners differ")
+        max_err = (kt - pt).abs().max().item()
+        kernel = lambda: intersect._launch(*tabs, rays, *eps)
+        plain = lambda: intersect.intersect_reference(*tabs, *rays, *eps)
+        t = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            t[which].append(_time_ms(kernel if which == "kernel" else plain,
+                                     20 if which == "kernel" else 2))
+        ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+        b = cfg.n_pixels
+        bound = _k4_bound(b, counts, 4 * sum(x.numel() for x in tabs))
+        print(f"K4 on the {b} camera rays of the {n}-triangle world: equal to "
+              f"its plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(turns: kernel {t['kernel']}, plain {t['plain']}); bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); per ray {counts['sphere'] / b:.2f} "
+              f"sphere, {counts['slab'] / b:.2f} slab and "
+              f"{counts['tri'] / b:.2f} triangle tests; hits "
+              f"{(ki >= 0).float().mean().item():.4f}")
+        res[n] = dict(ms=ms, plain_ms=plain_ms, bound=bound, max_abs_err=max_err)
+    return res
+
+
+def _sums(s):
+    import torch
+
+    return torch.cat([v.to_array().T for v in s[:3]])
+
+
+def phase_scan_checks(dev):
+    """The scan path (K4 where it serves) against the megakernels on the
+    card at 64x48x2spp, on the 600-triangle world (K3) and Cornell (K1);
+    then the scan path on the card against the CPU (distance matrices) on
+    a 40x30x2spp frame of the 4096-triangle world."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.scenes import cornell_box
+
+    print(f"scan path vs megakernel (outlier: any channel > {ATOL} + "
+          f"{RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
+    for name, (scene, cam, cfg) in (
+            ("cornell", cornell_box(dev)),
+            (f"block world {MESH_WORLD}",
+             load_scene_file(_block_world(MESH_WORLD), dev))):
+        cfg = cfg.replace(width=64, height=48, spp=2, max_bounces=6)
+        ids = torch.arange(cfg.n_pixels, device=dev)
+        mk = render(scene, cam, cfg.replace(use_megakernel=True), ids,
+                    rng.prng_key(5))
+        scan = render(scene, cam, cfg, ids, rng.prng_key(5))
+        _compare(f"{name} scan vs megakernel", _sums(mk), _sums(scan))
+    path = _block_world(SCAN_WORLD)
+    scene, cam, cfg = load_scene_file(path, dev)
+    cpu_scene, cpu_cam, _ = load_scene_file(path, "cpu")
+    small = cfg.replace(width=40, height=30, spp=2, max_bounces=6)
+    ids = torch.arange(small.n_pixels)
+    a = render(cpu_scene, cpu_cam, small, ids, rng.prng_key(3))
+    b = render(scene, cam, small, ids, rng.prng_key(3))
+    _compare(f"block world {SCAN_WORLD} 40x30x2spp scan, card vs cpu",
+             _sums(a), _sums(b).cpu())
+
+
+def _reset_launches():
+    from raytpu_torch.kernels import intersect
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    ts.launches = tb.launches = tsc.launches = intersect.launches = 0
+
+
+def _launches():
+    """(K1, K2, K3, K4) launch counts."""
+    from raytpu_torch.kernels import intersect
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    return ts.launches, tb.launches, tsc.launches, intersect.launches
+
+
+def phase_scan_frame(dev, card, mesh):
+    """The scan-path forward frame: the 4096-triangle world at 1200x900,
+    6 bounces, through ``render`` (``use_megakernel`` off) over all
+    block-ordered pixel ids; checked finite and lit, K4 once per bounce
+    and AO probe of every sample, no K1/K2/K3; where its time goes; the
+    PPM; then the same frame on the 600-triangle world beside phase 11's
+    K3 frame."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, render, render_image)
+    from raytpu_torch.io.ppm import write_ppm
+
+    out = {}
+    for n in (SCAN_WORLD, MESH_WORLD):
+        scene, cam, cfg = load_scene_file(_block_world(n), dev)
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SCAN_SPP,
+                          max_bounces=6)
+        if cfg.use_megakernel:
+            raise AssertionError("scan frame: the config asks for a megakernel")
+        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
+        key = rng.prng_key(0)
+        render(scene, cam, cfg.replace(spp=1), pids, key)        # warm up
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = render(scene, cam, cfg, pids, key)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        k1, k2, k3, k4 = _launches()
+        rad = sums.radiance.to_array()
+        mean = rad.double().mean().item() / cfg.spp
+        if not all(v.to_array().isfinite().all() for v in sums[:3]):
+            raise AssertionError("scan frame: non-finite sums")
+        if not mean > 0.0:
+            raise AssertionError(f"scan frame: mean radiance {mean} is not > 0")
+        want = cfg.spp * cfg.max_bounces * (1 + (cfg.ao_samples if cfg.use_ao
+                                                 else 0))
+        if (k4, k1, k2, k3) != (want, 0, 0, 0):
+            raise AssertionError(f"scan frame: {k4} K4, {k1} K1, {k2} K2 and "
+                                 f"{k3} K3 launches, want {want}, 0, 0, 0")
+        rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+        ms = elapsed / cfg.spp * 1e3
+        print(f"scan path: block world ({scene.triangles.count} triangles) "
+              f"{cfg.width}x{cfg.height} spp={cfg.spp} bounces="
+              f"{cfg.max_bounces}: {elapsed:.4f} s, {rays / elapsed:.1f} rays/s "
+              f"end to end on {card}, {ms:.2f} ms per sample; K4 launches "
+              f"{k4}; mean radiance {mean:.6f}")
+        if n == MESH_WORLD:
+            print(f"  the same world through K3 (phase 11): "
+                  f"{mesh['ms_per_sample']:.2f} ms per sample")
+        _print_profile(f"the scan frame at spp=1, {n} triangles", *_profile(
+            lambda: render(scene, cam, cfg.replace(spp=1), pids, key)))
+        out[n] = dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed,
+                      ms_per_sample=ms)
+        if n == SCAN_WORLD:
+            img = render_image(scene, cam, cfg.replace(pixel_tile=cfg.n_pixels),
+                               key)
+            path = os.path.join(OUT_DIR, f"chip_smoke_scan_{n}.ppm")
+            write_ppm(path, img.canvas)
+            means = img.canvas.reshape(-1, 3).mean(axis=0)
+            print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
+                  f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
+    return out
+
+
+def phase_scan_train(dev, card):
+    """The scan-path training frame: fwd+bwd of the photometric loss
+    through ``render`` on the 4096-triangle world at 1200x900, 2 spp, 6
+    bounces, bilinear textures, every float leaf requiring grad (K4 twice
+    per bounce of every sample: the forward and the checkpoint's
+    recompute); where its time goes; then 3 bilinear Adam steps at 1 spp
+    towards a target with perturbed atlas and material colours, whose
+    losses must fall."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.train import (combine_scene, partition_scene,
+                                    photometric_loss)
+    from raytpu_torch.train.inverse import ADAM_BETAS, ADAM_EPS
+
+    scene, cam, cfg = load_scene_file(_block_world(SCAN_WORLD), dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SCAN_TRAIN_SPP,
+                      max_bounces=6, bilinear_textures=True)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+    key = rng.prng_key(0)
+    params, static = partition_scene(scene)
+    params = {n: p.detach().clone().requires_grad_() for n, p in params.items()}
+
+    def loss_fn(c=cfg):
+        sums = render(combine_scene(params, static), cam, c, pids, key)
+        return photometric_loss(sums.radiance * (1.0 / c.spp), target)
+
+    loss_fn(cfg.replace(spp=1)).backward()        # warm up
+    for p in params.values():
+        p.grad = None
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn()
+    loss.backward()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1, k2, k3, k4 = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    grads = {n: p.grad for n, p in params.items()}
+    if not (loss.isfinite().item() and all(
+            g is None or g.isfinite().all() for g in grads.values())):
+        raise AssertionError("scan fwd+bwd: non-finite loss or gradient")
+    for leaf in ("triangles.a.x", "triangles.a.y", "triangles.a.z",
+                 "atlas.rgb.x", "spheres.mat.emission.x"):
+        if grads[leaf] is None or not grads[leaf].abs().max().item() > 0.0:
+            raise AssertionError(f"scan fwd+bwd: d loss / d {leaf} is zero")
+    want = 2 * cfg.spp * cfg.max_bounces
+    if (k4, k1, k2, k3) != (want, 0, 0, 0):
+        raise AssertionError(f"scan fwd+bwd: {k4} K4, {k1} K1, {k2} K2 and "
+                             f"{k3} K3 launches, want {want} (forward + "
+                             "checkpoint recompute), 0, 0, 0")
+    rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+    print(f"scan fwd+bwd: block world ({scene.triangles.count} triangles, "
+          f"bilinear) {cfg.width}x{cfg.height} spp={cfg.spp} bounces="
+          f"{cfg.max_bounces}, d loss / d every float leaf ({len(params)} "
+          f"leaves): {elapsed:.4f} s, {rays / elapsed:.1f} rays/s on {card}, "
+          f"{elapsed / cfg.spp * 1e3:.2f} ms per sample, peak "
+          f"{peak_gb:.2f} GB; loss {loss.item():.6f}; K4 launches {k4}; max "
+          + ", ".join(f"|d {leaf}| {grads[leaf].abs().max().item():.4e}"
+                      for leaf in ("triangles.a.x", "triangles.a.y",
+                                   "triangles.a.z", "atlas.rgb.x")))
+    _print_profile("scan fwd+bwd at spp=1",
+                   *_profile(lambda: loss_fn(cfg.replace(spp=1)).backward()))
+
+    tparams = {n: p.detach().clone()
+               for n, p in partition_scene(scene)[0].items()}
+    for c in "xyz":
+        tparams[f"atlas.rgb.{c}"] = (tparams[f"atlas.rgb.{c}"] * 0.8).clamp(0, 1)
+        tparams[f"mat_table.emission.{c}"] = tparams[f"mat_table.emission.{c}"] * 0.8
+    tcfg = cfg.replace(spp=SCAN_STEP_SPP)
+    with torch.no_grad():
+        tsums = render(combine_scene(tparams, static), cam, tcfg, pids, key)
+        tgt = (tsums.radiance * (1.0 / tcfg.spp)).to_array()
+
+    def adam_losses(frozen, n_steps):
+        """Losses of n_steps bilinear Adam steps of every float leaf but
+        those whose names start with ``frozen``; the number moved."""
+        params = {n: p.detach().clone().requires_grad_(not n.startswith(
+            frozen)) for n, p in partition_scene(scene)[0].items()}
+        trained = [p for p in params.values() if p.requires_grad]
+        opt = torch.optim.Adam(trained, lr=SCAN_STEP_LR, betas=ADAM_BETAS,
+                               eps=ADAM_EPS)
+        losses = []
+        for step in range(n_steps):
+            opt.zero_grad(set_to_none=True)
+            loss = photometric_loss(render(combine_scene(params, static), cam,
+                                           tcfg, pids, key).radiance, tgt)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        return losses, len(trained)
+
+    every, n_every = adam_losses((), 2)
+    print(f"scan train: 2 Adam steps (lr {SCAN_STEP_LR}) of all {n_every} "
+          f"float leaves, bilinear: losses {every[0]:.6e} {every[1]:.6e} "
+          "(not required to fall: see SCAN_STEP_FROZEN)")
+    t0 = time.perf_counter()
+    losses, n_trained = adam_losses(SCAN_STEP_FROZEN, 3)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"scan train: non-finite loss {losses}")
+    if not losses[0] > losses[1] > losses[2]:
+        raise AssertionError(f"scan train: losses do not fall: {losses}")
+    print(f"scan train: 3 Adam steps (lr {SCAN_STEP_LR}) of {n_trained} of "
+          f"{n_every} float leaves (all but {', '.join(SCAN_STEP_FROZEN)}) "
+          f"at {tcfg.width}x{tcfg.height} spp={tcfg.spp}, bilinear, towards "
+          "a perturbed atlas/material target: losses "
+          + " ".join(f"{x:.6e}" for x in losses)
+          + f"; {step_s:.4f} s per step")
+    return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed)
 
 
 def main() -> int:
@@ -1418,7 +1806,7 @@ def main() -> int:
     phase_rng(dev)
     phase_k1(dev)
     timing = phase_k1_timing(dev)
-    launches, render_k2, render_k3 = phase_main(dev, card, timing)
+    launches, render_k2, render_k3, render_k4 = phase_main(dev, card, timing)
     phase_k1_record(dev)
     phase_k2(dev)
     k2 = phase_k2_timing(dev)
@@ -1430,7 +1818,12 @@ def main() -> int:
     rerun = phase_k2_mesh(dev)
     mbwd = phase_mesh_bwd_timing(dev)
     mtrain = phase_mesh_train(dev, card)
-    unported_bounds(dev, k2)
+    phase_k4(dev)
+    k4 = phase_k4_timing(dev)
+    phase_scan_checks(dev)
+    scan = phase_scan_frame(dev, card, mesh)
+    strain = phase_scan_train(dev, card)
+    k5 = k5_bound(k2)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
                          k2["n_spheres"], record=False)
@@ -1442,7 +1835,9 @@ def main() -> int:
         "launches": train["k1_launches"],
         "launches_by_path": {"render": launches, "fwd_bwd": train["k1_launches"],
                              "mesh_render": mesh["k1"],
-                             "mesh_fwd_bwd": mtrain["k1"]},
+                             "mesh_fwd_bwd": mtrain["k1"],
+                             "scan_render": scan[SCAN_WORLD]["k1"],
+                             "scan_fwd_bwd": strain["k1"]},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
@@ -1456,7 +1851,9 @@ def main() -> int:
         "launches_by_path": {"render": render_k2,
                              "fwd_bwd": train["k2_launches"],
                              "mesh_render": mesh["k2"],
-                             "mesh_fwd_bwd": mtrain["k2"]},
+                             "mesh_fwd_bwd": mtrain["k2"],
+                             "scan_render": scan[SCAN_WORLD]["k2"],
+                             "scan_fwd_bwd": strain["k2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
@@ -1469,7 +1866,9 @@ def main() -> int:
         "launches_by_path": {"render": render_k3,
                              "fwd_bwd": train["k3_launches"],
                              "mesh_render": mesh["k3"],
-                             "mesh_fwd_bwd": mtrain["k3"]},
+                             "mesh_fwd_bwd": mtrain["k3"],
+                             "scan_render": scan[SCAN_WORLD]["k3"],
+                             "scan_fwd_bwd": strain["k3"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
@@ -1494,6 +1893,28 @@ def main() -> int:
         "bound_ms": mbwd["bound"][0], "bound_by": mbwd["bound"][1],
         "library_ms": None, "outlier_frac": mbwd["outlier_frac"],
         "two_launches_rel": max(rerun, mbwd["rerun"]),
+    }, {
+        "name": "intersect", "route": "cuda",
+        "source": "raytpu_torch/csrc/intersect.cu",
+        "replaces": "raytpu/kernels/intersect.py:56",
+        "launches": scan[SCAN_WORLD]["k4"],
+        "launches_by_path": {"render": render_k4,
+                             "fwd_bwd": train["k4_launches"],
+                             "mesh_render": mesh["k4"],
+                             "mesh_fwd_bwd": mtrain["k4"],
+                             "scan_render": scan[SCAN_WORLD]["k4"],
+                             "scan_render_600": scan[MESH_WORLD]["k4"],
+                             "scan_fwd_bwd": strain["k4"]},
+        "max_abs_err": k4[SCAN_WORLD]["max_abs_err"],
+        "ms": k4[SCAN_WORLD]["ms"], "plain_ms": k4[SCAN_WORLD]["plain_ms"],
+        "bound_ms": k4[SCAN_WORLD]["bound"][0],
+        "bound_by": k4[SCAN_WORLD]["bound"][1], "library_ms": None,
+        "ms_600": k4[MESH_WORLD]["ms"], "plain_ms_600": k4[MESH_WORLD]["plain_ms"],
+        "bound_ms_600": k4[MESH_WORLD]["bound"][0],
+    }], "unported": [{
+        "name": "trace_spheres backward (K5)",
+        "replaces": "raytpu/kernels/trace_spheres.py:460",
+        "launches": 0, "bound_ms": k5[0], "bound_by": k5[1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
     render cornell|cornell_cuda|cornell_dof_ao|<scene.toml> [--spp N
            --width W --height H --bounces B --seed S --out x.ppm
-           --device cuda|cpu]
+           --device cuda|cpu --no-megakernel --pallas --bilinear]
     train  cornell|cornell_cuda|cornell_dof_ao|<scene.toml> --target t.ppm
            [--steps N --lr LR --out x.ppm --log-every K --spp --width
-           --height --bounces --seed --device cuda|cpu]
+           --height --bounces --seed --device cuda|cpu --no-megakernel
+           --pallas --bilinear]
 
 ``render`` renders a built-in sphere scene or a TOML scene spec (spheres
 and a textured OBJ mesh, ``config.load_scene_file``) and writes a PPM;
@@ -15,6 +16,14 @@ material table) to a target image (ASCII PPM of the configured size) with
 Adam on the L2 loss in linear radiance, logs the loss, and writes the
 final render. ``--device`` defaults to ``cuda`` and fails when CUDA is
 absent; ``--device cpu`` runs the plain PyTorch path.
+
+On ``cuda`` the megakernels (K1, K3) serve the scenes they support and
+the scan path the rest, as ``raytpu``'s CLI does on an accelerator;
+``--no-megakernel`` (or ``RAYTPU_NO_MEGAKERNEL`` set to anything but
+empty or ``0``) asks for the scan path, which ``--device cpu`` takes
+always. ``--pallas`` runs the scan path's closest-hit kernel (K4) at any
+triangle count; ``--bilinear`` filters textures bilinearly (the
+differentiable mode).
 """
 
 from __future__ import annotations
@@ -37,7 +46,39 @@ def _parser(prog: str) -> argparse.ArgumentParser:
     ap.add_argument("--height", type=int)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-megakernel", action="store_true",
+                    help="trace with the scan path even where a megakernel "
+                         "serves the scene (RAYTPU_NO_MEGAKERNEL=1 likewise)")
+    ap.add_argument("--pallas", action="store_true",
+                    help="the scan path's fused closest-hit kernel (K4) at "
+                         "any triangle count")
+    ap.add_argument("--bilinear", action="store_true",
+                    help="bilinear texture filtering (differentiable mode; "
+                         "the reference is nearest)")
     return ap
+
+
+def no_megakernel(flag: bool) -> bool:
+    """``--no-megakernel``, or ``RAYTPU_NO_MEGAKERNEL`` set to any value
+    but empty or ``"0"``."""
+    return flag or os.environ.get("RAYTPU_NO_MEGAKERNEL", "") not in ("", "0")
+
+
+def config_overrides(args, dev) -> dict:
+    """The ``RenderConfig`` fields the parsed options set on device
+    ``dev``: sizes, ``use_pallas``, ``bilinear_textures``, and on ``cuda``
+    ``use_megakernel`` unless the user opted out (``raytpu``'s CLI sets it
+    on a non-CPU backend; on the CPU both keep the scan path)."""
+    over = {k: v for k, v in (("spp", args.spp), ("max_bounces", args.bounces),
+                              ("width", args.width), ("height", args.height))
+            if v is not None}
+    if args.pallas:
+        over["use_pallas"] = True
+    if args.bilinear:
+        over["bilinear_textures"] = True
+    if dev.type == "cuda" and not no_megakernel(args.no_megakernel):
+        over["use_megakernel"] = True
+    return over
 
 
 def _setup(args):
@@ -54,10 +95,7 @@ def _setup(args):
         scene, cam, cfg = load_scene(args.scene, device=dev)
     except ValueError as e:
         raise SystemExit(f"raytpu_torch: {e}")
-    over = {k: v for k, v in (("spp", args.spp), ("max_bounces", args.bounces),
-                              ("width", args.width), ("height", args.height))
-            if v is not None}
-    cfg = cfg.replace(**over)
+    cfg = cfg.replace(**config_overrides(args, dev))
     if dev.type == "cuda":
         # the kernel tiles the batch itself: one tile per frame up to ~1.2 M
         cfg = cfg.replace(pixel_tile=min(cfg.n_pixels, 1200 * 1024))

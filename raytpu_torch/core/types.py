@@ -38,6 +38,22 @@ class Materials:
     alpha: Tensor            # opacity; < refr_alpha_lo cutout, <= refr_alpha_hi refractive
     ior: Tensor              # refractive index
 
+    @staticmethod
+    def zeros(shape, device=None) -> "Materials":
+        z = torch.zeros(shape, dtype=torch.float32, device=device)
+        v = Vec3(z, z, z)
+        return Materials(v, v, z, z, z, z)
+
+    @staticmethod
+    def where(mask: Tensor, a: "Materials", b: "Materials") -> "Materials":
+        w = lambda x, y: torch.where(mask, x, y)
+        return Materials(
+            Vec3.where(mask, a.diffuse, b.diffuse),
+            Vec3.where(mask, a.emission, b.emission),
+            w(a.emission_strength, b.emission_strength),
+            w(a.reflection, b.reflection), w(a.alpha, b.alpha), w(a.ior, b.ior),
+        )
+
 
 @dataclass(frozen=True)
 class Spheres:
@@ -54,8 +70,7 @@ class Spheres:
     @staticmethod
     def empty(device) -> "Spheres":
         z = torch.zeros((0,), device=device)
-        v = Vec3(z, z, z)
-        return Spheres(v, z, Materials(v, v, z, z, z, z))
+        return Spheres(Vec3(z, z, z), z, Materials.zeros((0,), device))
 
 
 @dataclass(frozen=True)
@@ -198,13 +213,17 @@ class Scene:
 @dataclass(frozen=True)
 class RenderConfig:
     """Static render parameters; fields and defaults mirror
-    ``raytpu.core.types.RenderConfig``. Fields that select JAX execution
-    paths (``use_pallas``, ``pallas_interpret``, ``sample_chunk``,
-    ``use_megakernel``) and the merged-quad fields (``merge_quads``,
-    ``quad_*``) are kept for parity and not read: the port has one trace
-    path per scene kind (K1 for spheres, K3 for meshes), and K3 searches
-    triangle by triangle, as ``raytpu``'s K3 does with
-    ``merge_quads=False``."""
+    ``raytpu.core.types.RenderConfig``.
+
+    Read as in ``raytpu``: ``use_megakernel`` (``render`` takes K1 or K3
+    where they serve the scene, the scan path otherwise and without it),
+    ``use_pallas`` (the scan path's closest-hit kernel K4: True, False, or
+    None for 128 or more triangles on a CUDA device) and
+    ``bilinear_textures``. Kept for parity and not read:
+    ``pallas_interpret`` and ``sample_chunk`` (JAX execution details),
+    ``sky_texture_grads`` (the sky is not ported) and the merged-quad
+    fields (``merge_quads``, ``quad_*``): K3 searches triangle by triangle,
+    as ``raytpu``'s K3 does with ``merge_quads=False``."""
 
     width: int = 400
     height: int = 300

@@ -2,17 +2,23 @@
 
 Port of ``raytpu/integrator/render.py``. For each sample index the
 per-(pixel, sample) threefry keys give the camera jitter and every
-bounce's draws, the camera makes one ray per pixel, and one megakernel
-traces the whole bounce loop: the mesh kernel (K3) for a scene with
-triangles, the sphere kernel (K1) otherwise. Sums accumulate in f32 in
-sample order, as ``raytpu``'s scan does. Pixel coordinates follow the
-reference: u = (i + U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted
-from the bottom row, and the aperture jitter is (U - .5) * aperture.
+bounce's draws, the camera makes one ray per pixel, and the bounce loop
+traces them. Which loop follows ``raytpu.render``: with
+``cfg.use_megakernel`` the sphere megakernel (K1) where
+``trace_spheres.supported`` holds, else the mesh megakernel (K3) where
+``trace_scene.supported`` holds; otherwise, and always without
+``use_megakernel``, the scan path (``integrator/path.trace``, whose
+closest-hit selection is K4 where ``integrator/hit`` turns it on). A
+render that asked for a megakernel and is served by the scan path says
+why once on stderr. Sums accumulate in f32 in sample order, as
+``raytpu``'s scan does. Pixel coordinates follow the reference: u = (i +
+U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted from the bottom row,
+and the aperture jitter is (U - .5) * aperture.
 
 The render runs on the device of the scene's tensors. It is
-differentiable in every scene and camera leaf that requires grad: the K1
-wrapper (sphere scenes) or the K3 wrapper (mesh scenes) then records
-winner indices, and the backward runs K2 in sphere or mesh mode.
+differentiable in every scene and camera leaf that requires grad: K1 or
+K3 then record winner indices and the backward runs K2; the scan path is
+differentiated by autograd. Each sample runs under ``checkpoint``.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ from raytpu_torch.core import rng
 from raytpu_torch.core.color import quantize, tonemap
 from raytpu_torch.core.types import RenderConfig, Scene, requires_grad
 from raytpu_torch.core.vec3 import Vec3
-from raytpu_torch.kernels.trace_scene import trace_mesh_megakernel
-from raytpu_torch.kernels.trace_spheres import trace_megakernel
+from raytpu_torch.integrator.hit import log_once
+from raytpu_torch.integrator.path import n_bounce_draws, trace
+from raytpu_torch.kernels import trace_scene, trace_spheres
 
 
 class RenderSums(NamedTuple):
@@ -40,11 +47,6 @@ class RenderSums(NamedTuple):
     albedo: Vec3
     normal: Vec3
     samples: int
-
-
-def n_bounce_draws(cfg: RenderConfig) -> int:
-    """U(0,1) draws consumed per bounce (diffuse u/v, roulette, AO pairs)."""
-    return 3 + 2 * (cfg.ao_samples if cfg.use_ao else 0)
 
 
 def sample_rays(cam: Camera, cfg: RenderConfig, pixel_ids: Tensor,
@@ -60,6 +62,22 @@ def sample_rays(cam: Camera, cfg: RenderConfig, pixel_ids: Tensor,
     return get_rays(cam, u, v, cfg.focus_distance, dx, dy)
 
 
+def trace_fn(scene: Scene, cfg: RenderConfig):
+    """The bounce loop ``render`` runs for this scene and config:
+    ``trace_spheres.trace_megakernel``, ``trace_scene.trace_mesh_megakernel``
+    or ``path.trace`` (see the module docstring)."""
+    if cfg.use_megakernel:
+        if trace_spheres.supported(scene, cfg):
+            return trace_spheres.trace_megakernel
+        if trace_scene.supported(scene, cfg):
+            return trace_scene.trace_mesh_megakernel
+        mod = trace_scene if scene.n_triangles else trace_spheres
+        log_once(f"megakernel unavailable ("
+                 f"{', '.join(mod.unsupported_reasons(scene, cfg))}); scan "
+                 "path serves this render")
+    return trace
+
+
 def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
            key: Tensor, sample_offset: int = 0,
            n_samples: Optional[int] = None,
@@ -68,11 +86,12 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     ... ``sample_offset + n - 1``) for a batch of pixel ids.
 
     ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
-    scene's device. One kernel call per sample: K3 for a scene with
-    triangles, K1 for a sphere scene. When a scene or camera leaf
-    requires grad, the forward's call records winners, and the backward
-    adds per sample one more recording call of the same kernel (the
-    checkpoint's recompute) and one K2 call.
+    scene's device. One bounce loop per sample (``trace_fn``): a K1 or K3
+    call, or the scan path with one closest-hit selection per bounce (and
+    one per AO probe). When a scene or camera leaf requires grad, the
+    backward recomputes each sample once (the checkpoint): a megakernel
+    then adds a recording call and a K2 call per sample, the scan path
+    its selections again.
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples
@@ -83,8 +102,7 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
         zeros = Vec3.zeros((b,), device=dev)
         init = RenderSums(zeros, zeros, zeros, 0)
     rad, alb, nrm, count = init
-    # meshes go to K3, sphere scenes to K1
-    trace = trace_mesh_megakernel if scene.n_triangles else trace_megakernel
+    bounce_loop = trace_fn(scene, cfg)
 
     def one_sample(s):
         ray_keys = rng.sample_keys(pix_keys, s)
@@ -92,13 +110,14 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
             ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
         )
         origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
-        r, a, nm = trace(scene, cfg, origin, direction, bounce_draws)
+        r, a, nm = bounce_loop(scene, cfg, origin, direction, bounce_draws)
         return (*r, *a, *nm)
 
     # Differentiated, each sample runs under checkpoint (raytpu's
-    # jax.checkpoint(mk_direct)): its residuals (draws, rays, recorded
-    # indices) are dropped after the forward and rebuilt from the keys in
-    # the backward, so memory holds one sample's worth, not spp's.
+    # jax.checkpoint of mk_direct or scan_sample): its residuals (draws,
+    # rays, recorded indices or the scan's intermediates) are dropped
+    # after the forward and rebuilt from the keys in the backward, so
+    # memory holds one sample's worth, not spp's.
     differentiate = torch.is_grad_enabled() and requires_grad(scene, cam)
     for s in range(sample_offset, sample_offset + n):
         if differentiate:

@@ -357,18 +357,18 @@ def pack_tri(scene: Scene) -> Tensor:
     ]).to(torch.float32).contiguous()
 
 
-def chunk_boxes(xs, ys, zs, n: int) -> Tensor:
-    """(6, ceil(n / 32)) boxes lo3 hi3 over each run of CULL_CHUNK
+def chunk_boxes(xs, ys, zs, n: int, chunk: int = CULL_CHUNK) -> Tensor:
+    """(6, ceil(n / chunk)) boxes lo3 hi3 over each run of ``chunk``
     primitives. ``xs``/``ys``/``zs`` list each corner's (n,) coordinate.
     Every box grows by 1e-5 (|x| + 1) per side, which keeps the cull
     conservative for the f32-recomputed corners."""
-    n_chunks = -(-n // CULL_CHUNK)
-    pad = n_chunks * CULL_CHUNK - n
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
     lo, hi = [], []
     for parts in (xs, ys, zs):
         stack = torch.stack(parts)                      # (corners, n)
         chunks = lambda v: torch.nn.functional.pad(stack, (0, pad), value=v) \
-            .reshape(len(parts), n_chunks, CULL_CHUNK)
+            .reshape(len(parts), n_chunks, chunk)
         lo.append(chunks(math.inf).amin(dim=(0, 2)))
         hi.append(chunks(-math.inf).amax(dim=(0, 2)))
     boxes = torch.stack(lo + hi)

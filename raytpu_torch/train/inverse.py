@@ -1,9 +1,10 @@
 """Differentiable-rendering train step.
 
 Port of ``raytpu/train/inverse.py`` without sharding (its ``mesh=None``
-path). One step renders the frame (``integrator.render``: K1 or, for a
-mesh scene, K3 records each bounce's winner, the backward replays it in
-K2), takes the L2 photometric loss of the mean radiance against a
+path). One step renders the frame (``integrator.render``: with
+``use_megakernel`` K1 or, for a mesh scene, K3 records each bounce's
+winner and the backward replays it in K2; otherwise autograd through the
+scan path), takes the L2 photometric loss of the mean radiance against a
 target, pulls gradients back to every float scene leaf (spheres and,
 where the scene has them, triangles, atlas and material table; and with
 ``train_camera`` the camera) and applies one Adam update.
@@ -17,7 +18,10 @@ the default ``device``.
 As in ``raytpu``, radiance is piecewise constant in geometry (sphere
 centres and radii, triangle vertices, camera pose) under nearest-texel
 fetch: those gradients are zero almost everywhere, and colours, texels,
-emission and emission strength carry the signal.
+emission and emission strength carry the signal. With
+``bilinear_textures`` the vertices get gradients too; from one sample a
+pixel they are noisy, and Adam moves every leaf by about the learning
+rate whatever its gradient's size.
 """
 
 from __future__ import annotations
@@ -106,6 +110,13 @@ def make_train_step(cfg: RenderConfig, lr: float, train_camera: bool = False):
         sums = render(scene, cam, cfg, pixel_ids, key)
         loss = photometric_loss(sums.radiance * (1.0 / cfg.spp), target)
         loss.backward()
+        # a leaf the loss does not reach gets a zero gradient, as from
+        # jax.grad, so that Adam still decays its moments as optax does
+        # (torch.optim skips a parameter whose grad is None)
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         state.optimizer.step()
         return state, loss.detach()
 

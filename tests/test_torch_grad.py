@@ -143,9 +143,10 @@ SCENES = {
 }
 
 
-def _scene_grads(scene, cam, cfg, key_seed, radiance_target=0.2):
+def _scene_grads(scene, cam, cfg, key_seed, radiance_target=0.2, **port_over):
     """(port, raytpu) gradients of a photometric + normal-AOV loss on
-    every sphere leaf, keyed by leaf path."""
+    every sphere leaf, keyed by leaf path; ``port_over`` replaces fields
+    of the port's config."""
     pids = np.arange(cfg.n_pixels, dtype=np.int32)
     params, static = j_partition(scene)
 
@@ -159,6 +160,7 @@ def _scene_grads(scene, cam, cfg, key_seed, radiance_target=0.2):
     want = _arrays(jax.grad(j_loss)(params))
 
     tscene, tcam, tcfg = _port(scene, cam, cfg)
+    tcfg = tcfg.replace(**port_over)
     leaves = {k: v.clone().requires_grad_()
               for k, v in convert.scene_leaves(tscene).items()}
     sums = t_render(convert.scene_from_leaves(leaves), tcam, tcfg, pids,
@@ -208,12 +210,14 @@ def test_camera_leaf_grads_match_raytpu_megakernel():
 
 
 def test_refraction_stack_19_bounces_matches_scan_path():
-    """F2: deep-bounce gradients against raytpu's scan path (its windowed
-    kernel sweep has no CPU coverage), on every sphere leaf."""
+    """F2: deep-bounce gradients of the port's kernel route (K1
+    recording, K2) against raytpu's scan path (its windowed kernel sweep
+    has no CPU coverage), on every sphere leaf."""
     scene, cam, cfg = load_scene("scenes/refraction_stack.toml")
     assert cfg.max_bounces == 19
     cfg = cfg.replace(width=4, height=3, spp=1, use_megakernel=False)
-    got, want = _scene_grads(scene, cam, cfg, 79, radiance_target=0.3)
+    got, want = _scene_grads(scene, cam, cfg, 79, radiance_target=0.3,
+                             use_megakernel=True)
     for leaf in convert.SPHERE_LEAVES:
         _close(got[leaf].numpy(), want[leaf], f"stack {leaf}")
     assert np.abs(want["spheres.mat.diffuse.x"]).max() > 0

@@ -309,7 +309,8 @@ def test_render_grads_match_raytpu(world):
               for p, v in convert.scene_leaves(ts).items()}
     scene = convert.scene_from_leaves(leaves, ts.triangles, ts.atlas,
                                       ts.mat_table)
-    tcfg = TConfig(**dataclasses.asdict(cfg))
+    # the port's kernel route (K3 recording, K2); raytpu's config its scan
+    tcfg = TConfig(**dataclasses.asdict(cfg)).replace(use_megakernel=True)
     sums = t_render(scene, tc, tcfg, pids, trng.prng_key(61))
     (torch.mean((sums.radiance.to_array() / tcfg.spp - 0.2) ** 2)
      + torch.mean((sums.normal.to_array() / tcfg.spp) ** 2)).backward()

@@ -278,7 +278,8 @@ def test_render_matches_raytpu_and_convert(world):
     with jax.disable_jit():
         want = jrender.render(js, jc, cfg, jnp.asarray(pids),
                               jax.random.PRNGKey(23))
-    tcfg = TConfig(**dataclasses.asdict(cfg))
+    tcfg = TConfig(**dataclasses.asdict(cfg)).replace(use_megakernel=True)
+    assert trender.trace_fn(ts, tcfg) is tts.trace_mesh_megakernel
     got = trender.render(ts, tc, tcfg, pids, trng.prng_key(23))
     assert got.samples == int(want.samples) == 2
     _assert_close(got[:3], want[:3], "render")

@@ -84,7 +84,8 @@ def test_adam_steps_match_raytpu(name):
     j_init, j_step = j_make_train_step(cfg, optax.adam(lr))
     j_state, j_static = j_init(scene, cam)
     tscene, tcam, tcfg = _port(scene, cam, cfg)
-    t_init, t_step = make_train_step(tcfg, lr)
+    # the port's kernel route (K1, K2); raytpu's default config takes its scan
+    t_init, t_step = make_train_step(tcfg.replace(use_megakernel=True), lr)
     t_state, t_static = t_init(tscene, tcam)
     assert t_state.cam_params is None
     for step in range(2):
@@ -153,7 +154,9 @@ def test_mesh_adam_steps_match_raytpu(world):
     assert set(partition_scene(ts)[0]) == j_paths
 
     j_init, j_step = j_make_train_step(cfg, optax.adam(lr))
-    t_init, t_step = make_train_step(TConfig(**dataclasses.asdict(cfg)), lr)
+    # the port's kernel route (K3, K2); raytpu's default config takes its scan
+    t_init, t_step = make_train_step(
+        TConfig(**dataclasses.asdict(cfg)).replace(use_megakernel=True), lr)
     j_state, j_static = j_init(js, jc)
     t_state, t_static = t_init(ts, tc)
     start = convert.scene_leaves(ts)
