@@ -80,10 +80,35 @@ Phases, each of which raises on failure (exit code non-zero):
      material colours: 2 of every float leaf, printed, and 3 of all but
      those that place a surface or turn a ray (``SCAN_STEP_FROZEN``),
      whose losses must fall;
-  21. the bound of K5, the one TPU kernel not ported yet.
+  22. the equirect sky's kernel modes against their plain versions at
+     64x48 rays: a generated SKY_SIZE sky (``scenes.write_sky_showcase``,
+     the read timed) and block worlds with ``sky=``; K1's sky slot (16
+     planes) and its recording on the showcase (also with AO and the HSL
+     boost, and with a cutout sphere), K3's on the 60-triangle sky world
+     (also with AO and with every texel a cutout) and the MESH_WORLD one,
+     rays that leave K3's loop early among them; K2's sky cotangent in
+     sphere and mesh modes, two launches compared;
+  23. the texel index on the card: the 0-dim tensor divisor's quotient
+     correctly rounded, and texel indices of the same directions on the
+     card and the CPU;
+  24. the sky modes timed at the sky frames' shapes beside their plain
+     versions and bounds;
+  25. the sky frames at full size under the SKY_SIZE sky: the showcase
+     (1000x750, 4 bounces) through K1 at 16 spp; the MESH_WORLD sky world
+     through K3 at 16 spp, its fwd+bwd on every float leaf and the sky
+     texels at 4 spp, 3 Adam steps at 2 spp whose losses must fall; the
+     SCAN_WORLD sky world through the scan path at 4 spp; each with its
+     launches, rate and idle share;
+  26. the scan path against K1 and K3 on the sky scenes at 64x48x2spp;
+  27. ROADMAP P-F12: the scan path's gradients of every float leaf against
+     K1/K2 and K3/K2 (Cornell, the showcase, the MESH_WORLD world with and
+     without the sky) and against the CPU's scan path, per row;
+  28. ROADMAP P-F1 on the sky scenes: card vs CPU radiance, slot texel
+     indices and slot directions;
+  29. the bound of K5, the one TPU kernel not ported yet.
 Each path's launch counts (K1-K4) are set to 0 just before it and read
-just after. The last lines are the card, a JSON line per kernel (K5's
-bound under "unported"), and the result line. Imports no JAX.
+just after. The last lines are the card, a JSON line per kernel and mode
+(K5's bound under "unported"), and the result line. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -116,6 +141,12 @@ SCAN_SPP = 4          # the scan-path forward frame (cut like MESH_SPP)
 SCAN_TRAIN_SPP = 2    # the scan-path fwd+bwd frame
 SCAN_STEP_SPP = 1     # its Adam steps
 SCAN_STEP_LR = 1e-2
+SKY_SIZE = (4096, 2048)   # the reference's MinecraftSkyDay, width x height
+SKY_SHOW_SPP = 16         # the sky showcase (1000x750, 4 bounces) through K1
+SKY_MESH_SPP = 16         # the sky world's K3 frame (cut like MESH_SPP)
+SKY_TRAIN_SPP = 4         # its fwd+bwd
+SKY_STEP_SPP = 2          # its Adam steps
+SKY_SCAN_SPP = 4          # the SCAN_WORLD sky world through the scan path
 # Leaves the scan-path Adam steps keep fixed. Under bilinear fetch every
 # leaf that places a surface or turns a ray gets gradient through later
 # bounces' texel lookups, but Adam moves each leaf by about lr whatever
@@ -168,6 +199,9 @@ K3_OPS_SPHERE, K3_OPS_SLAB, K3_OPS_TRI, K3_OPS_SHADE = 33, 25, 46, 210
 # normal, barycentrics, texel and material replayed twice, plus the
 # adjoint of the distance, the normal and the material)
 K2_OPS_SPHERE, K2_OPS_TRI = 510, 1000
+# The equirect sky: the slot's 7 planes out of K1 / K3 (scale 3, unit
+# direction 3, early flag) and the scale's 3 cotangent planes into K2
+SKY_SLOT_BYTES, SKY_G_BYTES = 7 * 4, 3 * 4
 # H100 SXM peaks (NVIDIA data sheet):
 # HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
@@ -205,13 +239,18 @@ def _outliers(x, y):
     return bad.float().mean().item(), diff.max(dim=1).values.tolist()
 
 
+PLANES = (("radiance", slice(0, 3)), ("albedo", slice(3, 6)),
+          ("normal", slice(6, 9)), ("sky scale", slice(9, 12)),
+          ("sky dir", slice(12, 15)), ("sky early", slice(15, 16)))
+
+
 def _compare(name, ref, out):
-    """ref/out: (9, B). Raises on NaN or more than OUTLIER_FRAC outliers."""
+    """ref/out: (9, B), or (16, B) with the sky slot's planes. Raises on
+    NaN or more than OUTLIER_FRAC outliers in a group of planes."""
     if not (out.isfinite().all() and ref.isfinite().all()):
         raise AssertionError(f"{name}: non-finite output")
     worst = 0.0
-    for p, sl in (("radiance", slice(0, 3)), ("albedo", slice(3, 6)),
-                  ("normal", slice(6, 9))):
+    for p, sl in PLANES[:6 if ref.shape[0] == 16 else 3]:
         frac, mx = _outliers(ref[sl], out[sl])
         worst = max(worst, *mx)
         print(f"  {name:24s} {p:8s} outliers {frac:.5f}  max|diff| xyz "
@@ -616,22 +655,25 @@ def phase_k2(dev):
           "cotangents on every scene")
 
 
-def _k1_bound(b, bounces, n_live, n_spheres, record):
+def _k1_bound(b, bounces, n_live, n_spheres, record, sky=False):
     """Least K1 time: rays 24 B + draws 3 x 4 B per bounce + 9 planes out
-    (+ 4 B of index per bounce when recording) at HBM speed, against
-    (33 FLOP per sphere test + 130 for the shading) for every (ray,
-    bounce) that hit (this run's recorded indices) at the FP32 peak."""
-    nbytes = b * (24 + 12 * bounces + 36 + (4 * bounces if record else 0))
+    (+ 4 B of index per bounce when recording; + the sky slot's 7 planes,
+    28 B, with the sky) at HBM speed, against (33 FLOP per sphere test +
+    130 for the shading) for every (ray, bounce) that hit (this run's
+    recorded indices) at the FP32 peak."""
+    nbytes = b * (24 + 12 * bounces + 36 + (4 * bounces if record else 0)
+                  + (SKY_SLOT_BYTES if sky else 0))
     flops = n_live * (33 * n_spheres + 130)
     return _bound(nbytes, flops)
 
 
-def _k2_bound(b, bounces, n_live, n_spheres):
+def _k2_bound(b, bounces, n_live, n_spheres, sky=False):
     """Least K2 time: rays 24 B, draws 0..2 (12 B), index (4 B) per bounce,
-    g 36 B and the ray cotangents 24 B per ray, the table twice; against
-    ~510 FLOP (replayed bounce ~165, its adjoint ~330, the 14 sums) per
-    (ray, bounce) that hit."""
-    nbytes = b * (24 + 16 * bounces + 36 + 24) + 2 * 14 * 4 * n_spheres
+    g 36 B (48 B with the sky scale's cotangent) and the ray cotangents
+    24 B per ray, the table twice; against ~510 FLOP (replayed bounce
+    ~165, its adjoint ~330, the 14 sums) per (ray, bounce) that hit."""
+    nbytes = (b * (24 + 16 * bounces + 36 + 24 + (SKY_G_BYTES if sky else 0))
+              + 2 * 14 * 4 * n_spheres)
     return _bound(nbytes, n_live * K2_OPS_SPHERE)
 
 
@@ -907,13 +949,14 @@ def phase_k3(dev):
         _compare(name, *_k3_both(scene, cfg, origin, direction, draws))
 
 
-def _k3_bound(b, bounces, counts, table_bytes):
+def _k3_bound(b, bounces, counts, table_bytes, sky=False):
     """Least K3 time: rays 24 B, draws 3 x 4 B per bounce and 9 planes out
-    per ray plus the scene tables at HBM speed, against the operations of
-    this run's search (K3_OPS_*: the plain version's counts of sphere,
-    slab and entered-chunk triangle tests and live (ray, bounce) entries)
-    at the FP32 peak."""
-    nbytes = b * (24 + 12 * bounces + 36) + table_bytes
+    (16 with the sky slot) per ray plus the scene tables at HBM speed,
+    against the operations of this run's search (K3_OPS_*: the plain
+    version's counts of sphere, slab and entered-chunk triangle tests and
+    live (ray, bounce) entries) at the FP32 peak."""
+    nbytes = (b * (24 + 12 * bounces + 36 + (SKY_SLOT_BYTES if sky else 0))
+              + table_bytes)
     ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
            + counts["tri"] * K3_OPS_TRI + counts["live"] * K3_OPS_SHADE)
     return _bound(nbytes, ops)
@@ -1211,15 +1254,17 @@ def phase_k2_mesh(dev):
     return rerun
 
 
-def _k2_mesh_bound(b, bounces, idx, n_spheres, table_bytes):
+def _k2_mesh_bound(b, bounces, idx, n_spheres, table_bytes, sky=False):
     """Least K2 mesh-mode time: per ray its rays 24 B, draws 0..2 (12 B)
-    and index (4 B) per bounce, g 36 B and the ray cotangents 24 B; the
-    tables read once and their cotangents written once; against
-    K2_OPS_TRI FLOP per live (ray, bounce) with a triangle winner and
-    K2_OPS_SPHERE per other live entry (this run's recorded winners)."""
+    and index (4 B) per bounce, g 36 B (48 B with the sky scale's
+    cotangent) and the ray cotangents 24 B; the tables read once and their
+    cotangents written once; against K2_OPS_TRI FLOP per live (ray,
+    bounce) with a triangle winner and K2_OPS_SPHERE per other live entry
+    (this run's recorded winners)."""
     n_tri = int((idx >= n_spheres).sum().item())
     n_sph = int(((idx >= 0) & (idx < n_spheres)).sum().item())
-    nbytes = b * (24 + 16 * bounces + 36 + 24) + 2 * table_bytes
+    nbytes = (b * (24 + 16 * bounces + 36 + 24 + (SKY_G_BYTES if sky else 0))
+              + 2 * table_bytes)
     return _bound(nbytes, n_tri * K2_OPS_TRI + n_sph * K2_OPS_SPHERE)
 
 
@@ -1783,6 +1828,758 @@ def phase_scan_train(dev, card):
     return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed)
 
 
+def _on(obj, dev):
+    """A scene or camera with every tensor moved to ``dev``."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _on(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+_SKY_FILES = {}
+
+
+def _sky_files():
+    """The TOMLs of the sky scenes, written once under OUT_DIR: the
+    showcase (``write_sky_showcase``, 5 spheres) under a generated
+    SKY_SIZE sky, and the 60-, MESH_WORLD- and SCAN_WORLD-triangle block
+    worlds with ``sky=`` that sky file. Times the writer and the loader
+    on the full-size PPM."""
+    from raytpu_torch.io.obj import load_sky
+    from raytpu_torch.scenes import write_block_world, write_sky_showcase
+
+    if not _SKY_FILES:
+        t0 = time.perf_counter()
+        show = write_sky_showcase(os.path.join(OUT_DIR, "sky_showcase"),
+                                  SKY_SIZE)
+        t_write = time.perf_counter() - t0
+        sky = os.path.join(os.path.dirname(show), "sky.ppm")
+        t0 = time.perf_counter()
+        tex = load_sky(sky, "cpu")
+        t_load = time.perf_counter() - t0
+        print(f"sky texture: {tex.width}x{tex.height} P3 PPM "
+              f"({os.path.getsize(sky) / 1e6:.1f} MB) written in "
+              f"{t_write:.2f} s, read by io.obj.load_sky in {t_load:.2f} s "
+              "(host); every sky scene below loads it through its TOML")
+        _SKY_FILES["show"] = show
+        for n in (60, MESH_WORLD, SCAN_WORLD):
+            _SKY_FILES[n] = write_block_world(
+                os.path.join(OUT_DIR, f"block_world_{n}_sky"), n_triangles=n,
+                seed=3 if n == 60 else 0, sky=sky)
+    return _SKY_FILES
+
+
+_LOADED = {}
+
+
+def _sky_scene(key, dev):
+    """(scene, camera, config) of a sky scene on the card, loaded once;
+    on the CPU a copy of the card's."""
+    from raytpu_torch.config import load_scene_file
+
+    if key not in _LOADED:
+        _LOADED[key] = load_scene_file(_sky_files()[key], dev)
+    scene, cam, cfg = _LOADED[key]
+    if str(dev) == "cpu":
+        return _on(scene, "cpu"), _on(cam, "cpu"), cfg
+    return scene, cam, cfg
+
+
+def _k1_sky_cases(dev):
+    """Sphere sky scenes of the K1 checks: the showcase, with AO and the
+    HSL boost, and with its marble a cutout (cutout then sky)."""
+    import dataclasses
+
+    import torch
+
+    show = _sky_scene("show", dev)
+    s = show[0].spheres
+    alpha = s.mat.alpha.clone()
+    alpha[3] = 0.0
+    cut = dataclasses.replace(show[0], spheres=dataclasses.replace(
+        s, mat=dataclasses.replace(s.mat, alpha=alpha)))
+    assert bool((cut.spheres.mat.alpha == 0).any()) and torch.is_tensor(alpha)
+    return [("showcase 4b", show, {}),
+            ("showcase ao+hsl 4b", show, dict(use_ao=True, ao_samples=2,
+                                               hsl_l_factor=1.2,
+                                               hsl_s_factor=1.1)),
+            ("showcase cutout 6b", (cut, *show[1:]), dict(max_bounces=6))]
+
+
+def _k3_sky_cases(dev):
+    """Mesh sky scenes of the K3 checks: the 60-triangle world with its
+    dome the sky sphere, with AO, with every atlas texel a cutout, and the
+    MESH_WORLD-triangle world."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.core.types import TextureAtlas
+
+    small = _sky_scene(60, dev)
+    a = small[0].atlas
+    cut = dataclasses.replace(small[0], atlas=TextureAtlas(
+        a.rgb, torch.zeros_like(a.alpha), a.width, a.height))
+    return [("sky world 60 6b", small, dict(max_bounces=6)),
+            ("sky world 60 ao_samples=2", small,
+             dict(max_bounces=4, use_ao=True, ao_samples=2)),
+            ("sky world 60 cutout 4b", (cut, *small[1:]), dict(max_bounces=4)),
+            (f"sky world {MESH_WORLD} 6b", _sky_scene(MESH_WORLD, dev), {})]
+
+
+def phase_sky_kernels(dev):
+    """The sky modes against their plain versions on the same card
+    tensors at 64x48 rays: K1's 16 planes and recording, K3's 16 planes
+    and recording (rays that leave K3's loop early among them), K2's sky
+    cotangent in sphere and mesh modes, two launches compared. Returns
+    the largest |diff| of each mode and whether the forward planes were
+    bit-equal."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    res = {"k1": 0.0, "k3": 0.0, "k2_sphere": 0.0, "k2_mesh": 0.0,
+           "bit_equal": True}
+
+    def bits(name, ref, out):
+        differ = (ref != out).any(0).float().mean().item()
+        res["bit_equal"] &= differ == 0.0
+        print(f"  {name:28s} rays not bit-equal to the plain version: "
+              f"{differ:.5f}")
+
+    print("sky slot (K1): kernel vs plain at 64x48 rays, 16 planes, then "
+          "recording and K2's sky cotangent (sphere mode)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(_k1_sky_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 800 + i, dev)
+        sph = ts.pack_spheres(scene)
+        k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
+                            scene.sky_index)
+        flat = draws.reshape(-1, draws.shape[-1])
+        rays = (*origin, *direction)
+        ref = ts.trace_spheres_reference(sph, *rays, flat, k)
+        out = ts._launch(sph, rays, flat, k)
+        if out.shape[0] != 16:
+            raise AssertionError(f"{name}: {out.shape[0]} planes, want 16")
+        res["k1"] = max(res["k1"], _compare(name, ref, out))
+        bits(name, ref, out)
+        kern = ts._launch(sph, rays, flat, k, record=True)
+        _check_record(name, kern, ts.trace_spheres_reference(
+            sph, *rays, flat, k, record=True), out)
+        _, idx, aof = kern
+        g = torch.tensor(np.random.default_rng(900 + i).uniform(
+            -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
+        got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+        again = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+        if not (torch.equal(got[0], again[0])
+                and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
+            raise AssertionError(f"{name}: two K2 sky launches differ")
+        ref_g = _sphere_reference(sph, rays, flat, idx, aof, g, k)
+        res["k2_sphere"] = max(res["k2_sphere"],
+                               _compare_grads(f"{name} K2 sky", ref_g, got)[0])
+
+    print("sky slot (K3): kernel vs plain at 64x48 rays, 16 planes, then "
+          "recording and K2's sky cotangent (mesh mode)")
+    for i, (name, (scene, cam, cfg), over) in enumerate(_k3_sky_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        o, d, draws = _kernel_inputs(scene, cam, cfg, 820 + i, dev)
+        mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        ref = tsc.trace_scene_reference(mt, *rays, flat, k)
+        out = tsc._launch(mt, rays, flat, k)
+        if out.shape[0] != 16:
+            raise AssertionError(f"{name}: {out.shape[0]} planes, want 16")
+        res["k3"] = max(res["k3"], _compare(name, ref, out))
+        bits(name, ref, out)
+        kern = tsc._launch(mt, rays, flat, k, record=True)
+        _check_mesh_record(name, kern, tsc.trace_scene_reference(
+            mt, *rays, flat, k, record=True), out)
+        _, idx, aof = kern
+        # rays that left the loop before its last bounce with the slot
+        # taken: their slot planes are written after the loop
+        exited = ((idx[-1] == -1) & (out[9:12] != 0).any(0)).sum().item()
+        print(f"  {name:28s} rays that left the loop early with the slot "
+              f"taken: {exited}")
+        if exited == 0:
+            raise AssertionError(f"{name}: no ray left K3's loop early with "
+                                 "its sky slot taken")
+        tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
+        g = torch.tensor(np.random.default_rng(920 + i).uniform(
+            -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
+        got = tb._launch(tabs, rays, flat, idx, aof, g, k)
+        again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+        ref_g = tb.replay_reference(tabs, rays, flat, idx, aof, g, k)
+        res["k2_mesh"] = max(res["k2_mesh"], _compare_mesh_grads(
+            f"{name} K2 sky", ref_g, got, again)[0])
+    print(f"  sky forward planes bit-equal to the plain versions on every "
+          f"scene: {res['bit_equal']}")
+    return res
+
+
+def phase_sky_texels(dev):
+    """The texel index on the card: a 0-dim tensor divisor gives the
+    correctly rounded quotient (what ``sky_texel_index`` relies on), a
+    Python-float divisor does not always; and the indices of the same
+    directions on the card and on the CPU (acos / atan2 rounding)."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core.vec3 import Vec3
+    from raytpu_torch.materials.texture import PI32, TWO_PI32, sky_texel_index
+
+    rs = np.random.default_rng(11)
+    d = rs.normal(size=(3, 1 << 20)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0)
+    dirs = Vec3(*(torch.tensor(c, device=dev) for c in d))
+    phi = torch.atan2(-dirs.z, dirs.x) + PI32
+    true = (phi.double() / TWO_PI32).float()
+    by_tensor = phi / torch.full((), TWO_PI32, dtype=torch.float32, device=dev)
+    by_float = phi / TWO_PI32
+    if not torch.equal(by_tensor, true):
+        raise AssertionError("division by a 0-dim card tensor is not the "
+                             "correctly rounded quotient")
+    w, h = SKY_SIZE
+    floor_differs = (torch.floor(by_float * w) != torch.floor(by_tensor * w))
+    card = sky_texel_index(dirs, w, h).cpu()
+    cpu = sky_texel_index(Vec3(*(torch.tensor(c) for c in d)), w, h)
+    flips = (card != cpu).float().mean().item()
+    print(f"sky texels: u = phi / 2pi on the card: 0-dim tensor divisor "
+          f"correctly rounded on all {d.shape[1]} directions, Python-float "
+          f"divisor off by an ulp on {(by_float != true).float().mean().item():.5f}"
+          f" of them, moving floor(u*{w}) on "
+          f"{floor_differs.float().mean().item():.6f}; texel index card vs "
+          f"CPU (acos/atan2) flips on {flips:.6f} of the directions")
+    if flips > OUTLIER_FRAC:
+        raise AssertionError(f"texel indices flip on {flips:.2%}")
+    return dict(div_float_ulp=(by_float != true).float().mean().item(),
+                direction_flips=flips)
+
+
+def phase_sky_timing(dev):
+    """The sky modes at the sky frames' shapes, real RNG draws, timed with
+    CUDA events in turns beside their plain versions and bounds: K1 and
+    its recording on the showcase (1000x750 rays, 4 bounces), K2's sky
+    sphere mode there; K3 and its recording on the MESH_WORLD sky world
+    (1200x900 rays, 6 bounces), K2's sky mesh mode there."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    def camera_batch(scene, cam, cfg):
+        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
+        cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
+                                        cfg.max_bounces)
+        o, d = sample_rays(cam, cfg, pids, cam_d)
+        return o, d, draws
+
+    def turns(fns, order, iters):
+        t = {w: [] for w in fns}
+        for which in order:
+            t[which].append(_time_ms(fns[which], iters[which]))
+        return {w: float(np.mean(v)) for w, v in t.items()}, t
+
+    res = {}
+    scene, cam, cfg = _sky_scene("show", dev)
+    o, d, draws = camera_batch(scene, cam, cfg)
+    sph = ts.pack_spheres(scene)
+    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
+                        scene.sky_index)
+    flat = draws.reshape(-1, draws.shape[-1])
+    rays = (*o, *d)
+    name = f"showcase {cfg.width}x{cfg.height} {cfg.max_bounces}b"
+    print(f"sky modes at the sky frames' shapes ({name}; sky world "
+          f"{MESH_WORLD} {FRAME[0]}x{FRAME[1]} 6b):")
+    ref = ts.trace_spheres_reference(sph, *rays, flat, k)
+    out = ts._launch(sph, rays, flat, k)
+    k1_err = _compare(name, ref, out)
+    kern = ts._launch(sph, rays, flat, k, record=True)
+    _, idx, aof = kern
+    _check_record(name, kern, ts.trace_spheres_reference(
+        sph, *rays, flat, k, record=True), out)
+    g = torch.tensor(np.random.default_rng(10).uniform(
+        -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
+    got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+    k2_err = _compare_grads(f"{name} K2 sky", _sphere_reference(
+        sph, rays, flat, idx, aof, g, k), got)[0]
+    del ref
+    fns = {"k1": lambda: ts._launch(sph, rays, flat, k),
+           "k1_plain": lambda: ts.trace_spheres_reference(sph, *rays, flat, k),
+           "k1_rec": lambda: ts._launch(sph, rays, flat, k, record=True),
+           "k2": lambda: _sphere_kernel(sph, rays, flat, idx, aof, g, k),
+           "k2_plain": lambda: _sphere_reference(sph, rays, flat, idx, aof,
+                                                 g, k)}
+    ms, t = turns(fns, ("k1_plain", "k1", "k1_rec", "k2_plain", "k2", "k2",
+                        "k2_plain", "k1_rec", "k1", "k1_plain"),
+                  {w: 3 if w.endswith("plain") else 20 for w in fns})
+    n_live = int((idx >= 0).sum().item())
+    b, s = cfg.n_pixels, k.n_spheres
+    res["k1"] = dict(ms=ms["k1"], plain_ms=ms["k1_plain"],
+                     bound=_k1_bound(b, cfg.max_bounces, n_live, s, False, True),
+                     max_abs_err=k1_err)
+    res["k1_rec"] = dict(ms=ms["k1_rec"], plain_ms=ms["k1_plain"],
+                         bound=_k1_bound(b, cfg.max_bounces, n_live, s, True,
+                                         True), max_abs_err=k1_err)
+    res["k2_sphere"] = dict(ms=ms["k2"], plain_ms=ms["k2_plain"],
+                            bound=_k2_bound(b, cfg.max_bounces, n_live, s, True),
+                            max_abs_err=k2_err)
+    for w in ("k1", "k1_rec", "k2_sphere"):
+        r = res[w]
+        print(f"  {w:9s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; "
+              f"bound {r['bound'][0]:.4f} ms, {r['bound'][1]})")
+    print(f"  turns {t}; live (ray, bounce) entries {n_live} of "
+          f"{b * cfg.max_bounces}")
+
+    scene, cam, cfg = _sky_scene(MESH_WORLD, dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+    o, d, draws = camera_batch(scene, cam, cfg)
+    mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+    name = f"sky world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
+    counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
+    ref = tsc.trace_scene_reference(mt, *rays, flat, k, counts)
+    out = tsc._launch(mt, rays, flat, k)
+    k3_err = _compare(name, ref, out)
+    del ref
+    kern = tsc._launch(mt, rays, flat, k, record=True)
+    _, rec_err = _check_mesh_record(name, kern, tsc.trace_scene_reference(
+        mt, *rays, flat, k, record=True), out)
+    _, idx, aof = kern
+    tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
+    g = torch.tensor(np.random.default_rng(12).uniform(
+        -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
+    got = tb._launch(tabs, rays, flat, idx, aof, g, k)
+    again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+    k2m_err = _compare_mesh_grads(f"{name} K2 sky", tb.replay_reference(
+        tabs, rays, flat, idx, aof, g, k), got, again)[0]
+    del got, again
+    fns = {"k3": lambda: tsc._launch(mt, rays, flat, k),
+           "k3_plain": lambda: tsc.trace_scene_reference(mt, *rays, flat, k),
+           "k3_rec": lambda: tsc._launch(mt, rays, flat, k, record=True),
+           "k3_rec_plain": lambda: tsc.trace_scene_reference(
+               mt, *rays, flat, k, record=True),
+           "k2": lambda: tb._launch(tabs, rays, flat, idx, aof, g, k),
+           "k2_plain": lambda: tb.replay_reference(tabs, rays, flat, idx,
+                                                   aof, g, k)}
+    ms, t = turns(fns, ("k3_plain", "k3", "k3", "k3_plain", "k3_rec_plain",
+                        "k3_rec", "k3_rec", "k3_rec_plain", "k2_plain", "k2",
+                        "k2", "k2_plain"),
+                  {w: 2 if w.endswith("plain") else 20 for w in fns})
+    b = cfg.n_pixels
+    table_bytes = 4 * sum(x.numel() for x in mt)
+    res["k3"] = dict(ms=ms["k3"], plain_ms=ms["k3_plain"],
+                     bound=_k3_bound(b, cfg.max_bounces, counts, table_bytes,
+                                     True), max_abs_err=k3_err)
+    res["k3_rec"] = dict(ms=ms["k3_rec"], plain_ms=ms["k3_rec_plain"],
+                         bound=_k3_bound(b, cfg.max_bounces, counts,
+                                         table_bytes + 4 * b * cfg.max_bounces,
+                                         True), max_abs_err=rec_err)
+    res["k2_mesh"] = dict(ms=ms["k2"], plain_ms=ms["k2_plain"],
+                          bound=_k2_mesh_bound(b, cfg.max_bounces, idx,
+                                               k.n_spheres,
+                                               4 * sum(x.numel() for x in tabs),
+                                               True), max_abs_err=k2m_err)
+    for w in ("k3", "k3_rec", "k2_mesh"):
+        r = res[w]
+        print(f"  {w:9s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; "
+              f"bound {r['bound'][0]:.4f} ms, {r['bound'][1]})")
+    print(f"  turns {t}; live (ray, bounce) entries {counts['live']} of "
+          f"{b * cfg.max_bounces}")
+    return res
+
+
+def _frame(what, dev, card, scene, cam, cfg, want, fwd_bwd=None):
+    """One timed frame through ``render`` over all block-ordered pixel ids
+    (forward, or with ``fwd_bwd`` = params the loss and its gradient),
+    its launch counts against ``want`` (K1, K2, K3, K4), finiteness, and
+    where its time goes at 1 spp. Returns (elapsed s, rays/s, launches,
+    idle share, result)."""
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import blocked_pixel_order, render
+
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
+    key = rng.prng_key(0)
+    work = fwd_bwd if fwd_bwd is not None else (
+        lambda c: render(scene, cam, c, pids, key))
+    work(cfg.replace(spp=1))                        # warm up
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = work(cfg)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    got = _launches()
+    if got != want:
+        raise AssertionError(f"{what}: (K1, K2, K3, K4) launches {got}, "
+                             f"want {want}")
+    rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
+    wall, busy, n_k, buckets = _profile(lambda: work(cfg.replace(spp=1)))
+    idle = max(0.0, 1 - busy / wall)
+    print(f"{what}: {cfg.width}x{cfg.height} spp={cfg.spp} bounces="
+          f"{cfg.max_bounces}: {elapsed:.4f} s, {rays / elapsed:.1f} rays/s "
+          f"on {card}; launches (K1, K2, K3, K4) {got}")
+    _print_profile(f"{what} at spp=1", wall, busy, n_k, buckets)
+    return elapsed, rays / elapsed, got, idle, out
+
+
+def phase_sky_frames(dev, card):
+    """The sky frames at full size under the SKY_SIZE sky: the showcase
+    through K1 (forward); the MESH_WORLD sky world through K3 (forward,
+    forward+backward of every float leaf and the sky texels, 3 Adam steps
+    whose losses fall); the SCAN_WORLD sky world through the scan path
+    (forward). Each checked finite and lit, with its launches, time, rate
+    and idle share; PPMs of the two megakernel frames."""
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render, render_image
+    from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.train import (combine_scene, make_train_step,
+                                    partition_scene, photometric_loss)
+
+    res = {}
+
+    def lit(what, sums, spp):
+        rad = sums.radiance.to_array()
+        if not all(v.to_array().isfinite().all() for v in sums[:3]):
+            raise AssertionError(f"{what}: non-finite sums")
+        mean = rad.double().mean().item() / spp
+        if not mean > 0.0:
+            raise AssertionError(f"{what}: mean radiance {mean} is not > 0")
+        print(f"  mean radiance {mean:.6f}")
+
+    def ppm(name, scene, cam, cfg):
+        img = render_image(scene, cam, cfg.replace(pixel_tile=cfg.n_pixels),
+                           rng.prng_key(0))
+        path = os.path.join(OUT_DIR, f"chip_smoke_{name}.ppm")
+        write_ppm(path, img.canvas)
+        means = img.canvas.reshape(-1, 3).mean(axis=0)
+        print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
+              f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
+
+    scene, cam, cfg = _sky_scene("show", dev)
+    cfg = cfg.replace(spp=SKY_SHOW_SPP, use_megakernel=True)
+    el, rate, got, idle, sums = _frame(
+        "sky showcase (K1)", dev, card, scene, cam, cfg, (cfg.spp, 0, 0, 0))
+    lit("sky showcase", sums, cfg.spp)
+    res["show"] = dict(s=el, rate=rate, launches=got, idle=idle)
+    ppm("sky_showcase", scene, cam, cfg)
+
+    scene, cam, cfg = _sky_scene(MESH_WORLD, dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SKY_MESH_SPP,
+                      max_bounces=6, use_megakernel=True)
+    el, rate, got, idle, sums = _frame(
+        f"sky world {MESH_WORLD} (K3)", dev, card, scene, cam, cfg,
+        (0, 0, cfg.spp, 0))
+    lit("sky world", sums, cfg.spp)
+    res["mesh"] = dict(s=el, rate=rate, launches=got, idle=idle)
+    ppm(f"sky_world_{MESH_WORLD}", scene, cam, cfg)
+
+    tcfg = cfg.replace(spp=SKY_TRAIN_SPP, sky_texture_grads=True)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    params, static = partition_scene(scene)
+    params = {n: p.detach().clone().requires_grad_() for n, p in params.items()}
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+
+    def fwd_bwd(c):
+        for p in params.values():
+            p.grad = None
+        sums = render(combine_scene(params, static), cam, c, pids,
+                      rng.prng_key(0))
+        loss = photometric_loss(sums.radiance * (1.0 / c.spp), target)
+        loss.backward()
+        return loss
+
+    el, rate, got, idle, loss = _frame(
+        f"sky world {MESH_WORLD} fwd+bwd (K3 recording, K2)", dev, card,
+        scene, cam, tcfg, (0, tcfg.spp, 2 * tcfg.spp, 0), fwd_bwd)
+    grads = {n: p.grad for n, p in params.items()}
+    if not (loss.isfinite().item() and all(
+            g is not None and g.isfinite().all() for g in grads.values())):
+        raise AssertionError("sky fwd+bwd: non-finite loss or gradient")
+    for leaf in ("sky.rgb.x", "atlas.rgb.x", "spheres.mat.emission_strength"):
+        if not grads[leaf].abs().max().item() > 0.0:
+            raise AssertionError(f"sky fwd+bwd: d loss / d {leaf} is all zero")
+    print(f"  d loss / d every float leaf ({len(params)} leaves, the "
+          f"{static['sky'].width}x{static['sky'].height} sky texels among "
+          f"them): loss {loss.item():.6f}; max |d sky.rgb.x| "
+          f"{grads['sky.rgb.x'].abs().max().item():.4e}, texels with a "
+          f"gradient {int((grads['sky.rgb.x'] != 0).sum().item())}")
+    res["mesh_bwd"] = dict(s=el, rate=rate, launches=got, idle=idle)
+    del grads, params
+
+    # 3 Adam steps towards a target with perturbed atlas, material and sky
+    # colours, with the target's key
+    tparams = {n: p.detach().clone() for n, p in partition_scene(scene)[0].items()}
+    for c in "xyz":
+        tparams[f"atlas.rgb.{c}"] = (tparams[f"atlas.rgb.{c}"] * 0.8).clamp(0, 1)
+        tparams[f"mat_table.emission.{c}"] = tparams[f"mat_table.emission.{c}"] * 0.8
+        tparams[f"sky.rgb.{c}"] = tparams[f"sky.rgb.{c}"] * 0.8
+    scfg = tcfg.replace(spp=SKY_STEP_SPP)
+    with torch.no_grad():
+        tsums = render(combine_scene(tparams, static), cam, scfg, pids,
+                       rng.prng_key(0))
+        tgt = (tsums.radiance * (1.0 / scfg.spp)).to_array()
+    del tparams
+    init_fn, step_fn = make_train_step(scfg, 1e-2)
+    state, st = init_fn(scene, cam)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, loss = step_fn(state, st, cam, pids, tgt, rng.prng_key(0))
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[0] > losses[1] > losses[2]):
+        raise AssertionError(f"sky train: losses do not fall: {losses}")
+    print(f"sky train: 3 Adam steps (lr 1e-2, every float leaf and the sky "
+          f"texels) at {scfg.width}x{scfg.height} spp={scfg.spp} towards a "
+          "perturbed atlas/material/sky target: losses "
+          + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
+    res["losses"] = losses
+    del state
+
+    scene, cam, cfg = _sky_scene(SCAN_WORLD, dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SKY_SCAN_SPP,
+                      max_bounces=6)
+    el, rate, got, idle, sums = _frame(
+        f"sky world {SCAN_WORLD} (scan path, K4)", dev, card, scene, cam, cfg,
+        (0, 0, 0, cfg.spp * cfg.max_bounces))
+    lit("sky scan world", sums, cfg.spp)
+    res["scan"] = dict(s=el, rate=rate, launches=got, idle=idle)
+    return res
+
+
+def phase_sky_routes(dev):
+    """The scan path against K1 (the showcase) and K3 (the MESH_WORLD sky
+    world) on the card at 64x48x2spp."""
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+
+    print(f"sky scenes: scan path vs megakernel at 64x48x2spp (outlier: any "
+          f"channel > {ATOL} + {RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
+    equal = True
+    for name, key, bounces in (("sky showcase", "show", 4),
+                               (f"sky world {MESH_WORLD}", MESH_WORLD, 6)):
+        scene, cam, cfg = _sky_scene(key, dev)
+        cfg = cfg.replace(width=64, height=48, spp=2, max_bounces=bounces)
+        ids = torch.arange(cfg.n_pixels, device=dev)
+        mk = _sums(render(scene, cam, cfg.replace(use_megakernel=True), ids,
+                          rng.prng_key(5)))
+        scan = _sums(render(scene, cam, cfg, ids, rng.prng_key(5)))
+        _compare(f"{name} scan vs megakernel", mk, scan)
+        same = torch.equal(mk, scan)
+        equal &= same
+        print(f"  {name}: scan path and megakernel bit-equal: {same}")
+    return equal
+
+
+def _grad_rows(name, got, want):
+    """PERF.md §2's per-row rule on leaf gradients (dicts path -> tensor):
+    each leaf within DSPH_REL of its largest |entry|, floored at ZERO_ROW
+    of its table's largest (the leaves sharing a first path part); a leaf
+    under that floor on both sides passes. Returns the worst error over
+    that scale."""
+    top = {}
+    for path, w in want.items():
+        t = path.split(".")[0]
+        top[t] = max(top.get(t, 0.0), w.abs().max().item())
+    worst = 0.0
+    for path, w in want.items():
+        g = got[path]
+        if not (g.isfinite().all() and w.isfinite().all()):
+            raise AssertionError(f"{name} {path}: non-finite gradient")
+        floor = ZERO_ROW * top[path.split(".")[0]]
+        scale = max(w.abs().max().item(), floor)
+        if max(g.abs().max().item(), w.abs().max().item()) <= floor:
+            continue
+        err = (g - w).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, err)
+        if err > DSPH_REL:
+            raise AssertionError(f"{name} {path}: off by {err:.3e} of its row")
+    return worst
+
+
+def phase_scan_grads(dev):
+    """ROADMAP P-F12: gradients of every float leaf through the scan path
+    on the card against K1/K2 (Cornell, the sky showcase) and K3/K2 (the
+    MESH_WORLD world, with and without the sky), and against the scan
+    path on the CPU, at 64x48x2spp, by the per-row rule. The loss weighs
+    only the pixels whose forward radiance agrees on both sides (card vs
+    CPU: P-F1's flips), and their count is printed."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.convert import scene_from_leaves, scene_leaves
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.scenes import cornell_box
+
+    cases = [("cornell", cornell_box(dev), 6),
+             ("sky showcase", _sky_scene("show", dev), 4),
+             (f"block world {MESH_WORLD}",
+              load_scene_file(_block_world(MESH_WORLD), dev), 6),
+             (f"sky world {MESH_WORLD}", _sky_scene(MESH_WORLD, dev), 6)]
+    print("P-F12: scan-path gradients at 64x48x2spp vs K1/K2 or K3/K2 on "
+          f"the card and vs the scan path on the CPU (each leaf within "
+          f"{DSPH_REL} of its largest |entry|, floored at {ZERO_ROW} of its "
+          "table's)")
+    res = {"worst": {}}
+    for name, (scene, cam, cfg), bounces in cases:
+        cfg = cfg.replace(width=64, height=48, spp=2, max_bounces=bounces,
+                          sky_texture_grads=True)
+        ids = np.arange(cfg.n_pixels)
+
+        def grads(sc, c, target, mask, dev_):
+            leaves = {p: v.detach().clone().requires_grad_()
+                      for p, v in scene_leaves(sc).items()}
+            s2 = scene_from_leaves(leaves, sc.triangles, sc.atlas,
+                                   sc.mat_table, sc.sky_sphere_index, sc.sky)
+            sums = render(s2, cam if dev_ != "cpu" else _on(cam, "cpu"), c,
+                          ids, rng.prng_key(7))
+            d = sums.radiance.to_array() / c.spp - target.to(dev_)
+            (mask.to(dev_)[:, None] * d * d).sum().backward()
+            return {p: (v.grad if v.grad is not None else
+                        torch.zeros_like(v)).cpu() for p, v in leaves.items()}
+
+        with torch.no_grad():
+            mk = _sums(render(scene, cam, cfg.replace(use_megakernel=True), ids,
+                              rng.prng_key(7))).cpu()
+            scan = _sums(render(scene, cam, cfg, ids, rng.prng_key(7))).cpu()
+            cpu_scene = _on(scene, "cpu")
+            cpu = _sums(render(cpu_scene, _on(cam, "cpu"), cfg, ids,
+                               rng.prng_key(7)))
+        agree = lambda a, b: ~((a[:3] - b[:3]).abs()
+                               > ATOL + RTOL * a[:3].abs()).any(0)
+        mask = (agree(mk, scan) & agree(scan, cpu)).float()
+        target = torch.full((cfg.n_pixels, 3), 0.2)
+        g_scan = grads(scene, cfg, target, mask, dev)
+        _reset_launches()
+        g_mk = grads(scene, cfg.replace(use_megakernel=True), target, mask, dev)
+        torch.cuda.synchronize()
+        k1, k2, k3, _ = _launches()
+        want = ((2 * cfg.spp, cfg.spp, 0) if not scene.n_triangles
+                else (0, cfg.spp, 2 * cfg.spp))
+        if (k1, k2, k3) != want:
+            raise AssertionError(f"{name}: megakernel gradient launches "
+                                 f"(K1, K2, K3) {(k1, k2, k3)}, want {want}")
+        if name == "sky showcase":
+            res["launches"] = (k1, k2)
+        g_cpu = grads(cpu_scene, cfg, target, mask, "cpu")
+        w_cpu = _grad_rows(f"{name} scan card vs cpu", g_scan, g_cpu)
+        note = ""
+        if scene.sky_index >= 0:
+            # the sky sphere's (black) diffuse: the scan path gives it the
+            # gradient of every later sky event of a ray (zero in value,
+            # since the throughput is 0 after the first), the slot, as
+            # raytpu's, only the first's, which does not read it; a ray
+            # meets the sky twice where it leaves the 1e5 dome and hits it
+            # again by rounding (ROADMAP F7)
+            i = scene.sky_index
+            paths = [f"spheres.mat.diffuse.{c}" for c in "xyz"]
+            top = max(g_scan[p].abs().max().item() for p in paths)
+            sky_df = max(g_scan[p][i].abs().item() for p in paths)
+            if any(g_mk[p][i].item() != 0.0 for p in paths):
+                raise AssertionError(f"{name}: the slot gave the sky sphere's "
+                                     "diffuse a gradient")
+            g_scan = {p: v.clone() for p, v in g_scan.items()}
+            for p in paths:
+                g_scan[p][i] = 0.0
+            note = (f"; the sky sphere's diffuse left out: scan path "
+                    f"{sky_df / max(top, 1e-30):.3e} of its row, slot 0")
+        w_mk = _grad_rows(f"{name} scan vs megakernel", g_scan, g_mk)
+        print(f"  {name:22s} pixels weighed {int(mask.sum().item())} of "
+              f"{cfg.n_pixels}; worst leaf error / row scale: scan vs "
+              f"megakernel {w_mk:.3e}, card vs CPU {w_cpu:.3e} "
+              f"({len(g_scan)} leaves){note}")
+        res["worst"][name] = (w_mk, w_cpu)
+    return res
+
+
+def phase_sky_residue(dev):
+    """P-F1 on the sky scenes: a 40x30x2spp frame of each on the card and
+    on the CPU (the same route: K1, K3 or the scan path against its plain
+    version): the share of pixels whose radiance differs, and, on the
+    same rays and draws, the share of sky-slot texel indices that flip
+    between the two runs and of slot directions that differ at all (the
+    scattered directions' sin/cos, ``core/vec3.random_unit_vector``, and
+    acos/atan2 round apart on the two sides). Bounded by OUTLIER_FRAC."""
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.core.vec3 import Vec3
+    from raytpu_torch.materials.texture import sky_texel_index
+
+    res = {}
+    print(f"P-F1 on the sky scenes: card vs CPU (limit {OUTLIER_FRAC:.0%})")
+    for name, key, bounces, mega in (("sky showcase (K1)", "show", 4, True),
+                                     (f"sky world {MESH_WORLD} (K3)",
+                                      MESH_WORLD, 6, True),
+                                     (f"sky world {SCAN_WORLD} (scan)",
+                                      SCAN_WORLD, 6, False)):
+        scene, cam, cfg = _sky_scene(key, dev)
+        cfg = cfg.replace(width=40, height=30, spp=2, max_bounces=bounces,
+                          use_megakernel=mega)
+        ids = torch.arange(cfg.n_pixels)
+        cscene, ccam = _on(scene, "cpu"), _on(cam, "cpu")
+        a = _sums(render(cscene, ccam, cfg, ids, rng.prng_key(3)))
+        b = _sums(render(scene, cam, cfg, ids, rng.prng_key(3))).cpu()
+        rad_frac = _outliers(a[:3], b[:3])[0]
+        flips = dirs = float("nan")
+        if mega:
+            # the slot on the same rays and draws, card and CPU
+            o, d, draws = _kernel_inputs(scene, cam, cfg, 950, dev)
+            flat = draws.reshape(-1, draws.shape[-1])
+            if scene.n_triangles:
+                k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
+                run = lambda sc, rays, fl: tsc._forward(
+                    tsc.pack_scene(sc), rays, fl, k)
+            else:
+                k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
+                                    scene.sky_index)
+                run = lambda sc, rays, fl: ts._forward(ts.pack_spheres(sc),
+                                                       rays, fl, k)
+            card = run(scene, (*o, *d), flat).cpu()
+            host = run(cscene, tuple(c.cpu() for c in (*o, *d)), flat.cpu())
+            both = (card[9:12] != 0).any(0) & (host[9:12] != 0).any(0)
+            w, h = scene.sky.width, scene.sky.height
+            ic = sky_texel_index(Vec3(*card[12:15]), w, h)
+            ih = sky_texel_index(Vec3(*host[12:15]), w, h)
+            flips = (ic != ih)[both].float().mean().item()
+            dirs = (card[12:15] != host[12:15]).any(0)[both].float().mean().item()
+        slot = (f"slot texel indices that flip {flips:.5f}, slot directions "
+                f"not bit-equal {dirs:.5f}" if mega else "no slot (scan path)")
+        print(f"  {name:26s} pixels whose radiance differs {rad_frac:.5f}; "
+              + slot)
+        if rad_frac > OUTLIER_FRAC or flips > OUTLIER_FRAC:
+            raise AssertionError(f"{name}: card vs CPU past {OUTLIER_FRAC:.0%}")
+        res[name] = (rad_frac, flips, dirs)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1823,10 +2620,21 @@ def main() -> int:
     phase_scan_checks(dev)
     scan = phase_scan_frame(dev, card, mesh)
     strain = phase_scan_train(dev, card)
+    sky_k = phase_sky_kernels(dev)
+    sky_tex = phase_sky_texels(dev)
+    sky_t = phase_sky_timing(dev)
+    sky_f = phase_sky_frames(dev, card)
+    sky_routes = phase_sky_routes(dev)
+    sgrads = phase_scan_grads(dev)
+    residue = phase_sky_residue(dev)
     k5 = k5_bound(k2)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
                          k2["n_spheres"], record=False)
+    print(f"sky: forward planes bit-equal to the plain versions "
+          f"{sky_k['bit_equal']}, scan path = megakernel {sky_routes}; "
+          f"texel flips card vs CPU {sky_tex['direction_flips']:.6f}; "
+          f"P-F12 worst rows {sgrads['worst']}; P-F1 residue {residue}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "trace_spheres", "route": "cuda",
@@ -1911,7 +2719,31 @@ def main() -> int:
         "bound_by": k4[SCAN_WORLD]["bound"][1], "library_ms": None,
         "ms_600": k4[MESH_WORLD]["ms"], "plain_ms_600": k4[MESH_WORLD]["plain_ms"],
         "bound_ms_600": k4[MESH_WORLD]["bound"][0],
-    }], "unported": [{
+    }, *({
+        "name": name, "route": "cuda", "source": f"raytpu_torch/csrc/{src}.cu",
+        "replaces": rep, "launches": launches,
+        "max_abs_err": sky_t[key]["max_abs_err"], "ms": sky_t[key]["ms"],
+        "plain_ms": sky_t[key]["plain_ms"], "bound_ms": sky_t[key]["bound"][0],
+        "bound_by": sky_t[key]["bound"][1], "library_ms": None,
+    } for name, src, rep, key, launches in (
+        ("trace_spheres (sky)", "trace_spheres",
+         "raytpu/kernels/trace_spheres.py:421", "k1",
+         sky_f["show"]["launches"][0]),
+        ("trace_spheres (sky, recording)", "trace_spheres",
+         "raytpu/kernels/trace_spheres.py:421", "k1_rec",
+         sgrads["launches"][0]),
+        ("trace_scene_bwd (sky, sphere mode)", "trace_scene_bwd",
+         "raytpu/kernels/trace_scene_bwd.py:641", "k2_sphere",
+         sgrads["launches"][1]),
+        ("trace_scene (sky)", "trace_scene",
+         "raytpu/kernels/trace_scene.py:431", "k3",
+         sky_f["mesh"]["launches"][2]),
+        ("trace_scene (sky, recording)", "trace_scene",
+         "raytpu/kernels/trace_scene.py:431", "k3_rec",
+         sky_f["mesh_bwd"]["launches"][2]),
+        ("trace_scene_bwd (sky, mesh mode)", "trace_scene_bwd",
+         "raytpu/kernels/trace_scene_bwd.py:641", "k2_mesh",
+         sky_f["mesh_bwd"]["launches"][1])))], "unported": [{
         "name": "trace_spheres backward (K5)",
         "replaces": "raytpu/kernels/trace_spheres.py:460",
         "launches": 0, "bound_ms": k5[0], "bound_by": k5[1],

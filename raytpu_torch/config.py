@@ -8,15 +8,16 @@ Port of ``raytpu/config.py`` (``load_scene_file``, ``load_scene``):
     [mesh]        obj/mtl/translate/textures/mtl_physics
                   + [[mesh.materials]] per-id overrides
     [[meshes]]    several meshes, concatenated
+    [sky]         file (an equirect P3 PPM), sphere_index (default: the
+                  last sphere, "derniere sphere = ciel")
     morton        top-level flag (default true)
     merge_quads   top-level flag, carried on the config
 
 Paths resolve relative to the TOML file. The scene is built on ``device``
 (the CUDA card when ``None``). Triangles are Morton-ordered as
-``raytpu``'s are. Not ported yet: a ``[sky]`` table (the equirect sky)
-and meshes other than ``.obj`` (``raytpu.io.mesh_formats``) raise
-``NotImplementedError``; merged-quad detection is not run, so the
-config's ``quad_pairs`` stay empty.
+``raytpu``'s are. Not ported yet: meshes other than ``.obj``
+(``raytpu.io.mesh_formats``) raise ``NotImplementedError``; merged-quad
+detection is not run, so the config's ``quad_pairs`` stay empty.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ import torch
 
 from raytpu_torch.camera import Camera, make_camera
 from raytpu_torch.core.device import resolve_device
-from raytpu_torch.core.types import (MatTable, RenderConfig, Scene, Spheres,
-                                     TextureAtlas, Triangles)
+from raytpu_torch.core.types import (MatTable, RenderConfig, Scene,
+                                     SkyTexture, Spheres, TextureAtlas,
+                                     Triangles)
 from raytpu_torch.core.vec3 import Vec3
 
 
@@ -133,9 +135,6 @@ def load_scene_file(path: str, device=None) -> tuple[Scene, Camera, RenderConfig
     device = resolve_device(device)
     with open(path, "rb") as f:
         spec = tomllib.load(f)
-    if "sky" in spec:
-        raise NotImplementedError(
-            f"{path}: the [sky] table (equirect sky) is not ported yet")
     base = os.path.dirname(os.path.abspath(path))
 
     r = spec.get("render", {})
@@ -189,7 +188,29 @@ def load_scene_file(path: str, device=None) -> tuple[Scene, Camera, RenderConfig
         from raytpu_torch.geometry.morton import morton_order
 
         triangles = morton_order(triangles)
-    return Scene(spheres, triangles, atlas, mat_table), cam, cfg
+    sky, sky_index = SkyTexture.empty(device), -1
+    if "sky" in spec:
+        sky, sky_index = _load_sky(spec["sky"], base, spheres, path, device)
+    return (Scene(spheres, triangles, atlas, mat_table, sky_index, sky), cam,
+            cfg)
+
+
+def _load_sky(table: dict, base: str, spheres: Spheres, path: str, device):
+    """The [sky] table -> (SkyTexture, sky sphere index). The sky sphere
+    must be a pure emitter with black diffuse (the reference's convention,
+    main.c:331/347): under it the first sky event ends the ray's sky
+    contribution, which is what makes the megakernels' single sky slot
+    exact."""
+    from raytpu_torch.io.obj import load_sky
+
+    sky = load_sky(os.path.join(base, table["file"]), device)
+    index = int(table.get("sphere_index", spheres.count - 1))
+    if any(abs(float(c[index])) > 0.0 for c in spheres.mat.diffuse):
+        raise ValueError(
+            f"{path}: the [sky] sphere (index {index}) must have black "
+            "diffuse (the reference's pure-emitter sky convention; "
+            "required for the megakernel fast path)")
+    return sky, index
 
 
 def load_scene(name_or_path: str, device=None) -> tuple[Scene, Camera, RenderConfig]:

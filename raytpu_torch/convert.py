@@ -5,8 +5,9 @@ them to a plain dict of numpy arrays keyed by attribute path
 (``"spheres.center.x"``, ``"triangles.mat_id"``, ``"atlas.rgb.x"``,
 ``"mat_table.ior"``, ``"origin.x"``, ...; the names
 ``jax.tree_util.keystr(path, simple=True, separator=".")`` gives) and adds
-the statics ``"sky_sphere_index"``, ``"atlas.width"`` and
-``"atlas.height"``. This module turns such a dict into the port's
+the statics ``"sky_sphere_index"``, ``"atlas.width"``, ``"atlas.height"``
+and, for a scene with a sky texture, ``"sky.width"`` and
+``"sky.height"``. This module turns such a dict into the port's
 ``Scene`` and ``Camera`` on a given device (the CUDA card when ``device``
 is ``None``); it imports no JAX. The float leaves' paths key the trainer's
 parameter dicts (``scene_leaves`` / ``scene_from_leaves``).
@@ -19,8 +20,8 @@ import torch
 
 from raytpu_torch.camera import Camera
 from raytpu_torch.core.device import resolve_device
-from raytpu_torch.core.types import (Materials, MatTable, Scene, Spheres,
-                                     TextureAtlas, Triangles)
+from raytpu_torch.core.types import (Materials, MatTable, Scene, SkyTexture,
+                                     Spheres, TextureAtlas, Triangles)
 from raytpu_torch.core.vec3 import Vec3
 
 
@@ -45,6 +46,7 @@ MAT_TABLE_LEAVES = tuple(
         "reflection", "ior", "alpha_const",
     )
 )
+SKY_LEAVES = ("sky.rgb.x", "sky.rgb.y", "sky.rgb.z")
 CAMERA_LEAVES = tuple(f"{v}.{c}" for v in ("origin", "horizontal", "vertical",
                                            "lower_left") for c in "xyz")
 
@@ -56,9 +58,9 @@ def _vec(leaves: dict, k: str) -> Vec3:
 def scene_leaves(scene: Scene) -> dict:
     """The scene's float tensors keyed by attribute path: ``SPHERE_LEAVES``
     and, where the scene has them, ``TRIANGLE_LEAVES`` and
-    ``MAT_TABLE_LEAVES`` (a scene with triangles) and ``ATLAS_LEAVES`` (a
-    textured one). ``mat_id``, the table's two flags and the atlas size
-    are not float leaves."""
+    ``MAT_TABLE_LEAVES`` (a scene with triangles), ``ATLAS_LEAVES`` (a
+    textured one) and ``SKY_LEAVES`` (a sky texture). ``mat_id``, the
+    table's two flags and the atlas and sky sizes are not float leaves."""
     s, m = scene.spheres, scene.spheres.mat
     leaves = dict(zip(SPHERE_LEAVES, (
         *s.center, s.radius, *m.diffuse, *m.emission, m.emission_strength,
@@ -73,16 +75,19 @@ def scene_leaves(scene: Scene) -> dict:
             mt.alpha_const)))
     if scene.atlas.alpha.shape[0] > 0:
         leaves.update(zip(ATLAS_LEAVES, (*scene.atlas.rgb, scene.atlas.alpha)))
+    if scene.sky.rgb.x.shape[0] > 0:
+        leaves.update(zip(SKY_LEAVES, scene.sky.rgb))
     return leaves
 
 
 def scene_from_leaves(leaves: dict, triangles=None, atlas=None,
-                      mat_table=None, sky_sphere_index: int = -1) -> Scene:
+                      mat_table=None, sky_sphere_index: int = -1,
+                      sky=None) -> Scene:
     """Inverse of ``scene_leaves``: the tensors are used as they are. A
-    mesh part whose leaves ``leaves`` holds is rebuilt from them, taking
-    its other fields (``mat_id``, the flags, the atlas size) from the
-    part given here; a part whose leaves it does not hold is the part
-    given here as it is, and the mesh parts default to none."""
+    mesh or sky part whose leaves ``leaves`` holds is rebuilt from them,
+    taking its other fields (``mat_id``, the flags, the atlas and sky
+    sizes) from the part given here; a part whose leaves it does not hold
+    is the part given here as it is, and the parts default to none."""
     if triangles is not None and TRIANGLE_LEAVES[0] in leaves:
         triangles = Triangles(
             *(_vec(leaves, "triangles." + v) for v in "abc"),
@@ -98,6 +103,8 @@ def scene_from_leaves(leaves: dict, triangles=None, atlas=None,
     if atlas is not None and ATLAS_LEAVES[0] in leaves:
         atlas = TextureAtlas(_vec(leaves, "atlas.rgb"), leaves["atlas.alpha"],
                              atlas.width, atlas.height)
+    if sky is not None and SKY_LEAVES[0] in leaves:
+        sky = SkyTexture(_vec(leaves, "sky.rgb"), sky.width, sky.height)
     return Scene(
         Spheres(
             center=_vec(leaves, "spheres.center"),
@@ -111,7 +118,7 @@ def scene_from_leaves(leaves: dict, triangles=None, atlas=None,
                 ior=leaves["spheres.mat.ior"],
             ),
         ),
-        triangles, atlas, mat_table, sky_sphere_index,
+        triangles, atlas, mat_table, sky_sphere_index, sky,
     )
 
 
@@ -164,19 +171,23 @@ def _mesh_from_arrays(arrays: dict, device):
 def scene_from_arrays(arrays: dict, device=None) -> Scene:
     """Port ``Scene`` from a flattened ``raytpu`` scene: spheres, the
     triangle mesh, its atlas (``"atlas.width"`` / ``"atlas.height"`` give
-    the tile size) and material table.
-
-    An equirect sky is recorded, not converted: it is on exactly when
-    ``raytpu`` turns it on (a sky sphere index and a non-empty sky
-    texture, ``trace_spheres._sky_statics``), and the kernel gates refuse
-    it.
+    the tile size), material table and equirect sky (``"sky.width"`` /
+    ``"sky.height"``; ``raytpu``'s u8-packed ``"sky.packed"`` is not
+    read). The sky is kept exactly when ``raytpu`` turns it on (a sky
+    sphere index and a non-empty sky texture, ``_sky_statics``); else the
+    index is -1 and the texture empty.
     """
     device = resolve_device(device)
     sky_idx = int(arrays.get("sky_sphere_index", -1))
-    sky_on = sky_idx >= 0 and np.size(arrays.get("sky.rgb.x", ())) > 0
+    sky = SkyTexture.empty(device)
+    if sky_idx >= 0 and np.size(arrays.get("sky.rgb.x", ())) > 0:
+        sky = SkyTexture(_vec(_tensors(arrays, SKY_LEAVES, device), "sky.rgb"),
+                         int(arrays["sky.width"]), int(arrays["sky.height"]))
+    else:
+        sky_idx = -1
     return scene_from_leaves(_tensors(arrays, SPHERE_LEAVES, device),
                              *_mesh_from_arrays(arrays, device),
-                             sky_sphere_index=sky_idx if sky_on else -1)
+                             sky_sphere_index=sky_idx, sky=sky)
 
 
 def camera_from_arrays(arrays: dict, device=None) -> Camera:

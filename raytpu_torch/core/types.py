@@ -3,11 +3,11 @@
 Port of ``raytpu/core/types.py``: ``Materials``, ``Spheres``,
 ``Triangles``, ``TextureAtlas`` and ``MatTable`` keep the JAX package's
 structure-of-arrays layout, and ``Scene`` holds them plus the
-equirect-sky sphere index, which the kernel gates refuse (the sky is not
-ported yet). ``TextureAtlas`` has no u8-packed twin: the port keeps f32
-texels, which equal the u8 codes times f32(1/255) that ``raytpu``'s
-packed fetch rebuilds. ``RenderConfig`` has the same fields and defaults
-as ``raytpu.core.types.RenderConfig``.
+equirect ``SkyTexture`` and the index of the sphere it is mapped onto.
+``TextureAtlas`` and ``SkyTexture`` have no u8-packed twin: the port
+keeps f32 texels, which equal the u8 codes times f32(1/255) that
+``raytpu``'s packed fetch rebuilds. ``RenderConfig`` has the same fields
+and defaults as ``raytpu.core.types.RenderConfig``.
 """
 
 from __future__ import annotations
@@ -176,15 +176,31 @@ class MatTable:
 
 
 @dataclass(frozen=True)
+class SkyTexture:
+    """Equirect sky texture for sphere_uvmapping (texture.h:92-112),
+    mapped onto the scene's sky sphere ("derniere sphere = ciel",
+    main.c:331): flat per-channel f32 planes of length H*W indexed by
+    y*W + x, rows bottom-up as ``io.image.load_rgb`` leaves them."""
+
+    rgb: Vec3       # (H*W,) each channel
+    width: int = 1
+    height: int = 1
+
+    @staticmethod
+    def empty(device) -> "SkyTexture":
+        z = torch.zeros((0,), device=device)
+        return SkyTexture(Vec3(z, z, z), 1, 1)
+
+
+@dataclass(frozen=True)
 class Scene:
     """Spheres plus a textured triangle mesh. The render runs on the
     device of these tensors.
 
-    ``triangles``, ``atlas`` and ``mat_table`` default to an empty mesh
-    and a one-entry default table on the spheres' device.
-    ``sky_sphere_index`` carries over a converted ``raytpu`` scene's
-    equirect-sky sphere; the port does not render the sky yet, so the
-    kernel gates refuse such a scene instead of rendering it without.
+    ``triangles``, ``atlas``, ``mat_table`` and ``sky`` default to an
+    empty mesh, a one-entry default table and no sky texture on the
+    spheres' device. ``sky_sphere_index`` names the sphere whose emission
+    the sky texel replaces (``sky_index``).
     """
 
     spheres: Spheres
@@ -192,12 +208,14 @@ class Scene:
     atlas: Optional[TextureAtlas] = None
     mat_table: Optional[MatTable] = None
     sky_sphere_index: int = -1   # equirect-sky sphere, or -1
+    sky: Optional[SkyTexture] = None
 
     def __post_init__(self):
         dev = self.device
         for name, empty in (("triangles", Triangles.empty),
                             ("atlas", TextureAtlas.empty),
-                            ("mat_table", lambda d: MatTable.default(1, d))):
+                            ("mat_table", lambda d: MatTable.default(1, d)),
+                            ("sky", SkyTexture.empty)):
             if getattr(self, name) is None:
                 object.__setattr__(self, name, empty(dev))
 
@@ -209,6 +227,15 @@ class Scene:
     def n_triangles(self) -> int:
         return self.triangles.count
 
+    @property
+    def sky_index(self) -> int:
+        """The sky sphere's index where the equirect sky is on, else -1:
+        on exactly when ``raytpu`` turns it on (``_sky_statics``: an index
+        and a non-empty texture). Without a texture the sphere is a plain
+        emitter."""
+        on = self.sky_sphere_index >= 0 and self.sky.rgb.x.shape[0] > 0
+        return self.sky_sphere_index if on else -1
+
 
 @dataclass(frozen=True)
 class RenderConfig:
@@ -218,12 +245,12 @@ class RenderConfig:
     Read as in ``raytpu``: ``use_megakernel`` (``render`` takes K1 or K3
     where they serve the scene, the scan path otherwise and without it),
     ``use_pallas`` (the scan path's closest-hit kernel K4: True, False, or
-    None for 128 or more triangles on a CUDA device) and
-    ``bilinear_textures``. Kept for parity and not read:
-    ``pallas_interpret`` and ``sample_chunk`` (JAX execution details),
-    ``sky_texture_grads`` (the sky is not ported) and the merged-quad
-    fields (``merge_quads``, ``quad_*``): K3 searches triangle by triangle,
-    as ``raytpu``'s K3 does with ``merge_quads=False``."""
+    None for 128 or more triangles on a CUDA device),
+    ``bilinear_textures`` and ``sky_texture_grads`` (the sky texels get
+    gradients only with it). Kept for parity and not read:
+    ``pallas_interpret`` and ``sample_chunk`` (JAX execution details) and
+    the merged-quad fields (``merge_quads``, ``quad_*``): K3 searches
+    triangle by triangle, as ``raytpu``'s K3 does with ``merge_quads=False``."""
 
     width: int = 400
     height: int = 300

@@ -3,9 +3,9 @@
 //
 // Replaces raytpu/kernels/trace_scene.py:_kernel (the Pallas TPU kernel
 // launched by _trace_call, body bounce_body, skip_body for finished rays)
-// with its recording mode (with_indices) and without the sky slot and the
-// merged-quad loops: it computes what that kernel computes with
-// merge_quads=False. The plain
+// with its recording mode (with_indices) and its equirect-sky slot, and
+// without the merged-quad loops: it computes what that kernel computes
+// with merge_quads=False. The plain
 // PyTorch version is
 // raytpu_torch/kernels/trace_scene.py:trace_scene_reference; both keep
 // raytpu's arithmetic forms (0.5/max(a,1e-20) root scale, spheres scanned
@@ -47,7 +47,16 @@
 //     compute it on every lane; K2 reads it only where the bounce
 //     accumulates, and a hit recorded here is a ray in its loop). The
 //     bounces a ray skips after its loop is over record -1 and 0, as
-//     raytpu's skip_body does.
+//     raytpu's skip_body does;
+//   * the equirect sky (kSky, sky_idx >= 0; two more instantiations, so
+//     the sky-less ones keep their registers): K1's slot
+//     (csrc/trace_spheres.cu), over spheres and triangles. The sky
+//     sphere's emission is zeroed, and each ray keeps in registers the
+//     throughput scale, unit hit direction and early flag of its first
+//     sky event; the 7 planes follow the 9 and
+//     raytpu_torch/kernels/trace_spheres.py:compose_sky adds the texel. A
+//     ray that leaves the loop early still writes its slot, after the
+//     loop, with the 9 planes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
@@ -77,6 +86,7 @@ struct Knobs {
   float ao_e_scale, ao_inv;
   int hsl_on;
   float hsl_l, hsl_s;
+  int sky_idx;
 };
 
 __device__ __forceinline__ float safe_denom(float x) {
@@ -228,7 +238,7 @@ __device__ float ao_factor(const float* sph, const float* tri_s,
   return occ * k.ao_inv;
 }
 
-template <bool kRecord>
+template <bool kRecord, bool kSky>
 __global__ void __launch_bounds__(kThreads)
 trace_scene_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ search_g,
@@ -270,6 +280,10 @@ trace_scene_kernel(const float* __restrict__ sph_g,
   bool active = true, is_alpha = false;
   int alpha_depth = 0;
   float medium_n2 = 1.0f;
+  // the sky slot: scale, unit direction, early flag, taken flag
+  float sklx = 0.0f, skly = 0.0f, sklz = 0.0f;
+  float skdx = 0.0f, skdy = 0.0f, skdz = 0.0f;
+  bool early = false, slot = false;
 
   int i = 0;
   for (; i < k.bounces && active; ++i) {
@@ -319,11 +333,13 @@ trace_scene_kernel(const float* __restrict__ sph_g,
     const float py = roy + rdy * safe_t;
     const float pz = roz + rdz * safe_t;
     float nX, nY, nZ, dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior;
+    float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // a sphere winner's centre, radius
     if (!tri_wins) {
       // a sphere, or a miss, which reads an all-zero winner
       float w[kSphRows];
 #pragma unroll
       for (int r = 0; r < kSphRows; ++r) w[r] = did_hit ? sph[r * ns + bidx] : 0.0f;
+      if (kSky) { sc[0] = w[0]; sc[1] = w[1]; sc[2] = w[2]; sc[3] = w[3]; }
       const float svx = px - w[0], svy = py - w[1], svz = pz - w[2];
       const float n2 = svx * svx + svy * svy + svz * svz;
       const float inv = (n2 > 0.0f && did_hit) ? 1.0f / sqrtf(fmaxf(n2, 1e-38f)) : 0.0f;
@@ -397,6 +413,9 @@ trace_scene_kernel(const float* __restrict__ sph_g,
       estr = mt[3]; refl = mt[4]; ior = mt[5];
       alpha = mt[7] > 0.0f ? mt[6] : ta;
     }
+    // the sky sphere's emission is its texel, added outside the kernel
+    const bool sky_win = kSky && did_hit && bidx == k.sky_idx;
+    if (sky_win) { emx = 0.0f; emy = 0.0f; emz = 0.0f; }
 
     // ---- AOV base cases -------------------------------------------------
     if (i == 0) {
@@ -488,6 +507,22 @@ trace_scene_kernel(const float* __restrict__ sph_g,
       if (kRecord) aof_out[(size_t)i * B + ray] = factor;
     }
 
+    // ---- the sky slot, at the ray's first sky event --------------------
+    if (kSky && sky_win && !slot && (emissive_ret || accum)) {
+      slot = true;
+      early = emissive_ret;
+      if (emissive_ret) {
+        sklx = 1.0f; skly = 1.0f; sklz = 1.0f;
+      } else {
+        const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
+        sklx = e_scale * rcx; skly = e_scale * rcy; sklz = e_scale * rcz;
+      }
+      const float r_safe = sc[3] > 0.0f ? sc[3] : 1.0f;   // a sky win is a sphere's
+      skdx = (px - sc[0]) / r_safe;
+      skdy = (py - sc[1]) / r_safe;
+      skdz = (pz - sc[2]) / r_safe;
+    }
+
     // ---- accumulate (reads the throughput before its update) ------------
     if (accum) {
       const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
@@ -522,6 +557,11 @@ trace_scene_kernel(const float* __restrict__ sph_g,
   out[0 * B + ray] = ix; out[1 * B + ray] = iy; out[2 * B + ray] = iz;
   out[3 * B + ray] = ax; out[4 * B + ray] = ay; out[5 * B + ray] = az;
   out[6 * B + ray] = nx; out[7 * B + ray] = ny; out[8 * B + ray] = nz;
+  if (kSky) {
+    out[9 * B + ray] = sklx; out[10 * B + ray] = skly; out[11 * B + ray] = sklz;
+    out[12 * B + ray] = skdx; out[13 * B + ray] = skdy; out[14 * B + ray] = skdz;
+    out[15 * B + ray] = early ? 1.0f : 0.0f;
+  }
 }
 
 }  // namespace
@@ -530,7 +570,8 @@ trace_scene_kernel(const float* __restrict__ sph_g,
 // pointers to contiguous f32: sph (14, n_spheres); search (n_tris, 12);
 // tri (25, n_tris); boxes (6, ceil(n_tris / 32)); mats (9, n_mats); atlas
 // (4, n_tex), unread when n_tex is 0; ox..dz (n_rays,); draws
-// (bounces * n_draws, n_rays); out (9, n_rays). Recording mode when
+// (bounces * n_draws, n_rays); out (9, n_rays), or (16, n_rays) with the
+// sky slot of sphere sky_idx (-1: no sky). Recording mode when
 // idx_out is not null: idx_out (bounces, n_rays) i32 winners and, with
 // use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). Sets the
 // kernel's dynamic
@@ -547,8 +588,9 @@ extern "C" int raytpu_trace_scene(
     float det_eps, float tri_eps, float alpha_lo, float alpha_hi,
     float bright_boost, float bright_threshold, int use_ao, int ao_samples,
     float ao_e_scale, float ao_inv, int hsl_on, float hsl_l, float hsl_s,
-    void* stream) {
+    int sky_idx, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 1 ||
+      sky_idx < -1 || sky_idx >= n_spheres ||
       n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
       (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
       n_rays < 0 || bounces < 0 ||
@@ -561,14 +603,17 @@ extern "C" int raytpu_trace_scene(
   Knobs k{n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces,
           n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
           bright_boost, bright_threshold, use_ao, ao_samples, ao_e_scale,
-          ao_inv, hsl_on, hsl_l, hsl_s};
+          ao_inv, hsl_on, hsl_l, hsl_s, sky_idx};
   const int n_chunks = (n_tris + kChunk - 1) / kChunk;
   const size_t smem = sizeof(float) * ((size_t)kSearch * n_tris +
                                        (size_t)kSphRows * n_spheres +
                                        6 * (size_t)n_chunks +
                                        (size_t)kMatRows * n_mats);
-  const auto kernel = idx_out != nullptr ? trace_scene_kernel<true>
-                                          : trace_scene_kernel<false>;
+  const bool record = idx_out != nullptr, sky = sky_idx >= 0;
+  const auto kernel = record ? (sky ? trace_scene_kernel<true, true>
+                                    : trace_scene_kernel<true, false>)
+                             : (sky ? trace_scene_kernel<false, true>
+                                    : trace_scene_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -3,7 +3,8 @@
 // Replaces raytpu/kernels/trace_scene_bwd.py:_bwd_kernel (the Pallas TPU
 // kernel launched by _bwd_call from mesh_backward): sphere mode for sphere
 // scenes (n_tris == 0, after K1), mesh mode for spheres plus textured
-// triangles (after K3). The plain PyTorch version is
+// triangles (after K3), each with or without the equirect sky's
+// cotangent (sky_idx >= 0). The plain PyTorch version is
 // raytpu_torch/kernels/trace_scene_bwd.py:replay_reference, the replay
 // under autograd; the forward it reverses is replay_bounce there, which
 // is raytpu's _replay_bounce + shade_bounce op for op.
@@ -71,6 +72,22 @@
 //     mesh-mode launches agree on d_tri and d_atlas only to rounding (the
 //     chip check bounds the difference); everything else is bit-identical.
 //
+// The equirect sky (kSky, a template flag like kMesh, so the sky-less
+// instantiations keep their registers): K1 and K3 zero the sky sphere's
+// emission and record, per ray, the throughput scale of its first sky
+// event (raytpu's sky slot); the texel is added outside them, so the
+// scale's cotangent g_skl arrives here beside the nine others (12 planes
+// in; the slot's direction and early flag reach the image only through
+// floor() and compares, and get none). The replay carries the slot's
+// taken flag (Carry::slot; the scale itself is never read back: a take
+// overwrites it) and the reverse carries g_skl (Cot::skl). At the bounce
+// whose accumulation took the slot, skl = e_scale * rc with rc the
+// throughput before the bounce, so the reverse adds g_skl * e_scale to
+// rc's cotangent and (g_skl . rc) * e_scale_mult to the sky sphere's
+// emission strength; a take by an emissive early return sets skl = 1.
+// Either take ends g_skl. The zeroed emission passes no cotangent to the
+// table.
+//
 // Numerics: a row of the table cotangent is a sum over rays in which a
 // few grazing hits weigh most (a hit's distance gradient grows as
 // 1/sqrt(disc), and a hit recomputed on the other side of the epsilon
@@ -108,18 +125,26 @@ struct Knobs {
   float e_scale_mult;
   int hsl_on;
   float hsl_l, hsl_s;
+  int sky_idx;
 };
 
 // The carry a reverse step needs; radiance and AOV sums are never read.
+// slot: the ray's sky slot is taken (the sky modes only).
 struct Carry {
   float o[3], d[3], rc[3], med;
-  bool active, is_alpha;
+  bool active, is_alpha, slot;
   int depth;
 };
 
-// Cotangents of the differentiable carry planes.
+// Cotangents of the differentiable carry planes; skl, the sky slot's
+// scale, in the sky modes only.
 struct Cot {
-  float o[3], d[3], rc[3], inc[3], alb[3], nrm[3];
+  float o[3], d[3], rc[3], inc[3], alb[3], nrm[3], skl[3];
+};
+
+// The branches a bounce took that the sky slot reads.
+struct Masks {
+  bool emissive_ret, accum;
 };
 
 // The winner's surface at one bounce: what shade reads.
@@ -265,7 +290,8 @@ __device__ void hsl_boost_bwd(float r, float g, float b, float l_f, float s_f,
 // the cotangents before it, gs the cotangent of the surface, and go / gd
 // the cotangent of the origin and direction by every route but the
 // surface's own dependence on them (g->o and g->d are left to the caller).
-__device__ __forceinline__ void shade(int i, Carry& c, const Surf& s,
+// Both return the bounce's emissive-return and accumulation masks.
+__device__ __forceinline__ Masks shade(int i, Carry& c, const Surf& s,
                                       float u_d, float v_d, float roulette,
                                       float aof, const Knobs& k, Cot* g,
                                       SurfCot* gs, float* go, float* gd) {
@@ -348,7 +374,7 @@ __device__ __forceinline__ void shade(int i, Carry& c, const Surf& s,
     c.is_alpha = ((c.is_alpha && !aov_alpha) && !opaque) || cutout;
     if (cutout) c.depth += 1;
     c.active = active && !emissive_ret && did_hit;
-    return;
+    return {emissive_ret, accum};
   }
 
   // ---- reverse -------------------------------------------------------------
@@ -509,6 +535,7 @@ __device__ __forceinline__ void shade(int i, Carry& c, const Surf& s,
     gs->p[j] = gp[j]; gs->n[j] = gn[j]; gs->df[j] = gdf[j]; gs->em[j] = gem[j];
   }
   gs->estr = gestr; gs->refl = grefl; gs->ior = gior;
+  return {emissive_ret, accum};
 }
 
 // Reverse of the hit point p = o + d * safe_t: adds to go and gd, returns
@@ -793,9 +820,12 @@ __device__ __forceinline__ void init_carry(Carry& c, int ray,
   c.d[0] = dx[ray]; c.d[1] = dy[ray]; c.d[2] = dz[ray];
   c.rc[0] = c.rc[1] = c.rc[2] = 1.0f;
   c.med = 1.0f;
-  c.active = true; c.is_alpha = false; c.depth = 0;
+  c.active = true; c.is_alpha = false; c.slot = false; c.depth = 0;
 }
 
+// The cotangent of the replay's outputs: radiance, albedo and normal, and
+// in the sky modes (kSky) the sky slot's scale.
+template <bool kSky>
 __device__ __forceinline__ void init_cot(Cot& g, int ray, size_t B,
                                          const float* gin) {
   for (int j = 0; j < 3; ++j) {
@@ -803,18 +833,19 @@ __device__ __forceinline__ void init_cot(Cot& g, int ray, size_t B,
     g.inc[j] = gin[j * B + ray];
     g.alb[j] = gin[(3 + j) * B + ray];
     g.nrm[j] = gin[(6 + j) * B + ray];
+    g.skl[j] = kSky ? gin[(9 + j) * B + ray] : 0.0f;
   }
 }
 
 // One replayed bounce from the recorded winner (kMesh: mesh mode, where an
-// index >= n_spheres is a triangle) with the bounce's draws dr[0..2].
-// Forward (g == nullptr):
+// index >= n_spheres is a triangle; kSky: with the sky slot) with the
+// bounce's draws dr[0..2]. Forward (g == nullptr):
 // c becomes the next carry. Reverse: c is the bounce's saved carry, *g the
 // cotangent after it becomes the one before it, gw receives the sphere
 // winner's cotangent (when the winner is a sphere) and gt a triangle
 // winner's (when it is a triangle). Returns whether the winner was a
 // triangle.
-template <bool kMesh>
+template <bool kMesh, bool kSky>
 __device__ __forceinline__ bool replay_bounce(
     int i, Carry& c, int bidx, const float* tab, const float* tri,
     const float* mats, const float* atlas, const float* dr, float aof,
@@ -833,13 +864,32 @@ __device__ __forceinline__ bool replay_bounce(
     surface_sphere(c, w, is_hit(bidx, ns), k, s, nullptr, nullptr, nullptr,
                    nullptr);
   }
+  // the sky sphere's emission is its texel, added outside K1 / K3
+  const bool sky_win = kSky && s.did_hit && bidx == k.sky_idx;
+  if (sky_win) s.em[0] = s.em[1] = s.em[2] = 0.0f;
   if (g == nullptr) {
-    shade(i, c, s, dr[0], dr[1], dr[2], aof, k, nullptr, nullptr, nullptr,
-          nullptr);
+    const Masks m = shade(i, c, s, dr[0], dr[1], dr[2], aof, k, nullptr,
+                          nullptr, nullptr, nullptr);
+    if (sky_win && (m.emissive_ret || m.accum)) c.slot = true;
     return tri_wins;
   }
   SurfCot gs;
-  shade(i, c, s, dr[0], dr[1], dr[2], aof, k, g, &gs, go, gd);
+  const Masks m = shade(i, c, s, dr[0], dr[1], dr[2], aof, k, g, &gs, go, gd);
+  if (sky_win) {
+    gs.em[0] = gs.em[1] = gs.em[2] = 0.0f;   // a constant zero, not the table's
+    if (!c.slot && (m.emissive_ret || m.accum)) {
+      if (m.accum) {                          // skl = (estr * mult) * rc
+        const float e_scale = s.estr * k.e_scale_mult;
+        float ge_scale = 0.0f;
+        for (int j = 0; j < 3; ++j) {
+          g->rc[j] += g->skl[j] * e_scale;
+          ge_scale += g->skl[j] * c.rc[j];
+        }
+        gs.estr += ge_scale * k.e_scale_mult;
+      }
+      g->skl[0] = g->skl[1] = g->skl[2] = 0.0f;
+    }
+  }
   if (tri_wins) {
     surface_triangle(c, w, mats, atlas, k, s, &gs, go, gd, gt);
   } else {
@@ -865,9 +915,10 @@ __host__ __device__ inline size_t shared_floats(int ns, int nm, int threads) {
          (size_t)column_entries(ns, nm) * (threads + 1);
 }
 
-// The reverse sweep, one thread per ray; kMesh selects mesh mode (a
-// separate instantiation, so sphere mode keeps its registers).
-template <bool kMesh>
+// The reverse sweep, one thread per ray; kMesh selects mesh mode and kSky
+// the sky slot (separate instantiations, so each mode keeps its
+// registers).
+template <bool kMesh, bool kSky>
 __global__ void backward_kernel(
     const float* __restrict__ sph, const float* __restrict__ tri,
     const float* __restrict__ mat_g, const float* __restrict__ atlas,
@@ -910,12 +961,12 @@ __global__ void backward_kernel(
       const int bidx = idx[(size_t)i * B + ray];
       const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
       load_draws(draws, i, k.n_draws, B, ray, dr);
-      replay_bounce<kMesh>(i, c, bidx, tab, tri, mats, atlas, dr, aof, k,
-                           nullptr, nullptr, nullptr);
+      replay_bounce<kMesh, kSky>(i, c, bidx, tab, tri, mats, atlas, dr, aof,
+                                 k, nullptr, nullptr, nullptr);
     }
 
     Cot g;
-    init_cot(g, ray, B, gin);
+    init_cot<kSky>(g, ray, B, gin);
     float gw[kRows];
     TriCot gt;
     for (int i = k.bounces - 1; i >= 0; --i) {
@@ -923,8 +974,8 @@ __global__ void backward_kernel(
       const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
       load_draws(draws, i, k.n_draws, B, ray, dr);
       c = saved[i];
-      if (replay_bounce<kMesh>(i, c, bidx, tab, tri, mats, atlas, dr, aof, k,
-                               &g, gw, &gt)) {
+      if (replay_bounce<kMesh, kSky>(i, c, bidx, tab, tri, mats, atlas, dr,
+                                     aof, k, &g, gw, &gt)) {
         const size_t t = (size_t)(bidx - ns);
         if (t < (size_t)k.n_tris) {
           for (int j = 0; j < 3; ++j) {
@@ -1007,7 +1058,9 @@ extern "C" int raytpu_backward_blocks(int n_rays, int n_spheres, int n_mats) {
 // (bounces * n_draws, n_rays) f32, of which draws 0..2 of each bounce are
 // read; idx (bounces, n_rays) i32, the winners K1 or K3 recorded (triangle
 // t as n_spheres + t); aof (bounces, n_rays) f32 when use_ao, else null; g
-// (9, n_rays) f32, the cotangent of (radiance, albedo, normal); d_rays
+// (9, n_rays) f32, the cotangent of (radiance, albedo, normal), or
+// (12, n_rays) with the sky slot's scale when sky_idx >= 0 (the sky
+// sphere; -1: no sky); d_rays
 // (6, n_rays) f32 out; partial (raytpu_backward_blocks(n_rays, S, M),
 // 14 * S + 6 * M) f32 scratch; d_sph (14, S), d_tri (25, T), d_mat (9, M)
 // and d_atlas (4, n_tex) f32 out. It zeroes d_tri, d_atlas and d_mat's rows
@@ -1023,9 +1076,10 @@ extern "C" int raytpu_backward(
     int atlas_h, int bounces, int n_draws, float sphere_eps, float det_eps,
     float tri_eps, float alpha_lo, float alpha_hi, float bright_boost,
     float bright_threshold, int use_ao, float e_scale_mult, int hsl_on,
-    float hsl_l, float hsl_s, float* d_sph, float* d_tri, float* d_mat,
-    float* d_atlas, void* stream) {
+    float hsl_l, float hsl_s, int sky_idx, float* d_sph, float* d_tri,
+    float* d_mat, float* d_atlas, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 0 ||
+      sky_idx < -1 || sky_idx >= n_spheres ||
       n_tris > kMaxTris || n_spheres + n_tris < 1 || n_mats < 0 ||
       n_mats > kMaxMats || n_tex < 0 ||
       (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
@@ -1048,7 +1102,7 @@ extern "C" int raytpu_backward(
   const Knobs k{n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces,
                 n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
                 bright_boost, bright_threshold, use_ao, e_scale_mult, hsl_on,
-                hsl_l, hsl_s};
+                hsl_l, hsl_s, sky_idx};
   // the reverse sweep, then the fixed-order sum of the column entries
   // over blocks
   const int n_e = column_entries(n_spheres, n_mats);
@@ -1056,8 +1110,11 @@ extern "C" int raytpu_backward(
   const int blocks = (n_rays + nt - 1) / nt;
   if (blocks > 0) {
     const size_t smem = shared_floats(n_spheres, n_mats, nt) * sizeof(float);
-    const auto kernel = n_tris > 0 ? backward_kernel<true>
-                                   : backward_kernel<false>;
+    const bool sky = sky_idx >= 0;
+    const auto kernel = n_tris > 0 ? (sky ? backward_kernel<true, true>
+                                          : backward_kernel<true, false>)
+                                   : (sky ? backward_kernel<false, true>
+                                          : backward_kernel<false, false>);
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

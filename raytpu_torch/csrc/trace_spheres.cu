@@ -2,10 +2,10 @@
 // a sphere scene in one launch.
 //
 // Replaces raytpu/kernels/trace_spheres.py:_kernel (the Pallas TPU kernel
-// launched by _trace_call, body _forward_body) without the sky slot, with
-// its recording mode (with_indices: per-bounce winner index and AO factor
-// for the index-replay backward, csrc/trace_scene_bwd.cu). The plain
-// PyTorch version is
+// launched by _trace_call, body _forward_body) with its recording mode
+// (with_indices: per-bounce winner index and AO factor for the
+// index-replay backward, csrc/trace_scene_bwd.cu) and its equirect-sky
+// slot (sky_idx >= 0). The plain PyTorch version is
 // raytpu_torch/kernels/trace_spheres.py:trace_spheres_reference; both keep
 // raytpu's arithmetic forms (0.5/max(a,1e-20) root scale, the 1e-30
 // discriminant floor, 1/sqrtf rather than rsqrtf, a strict t < best in
@@ -27,7 +27,19 @@
 //     neighbouring addresses, each draw read once;
 //   * the refraction math only for rays that refract, the AO probes only
 //     for rays that accumulate (their results are discarded elsewhere)
-//     unless recording, which stores the factor of every ray.
+//     unless recording, which stores the factor of every ray;
+//   * the equirect sky (kSky, a separate instantiation, so the sky-less
+//     kernel keeps its registers): the 4096x2048 sky texture stays out of
+//     the kernel. The sky sphere's emission is zeroed in the loop, and
+//     each ray keeps one slot in registers, taken at its first sky event
+//     (raytpu's take_e / take_a): the throughput scale (1 for an emissive
+//     early return, else e_scale times the throughput before the bounce),
+//     the unit hit direction (p - c) / r and the early flag. These 7
+//     planes follow the 9, and raytpu_torch/kernels/trace_spheres.py:
+//     compose_sky adds the texel outside, as raytpu does outside
+//     pallas_call. One slot is exact because the sky sphere has black
+//     diffuse (raytpu_torch/config.py enforces it): after its first sky
+//     event a ray's throughput is 0.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
@@ -53,6 +65,7 @@ struct Knobs {
   float ao_e_scale, ao_inv;
   int hsl_on;
   float hsl_l, hsl_s;
+  int sky_idx;
 };
 
 __device__ __forceinline__ float safe_denom(float x) {
@@ -144,6 +157,7 @@ __device__ float ao_factor(const float* CX, const float* CY, const float* CZ,
   return occ * k.ao_inv;
 }
 
+template <bool kSky>
 __global__ void __launch_bounds__(kThreads)
 trace_spheres_kernel(const float* __restrict__ sph,
                      const float* __restrict__ ox, const float* __restrict__ oy,
@@ -174,6 +188,10 @@ trace_spheres_kernel(const float* __restrict__ sph,
   bool active = true, is_alpha = false;
   int alpha_depth = 0;
   float medium_n2 = 1.0f;
+  // the sky slot: scale, unit direction, early flag, taken flag
+  float sklx = 0.0f, skly = 0.0f, sklz = 0.0f;
+  float skdx = 0.0f, skdy = 0.0f, skdz = 0.0f;
+  bool early = false, slot = false;
 
   for (int i = 0; i < k.bounces; ++i) {
     // ---- closest sphere: strict t < best in sphere order -------------
@@ -206,8 +224,11 @@ trace_spheres_kernel(const float* __restrict__ sph,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) w[r] = did_hit ? tab[r * ns + wi] : 0.0f;
     const float dfx = w[4], dfy = w[5], dfz = w[6];
-    const float emx = w[7], emy = w[8], emz = w[9];
+    float emx = w[7], emy = w[8], emz = w[9];
     const float estr = w[10], refl = w[11], alpha = w[12], ior = w[13];
+    // the sky sphere's emission is its texel, added outside the kernel
+    const bool sky_win = kSky && did_hit && bidx == k.sky_idx;
+    if (sky_win) { emx = 0.0f; emy = 0.0f; emz = 0.0f; }
     const float safe_t = did_hit ? best : 0.0f;
     const float px = rox + rdx * safe_t;
     const float py = roy + rdy * safe_t;
@@ -309,6 +330,22 @@ trace_spheres_kernel(const float* __restrict__ sph,
       if (aof_out != nullptr) aof_out[(size_t)i * B + ray] = factor;
     }
 
+    // ---- the sky slot, at the ray's first sky event --------------------
+    if (kSky && sky_win && !slot && (emissive_ret || accum)) {
+      slot = true;
+      early = emissive_ret;
+      if (emissive_ret) {
+        sklx = 1.0f; skly = 1.0f; sklz = 1.0f;
+      } else {
+        const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
+        sklx = e_scale * rcx; skly = e_scale * rcy; sklz = e_scale * rcz;
+      }
+      const float r_safe = w[3] > 0.0f ? w[3] : 1.0f;
+      skdx = (px - w[0]) / r_safe;
+      skdy = (py - w[1]) / r_safe;
+      skdz = (pz - w[2]) / r_safe;
+    }
+
     // ---- accumulate (reads the throughput before its update) ------------
     if (accum) {
       const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
@@ -339,13 +376,19 @@ trace_spheres_kernel(const float* __restrict__ sph,
   out[0 * B + ray] = ix; out[1 * B + ray] = iy; out[2 * B + ray] = iz;
   out[3 * B + ray] = ax; out[4 * B + ray] = ay; out[5 * B + ray] = az;
   out[6 * B + ray] = nx; out[7 * B + ray] = ny; out[8 * B + ray] = nz;
+  if (kSky) {
+    out[9 * B + ray] = sklx; out[10 * B + ray] = skly; out[11 * B + ray] = sklz;
+    out[12 * B + ray] = skdx; out[13 * B + ray] = skdy; out[14 * B + ray] = skdz;
+    out[15 * B + ray] = early ? 1.0f : 0.0f;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. All pointers are device
 // pointers to contiguous f32: sph (14, n_spheres); ox..dz (n_rays,);
-// draws (bounces * n_draws, n_rays); out (9, n_rays). Recording mode when
+// draws (bounces * n_draws, n_rays); out (9, n_rays), or (16, n_rays)
+// with the sky slot of sphere sky_idx (-1: no sky). Recording mode when
 // idx_out is not null: idx_out (bounces, n_rays) i32 winner indices and,
 // with use_ao, aof_out (bounces, n_rays) f32 AO factors (else null).
 // Launches on `stream` without synchronising and returns the launch's
@@ -356,8 +399,10 @@ extern "C" int raytpu_trace_spheres(
     float* out, int* idx_out, float* aof_out, int n_rays, int n_spheres, int bounces, int n_draws,
     float sphere_eps, float alpha_lo, float alpha_hi, float bright_boost,
     float bright_threshold, int use_ao, int ao_samples, float ao_e_scale,
-    float ao_inv, int hsl_on, float hsl_l, float hsl_s, void* stream) {
+    float ao_inv, int hsl_on, float hsl_l, float hsl_s, int sky_idx,
+    void* stream) {
   if (n_spheres < 1 || n_spheres > kMaxSpheres || n_rays < 0 || bounces < 0 ||
+      sky_idx < -1 || sky_idx >= n_spheres ||
       n_draws < 3 + (use_ao ? 2 * ao_samples : 0) ||
       (aof_out != nullptr && (idx_out == nullptr || !use_ao))) {
     return (int)cudaErrorInvalidValue;
@@ -365,9 +410,11 @@ extern "C" int raytpu_trace_spheres(
   if (n_rays == 0) return (int)cudaSuccess;
   Knobs k{n_spheres, bounces, n_draws, sphere_eps, alpha_lo, alpha_hi,
           bright_boost, bright_threshold, use_ao, ao_samples, ao_e_scale,
-          ao_inv, hsl_on, hsl_l, hsl_s};
+          ao_inv, hsl_on, hsl_l, hsl_s, sky_idx};
   const int blocks = (n_rays + kThreads - 1) / kThreads;
-  trace_spheres_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const auto kernel = sky_idx >= 0 ? trace_spheres_kernel<true>
+                                   : trace_spheres_kernel<false>;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       sph, ox, oy, oz, dx, dy, dz, draws, out, idx_out, aof_out, n_rays, k);
   return (int)cudaGetLastError();
 }

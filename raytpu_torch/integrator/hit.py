@@ -20,9 +20,11 @@ recompute:
   ``table[idx]`` walks each distinct index's duplicates serially: slow on
   the card for a few spheres or materials hit by a million rays.
 
-The equirect sky (``sky_sphere_index``) is not ported yet (M7): a sky
-scene raises ``NotImplementedError``. ``raytpu``'s ``best_idx`` injection
-(the megakernel backward's replay) is not needed: K2 replays instead.
+The equirect sky (``Scene.sky_index``): where the sky sphere wins, its
+emission is the sky texel at the hit (``materials.texture.sky_emission``),
+detached unless ``cfg.sky_texture_grads``, as ``raytpu``'s
+stop_gradient. ``raytpu``'s ``best_idx`` injection (the megakernel
+backward's replay) is not needed: K2 replays instead.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from raytpu_torch.geometry.triangle import (TriangleGeom, precompute,
                                             triangle_distance_one,
                                             triangle_distances)
 from raytpu_torch.kernels import intersect
-from raytpu_torch.materials.texture import triangle_material
+from raytpu_torch.materials.texture import sky_emission, triangle_material
 
 _logged: set = set()
 
@@ -52,13 +54,6 @@ def log_once(msg: str) -> None:
     if msg not in _logged:
         _logged.add(msg)
         print(f"raytpu_torch: {msg}", file=sys.stderr)
-
-
-def _check_sky(scene: Scene) -> None:
-    if scene.sky_sphere_index >= 0:
-        raise NotImplementedError(
-            "scan path: the equirect sky (sky_sphere_index) is not ported "
-            "yet (ROADMAP M7)")
 
 
 def _resolve_use_pallas(scene: Scene, cfg: RenderConfig) -> bool:
@@ -142,7 +137,6 @@ def closest_hit(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
                 direction: Vec3, cfg: RenderConfig) -> Hit:
     """closest_hit (main.c:52-92) for a batch of rays. ``geom`` is
     ``precompute(scene.triangles)`` (None computes it here)."""
-    _check_sky(scene)
     b = origin.x.shape[0]
     dev = origin.x.device
     n_spheres, n_tris = scene.spheres.count, scene.triangles.count
@@ -205,6 +199,16 @@ def closest_hit(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
                         Vec3(*map(take_s, sm.emission)),
                         *map(take_s, (sm.emission_strength, sm.reflection,
                                       sm.alpha, sm.ior)))
+        if scene.sky_index >= 0:
+            # the sky sphere's emission is the texel it shows at the hit
+            sky_rgb = sky_emission(scene.sky, point, centers, radii)
+            if not cfg.sky_texture_grads:
+                sky_rgb = Vec3(*(c.detach() for c in sky_rgb))
+            is_sky = s_idx == scene.sky_index
+            m_s = Materials(m_s.diffuse,
+                            Vec3.where(is_sky, sky_rgb, m_s.emission),
+                            m_s.emission_strength, m_s.reflection, m_s.alpha,
+                            m_s.ior)
         sphere_sel = did_hit & ~tri_wins
         normal = Vec3.where(sphere_sel, sphere_normal(point, centers), normal)
         mat = Materials.where(sphere_sel, m_s, mat)
@@ -227,7 +231,6 @@ def any_hit(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
     """Occlusion query of the AO probes (main.c:94-116): did the ray hit
     anything? A boolean with no gradient: K4's winner >= 0, or any finite
     entry of the distance matrices."""
-    _check_sky(scene)
     if scene.triangles.count > 0 and geom is None:
         geom = precompute(scene.triangles)
     with torch.no_grad():

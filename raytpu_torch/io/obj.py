@@ -13,6 +13,8 @@ fast path gives the same arrays and is not ported):
     textures collapse to their true resolution (``collapse_factor``).
   * ``mesh_to_triangles`` / ``load_obj_scene``: the triangle SoA with
     move_mesh's translation (mesh.h:220-234) and the scene.
+  * ``load_sky``: the equirect sky texture (create_mat_list on the sky
+    file, main.c:374), PPM only, without ``raytpu``'s u8-packed twin.
 Arrays are built in numpy exactly as ``raytpu`` builds them and become
 tensors on ``device`` (the CUDA card when ``None``).
 """
@@ -27,10 +29,10 @@ import numpy as np
 import torch
 
 from raytpu_torch.core.device import resolve_device
-from raytpu_torch.core.types import (MatTable, Scene, Spheres, TextureAtlas,
-                                     Triangles)
+from raytpu_torch.core.types import (MatTable, Scene, SkyTexture, Spheres,
+                                     TextureAtlas, Triangles)
 from raytpu_torch.core.vec3 import Vec3
-from raytpu_torch.io.image import load_texture_pair
+from raytpu_torch.io.image import load_rgb, load_texture_pair
 
 
 class ObjMesh(NamedTuple):
@@ -244,3 +246,16 @@ def load_obj_scene(obj_path: str, mtl_path: Optional[str] = None,
         mat_table = MatTable.default(max(len(mesh.mat_names), 1), device)
     return Scene(spheres if spheres is not None else Spheres.empty(device),
                  tris, atlas, mat_table)
+
+
+
+def load_sky(path: str, device=None) -> SkyTexture:
+    """Equirect sky texture from a ``.ppm`` (rows bottom-up, as
+    ``raytpu``'s ``load_sky`` leaves them), on ``device``."""
+    device = resolve_device(device)
+    rgb = load_rgb(path)
+    h, w = rgb.shape[:2]
+    flat = rgb.reshape(-1, 3)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return SkyTexture(rgb=Vec3(*(t(flat[:, i]) for i in range(3))),
+                      width=w, height=h)

@@ -1,8 +1,9 @@
 """PPM (P3 ASCII) read/write, as ``raytpu.io.ppm``.
 
 ``write_ppm`` is byte-identical to ``raytpu``'s: a header, then one
-"r g b" int triplet per line, rows top-down. ``read_ppm`` is its
-pure-Python reader (``raytpu``'s C++ fast path gives the same values).
+"r g b" int triplet per line, rows top-down. ``read_ppm`` is its reader
+(``raytpu``'s C++ fast path gives the same values); numpy parses the
+samples, so a 4096x2048 sky (25 M numbers) reads in seconds.
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ import numpy as np
 def write_ppm(path: str, canvas: np.ndarray) -> None:
     """canvas: (H, W, 3) ints in 0..255, row 0 = top."""
     h, w, _ = canvas.shape
-    flat = canvas.reshape(-1, 3).astype(np.int64)
+    flat = canvas.reshape(-1).astype(np.int64).tolist()
     with open(path, "w") as f:
         f.write(f"P3\n{w} {h}\n255\n")
-        np.savetxt(f, flat, fmt="%d")
+        f.write(("%d %d %d\n" * (h * w)) % tuple(flat))
 
 
 def read_ppm(path: str, bottom_up: bool = True) -> np.ndarray:
@@ -29,14 +30,16 @@ def read_ppm(path: str, bottom_up: bool = True) -> np.ndarray:
         data = f.read()
     if b"#" in data:      # comments run to the end of the line
         data = re.sub(rb"#[^\n\r]*", b" ", data)
-    tokens = data.split()
+    tokens = data.split(maxsplit=4)    # magic, width, height, maxval, samples
     if not tokens or tokens[0] != b"P3":
         raise ValueError(f"{path}: not an ASCII P3 PPM "
                          f"(got {tokens[0] if tokens else b''!r})")
     w, h, maxval = int(tokens[1]), int(tokens[2]), int(tokens[3])
-    vals = np.array(tokens[4:4 + w * h * 3], dtype=np.float32)
-    if vals.size != w * h * 3:
-        raise ValueError(f"{path}: expected {w * h * 3} samples, got {vals.size}")
+    n = w * h * 3
+    body = tokens[4] if len(tokens) > 4 else b""
+    vals = np.fromstring(body, dtype=np.float32, sep=" ")[:n]
+    if vals.size != n:
+        raise ValueError(f"{path}: expected {n} samples, got {vals.size}")
     img = vals.reshape(h, w, 3) * np.float32(1.0 / maxval)
     if bottom_up:
         img = img[::-1]

@@ -3,13 +3,24 @@
 Port of ``raytpu/kernels/trace_scene.py``: the whole forward bounce loop
 over spheres plus up to 2048 textured triangles in one launch (``_kernel``
 -> ``bounce_body``, launched by ``_trace_call``), with its recording mode
-for the backward, without the sky slot and without the merged-quad loops,
-so it computes what ``raytpu``'s K3 computes with ``merge_quads=False``.
+for the backward and its equirect-sky slot, without the merged-quad
+loops, so it computes what ``raytpu``'s K3 computes with
+``merge_quads=False``.
 Per ray and bounce: the closest sphere (scanned first, strict t < best),
 then the triangles of every 32-triangle chunk whose box the ray enters
 before its current best (Moller-Trumbore), the winner's barycentric UVs,
 nearest texel and material-table row, the AO probes, and
 ``shade_bounce``.
+
+The equirect sky (``Scene.sky_index``): the 4096x2048 sky textures are
+not read in the kernel. Each ray keeps one sky slot (``take_sky_slot``):
+the throughput scale of its first sky event, the unit hit direction on
+the sky sphere and whether that event was an emissive early return; the
+sky sphere's own emission is zeroed in the loop, and
+``trace_spheres.compose_sky`` adds the texel outside. One slot is exact
+because the sky sphere has black diffuse (``config`` enforces it): the
+first sky event ends the ray's sky contribution. With the sky on, the
+kernel returns 16 planes instead of 9.
 
 ``trace_mesh_megakernel`` is the entry point. On CUDA tensors it launches
 the hand-written kernel in ``csrc/trace_scene.cu``; on CPU tensors it runs
@@ -84,9 +95,11 @@ class Knobs:
     ao_inv: float       # 1 / (ao_samples * ao_intensity)
     hsl_l: float
     hsl_s: float
+    sky_idx: int        # the sky sphere with the sky slot on, else -1
 
     @staticmethod
-    def create(cfg: RenderConfig, n_spheres: int, n_draws: int) -> "Knobs":
+    def create(cfg: RenderConfig, n_spheres: int, n_draws: int,
+               sky_idx: int = -1) -> "Knobs":
         return Knobs(
             n_spheres=n_spheres, bounces=cfg.max_bounces, n_draws=n_draws,
             sphere_eps=cfg.sphere_eps, alpha_lo=cfg.refr_alpha_lo,
@@ -95,7 +108,7 @@ class Knobs:
             ao_samples=cfg.ao_samples,
             ao_e_scale=cfg.ao_emission_factor * cfg.ao_intensity,
             ao_inv=1.0 / (cfg.ao_samples * cfg.ao_intensity),
-            hsl_l=cfg.hsl_l_factor, hsl_s=cfg.hsl_s_factor,
+            hsl_l=cfg.hsl_l_factor, hsl_s=cfg.hsl_s_factor, sky_idx=sky_idx,
         )
 
     @property
@@ -134,7 +147,7 @@ class MeshKnobs(Knobs):
 
     @staticmethod
     def for_scene(cfg: RenderConfig, scene: Scene, n_draws: int) -> "MeshKnobs":
-        base = Knobs.create(cfg, scene.spheres.count, n_draws)
+        base = Knobs.create(cfg, scene.spheres.count, n_draws, scene.sky_index)
         return MeshKnobs(
             **base.__dict__, n_tris=scene.triangles.count,
             n_mats=scene.mat_table.count, n_tex=scene.atlas.alpha.shape[0],
@@ -155,8 +168,8 @@ class MeshKnobs(Knobs):
 
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
     """K3's gates: ``raytpu``'s (1 to 2048 triangles, at most 64 spheres
-    and 64 materials, nearest textures within the texture-row bounds) and
-    no equirect sky (the sky slot is not ported yet)."""
+    and 64 materials, nearest textures within the texture-row bounds, a
+    sky sphere index in range)."""
     return not unsupported_reasons(scene, cfg)
 
 
@@ -174,8 +187,6 @@ def unsupported_reasons(scene: Scene, cfg: RenderConfig) -> list[str]:
         r.append(f"{n_s} spheres > {MAX_SPHERES}")
     if scene.sky_sphere_index >= n_s:
         r.append("sky_sphere_index out of range")
-    elif scene.sky_sphere_index >= 0:
-        r.append("equirect sky (sky slot not ported)")
     if n_tex > 0 and cfg.bilinear_textures:
         r.append("bilinear texture filtering")
     if n_m > MAX_MATS:
@@ -201,10 +212,12 @@ def shade_bounce(i: int, carry, did_hit, px, py, pz, nX, nY, nZ,
                  dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior,
                  u_d, v_d, roulette, *, alpha_lo, alpha_hi, bright_boost,
                  bright_threshold, hsl_l, hsl_s, e_scale_mult=1.0,
-                 ao_factor=None):
+                 ao_factor=None, with_masks=False):
     """Everything after the winner's (point, normal, material) is known:
     AOV base cases, emissive early return with the HSL boost, scatter,
     refraction, cutout and accumulation. ``i`` is the static bounce index.
+    ``with_masks`` also returns the (emissive_ret, accum) masks the sky
+    slot reads (``take_sky_slot``).
 
     ``e_scale_mult`` is the AO mode's emission compensation
     (ao_emission_factor * ao_intensity) and ``ao_factor`` the occlusion
@@ -327,9 +340,50 @@ def shade_bounce(i: int, carry, did_hit, px, py, pz, nX, nY, nZ,
     rcz = torch.where(accum, nbz, rcz)
 
     active_f = torch.where(active & did_hit, f1, f0)
-    return (rox, roy, roz, rdx, rdy, rdz, rcx, rcy, rcz, ix, iy, iz,
-            ax_, ay_, az_, nx_, ny_, nz_,
-            active_f, is_alpha_f, alpha_depth, medium_n2)
+    out = (rox, roy, roz, rdx, rdy, rdz, rcx, rcy, rcz, ix, iy, iz,
+           ax_, ay_, az_, nx_, ny_, nz_,
+           active_f, is_alpha_f, alpha_depth, medium_n2)
+    return (out, emissive_ret, accum) if with_masks else out
+
+
+def initial_sky(rox, planes: int = 8) -> tuple:
+    """The sky slot at bounce 0, all zero: the forward's 8 planes (scale
+    xyz, unit direction xyz, early flag, taken flag) or the replay's 4
+    (scale xyz, taken flag)."""
+    return (torch.zeros_like(rox),) * planes
+
+
+def sky_direction(px, py, pz, cx, cy, cz, r) -> tuple:
+    """Unit hit direction (p - c) / r on the sky sphere; a zero radius
+    (a miss's all-zero winner) divides by 1, and is never taken."""
+    r_safe = torch.where(r > 0.0, r, 1.0)
+    return (px - cx) / r_safe, (py - cy) / r_safe, (pz - cz) / r_safe
+
+
+def take_sky_slot(sky: tuple, sky_win, emissive_ret, accum, estr, rc,
+                  e_scale_mult=1.0, sdir=None) -> tuple:
+    """The slot after one bounce (``raytpu``'s take_e / take_a): a ray's
+    first sky event is an emissive early return (scale 1, the HSL boost
+    applied outside) or an accumulation (scale e_scale times the
+    throughput before the bounce, ``rc``, what the zeroed emission would
+    have been multiplied by). Later sky events add nothing under the
+    black-diffuse sky. ``sky`` holds 8 planes with the direction ``sdir``
+    (the forward), 4 without (the replay, whose direction and flag are
+    constants: they reach the output only through floor() and compares).
+    """
+    free = sky_win & (sky[-1] == 0.0)
+    take_e = emissive_ret & free
+    take_a = accum & free
+    take = take_e | take_a
+    f1 = torch.ones_like(sky[-1])
+    e_scale = estr if e_scale_mult == 1.0 else estr * e_scale_mult
+    skl = tuple(torch.where(take_e, f1, torch.where(take_a, e_scale * c, s))
+                for s, c in zip(sky[0:3], rc))
+    slot = torch.where(take, f1, sky[-1])
+    if sdir is None:
+        return (*skl, slot)
+    return (*skl, *(torch.where(take, d, s) for d, s in zip(sdir, sky[3:6])),
+            torch.where(take_e, f1, sky[6]), slot)
 
 
 class MeshTables(NamedTuple):
@@ -542,14 +596,16 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
                           k: MeshKnobs, counts: Optional[dict] = None,
                           record: bool = False):
     """Plain PyTorch version of the kernel (``raytpu``'s ``bounce_body``
-    with ``sky_idx=-1`` and no quads), triangles a chunk of 32 at a time
-    so memory stays O(rays x chunk).
+    without quads), triangles a chunk of 32 at a time so memory stays
+    O(rays x chunk).
 
     rays (B,) each; draws (bounces * n_draws, B). Returns (9, B):
-    radiance xyz, albedo xyz, normal xyz. ``counts``, a dict, receives
-    the search work this input needs: ``live`` (ray, bounce) entries,
-    ``sphere`` and ``slab`` tests, and ``tri`` tests of entered chunks
-    (AO probes not counted).
+    radiance xyz, albedo xyz, normal xyz; with the sky slot on
+    (``k.sky_idx >= 0``) (16, B): those, then the slot's scale xyz, unit
+    direction xyz and early flag. ``counts``, a dict, receives the search
+    work this input needs: ``live`` (ray, bounce) entries, ``sphere`` and
+    ``slab`` tests, and ``tri`` tests of entered chunks (AO probes not
+    counted).
 
     With ``record`` returns ``(out, idx, aof)`` as ``raytpu``'s
     ``with_indices``: the per-bounce winner (bounces, B) int32, a triangle
@@ -559,7 +615,9 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     has finished records -1 and 0 (``skip_body``).
     """
     n_s = k.n_spheres
+    sky_on = k.sky_idx >= 0
     carry = initial_carry(ox, oy, oz, dx, dy, dz)
+    sky = initial_sky(ox) if sky_on else ()
     idx_rec, aof_rec = [], []
     # sphere winner table with a zero column n_s for triangle winners and misses
     stab = torch.cat([tb.sph[:, :n_s], tb.sph.new_zeros((14, 1))], dim=1)
@@ -589,7 +647,7 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
         p = Vec3(*(oc + dc * safe_t for oc, dc in zip(o, d)))
 
         sph_wins = did_hit & ~tri_wins
-        (scx, scy, scz, _, sdfx, sdfy, sdfz, semx, semy, semz, sestr, srefl,
+        (scx, scy, scz, sr, sdfx, sdfy, sdfz, semx, semy, semz, sestr, srefl,
          salpha, sior) = stab[:, torch.where(sph_wins, bidx, n_s).long()].unbind(0)
         svx, svy, svz = p.x - scx, p.y - scy, p.z - scz
         n2s = svx * svx + svy * svy + svz * svz
@@ -609,17 +667,29 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
         aof = (_ao_factor(tb, geo, k, p, nrm, active, draws, row0)
                if k.use_ao else None)
         aof_rec.append(aof)
+        em = (sel(m.emission.x, semx), sel(m.emission.y, semy),
+              sel(m.emission.z, semz))
+        estr = sel(m.emission_strength, sestr)
+        if sky_on:
+            # the sky sphere's emission is the texel, added outside
+            sky_win = did_hit & (bidx == k.sky_idx)
+            em = tuple(torch.where(sky_win, 0.0, e) for e in em)
+            sdir = sky_direction(*p, scx, scy, scz, sr)
+        rc = carry[6:9]
         carry = shade_bounce(
             i, carry, did_hit, *p, *nrm,
             sel(m.diffuse.x, sdfx), sel(m.diffuse.y, sdfy),
-            sel(m.diffuse.z, sdfz), sel(m.emission.x, semx),
-            sel(m.emission.y, semy), sel(m.emission.z, semz),
-            sel(m.emission_strength, sestr), sel(m.reflection, srefl),
+            sel(m.diffuse.z, sdfz), *em, estr, sel(m.reflection, srefl),
             sel(m.alpha, salpha), sel(m.ior, sior),
             draws[row0], draws[row0 + 1], draws[row0 + 2],
-            e_scale_mult=k.e_scale_mult, ao_factor=aof, **k.shade_kw,
+            e_scale_mult=k.e_scale_mult, ao_factor=aof, with_masks=sky_on,
+            **k.shade_kw,
         )
-    out = torch.stack(carry[9:18])
+        if sky_on:
+            carry, e_ret, acc = carry
+            sky = take_sky_slot(sky, sky_win, e_ret, acc, estr, rc,
+                                k.e_scale_mult, sdir)
+    out = torch.stack(carry[9:18] + sky[:7])
     if not record:
         return out
     return (out, torch.stack(idx_rec),
@@ -636,8 +706,14 @@ _ARGTYPES = (
     + [ctypes.c_int] * 2                   # use_ao, ao_samples
     + [ctypes.c_float] * 2                 # ao_e_scale, ao_inv
     + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
+    + [ctypes.c_int]                       # sky_idx
     + [ctypes.c_void_p]                    # stream
 )
+
+
+def out_planes(k: Knobs) -> int:
+    """Planes K1 and K3 return: 9, or 16 with the sky slot."""
+    return 16 if k.sky_idx >= 0 else 9
 
 
 def _library():
@@ -660,7 +736,7 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
         raise ValueError("trace_scene kernel needs contiguous f32 inputs")
     b = rays[0].shape[0]
     dev = rays[0].device
-    out = torch.empty((9, b), dtype=torch.float32, device=dev)
+    out = torch.empty((out_planes(k), b), dtype=torch.float32, device=dev)
     idx = aof = None
     if record:
         idx = torch.empty((k.bounces, b), dtype=torch.int32, device=dev)
@@ -677,7 +753,7 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold,
             int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
-            int(k.hsl_on), k.hsl_l, k.hsl_s, stream,
+            int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx, stream,
         )
     if err != 0:
         raise RuntimeError(f"trace_scene kernel launch failed: cudaError {err}")
@@ -705,7 +781,10 @@ class TraceMesh(torch.autograd.Function):
     backward replays the bounces from them without a search
     (``trace_scene_bwd.mesh_backward``). Inputs: the packed tables sph
     (14, S), tri (25, T), mats (9, M) and atlas (4, n_tex), the six ray
-    planes, the (bounces * n_draws, B) draws and the knobs; output (9, B).
+    planes, the (bounces * n_draws, B) draws and the knobs; output (9, B),
+    or (16, B) with the sky slot, whose direction and early-flag planes
+    get no cotangent (they reach the image only through floor() and
+    compares), so K2 takes the first 12 planes' cotangent.
     The search channels and cull boxes are derived from ``tri`` inside:
     they are selection and carry no cotangent. The table cotangents go
     back through the packers by autograd, as ``raytpu``'s ``jax.vjp`` of
@@ -727,11 +806,13 @@ class TraceMesh(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from raytpu_torch.kernels.trace_scene_bwd import Tables, mesh_backward
+        from raytpu_torch.kernels.trace_scene_bwd import (Tables, g_planes,
+                                                          mesh_backward)
 
         sph, tri, mats, atlas, *rays, draws, idx, aof = ctx.saved_tensors
         *d_tabs, d_rays = mesh_backward(Tables(sph, tri, mats, atlas), rays,
-                                        draws, idx, aof, g.contiguous(), ctx.k)
+                                        draws, idx, aof,
+                                        g[:g_planes(ctx.k)].contiguous(), ctx.k)
         return (*d_tabs, *d_rays, None, None)
 
 
@@ -743,12 +824,14 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
 
     bounce_draws: (max_bounces, n_bounce_draws(cfg), B) U(0,1) draws.
     Runs on the device of the scene: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. When a scene leaf or a ray
+    the plain version for CPU tensors. When a table leaf or a ray
     requires grad it runs ``TraceMesh`` (K3 recording, then K2's mesh
-    mode in the backward). Raises ``NotImplementedError`` for scenes the
-    kernel does not cover (``unsupported_reasons``).
+    mode in the backward). A sky scene's slot planes are composed with
+    the sky texels by ``trace_spheres.compose_sky``. Raises
+    ``NotImplementedError`` for scenes the kernel does not cover
+    (``unsupported_reasons``).
     """
-    from raytpu_torch.kernels.trace_spheres import pack_spheres
+    from raytpu_torch.kernels.trace_spheres import compose_sky, pack_spheres
 
     reasons = unsupported_reasons(scene, cfg)
     if reasons:
@@ -770,8 +853,10 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
             pack_atlas(scene))
     draws = bounce_draws.reshape(bn * nd, b).contiguous()
     rays = tuple(t.contiguous() for t in rays)
-    if torch.is_grad_enabled() and requires_grad(scene, *rays):
+    if torch.is_grad_enabled() and requires_grad(*tabs, *rays):
         out = TraceMesh.apply(*tabs, *rays, draws, k)
     else:
         out = _forward(mesh_tables(*tabs), rays, draws, k)
+    if k.sky_idx >= 0:
+        return compose_sky(scene, cfg, out)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

@@ -26,6 +26,12 @@ What the replay differentiates, and why the rest is constant:
 * The carried ``medium_n2`` and ``alpha_depth``, the alpha texel,
   ``alpha_const`` and the material flags enter only comparisons and the
   refracted direction's choice, which no output differentiates.
+* The equirect sky (``k.sky_idx >= 0``): the replay keeps the forward's
+  sky slot bookkeeping (``trace_scene.take_sky_slot``), so the carry
+  grows by the slot's scale xyz and taken flag, and the output by the
+  scale, whose cotangent arrives with the other nine (12 planes). The
+  slot's direction and early flag are left out: they reach the image
+  only through floor() and compares, so their cotangent is zero.
 
 ``replay_reference`` is the plain version: the replay under torch autograd,
 the counterpart of ``_replay_all`` under ``jax.vjp``. ``sphere_backward``
@@ -48,7 +54,8 @@ import torch
 from torch import Tensor
 
 from raytpu_torch.kernels.trace_scene import (MeshKnobs, initial_carry,
-                                              shade_bounce)
+                                              initial_sky, shade_bounce,
+                                              take_sky_slot)
 from raytpu_torch.materials.texture import UNTEXTURED_RGB
 
 MAX_BOUNCES = 48
@@ -186,7 +193,9 @@ def replay_bounce(i: int, tabs: Tables, carry, bidx: Tensor, u_d, v_d,
     (9, M + 1), atlas (4, n_tex + 1). A recorded index in [0, S) is a
     sphere, one >= S a triangle (``n_spheres + t``; T == 0 in sphere
     mode); -1 is a miss. ``k`` is a ``trace_spheres.Knobs`` in sphere mode,
-    a ``MeshKnobs`` in mesh mode.
+    a ``MeshKnobs`` in mesh mode. With the sky slot on, ``carry`` has 26
+    planes: the 22 of ``shade_bounce``, then the slot's scale xyz and
+    taken flag.
     """
     stab, ttab, mats, atlas = tabs
     rox, roy, roz, rdx, rdy, rdz = carry[:6]
@@ -245,33 +254,52 @@ def replay_bounce(i: int, tabs: Tables, carry, bidx: Tensor, u_d, v_d,
         emx, emy, emz = sel(tem[0], emx), sel(tem[1], emy), sel(tem[2], emz)
         estr, refl = sel(testr, estr), sel(trefl, refl)
         alpha, ior = sel(talpha, alpha), sel(tior, ior)
-    return shade_bounce(
-        i, carry, did_hit, px, py, pz, nX, nY, nZ,
+    sky_on = k.sky_idx >= 0
+    if sky_on:
+        sky_win = did_hit & (bidx == k.sky_idx)
+        emx, emy, emz = (torch.where(sky_win, 0.0, e) for e in (emx, emy, emz))
+    out = shade_bounce(
+        i, carry[:22], did_hit, px, py, pz, nX, nY, nZ,
         dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior,
         u_d, v_d, roulette, e_scale_mult=k.e_scale_mult,
-        ao_factor=aof, **k.shade_kw,
+        ao_factor=aof, with_masks=sky_on, **k.shade_kw,
     )
+    if not sky_on:
+        return out
+    out, e_ret, acc = out
+    return out + take_sky_slot(carry[22:26], sky_win, e_ret, acc, estr,
+                               carry[6:9], k.e_scale_mult)
+
+
+def g_planes(k) -> int:
+    """Cotangent planes K2 takes: radiance, albedo and normal (9), and
+    with the sky slot its scale (12)."""
+    return 12 if k.sky_idx >= 0 else 9
 
 
 def replay_forward(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, k):
-    """The replayed bounce loop; returns the (9, B) radiance/AOV planes."""
+    """The replayed bounce loop; returns the (9, B) radiance/AOV planes,
+    with the sky slot (12, B): those and the slot's scale."""
     padded = Tables(_with_zero_column(tabs.sph[:, :k.n_spheres]),
                     *map(_with_zero_column, tabs[1:]))
     carry = initial_carry(*rays)
+    if k.sky_idx >= 0:
+        carry = carry + initial_sky(rays[0], 4)
     for i in range(k.bounces):
         row = k.n_draws * i
         carry = replay_bounce(
             i, padded, carry, idx[i], draws[row], draws[row + 1],
             draws[row + 2], aof[i] if k.use_ao else None, k,
         )
-    return torch.stack(carry[9:18])
+    return torch.stack(carry[9:18] + carry[22:25])
 
 
 def replay_reference(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof,
                      g: Tensor, k):
     """Plain version of K2: ``replay_forward`` under autograd, pulled back
     with ``torch.autograd.grad``. g (9, B) is the cotangent of the
-    radiance, albedo and normal planes. Returns (d_sph (14, S), d_tri
+    radiance, albedo and normal planes, (12, B) with the sky slot's scale
+    (``g_planes``). Returns (d_sph (14, S), d_tri
     (25, T), d_mat (9, M), d_atlas (4, n_tex), six ray cotangents (B,))."""
     check_depth(k.bounces)
     with torch.enable_grad():
@@ -293,6 +321,7 @@ _ARGTYPES = (
                                     # bright boost/threshold
     + [ctypes.c_int] + [ctypes.c_float]       # use_ao, e_scale_mult
     + [ctypes.c_int] + [ctypes.c_float] * 2   # hsl_on, hsl_l, hsl_s
+    + [ctypes.c_int]                # sky_idx
     + [ctypes.c_void_p] * 5         # d_sph d_tri d_mat d_atlas, stream
 )
 
@@ -333,7 +362,7 @@ def _launch(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, g: Tensor,
               *((r, (b,), torch.float32) for r in rays),
               (draws, (k.bounces * k.n_draws, b), torch.float32),
               (idx, (k.bounces, b), torch.int32),
-              (g, (9, b), torch.float32)]
+              (g, (g_planes(k), b), torch.float32)]
     if k.use_ao:
         shapes.append((aof, (k.bounces, b), torch.float32))
     _check(shapes, dev)
@@ -356,7 +385,7 @@ def _launch(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, g: Tensor,
             k.atlas_h, k.bounces, k.n_draws,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold, int(k.use_ao),
-            k.e_scale_mult, int(k.hsl_on), k.hsl_l, k.hsl_s,
+            k.e_scale_mult, int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx,
             d_sph.data_ptr(), d_tri.data_ptr(), d_mat.data_ptr(),
             d_atlas.data_ptr(), stream,
         )
@@ -370,7 +399,8 @@ def _launch(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, g: Tensor,
 def sphere_backward(sph: Tensor, rays, draws: Tensor, idx: Tensor, aof,
                     g: Tensor, k):
     """(d_sph (14, S), six ray cotangents) for output cotangent g (9, B),
-    from the winner indices idx (bounces, B) int32 and, with AO, the
+    (12, B) with the sky slot, from the winner indices idx (bounces, B)
+    int32 and, with AO, the
     factors aof (bounces, B) that K1 recorded: ``mesh_backward`` with no
     triangles, materials or texels."""
     d_sph, *_, d_rays = mesh_backward(Tables.of_spheres(sph), rays, draws,
@@ -381,7 +411,8 @@ def sphere_backward(sph: Tensor, rays, draws: Tensor, idx: Tensor, aof,
 def mesh_backward(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof,
                   g: Tensor, k):
     """(d_sph, d_tri, d_mat, d_atlas, six ray cotangents) for output
-    cotangent g (9, B), from the winners idx (bounces, B) int32 and, with
+    cotangent g (9, B), (12, B) with the sky slot, from the winners idx
+    (bounces, B) int32 and, with
     AO, the factors aof (bounces, B) that K3 recorded; ``k`` is K3's
     ``MeshKnobs``. The kernel for CUDA tensors (its d_tri and d_atlas are
     sums of float atomics, equal between launches to rounding), the plain

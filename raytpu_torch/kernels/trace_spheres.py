@@ -1,8 +1,9 @@
 """The sphere megakernel (K1): the whole forward bounce loop in one launch.
 
 Port of ``raytpu/kernels/trace_spheres.py`` (``_kernel`` ->
-``_forward_body``, the Pallas kernel ``_trace_call`` launches) without the
-sky slot, with its recording mode for the backward. Per ray and bounce:
+``_forward_body``, the Pallas kernel ``_trace_call`` launches) with its
+recording mode for the backward and its equirect-sky slot. Per ray and
+bounce:
 closest sphere hit, AOV base cases, emissive early return with the HSL
 boost, diffuse/specular lerp, probabilistic refraction with the reduced
 ``pile.h`` medium scalar, alpha cutout, the x1.3 bright quirk and the AO
@@ -17,6 +18,11 @@ threefry stream (``core.rng.ray_uniforms``), as in ``raytpu``.
 
 Gradients: ``TraceSpheres`` joins K1 in recording mode to the
 index-replay backward K2 (``kernels/trace_scene_bwd``).
+
+The equirect sky (``Scene.sky_index``): the kernel keeps one sky slot a
+ray (``trace_scene.take_sky_slot``) and returns 16 planes; ``compose_sky``
+maps the slot's direction to its texel and adds it outside the kernel, as
+``raytpu`` does outside ``pallas_call``, for K1 and K3 alike.
 """
 
 from __future__ import annotations
@@ -26,11 +32,16 @@ import ctypes
 import torch
 from torch import Tensor
 
+from raytpu_torch.core.color import hsl_boost
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.core.vec3 import Vec3
 from raytpu_torch.kernels.trace_scene import (TWO_PI, Knobs, initial_carry,
-                                             shade_bounce)
-from raytpu_torch.kernels.trace_scene_bwd import check_depth, sphere_backward
+                                             initial_sky, out_planes,
+                                             shade_bounce, sky_direction,
+                                             take_sky_slot)
+from raytpu_torch.kernels.trace_scene_bwd import (check_depth, g_planes,
+                                                  sphere_backward)
+from raytpu_torch.materials.texture import sky_texel_index
 
 MAX_SPHERES = 64
 BIG = 3.0e38
@@ -39,8 +50,8 @@ launches = 0   # kernel launches by trace_megakernel (CPU calls do not count)
 
 
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """The port's K1 covers sphere scenes of 1 to 64 spheres without an
-    equirect sky (the sky slot is not ported yet)."""
+    """The port's K1 covers sphere scenes of 1 to 64 spheres, with or
+    without an equirect sky whose sphere index is in range."""
     return not unsupported_reasons(scene, cfg)
 
 
@@ -55,8 +66,8 @@ def unsupported_reasons(scene: Scene, cfg: RenderConfig) -> list[str]:
         r.append("no spheres")
     if n > MAX_SPHERES:
         r.append(f"{n} spheres > {MAX_SPHERES}")
-    if scene.sky_sphere_index >= 0:
-        r.append("equirect sky (sky slot not ported)")
+    if scene.sky_sphere_index >= n:
+        r.append("sky_sphere_index out of range")
     return r
 
 
@@ -133,19 +144,23 @@ def _ao_factor(geo, n_s, px, py, pz, nX, nY, nZ, draws, row0, k: Knobs):
 def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
                             dx: Tensor, dy: Tensor, dz: Tensor,
                             draws: Tensor, k: Knobs, record: bool = False):
-    """Plain PyTorch version of the kernel (``_forward_body`` with
-    ``sky_idx=-1``), op for op in ``raytpu``'s forms: the closest-hit
-    search, the winner's point and normal, the AO probes, then
-    ``trace_scene.shade_bounce``.
+    """Plain PyTorch version of the kernel (``_forward_body``), op for op
+    in ``raytpu``'s forms: the closest-hit search, the winner's point and
+    normal, the AO probes, then ``trace_scene.shade_bounce``, and with
+    ``k.sky_idx >= 0`` the sky slot (``trace_scene.take_sky_slot``).
 
     sph (14, S); rays (B,) each; draws (bounces * n_draws, B).
-    Returns (9, B): radiance xyz, albedo xyz, normal xyz. With ``record``
+    Returns (9, B): radiance xyz, albedo xyz, normal xyz; with the sky
+    slot (16, B): those, then the slot's scale xyz, unit direction xyz
+    and early flag. With ``record``
     returns ``(out, idx, aof)``: the per-bounce winner index (bounces, B)
     int32, -1 where the ray missed or its bounce loop is over, and with
     ``use_ao`` the per-bounce AO factor (bounces, B) f32 (else None).
     """
     n_s = k.n_spheres
+    sky_on = k.sky_idx >= 0
     carry = initial_carry(ox, oy, oz, dx, dy, dz)
+    sky = initial_sky(ox) if sky_on else ()
     # winner table with a zero column for misses (the miss winner is all 0)
     tab = torch.cat([sph[:, :n_s], torch.zeros_like(sph[:, :1])], dim=1)
     geo = [[sph[r, s] for s in range(n_s)] for r in range(4)]
@@ -164,6 +179,12 @@ def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
         pz = roz + rdz * safe_t
         (cx, cy, cz, r, dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha,
          ior) = tab[:, torch.where(did_hit, bidx, n_s).long()].unbind(0)
+        if sky_on:
+            # the sky sphere's emission is the texel, added outside
+            sky_win = did_hit & (bidx == k.sky_idx)
+            emx, emy, emz = (torch.where(sky_win, 0.0, e)
+                             for e in (emx, emy, emz))
+            sdir = sky_direction(px, py, pz, cx, cy, cz, r)
 
         # outward normal; zero on a miss
         nvx, nvy, nvz = px - cx, py - cy, pz - cz
@@ -180,14 +201,20 @@ def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
             aof = _ao_factor(geo, n_s, px, py, pz, nX, nY, nZ, draws, row0, k)
             if record:
                 aof_rec.append(aof)
+        rc = carry[6:9]
         carry = shade_bounce(
             i, carry, did_hit, px, py, pz, nX, nY, nZ,
             dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior,
             draws[row0], draws[row0 + 1], draws[row0 + 2],
-            e_scale_mult=k.e_scale_mult, ao_factor=aof, **k.shade_kw,
+            e_scale_mult=k.e_scale_mult, ao_factor=aof, with_masks=sky_on,
+            **k.shade_kw,
         )
+        if sky_on:
+            carry, e_ret, acc = carry
+            sky = take_sky_slot(sky, sky_win, e_ret, acc, estr, rc,
+                                k.e_scale_mult, sdir)
 
-    out = torch.stack(carry[9:18])
+    out = torch.stack(carry[9:18] + sky[:7])
     if not record:
         return out
     return (out, torch.stack(idx_rec),
@@ -201,6 +228,7 @@ _ARGTYPES = (
     + [ctypes.c_int] * 2                   # use_ao, ao_samples
     + [ctypes.c_float] * 2                 # ao_e_scale, ao_inv
     + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
+    + [ctypes.c_int]                       # sky_idx
     + [ctypes.c_void_p]                    # stream
 )
 
@@ -225,7 +253,7 @@ def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs,
         raise ValueError("trace_spheres kernel needs contiguous inputs")
     b = rays[0].shape[0]
     dev = sph.device
-    out = torch.empty((9, b), dtype=torch.float32, device=dev)
+    out = torch.empty((out_planes(k), b), dtype=torch.float32, device=dev)
     idx = aof = None
     if record:
         idx = torch.empty((k.bounces, b), dtype=torch.int32, device=dev)
@@ -241,7 +269,7 @@ def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs,
             k.sphere_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold,
             int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
-            int(k.hsl_on), k.hsl_l, k.hsl_s, stream,
+            int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx, stream,
         )
     if err != 0:
         raise RuntimeError(f"trace_spheres kernel launch failed: cudaError {err}")
@@ -268,8 +296,11 @@ class TraceSpheres(torch.autograd.Function):
     backward replays the bounces from those indices without a search
     (``trace_scene_bwd.sphere_backward``). Inputs: the (14, S) table of
     ``pack_spheres``, the six ray planes, the (bounces * n_draws, B)
-    draws and the knobs; output (9, B). The draws get no cotangent (it is
-    zero by construction, ``trace_scene_bwd``).
+    draws and the knobs; output (9, B), or (16, B) with the sky slot, of
+    which K2 takes the first 12 planes' cotangent (the direction and the
+    early flag reach the image only through floor() and compares). The
+    draws get no cotangent (it is zero by construction,
+    ``trace_scene_bwd``).
     """
 
     @staticmethod
@@ -286,9 +317,31 @@ class TraceSpheres(torch.autograd.Function):
         sph, ox, oy, oz, dx, dy, dz, draws, idx, aof = ctx.saved_tensors
         d_sph, d_rays = sphere_backward(
             sph, (ox, oy, oz, dx, dy, dz), draws, idx, aof,
-            g.contiguous(), ctx.k,
+            g[:g_planes(ctx.k)].contiguous(), ctx.k,
         )
         return (d_sph, *d_rays, None, None)
+
+
+def compose_sky(scene: Scene, cfg: RenderConfig, out: Tensor
+                ) -> tuple[Vec3, Vec3, Vec3]:
+    """(radiance, albedo AOV, normal AOV) from K1's or K3's 16 planes
+    (``raytpu``'s ``compose_sky``): the slot's direction to its texel
+    (``materials.texture.sky_texel_index``, the scan path's chain), an
+    ``index_select`` of the sky table (detached unless
+    ``cfg.sky_texture_grads``), then radiance + texel * scale, or the
+    HSL-boosted texel as radiance and albedo where the slot is an
+    emissive early return. A ray with no sky event has scale 0 and no
+    early flag: its texel (of direction 0) is read and adds 0."""
+    sky = scene.sky
+    idx = sky_texel_index(Vec3(*out[12:15]), sky.width, sky.height)
+    table = sky.rgb if cfg.sky_texture_grads else Vec3(*(c.detach()
+                                                         for c in sky.rgb))
+    texel = Vec3(*(c.index_select(0, idx) for c in table))
+    early = out[15] > 0.0
+    boosted = hsl_boost(texel, cfg.hsl_l_factor, cfg.hsl_s_factor)
+    inc = Vec3.where(early, boosted, Vec3(*out[0:3]) + texel * Vec3(*out[9:12]))
+    alb = Vec3.where(early, boosted, Vec3(*out[3:6]))
+    return inc, alb, Vec3(*out[6:9])
 
 
 def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
@@ -300,8 +353,8 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     Runs on the device of the scene: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. When the sphere table or a ray
     requires grad, it runs ``TraceSpheres`` (K1 recording, then K2 in the
-    backward). Raises ``NotImplementedError`` for scenes the kernel does
-    not cover.
+    backward). A sky scene's slot planes go through ``compose_sky``.
+    Raises ``NotImplementedError`` for scenes the kernel does not cover.
     """
     reasons = unsupported_reasons(scene, cfg)
     if reasons:
@@ -309,7 +362,7 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     sph = pack_spheres(scene)
     rays = (*origin, *direction)
     bn, nd, b = bounce_draws.shape
-    k = Knobs.create(cfg, scene.spheres.count, nd)
+    k = Knobs.create(cfg, scene.spheres.count, nd, scene.sky_index)
     if bn != cfg.max_bounces or nd < k.draws_needed:
         raise ValueError(
             f"bounce_draws {tuple(bounce_draws.shape)}: need "
@@ -330,4 +383,6 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
         out = TraceSpheres.apply(sph, *rays, draws, k)
     else:
         out = _forward(sph, rays, draws, k)
+    if k.sky_idx >= 0:
+        return compose_sky(scene, cfg, out)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

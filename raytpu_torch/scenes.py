@@ -9,12 +9,16 @@ the plain PyTorch path.
 ``write_block_world`` writes a textured mesh scene as files (OBJ, MTL,
 PPM textures, TOML) for ``config.load_scene_file``: the reference's mesh
 assets are not part of the repository, and this procedural world has the
-shape of its largest one.
+shape of its largest one. The reference's sky texture is not part of it
+either: ``equirect_sky`` makes one with numpy, ``write_equirect_sky``
+writes it as a PPM, and ``write_sky_showcase`` writes
+``scenes/sky.toml``'s scene around it.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -251,7 +255,7 @@ def _water_tiles(n: int, count: int):
 
 
 def write_block_world(directory: str, n_triangles: int = 600,
-                      seed: int = 0) -> str:
+                      seed: int = 0, sky: Optional[str] = None) -> str:
     """Write a procedural block world in the reference's file formats
     (OBJ, MTL, 16x16 P3 PPM textures with an ``_alpha.ppm`` companion,
     TOML spec) into ``directory`` and return the TOML's path.
@@ -265,6 +269,12 @@ def write_block_world(directory: str, n_triangles: int = 600,
     water tiles make up the rest, so the OBJ holds exactly
     ``n_triangles`` triangles, each material's faces written together
     after its ``usemtl``.
+
+    ``sky``, a sky texture's path as the TOML should name it (relative to
+    ``directory`` or absolute), adds a ``[sky]`` table: the sky dome, the
+    last sphere with black diffuse, becomes the sky sphere
+    (``scenes/mesh_sky.toml``'s shape). Without it the files are as they
+    always were.
     """
     from raytpu_torch.io.ppm import write_ppm
 
@@ -319,6 +329,111 @@ def write_block_world(directory: str, n_triangles: int = 600,
     with open(path, "w") as f:
         f.write(_BLOCK_TOML.format(n_tris=n_triangles, tile=BLOCK_TILE,
                                    seed=seed))
+        if sky is not None:
+            f.write(f'\n[sky]   # the sky dome shows this texture\nfile = "{sky}"\n')
+    return path
+
+
+def equirect_sky(width: int, height: int, seed: int = 0) -> np.ndarray:
+    """A procedural equirect sky, (height, width, 3) int64 samples in
+    0..255 with row 0 at the top (the zenith): a sky gradient above the
+    horizon and ground below it, in 10-degree bands of elevation and
+    30-degree stripes of longitude, a sun disc, and noise on every texel,
+    so that a texel index off by one row or column changes the colour."""
+    rs = np.random.default_rng([seed, width, height])
+    v = (np.arange(height) + 0.5) / height                # 0 at the top
+    u = (np.arange(width) + 0.5) / width
+    elev = (90.0 - 180.0 * v)[:, None, None]              # degrees
+    lon = 360.0 * u[None, :, None]
+    up = np.clip(elev / 90.0, 0.0, 1.0)
+    sky = (1 - up) * np.array([205, 222, 240]) + up * np.array([55, 115, 215])
+    ground = np.array([112, 96, 70]) * (1.0 + np.clip(elev / 90.0, -1.0, 0.0) * 0.5)
+    img = np.where(elev >= 0.0, sky, ground)
+    img = img + 10.0 * (np.floor(elev / 10.0) % 2) + 6.0 * (np.floor(lon / 30.0) % 2)
+    sun_lon, sun_elev = 110.0, 35.0
+    dist = np.hypot((lon - sun_lon) * np.cos(np.radians(elev)), elev - sun_elev)
+    img = np.where(dist < 4.0, np.array([255, 245, 210]), img)
+    img = img + rs.integers(-12, 13, img.shape)
+    return np.clip(np.rint(img), 0, 255).astype(np.int64)
+
+
+def write_equirect_sky(path: str, width: int, height: int,
+                       seed: int = 0) -> str:
+    """Write ``equirect_sky(width, height, seed)`` as a P3 PPM at ``path``
+    (read back bottom-up by ``io.obj.load_sky``) and return the path."""
+    from raytpu_torch.io.ppm import write_ppm
+
+    write_ppm(path, equirect_sky(width, height, seed))
+    return path
+
+
+_SKY_TOML = """\
+# scenes/sky.toml's equirect sky showcase, its spheres, camera and render
+# settings, under a procedural {w}x{h} sky written by
+# raytpu_torch.scenes.write_sky_showcase(seed={seed}): mirror, glass and
+# marble spheres on a pale ground, lit only by the sky sphere.
+[render]
+width = 1000
+height = 750
+spp = 200
+bounces = 4
+
+[camera]
+origin = [0.0, 0.6, 3.2]
+target = [0.0, 0.3, -2.0]
+up = [0.0, 1.0, 0.0]
+vfov = 55.0
+
+[sky]
+file = "sky.ppm"
+# sphere_index defaults to the last sphere (the reference's convention)
+
+[[spheres]]   # pale ground
+center = [0, -500.5, 0]
+radius = 500.0
+diffuse = [0.95, 0.86, 0.95]
+
+[[spheres]]   # big mirror ball
+center = [-0.9, 0.35, -2.0]
+radius = 0.85
+diffuse = [0.92, 0.96, 1.0]
+reflection = 0.97
+
+[[spheres]]   # glass ball
+center = [0.9, 0.1, -1.4]
+radius = 0.6
+diffuse = [1.0, 1.0, 1.0]
+reflection = 0.2
+alpha = 0.1
+ior = 1.5
+
+[[spheres]]   # small blue marble
+center = [0.1, -0.2, -0.7]
+radius = 0.3
+diffuse = [0.35, 0.45, 1.0]
+reflection = 0.6
+
+[[spheres]]   # sky sphere (last = ciel): pure emitter, texel-driven
+center = [0, 0, 0]
+radius = 1000.0
+diffuse = [0.0, 0.0, 0.0]
+emission = [1.0, 1.0, 1.0]
+emission_strength = 1.0
+"""
+
+
+def write_sky_showcase(directory: str, sky_size=(4096, 2048),
+                       seed: int = 0) -> str:
+    """Write ``scenes/sky.toml``'s scene (5 spheres, 1000x750, 4 bounces)
+    with its ``[sky]`` pointing at a generated ``sky.ppm`` of ``sky_size``
+    (width, height; the reference's MinecraftSkyDay is 4096x2048) into
+    ``directory``; return the TOML's path."""
+    os.makedirs(directory, exist_ok=True)
+    w, h = sky_size
+    write_equirect_sky(os.path.join(directory, "sky.ppm"), w, h, seed)
+    path = os.path.join(directory, "sky.toml")
+    with open(path, "w") as f:
+        f.write(_SKY_TOML.format(w=w, h=h, seed=seed))
     return path
 
 

@@ -6,14 +6,15 @@ path). One step renders the frame (``integrator.render``: with
 winner and the backward replays it in K2; otherwise autograd through the
 scan path), takes the L2 photometric loss of the mean radiance against a
 target, pulls gradients back to every float scene leaf (spheres and,
-where the scene has them, triangles, atlas and material table; and with
-``train_camera`` the camera) and applies one Adam update.
+where the scene has them, triangles, atlas, material table and sky
+texels; and with ``train_camera`` the camera) and applies one Adam
+update.
 
 Parameters are plain dicts of leaf tensors keyed by attribute path
 (``"spheres.center.x"``, ``"triangles.a.y"``, ``"atlas.rgb.x"``,
-``"mat_table.ior"``, ``"origin.x"``, ...; the names of ``convert``). They
-live on the scene's device: the CUDA card when the scene was built with
-the default ``device``.
+``"mat_table.ior"``, ``"sky.rgb.x"``, ``"origin.x"``, ...; the names of
+``convert``). They live on the scene's device: the CUDA card when the
+scene was built with the default ``device``.
 
 As in ``raytpu``, radiance is piecewise constant in geometry (sphere
 centres and radii, triangle vertices, camera pose) under nearest-texel
@@ -45,12 +46,17 @@ ADAM_EPS = 1e-8
 
 def partition_scene(scene: Scene) -> tuple[dict, dict]:
     """(params, static): params maps every float leaf's path to its
-    tensor (``convert.scene_leaves``: ``raytpu``'s float leaves but the
-    sky's, which the port does not render); static holds the mesh parts,
-    whose ``mat_id``, flags and atlas size stay fixed, and the sky index.
-    Recombine with ``combine_scene``."""
+    tensor (``convert.scene_leaves``: ``raytpu``'s float leaves, the sky
+    texels ``sky.rgb.*`` among them when the scene has a sky texture);
+    static holds the mesh parts, whose ``mat_id``, flags and atlas size
+    stay fixed, the sky texture, whose width and height stay fixed, and
+    the sky sphere index. Recombine with ``combine_scene``.
+
+    The sky texels reach the loss only with ``cfg.sky_texture_grads``
+    (``raytpu``'s stop_gradient otherwise); without it their gradient is
+    zero (``make_train_step``)."""
     static = {"triangles": scene.triangles, "atlas": scene.atlas,
-              "mat_table": scene.mat_table,
+              "mat_table": scene.mat_table, "sky": scene.sky,
               "sky_sphere_index": scene.sky_sphere_index}
     return scene_leaves(scene), static
 

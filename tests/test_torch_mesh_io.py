@@ -26,9 +26,9 @@ from raytpu_torch.io import image as timage
 from raytpu_torch.io import obj as tobj
 from raytpu_torch.scenes import BLOCK_MATERIALS, BLOCK_TILE, write_block_world
 
-# raytpu leaves the port does not hold: the u8-packed twin of the atlas
-# (the port keeps the f32 texels it unpacks to) and the equirect sky
-NOT_PORTED = ("atlas.packed", "sky.")
+# raytpu leaves the port does not hold: the u8-packed twins of the atlas
+# and the sky (the port keeps the f32 texels they unpack to)
+NOT_PORTED = ("atlas.packed", "sky.packed")
 QUAD_FIELDS = ("quad_pairs", "quad_aa_rects", "quad_aa_tris")
 
 
@@ -54,7 +54,7 @@ def _assert_same_scene(tscene, jscene):
         assert got.dtype == want.dtype, path
         np.testing.assert_array_equal(got, want, err_msg=path)
         checked += 1
-    assert checked == len(arrays) - 4      # atlas.packed, sky.rgb.xyz
+    assert checked == len(arrays) - 1      # atlas.packed
     assert (tscene.atlas.width, tscene.atlas.height) == (
         jscene.atlas.width, jscene.atlas.height)
     assert tscene.sky_sphere_index == jscene.sky_sphere_index == -1
@@ -245,10 +245,6 @@ def test_material_tables_match_raytpu(n):
 
 def test_unported_spec_parts_raise(worlds, tmp_path):
     text = open(worlds[60]).read()
-    sky = tmp_path / "sky.toml"
-    sky.write_text(text + '\n[sky]\nfile = "sky.ppm"\n')
-    with pytest.raises(NotImplementedError, match="sky"):
-        tconfig.load_scene_file(str(sky), device="cpu")
     ply = tmp_path / "ply.toml"
     ply.write_text(text.replace('obj = "block_world.obj"', 'obj = "m.ply"'))
     with pytest.raises(NotImplementedError, match=".obj meshes only"):

@@ -323,13 +323,41 @@ def test_kernel_bounds_fall_back_to_matrices_once(capsys, monkeypatch):
 
 
 def test_sky_scene_raises_naming_m7():
+    """M7 is ported, so a sky scene no longer raises on the scan path: a
+    sky index without a texture is a plain emitter, as in raytpu, and
+    with a 16x8 texture on Cornell's ceiling (index 8) ``closest_hit``
+    gives raytpu's hits, the ceiling's emission the texel it shows."""
+    from raytpu.core.types import SkyTexture as JSky
+    from raytpu_torch import convert
+
     js, jc, cfg = jscenes.cornell_box()
-    ts = dataclasses.replace(_port_scene(js), sky_sphere_index=0)
-    o = tvec.Vec3.zeros((4,))
-    with pytest.raises(NotImplementedError, match="M7"):
-        thit.closest_hit(ts, None, o, o, TConfig())
-    with pytest.raises(NotImplementedError, match="M7"):
-        thit.any_hit(ts, None, o, o, TConfig())
+    (jo, jd), (to, td) = _rays(jc, cfg, 9)
+    ts = _port_scene(js)
+    idx_only = dataclasses.replace(ts, sky_sphere_index=8)
+    assert idx_only.sky_index == -1
+    for x, y in zip(_hit_planes(thit.closest_hit(ts, None, to, td, TConfig())),
+                    _hit_planes(thit.closest_hit(idx_only, None, to, td,
+                                                 TConfig()))):
+        assert torch.equal(x, y)
+    tex = np.random.default_rng(9).random((3, 16 * 8)).astype(np.float32)
+    js = js.replace(sky=JSky(jvec.Vec3(*map(jnp.asarray, tex)), None, 16, 8),
+                    sky_sphere_index=8)
+    ts = convert.scene_from_arrays(_arrays(
+        js, sky_sphere_index=8, **{"sky.width": 16, "sky.height": 8}),
+        device="cpu")
+    assert ts.sky_index == 8
+    want = jhit.closest_hit(js, None, jo, jd, cfg)
+    got = thit.closest_hit(ts, None, to, td, TConfig())
+    w_hit, g_hit = np.asarray(want.did_hit), got.did_hit.numpy()
+    bad = w_hit != g_hit
+    for gp, wp in zip(_hit_planes(got), _hit_planes(want)):
+        x, y = np.asarray(wp), gp.detach().numpy()
+        bad |= w_hit & g_hit & (np.abs(x - y) > HIT_TOL + HIT_TOL * np.abs(x))
+    assert bad.mean() <= HIT_OUTLIERS, f"{bad.mean():.2%} rays differ"
+    on_sky = np.isin(got.mat.emission.x.numpy(), tex[0])
+    assert on_sky.mean() > 0.05
+    np.testing.assert_array_equal(
+        thit.any_hit(ts, None, to, td, TConfig()).numpy(), g_hit)
 
 
 @pytest.mark.parametrize("value,want", [("", False), ("0", False),

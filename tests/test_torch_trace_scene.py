@@ -209,13 +209,14 @@ def _wrapper_args(world):
 
 
 def test_sky_and_gradient_requests_raise(world):
-    """The sky gate raises; a gradient request runs ``TraceMesh`` (the
-    plain K3 recording, then K2's plain mesh mode) on CPU tensors, with
-    finite gradients and no kernel launch; bad draws raise."""
+    """The sky gate raises on a sky sphere index out of range; a gradient
+    request runs ``TraceMesh`` (the plain K3 recording, then K2's plain
+    mesh mode) on CPU tensors, with finite gradients and no kernel
+    launch; bad draws raise."""
     from raytpu_torch.kernels import trace_scene_bwd as tbwd
 
     ts, cfg, to, td, tdraws = _wrapper_args(world)
-    sky = dataclasses.replace(ts, sky_sphere_index=2)
+    sky = dataclasses.replace(ts, sky_sphere_index=ts.spheres.count)
     assert not tts.supported(sky, cfg)
     with pytest.raises(NotImplementedError, match="sky"):
         tts.trace_mesh_megakernel(sky, cfg, to, td, tdraws)

@@ -145,7 +145,7 @@ def test_unsupported_scenes_raise():
     for bad, why in (
         (TScene(scene.spheres, mesh.triangles, mesh.atlas, mesh.mat_table),
          "triangles"),
-        (TScene(scene.spheres, sky_sphere_index=8), "sky"),
+        (TScene(scene.spheres, sky_sphere_index=10), "sky"),
     ):
         assert not tts.supported(bad, cfg)
         with pytest.raises(NotImplementedError, match=why):
@@ -161,8 +161,9 @@ def test_unsupported_scenes_raise():
 
 
 def test_converted_mesh_and_sky_scenes_are_refused():
-    """convert carries triangles and a textured sky over as facts, so the
-    port refuses such scenes instead of rendering their spheres alone."""
+    """convert carries triangles over as facts, so K1 refuses such a
+    scene instead of rendering its spheres alone; a textured sky comes
+    over with its texels, and K1 serves it."""
     scene, _, _ = jscenes.cornell_box()
     arrays = _arrays(scene, sky_sphere_index=-1)
     assert tts.supported(convert.scene_from_arrays(arrays, device="cpu"), TConfig())
@@ -172,9 +173,12 @@ def test_converted_mesh_and_sky_scenes_are_refused():
     mesh_scene = convert.scene_from_arrays(mesh, device="cpu")
     assert mesh_scene.n_triangles == 3
     assert not tts.supported(mesh_scene, TConfig())
-    sky = dict(arrays, **{"sky.rgb.x": np.ones(4, np.float32)},
-               sky_sphere_index=9)
-    assert convert.scene_from_arrays(sky, device="cpu").sky_sphere_index == 9
+    sky = dict(arrays, **{k: np.ones(4, np.float32) for k in convert.SKY_LEAVES},
+               **{"sky.width": 2, "sky.height": 2}, sky_sphere_index=9)
+    sky_scene = convert.scene_from_arrays(sky, device="cpu")
+    assert sky_scene.sky_sphere_index == sky_scene.sky_index == 9
+    assert (sky_scene.sky.width, sky_scene.sky.height) == (2, 2)
+    assert tts.supported(sky_scene, TConfig())
     # a sky index with no sky texture is a plain emitter in raytpu too
     plain = dict(arrays, sky_sphere_index=9)
     assert convert.scene_from_arrays(plain, device="cpu").sky_sphere_index == -1

@@ -108,7 +108,7 @@ def test_partition_combine_and_loss():
     scene, _, _ = tscenes.cornell_box(device="cpu")
     params, static = partition_scene(scene)
     assert tuple(params) == convert.SPHERE_LEAVES
-    assert sorted(static) == ["atlas", "mat_table", "sky_sphere_index",
+    assert sorted(static) == ["atlas", "mat_table", "sky", "sky_sphere_index",
                               "triangles"]
     assert static["triangles"].count == 0 and static["atlas"].count == 0
     assert static["mat_table"].count == 1 and static["sky_sphere_index"] == -1
