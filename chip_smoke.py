@@ -105,10 +105,31 @@ Phases, each of which raises on failure (exit code non-zero):
      without the sky) and against the CPU's scan path, per row;
   28. ROADMAP P-F1 on the sky scenes: card vs CPU radiance, slot texel
      indices and slot directions;
-  29. the bound of K5, the one TPU kernel not ported yet.
-Each path's launch counts (K1-K4) are set to 0 just before it and read
-just after. The last lines are the card, a JSON line per kernel and mode
-(K5's bound under "unported"), and the result line. Imports no JAX.
+  29. K3's merged-quad search (the default for every mesh TOML) against
+     its plain version at 64x48 rays, forward, recording and the sky
+     modes, planes bit-equal, on ``scenes.write_quad_fixture`` (also with
+     AO), the 60-triangle world (also with AO), the MESH_WORLD and
+     2048-triangle worlds and the MESH_WORLD sky world; and against the
+     per-triangle kernel on the same rays (winners at bounce 0 and over
+     all bounces, outlier rays: tests/test_quad_merge.py's bars);
+  30. the merged modes timed at 1200x900, 6 bounces on the MESH_WORLD
+     world and its sky twin beside their plain versions and bounds;
+  31. the mesh frames of phases 11, 15 and 25 through the default
+     (merged) load: forward, fwd+bwd of every float leaf, 3 Adam steps
+     whose losses must fall;
+  32. the AD sphere backward K5 against its plain version (autograd
+     through K1's plain version) and against K2 on K1's recording, on
+     phase 7's six scenes and the sky showcase at 64x48 rays; two
+     launches bit-identical;
+  33. K5 timed at the Cornell 1200x900, 6-bounce shape beside its plain
+     version, K2 and its bound, and the Cornell fwd+bwd frame with
+     ``RAYTPU_SPH_BWD=ad`` (K5 launches == spp, no K2).
+Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
+per-triangle search), so they compare K3 bit for bit with the scan path
+and with the per-triangle times in PERF.md; phases 29-31 take the default.
+Each path's launch counts (K1-K5) are set to 0 just before it and read
+just after. The last lines are the card, a JSON line per kernel and mode,
+and the result line. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -193,6 +214,15 @@ QUIET_ROWS = {"d_sph": [12], "d_tri": [*range(9), *range(12, 25)],
 # triangle test, and per live (ray, bounce) for the winner's texel,
 # material and shading
 K3_OPS_SPHERE, K3_OPS_SLAB, K3_OPS_TRI, K3_OPS_SHADE = 33, 25, 46, 210
+# K3's merged search (csrc/trace_scene.cu: merged_search): FP32 operations
+# per axis-aligned rect test, axis-aligned triangle test, general
+# parallelogram test and general leftover test, and per live (ray,
+# bounce) for the six group tests and the set-up of the groups it enters
+K3M_OPS_RECT, K3M_OPS_AATRI, K3M_OPS_QUAD, K3M_OPS_LEFT = 18, 22, 49, 47
+K3M_OPS_GROUPS = 30
+# merged against per-triangle (tests/test_quad_merge.py's bars): winners
+# equal at bounce 0 and over all bounces
+AGREE0, AGREE_ALL = 0.99, 0.95
 # K2's FP32 operations per live (ray, bounce): sphere mode's ~510 (the
 # replayed bounce, again in the reverse step, and its adjoint) for a
 # sphere winner or a miss, ~1,000 for a triangle winner (its distance,
@@ -447,7 +477,7 @@ def phase_main(dev, card, timing):
     sums = render(scene, cam, cfg, pids, key)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches, k2_launches, k3_launches, k4_launches = _launches()
+    launches, k2_launches, k3_launches, k4_launches, _ = _launches()
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -756,7 +786,8 @@ def _profile(work):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     buckets = {"K1 trace_spheres": 0.0, "K2 backward": 0.0,
-               "K2 sum_blocks": 0.0, "K3 trace_scene": 0.0,
+               "K5 spheres_ad": 0.0, "K2/K5 sum_blocks": 0.0,
+               "K3 trace_scene": 0.0,
                "K4 intersect": 0.0, "index gather/scatter": 0.0,
                "int64 (threefry)": 0.0, "other": 0.0}
     n_kernels = 0
@@ -780,8 +811,10 @@ def _profile(work):
             buckets["index gather/scatter"] += dev_us
         elif "::backward_kernel" in name:
             buckets["K2 backward"] += dev_us
+        elif "spheres_ad_kernel" in name:
+            buckets["K5 spheres_ad"] += dev_us
         elif "sum_blocks_kernel" in name:
-            buckets["K2 sum_blocks"] += dev_us
+            buckets["K2/K5 sum_blocks"] += dev_us
         elif "long" in name.lower() or "int64" in name.lower():
             buckets["int64 (threefry)"] += dev_us
         else:
@@ -832,7 +865,8 @@ def phase_train(dev, card):
     loss.backward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1_launches, k2_launches, k3_launches, k4_launches = _launches()
+    (k1_launches, k2_launches, k3_launches, k4_launches,
+     k5_launches) = _launches()
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item()
@@ -846,9 +880,10 @@ def phase_train(dev, card):
     if k1_launches != 2 * cfg.spp:
         raise AssertionError(f"fwd+bwd: {k1_launches} K1 launches, want "
                              f"{2 * cfg.spp} (forward + checkpoint recompute)")
-    if k3_launches != 0 or k4_launches != 0:
-        raise AssertionError(f"fwd+bwd: {k3_launches} K3 and {k4_launches} K4 "
-                             "launches on the megakernel path")
+    if k3_launches != 0 or k4_launches != 0 or k5_launches != 0:
+        raise AssertionError(f"fwd+bwd: {k3_launches} K3, {k4_launches} K4 "
+                             f"and {k5_launches} K5 launches on the "
+                             "megakernel path")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"fwd+bwd: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}, d loss / d every sphere leaf: "
@@ -887,6 +922,7 @@ def phase_train(dev, card):
           f"spp={cfg.spp} towards a perturbed-diffuse target: losses "
           + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
     return dict(k1_launches=k1_launches, k2_launches=k2_launches,
+                k5_launches=k5_launches,
                 k3_launches=k3_launches, k4_launches=k4_launches, rays_per_s=rays / elapsed)
 
 
@@ -898,17 +934,27 @@ def _block_world(n: int, seed: int = 0) -> str:
                              n_triangles=n, seed=seed)
 
 
+def _per_triangle(path, device):
+    """``load_scene_file`` with the per-triangle search: merge_quads off
+    after the load. The phases that hold K3 bit for bit against the scan
+    path, or compare its times with those PERF.md records, load so;
+    the default load takes the merged search (phases 29-31)."""
+    from raytpu_torch.config import load_scene_file
+
+    scene, cam, cfg = load_scene_file(path, device)
+    return scene, cam, cfg.replace(merge_quads=False)
+
+
 def _k3_cases(dev):
     """The four scenes of tests/test_torch_trace_scene.py (a 60-triangle
     block world with water; with AO; untextured; the 4-triangle branch
     scene), the main path's 600-triangle world and a 2048-triangle one."""
     import dataclasses
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core.types import TextureAtlas
     from raytpu_torch.scenes import mesh_branch_scene
 
-    small = load_scene_file(_block_world(60, seed=3), dev)
+    small = _per_triangle(_block_world(60, seed=3), dev)
     bare = (dataclasses.replace(small[0], atlas=TextureAtlas.empty(dev)),
             *small[1:])
     return [
@@ -918,8 +964,8 @@ def _k3_cases(dev):
         ("untextured 60 6b", bare, dict(max_bounces=6)),
         ("branches 4 tris 5b", mesh_branch_scene(dev), dict(max_bounces=5)),
         (f"block world {MESH_WORLD} 6b",
-         load_scene_file(_block_world(MESH_WORLD), dev), {}),
-        ("block world 2048 6b", load_scene_file(_block_world(2048), dev), {}),
+         _per_triangle(_block_world(MESH_WORLD), dev), {}),
+        ("block world 2048 6b", _per_triangle(_block_world(2048), dev), {}),
     ]
 
 
@@ -931,7 +977,7 @@ def _k3_both(scene, cfg, origin, direction, draws, counts=None):
     from raytpu_torch.kernels import trace_scene as tsc
 
     k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
-    ref = tsc.trace_scene_reference(tsc.pack_scene(scene), *origin,
+    ref = tsc.trace_scene_reference(tsc.pack_scene(scene, k), *origin,
                                     *direction,
                                     draws.reshape(-1, draws.shape[-1]), k,
                                     counts)
@@ -954,11 +1000,17 @@ def _k3_bound(b, bounces, counts, table_bytes, sky=False):
     (16 with the sky slot) per ray plus the scene tables at HBM speed,
     against the operations of this run's search (K3_OPS_*: the plain
     version's counts of sphere, slab and entered-chunk triangle tests and
-    live (ray, bounce) entries) at the FP32 peak."""
+    live (ray, bounce) entries; K3M_OPS_* for the merged search's
+    candidates) at the FP32 peak."""
     nbytes = (b * (24 + 12 * bounces + 36 + (SKY_SLOT_BYTES if sky else 0))
               + table_bytes)
     ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
            + counts["tri"] * K3_OPS_TRI + counts["live"] * K3_OPS_SHADE)
+    if "aa_rect" in counts:       # the merged search's candidates
+        ops += (counts["aa_rect"] * K3M_OPS_RECT
+                + counts["aa_tri"] * K3M_OPS_AATRI
+                + counts["quad"] * K3M_OPS_QUAD + counts["left"] * K3M_OPS_LEFT
+                + counts["live"] * K3M_OPS_GROUPS)
     return _bound(nbytes, ops)
 
 
@@ -969,13 +1021,12 @@ def phase_k3_timing(dev):
     import numpy as np
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, n_bounce_draws, sample_rays)
     from raytpu_torch.kernels import trace_scene as tsc
 
-    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    scene, cam, cfg = _per_triangle(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
     pix_keys = rng.pixel_keys(rng.prng_key(0, device=dev), pids)
@@ -997,8 +1048,8 @@ def phase_k3_timing(dev):
                for s in (slice(0, 3), slice(3, 6), slice(6, 9)))
     del ref, out
 
-    tb = tsc.pack_scene(scene)
     k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
+    tb = tsc.pack_scene(scene, k)
     flat = draws.reshape(-1, draws.shape[-1])
     rays = (*origin, *direction)
     kernel = lambda: tsc._launch(tb, rays, flat, k)
@@ -1010,7 +1061,7 @@ def phase_k3_timing(dev):
                                  20 if which == "kernel" else 2))
     rng_ms = float(np.mean([_time_ms(rng_sample, 5) for _ in range(2)]))
     ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
-    table_bytes = 4 * sum(x.numel() for x in tb)
+    table_bytes = tb.nbytes()
     bound = _k3_bound(cfg.n_pixels, cfg.max_bounces, counts, table_bytes)
     b = cfg.n_pixels
     print(f"  K3 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call (turns: "
@@ -1032,14 +1083,13 @@ def phase_mesh(dev, card, timing):
     import numpy as np
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, render, render_image)
     from raytpu_torch.io.ppm import write_ppm
 
     path = _block_world(MESH_WORLD)
-    scene, cam, cfg = load_scene_file(path, dev)
+    scene, cam, cfg = _per_triangle(path, dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_SPP,
                       max_bounces=6, use_megakernel=True)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
@@ -1051,7 +1101,7 @@ def phase_mesh(dev, card, timing):
     sums = render(scene, cam, cfg, pids, key)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1, k2, k3, k4 = _launches()
+    k1, k2, k3, k4, _ = _launches()
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -1079,7 +1129,7 @@ def phase_mesh(dev, card, timing):
 
     # the same small frame on the card (K3) and on the CPU (plain path)
     small = cfg.replace(width=40, height=30, spp=2)
-    cpu_scene, cpu_cam, _ = load_scene_file(path, "cpu")
+    cpu_scene, cpu_cam, _ = _per_triangle(path, "cpu")
     small_ids = np.arange(small.n_pixels)
     a = render(cpu_scene, cpu_cam, small, small_ids, rng.prng_key(3))
     b = render(scene, cam, small, small_ids, rng.prng_key(3))
@@ -1102,7 +1152,7 @@ def _mesh_inputs(scene, cfg, origin, direction, draws):
     from raytpu_torch.kernels import trace_scene as tsc
 
     k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
-    return (tsc.pack_scene(scene), (*origin, *direction),
+    return (tsc.pack_scene(scene, k), (*origin, *direction),
             draws.reshape(-1, draws.shape[-1]), k)
 
 
@@ -1276,14 +1326,13 @@ def phase_mesh_bwd_timing(dev):
     import numpy as np
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, n_bounce_draws, sample_rays)
     from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
 
-    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    scene, cam, cfg = _per_triangle(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
     ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
@@ -1328,7 +1377,7 @@ def phase_mesh_bwd_timing(dev):
     b = cfg.n_pixels
     # K3's bound with the recorded winners written: 4 B per ray and bounce
     rec_bound = _k3_bound(b, cfg.max_bounces, counts,
-                          4 * sum(x.numel() for x in mt) + 4 * b * cfg.max_bounces)
+                          mt.nbytes() + 4 * b * cfg.max_bounces)
     k2_bound = _k2_mesh_bound(b, cfg.max_bounces, idx, k.n_spheres,
                               table_bytes)
     n_tri = int((idx >= k.n_spheres).sum().item())
@@ -1347,16 +1396,15 @@ def phase_mesh_bwd_timing(dev):
 
 
 def k5_bound(k2):
-    """The bound of the one TPU kernel not ported yet, from this run's data
-    (its launches are 0 on every path): K5 (raytpu/kernels/trace_spheres.py
-    :460, jax.vjp of K1's loop) at the flagship fwd+bwd shape: K1's forward
-    operations three times per live entry of phase 7's Cornell recording
-    (the loop, then its reverse at about twice the forward), against K2's
-    bytes."""
+    """K5's bound (raytpu/kernels/trace_spheres.py:460, jax.vjp of K1's
+    loop) at the flagship fwd+bwd shape, from this run's data: K1's
+    forward operations three times per live entry of phase 7's Cornell
+    recording (the loop, then its reverse at about twice the forward),
+    against K2's bytes."""
     k5_bytes = (k2["n_rays"] * (24 + 16 * k2["bounces"] + 36 + 24)
                 + 2 * 14 * 4 * k2["n_spheres"])
     k5 = _bound(k5_bytes, 3 * k2["n_live"] * (33 * k2["n_spheres"] + 130))
-    print(f"bound of the kernel still to port: K5 {k5[0]:.4f} ms ({k5[1]}; "
+    print(f"  K5's bound {k5[0]:.4f} ms ({k5[1]}; "
           f"{k2['n_live']} live entries at {k2['n_rays']} rays x "
           f"{k2['bounces']} bounces)")
     return k5
@@ -1368,13 +1416,12 @@ def phase_mesh_train(dev, card):
     requiring grad, where its time goes, then 3 Adam steps."""
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
     from raytpu_torch.train import (combine_scene, make_train_step,
                                     partition_scene, photometric_loss)
 
-    scene, cam, cfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    scene, cam, cfg = _per_triangle(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_TRAIN_SPP,
                       max_bounces=6, use_megakernel=True)
     pids = torch.arange(cfg.n_pixels, device=dev)
@@ -1397,7 +1444,7 @@ def phase_mesh_train(dev, card):
     loss.backward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1, k2, k3, k4 = _launches()
+    k1, k2, k3, k4, _ = _launches()
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item() and all(
@@ -1490,7 +1537,6 @@ def phase_k4(dev):
     the 4096-triangle world."""
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.geometry.triangle import precompute
     from raytpu_torch.kernels import intersect
     from raytpu_torch.scenes import cornell_box
@@ -1499,7 +1545,7 @@ def phase_k4(dev):
           "winners and t bit-equal")
     cases = [("cornell 10 spheres", cornell_box(dev), {}), *_k3_cases(dev),
              (f"block world {SCAN_WORLD} 6b",
-              load_scene_file(_block_world(SCAN_WORLD), dev), {})]
+              _per_triangle(_block_world(SCAN_WORLD), dev), {})]
     for i, (name, (scene, cam, cfg), over) in enumerate(cases):
         cfg = cfg.replace(width=64, height=48, use_pallas=True, **over)
         geom = precompute(scene.triangles) if scene.n_triangles else None
@@ -1536,7 +1582,6 @@ def phase_k4_timing(dev):
     import numpy as np
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.geometry.triangle import precompute
     from raytpu_torch.integrator.render import blocked_pixel_order, sample_rays
@@ -1544,7 +1589,7 @@ def phase_k4_timing(dev):
 
     res = {}
     for n in (MESH_WORLD, SCAN_WORLD):
-        scene, cam, cfg = load_scene_file(_block_world(n), dev)
+        scene, cam, cfg = _per_triangle(_block_world(n), dev)
         cfg = cfg.replace(width=FRAME[0], height=FRAME[1])
         pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
         ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
@@ -1594,7 +1639,6 @@ def phase_scan_checks(dev):
     a 40x30x2spp frame of the 4096-triangle world."""
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
     from raytpu_torch.scenes import cornell_box
@@ -1604,7 +1648,7 @@ def phase_scan_checks(dev):
     for name, (scene, cam, cfg) in (
             ("cornell", cornell_box(dev)),
             (f"block world {MESH_WORLD}",
-             load_scene_file(_block_world(MESH_WORLD), dev))):
+             _per_triangle(_block_world(MESH_WORLD), dev))):
         cfg = cfg.replace(width=64, height=48, spp=2, max_bounces=6)
         ids = torch.arange(cfg.n_pixels, device=dev)
         mk = render(scene, cam, cfg.replace(use_megakernel=True), ids,
@@ -1612,8 +1656,8 @@ def phase_scan_checks(dev):
         scan = render(scene, cam, cfg, ids, rng.prng_key(5))
         _compare(f"{name} scan vs megakernel", _sums(mk), _sums(scan))
     path = _block_world(SCAN_WORLD)
-    scene, cam, cfg = load_scene_file(path, dev)
-    cpu_scene, cpu_cam, _ = load_scene_file(path, "cpu")
+    scene, cam, cfg = _per_triangle(path, dev)
+    cpu_scene, cpu_cam, _ = _per_triangle(path, "cpu")
     small = cfg.replace(width=40, height=30, spp=2, max_bounces=6)
     ids = torch.arange(small.n_pixels)
     a = render(cpu_scene, cpu_cam, small, ids, rng.prng_key(3))
@@ -1629,16 +1673,18 @@ def _reset_launches():
     from raytpu_torch.kernels import trace_spheres as ts
 
     ts.launches = tb.launches = tsc.launches = intersect.launches = 0
+    ts.ad_launches = 0
 
 
 def _launches():
-    """(K1, K2, K3, K4) launch counts."""
+    """(K1, K2, K3, K4, K5) launch counts."""
     from raytpu_torch.kernels import intersect
     from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
 
-    return ts.launches, tb.launches, tsc.launches, intersect.launches
+    return (ts.launches, tb.launches, tsc.launches, intersect.launches,
+            ts.ad_launches)
 
 
 def phase_scan_frame(dev, card, mesh):
@@ -1650,7 +1696,6 @@ def phase_scan_frame(dev, card, mesh):
     K3 frame."""
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import (
         blocked_pixel_order, render, render_image)
@@ -1658,7 +1703,7 @@ def phase_scan_frame(dev, card, mesh):
 
     out = {}
     for n in (SCAN_WORLD, MESH_WORLD):
-        scene, cam, cfg = load_scene_file(_block_world(n), dev)
+        scene, cam, cfg = _per_triangle(_block_world(n), dev)
         cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SCAN_SPP,
                           max_bounces=6)
         if cfg.use_megakernel:
@@ -1672,7 +1717,7 @@ def phase_scan_frame(dev, card, mesh):
         sums = render(scene, cam, cfg, pids, key)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        k1, k2, k3, k4 = _launches()
+        k1, k2, k3, k4, _ = _launches()
         rad = sums.radiance.to_array()
         mean = rad.double().mean().item() / cfg.spp
         if not all(v.to_array().isfinite().all() for v in sums[:3]):
@@ -1719,14 +1764,13 @@ def phase_scan_train(dev, card):
     losses must fall."""
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
     from raytpu_torch.train import (combine_scene, partition_scene,
                                     photometric_loss)
     from raytpu_torch.train.inverse import ADAM_BETAS, ADAM_EPS
 
-    scene, cam, cfg = load_scene_file(_block_world(SCAN_WORLD), dev)
+    scene, cam, cfg = _per_triangle(_block_world(SCAN_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SCAN_TRAIN_SPP,
                       max_bounces=6, bilinear_textures=True)
     pids = torch.arange(cfg.n_pixels, device=dev)
@@ -1750,7 +1794,7 @@ def phase_scan_train(dev, card):
     loss.backward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    k1, k2, k3, k4 = _launches()
+    k1, k2, k3, k4, _ = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     grads = {n: p.grad for n, p in params.items()}
@@ -1882,10 +1926,9 @@ _LOADED = {}
 def _sky_scene(key, dev):
     """(scene, camera, config) of a sky scene on the card, loaded once;
     on the CPU a copy of the card's."""
-    from raytpu_torch.config import load_scene_file
 
     if key not in _LOADED:
-        _LOADED[key] = load_scene_file(_sky_files()[key], dev)
+        _LOADED[key] = _per_triangle(_sky_files()[key], dev)
     scene, cam, cfg = _LOADED[key]
     if str(dev) == "cpu":
         return _on(scene, "cpu"), _on(cam, "cpu"), cfg
@@ -2180,7 +2223,7 @@ def phase_sky_timing(dev):
                         "k2", "k2_plain"),
                   {w: 2 if w.endswith("plain") else 20 for w in fns})
     b = cfg.n_pixels
-    table_bytes = 4 * sum(x.numel() for x in mt)
+    table_bytes = mt.nbytes()
     res["k3"] = dict(ms=ms["k3"], plain_ms=ms["k3_plain"],
                      bound=_k3_bound(b, cfg.max_bounces, counts, table_bytes,
                                      True), max_abs_err=k3_err)
@@ -2205,7 +2248,7 @@ def phase_sky_timing(dev):
 def _frame(what, dev, card, scene, cam, cfg, want, fwd_bwd=None):
     """One timed frame through ``render`` over all block-ordered pixel ids
     (forward, or with ``fwd_bwd`` = params the loss and its gradient),
-    its launch counts against ``want`` (K1, K2, K3, K4), finiteness, and
+    its launch counts against ``want`` (K1, K2, K3, K4, K5), finiteness, and
     where its time goes at 1 spp. Returns (elapsed s, rays/s, launches,
     idle share, result)."""
     import torch
@@ -2226,14 +2269,14 @@ def _frame(what, dev, card, scene, cam, cfg, want, fwd_bwd=None):
     elapsed = time.perf_counter() - t0
     got = _launches()
     if got != want:
-        raise AssertionError(f"{what}: (K1, K2, K3, K4) launches {got}, "
+        raise AssertionError(f"{what}: (K1, K2, K3, K4, K5) launches {got}, "
                              f"want {want}")
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     wall, busy, n_k, buckets = _profile(lambda: work(cfg.replace(spp=1)))
     idle = max(0.0, 1 - busy / wall)
     print(f"{what}: {cfg.width}x{cfg.height} spp={cfg.spp} bounces="
           f"{cfg.max_bounces}: {elapsed:.4f} s, {rays / elapsed:.1f} rays/s "
-          f"on {card}; launches (K1, K2, K3, K4) {got}")
+          f"on {card}; launches (K1, K2, K3, K4, K5) {got}")
     _print_profile(f"{what} at spp=1", wall, busy, n_k, buckets)
     return elapsed, rays / elapsed, got, idle, out
 
@@ -2276,7 +2319,7 @@ def phase_sky_frames(dev, card):
     scene, cam, cfg = _sky_scene("show", dev)
     cfg = cfg.replace(spp=SKY_SHOW_SPP, use_megakernel=True)
     el, rate, got, idle, sums = _frame(
-        "sky showcase (K1)", dev, card, scene, cam, cfg, (cfg.spp, 0, 0, 0))
+        "sky showcase (K1)", dev, card, scene, cam, cfg, (cfg.spp, 0, 0, 0, 0))
     lit("sky showcase", sums, cfg.spp)
     res["show"] = dict(s=el, rate=rate, launches=got, idle=idle)
     ppm("sky_showcase", scene, cam, cfg)
@@ -2286,7 +2329,7 @@ def phase_sky_frames(dev, card):
                       max_bounces=6, use_megakernel=True)
     el, rate, got, idle, sums = _frame(
         f"sky world {MESH_WORLD} (K3)", dev, card, scene, cam, cfg,
-        (0, 0, cfg.spp, 0))
+        (0, 0, cfg.spp, 0, 0))
     lit("sky world", sums, cfg.spp)
     res["mesh"] = dict(s=el, rate=rate, launches=got, idle=idle)
     ppm(f"sky_world_{MESH_WORLD}", scene, cam, cfg)
@@ -2308,7 +2351,7 @@ def phase_sky_frames(dev, card):
 
     el, rate, got, idle, loss = _frame(
         f"sky world {MESH_WORLD} fwd+bwd (K3 recording, K2)", dev, card,
-        scene, cam, tcfg, (0, tcfg.spp, 2 * tcfg.spp, 0), fwd_bwd)
+        scene, cam, tcfg, (0, tcfg.spp, 2 * tcfg.spp, 0, 0), fwd_bwd)
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item() and all(
             g is not None and g.isfinite().all() for g in grads.values())):
@@ -2361,7 +2404,7 @@ def phase_sky_frames(dev, card):
                       max_bounces=6)
     el, rate, got, idle, sums = _frame(
         f"sky world {SCAN_WORLD} (scan path, K4)", dev, card, scene, cam, cfg,
-        (0, 0, 0, cfg.spp * cfg.max_bounces))
+        (0, 0, 0, cfg.spp * cfg.max_bounces, 0))
     lit("sky scan world", sums, cfg.spp)
     res["scan"] = dict(s=el, rate=rate, launches=got, idle=idle)
     return res
@@ -2429,7 +2472,6 @@ def phase_scan_grads(dev):
     import numpy as np
     import torch
 
-    from raytpu_torch.config import load_scene_file
     from raytpu_torch.convert import scene_from_leaves, scene_leaves
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import render
@@ -2438,7 +2480,7 @@ def phase_scan_grads(dev):
     cases = [("cornell", cornell_box(dev), 6),
              ("sky showcase", _sky_scene("show", dev), 4),
              (f"block world {MESH_WORLD}",
-              load_scene_file(_block_world(MESH_WORLD), dev), 6),
+              _per_triangle(_block_world(MESH_WORLD), dev), 6),
              (f"sky world {MESH_WORLD}", _sky_scene(MESH_WORLD, dev), 6)]
     print("P-F12: scan-path gradients at 64x48x2spp vs K1/K2 or K3/K2 on "
           f"the card and vs the scan path on the CPU (each leaf within "
@@ -2477,7 +2519,7 @@ def phase_scan_grads(dev):
         _reset_launches()
         g_mk = grads(scene, cfg.replace(use_megakernel=True), target, mask, dev)
         torch.cuda.synchronize()
-        k1, k2, k3, _ = _launches()
+        k1, k2, k3, *_ = _launches()
         want = ((2 * cfg.spp, cfg.spp, 0) if not scene.n_triangles
                 else (0, cfg.spp, 2 * cfg.spp))
         if (k1, k2, k3) != want:
@@ -2556,7 +2598,7 @@ def phase_sky_residue(dev):
             if scene.n_triangles:
                 k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
                 run = lambda sc, rays, fl: tsc._forward(
-                    tsc.pack_scene(sc), rays, fl, k)
+                    tsc.pack_scene(sc, k), rays, fl, k)
             else:
                 k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
                                     scene.sky_index)
@@ -2578,6 +2620,415 @@ def phase_sky_residue(dev):
             raise AssertionError(f"{name}: card vs CPU past {OUTLIER_FRAC:.0%}")
         res[name] = (rad_frac, flips, dirs)
     return res
+
+
+def _merged_cases(dev):
+    """The merged search's scenes, each loaded by default (merge_quads on):
+    ``write_quad_fixture`` (also with AO), the 60-triangle world (also
+    with AO), the MESH_WORLD and 2048-triangle worlds and the MESH_WORLD
+    sky world."""
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.scenes import write_quad_fixture
+
+    fixture = load_scene_file(write_quad_fixture(
+        os.path.join(OUT_DIR, "quad_fixture")), dev)
+    small = load_scene_file(_block_world(60, seed=3), dev)
+    ao = dict(max_bounces=4, use_ao=True, ao_samples=2)
+    return [
+        ("quad fixture 6b", fixture, dict(max_bounces=6)),
+        ("quad fixture ao_samples=2", fixture, ao),
+        ("block world 60 6b", small, dict(max_bounces=6)),
+        ("block world 60 ao_samples=2", small, ao),
+        (f"block world {MESH_WORLD} 6b",
+         load_scene_file(_block_world(MESH_WORLD), dev), {}),
+        ("block world 2048 6b", load_scene_file(_block_world(2048), dev), {}),
+        (f"sky world {MESH_WORLD} 6b",
+         load_scene_file(_sky_files()[MESH_WORLD], dev), {}),
+    ]
+
+
+def phase_merged_kernels(dev):
+    """Phase 29: K3's merged modes (forward, recording, and the sky modes
+    on the sky world) against the plain merged version at 64x48 rays:
+    planes bit-equal; recording by phase 12's rule. Then the merged search
+    against the per-triangle one on the card, the same rays: winners at
+    bounce 0 and over all bounces, and radiance/albedo/normal outliers
+    (tests/test_quad_merge.py's bars)."""
+    import torch
+
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    print("K3 merged-quad search vs its plain version at 64x48 rays (planes "
+          f"bit-equal; recording: idx agree >= {IDX_AGREE:.0%}, planes equal "
+          "to the launch without recording, AO factors where used); then "
+          f"vs the per-triangle kernel (bounce-0 winners >= {AGREE0:.0%}, "
+          f"all >= {AGREE_ALL:.0%}, outlier rays <= {OUTLIER_FRAC:.0%})")
+    res = {}
+    for i, (name, (scene, cam, cfg), over) in enumerate(_merged_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        o, d, draws = _kernel_inputs(scene, cam, cfg, 1000 + i, dev)
+        mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        if k.plan is None:
+            raise AssertionError(f"{name}: the default load has no quad plan")
+        ref = tsc.trace_scene_reference(mt, *rays, flat, k)
+        out = tsc._launch(mt, rays, flat, k)
+        if not torch.equal(ref, out):
+            _compare(name, ref, out)
+            raise AssertionError(f"{name}: merged planes differ from the "
+                                 "plain version's bits")
+        kern = tsc._launch(mt, rays, flat, k, record=True)
+        _check_mesh_record(name, kern, tsc.trace_scene_reference(
+            mt, *rays, flat, k, record=True), out)
+        tk = tsc.MeshKnobs.for_scene(cfg.replace(merge_quads=False), scene,
+                                     draws.shape[1])
+        tri, tri_idx, _ = tsc._launch(tsc.pack_scene(scene, tk), rays, flat,
+                                      tk, record=True)
+        a0 = (kern[1][0] == tri_idx[0]).float().mean().item()
+        a_all = (kern[1] == tri_idx).float().mean().item()
+        frac = max(_outliers(tri[sl], out[sl])[0] for _, sl in PLANES[:3])
+        print(f"  {name:28s} merged vs per-triangle: winners agree "
+              f"{a0:.5f} at bounce 0, {a_all:.5f} over all; outlier rays "
+              f"{frac:.5f}; plan: {sum(g[2] + g[3] for g in k.aa_layout)} "
+              f"aa rects, {sum(g[4] for g in k.aa_layout)} aa triangles, "
+              f"{k.n_quads} quads, {k.n_leftover} leftovers")
+        if a0 < AGREE0 or a_all < AGREE_ALL or frac > OUTLIER_FRAC:
+            raise AssertionError(f"{name}: merged vs per-triangle past the "
+                                 "agreement bars")
+        res[name] = dict(agree0=a0, agree=a_all, outliers=frac)
+    print("  merged planes bit-equal to the plain version on every scene")
+    return res
+
+
+def phase_merged_timing(dev):
+    """Phase 30: K3's merged modes at the frames' shape (one sample at 1200x900,
+    6 bounces, real RNG draws): forward and recording on the MESH_WORLD
+    world, the sky modes on its sky twin; each compared with its plain
+    version, then both timed in turns beside the bound of this run's
+    counted work."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    res = {}
+    for key, path in (("world", _block_world(MESH_WORLD)),
+                      ("sky", _sky_files()[MESH_WORLD])):
+        scene, cam, cfg = load_scene_file(path, dev)
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev),
+                                            pids), 0)
+        cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
+                                        cfg.max_bounces)
+        origin, direction = sample_rays(cam, cfg, pids, cam_d)
+        mt, rays, flat, k = _mesh_inputs(scene, cfg, origin, direction, draws)
+        counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
+        ref = tsc.trace_scene_reference(mt, *rays, flat, k, counts)
+        out = tsc._launch(mt, rays, flat, k)
+        if not torch.equal(ref, out):
+            raise AssertionError(f"merged {key} at {cfg.width}x{cfg.height}:"
+                                 " planes differ from the plain version's")
+        rec = tsc._launch(mt, rays, flat, k, record=True)
+        _, rec_err = _check_mesh_record(
+            f"merged {key} {cfg.width}x{cfg.height}", rec,
+            tsc.trace_scene_reference(mt, *rays, flat, k, record=True), out)
+        del ref, out, rec
+        fns = {"fwd": lambda: tsc._launch(mt, rays, flat, k),
+               "fwd_plain": lambda: tsc.trace_scene_reference(mt, *rays, flat, k),
+               "rec": lambda: tsc._launch(mt, rays, flat, k, record=True),
+               "rec_plain": lambda: tsc.trace_scene_reference(
+                   mt, *rays, flat, k, record=True)}
+        t = {w: [] for w in fns}
+        for w in ("fwd_plain", "fwd", "fwd", "fwd_plain", "rec_plain", "rec",
+                  "rec", "rec_plain"):
+            t[w].append(_time_ms(fns[w], 2 if w.endswith("plain") else 20))
+        ms = {w: float(np.mean(v)) for w, v in t.items()}
+        b, sky = cfg.n_pixels, key == "sky"
+        bound = _k3_bound(b, cfg.max_bounces, counts, mt.nbytes(), sky)
+        rec_bound = _k3_bound(b, cfg.max_bounces, counts,
+                              mt.nbytes() + 4 * b * cfg.max_bounces, sky)
+        live = counts["live"]
+        print(f"  merged K3 {key}: forward {ms['fwd']:.4f} ms (plain "
+              f"{ms['fwd_plain']:.4f}; bound {bound[0]:.4f} ms, {bound[1]}), "
+              f"recording {ms['rec']:.4f} ms (plain {ms['rec_plain']:.4f}; "
+              f"bound {rec_bound[0]:.4f} ms); turns {t}; per live (ray, "
+              f"bounce) of {live}: "
+              + ", ".join(f"{counts.get(c, 0) / live:.2f} {c}" for c in (
+                  "sphere", "aa_rect", "aa_tri", "quad", "left", "slab")))
+        res[key] = dict(ms=ms["fwd"], plain_ms=ms["fwd_plain"], bound=bound,
+                        rec_ms=ms["rec"], rec_plain_ms=ms["rec_plain"],
+                        rec_bound=rec_bound, rec_err=rec_err, counts=counts)
+        del mt, rays, flat, draws
+    return res
+
+
+def phase_merged_frames(dev, card):
+    """Phase 31: the mesh frames of phases 11, 15 and 25 through the default
+    (merged) load: the MESH_WORLD world and its sky twin at 1200x900, 6
+    bounces, forward at MESH_SPP, forward+backward of every float leaf
+    (and the sky texels) at MESH_TRAIN_SPP, and 3 Adam steps at
+    MESH_STEP_SPP towards perturbed atlas, material (and sky) colours,
+    whose losses must fall."""
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.train import (combine_scene, make_train_step,
+                                    partition_scene, photometric_loss)
+
+    res = {}
+    for key, path in (("world", _block_world(MESH_WORLD)),
+                      ("sky", _sky_files()[MESH_WORLD])):
+        scene, cam, cfg = load_scene_file(path, dev)
+        if tsc.quad_plan(cfg, scene.triangles.count) is None:
+            raise AssertionError(f"merged {key}: no quad plan by default")
+        sky = key == "sky"
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_SPP,
+                          max_bounces=6, use_megakernel=True,
+                          sky_texture_grads=sky)
+        what = f"merged {'sky world' if sky else 'block world'} {MESH_WORLD}"
+        el, rate, got, idle, sums = _frame(f"{what} (K3)", dev, card, scene,
+                                           cam, cfg, (0, 0, cfg.spp, 0, 0))
+        mean = sums.radiance.to_array().double().mean().item() / cfg.spp
+        if not (all(v.to_array().isfinite().all() for v in sums[:3])
+                and mean > 0.0):
+            raise AssertionError(f"{what}: non-finite or unlit ({mean})")
+        r = dict(fwd=dict(s=el, rate=rate, launches=got, idle=idle))
+
+        tcfg = cfg.replace(spp=MESH_TRAIN_SPP)
+        pids = torch.arange(cfg.n_pixels, device=dev)
+        params, static = partition_scene(scene)
+        params = {n: p.detach().clone().requires_grad_()
+                  for n, p in params.items()}
+        target = torch.zeros((cfg.n_pixels, 3), device=dev)
+
+        def fwd_bwd(c):
+            for p in params.values():
+                p.grad = None
+            s_ = render(combine_scene(params, static), cam, c, pids,
+                        rng.prng_key(0))
+            loss = photometric_loss(s_.radiance * (1.0 / c.spp), target)
+            loss.backward()
+            return loss
+
+        el, rate, got, idle, loss = _frame(
+            f"{what} fwd+bwd (K3 recording, K2)", dev, card, scene, cam, tcfg,
+            (0, tcfg.spp, 2 * tcfg.spp, 0, 0), fwd_bwd)
+        leaves = ["atlas.rgb.x", "mat_table.emission_strength"]
+        leaves += ["sky.rgb.x"] if sky else ["spheres.mat.emission.x"]
+        if not (loss.isfinite().item() and all(
+                p.grad is not None and p.grad.isfinite().all()
+                for p in params.values())):
+            raise AssertionError(f"{what} fwd+bwd: non-finite loss or grad")
+        for leaf in leaves:
+            if not params[leaf].grad.abs().max().item() > 0.0:
+                raise AssertionError(f"{what}: d loss / d {leaf} is all zero")
+        r["bwd"] = dict(s=el, rate=rate, launches=got, idle=idle)
+        del params
+
+        tparams = {n: p.detach().clone()
+                   for n, p in partition_scene(scene)[0].items()}
+        for c in "xyz":
+            for leaf in ("atlas.rgb", "mat_table.emission") + (
+                    ("sky.rgb",) if sky else ()):
+                tparams[f"{leaf}.{c}"] = tparams[f"{leaf}.{c}"] * 0.8
+            tparams[f"atlas.rgb.{c}"] = tparams[f"atlas.rgb.{c}"].clamp(0, 1)
+        scfg = cfg.replace(spp=MESH_STEP_SPP)
+        with torch.no_grad():
+            tsums = render(combine_scene(tparams, static), cam, scfg, pids,
+                           rng.prng_key(0))
+            tgt = (tsums.radiance * (1.0 / scfg.spp)).to_array()
+        del tparams
+        init_fn, step_fn = make_train_step(scfg, 1e-2)
+        state, st = init_fn(scene, cam)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, loss = step_fn(state, st, cam, pids, tgt, rng.prng_key(0))
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[0] > losses[1] > losses[2]):
+            raise AssertionError(f"{what} train: losses do not fall: {losses}")
+        print(f"{what} train: 3 Adam steps (lr 1e-2) at {scfg.width}x"
+              f"{scfg.height} spp={scfg.spp}: losses "
+              + " ".join(f"{x:.6e}" for x in losses)
+              + f"; {step_s:.4f} s per step")
+        r["losses"] = losses
+        res[key] = r
+        del state
+    return res
+
+
+def _k5_rays(sph, rays, flat, k, g):
+    """K1's recording and the plain version's on the same rays, and g with
+    zero cotangent on the rays whose winners or used AO factors differ
+    between the two: K5 and its plain version each run their own search,
+    and a flipped grazing hit or probe (phase 6 allows up to OUTLIER_FRAC)
+    sends a ray elsewhere. Returns (idx, aof, masked g, fraction kept)."""
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    _, idx, aof = ts._launch(sph, rays, flat, k, record=True)
+    _, p_idx, p_aof = ts.trace_spheres_reference(sph, *rays, flat, k,
+                                                 record=True)
+    same = (idx == p_idx).all(0)
+    if aof is not None:
+        same &= ((aof == p_aof) | (idx < 0)).all(0)
+    kept = same.float().mean().item()
+    if kept < IDX_AGREE:
+        raise AssertionError(f"K5: K1's and the plain version's recordings "
+                             f"agree on {kept:.2%} of the rays")
+    return idx, aof, g * same, kept
+
+
+def _k5_cases(dev):
+    """Phase 7's six sphere scenes and the sky showcase."""
+    return (_record_cases(dev)
+            + [("refraction stack 19b", _stack_scene(dev), {}),
+               ("sky showcase 4b", _sky_scene("show", dev), {})])
+
+
+def phase_k5(dev):
+    """Phase 32: K5 against its plain version (autograd through K1's plain
+    version) and against K2 on K1's recording, at 64x48 rays with a random
+    output cotangent, by K2's rule (_compare_grads); two K5 launches
+    bit-identical."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+    from raytpu_torch.kernels import trace_spheres as ts
+
+    print(f"K5 (AD sphere backward) vs its plain version (autograd) and vs "
+          f"K2 at 64x48 rays (ray outlier: any > {G_ATOL} + {G_RTOL}|x|, "
+          f"limit {OUTLIER_FRAC:.0%}; d_sph rows within {DSPH_REL} x row max)")
+    res = {"max_abs_err": 0.0, "outlier_frac": 0.0, "k2_bits": []}
+    for i, (name, (scene, cam, cfg), over) in enumerate(_k5_cases(dev)):
+        cfg = cfg.replace(width=64, height=48, **over)
+        o, d, draws = _kernel_inputs(scene, cam, cfg, 1100 + i, dev)
+        sph = ts.pack_spheres(scene)
+        k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
+                            scene.sky_index)
+        flat = draws.reshape(-1, draws.shape[-1])
+        rays = (*o, *d)
+        g = torch.tensor(np.random.default_rng(1200 + i).uniform(
+            -1, 1, (tb.g_planes(k), cfg.n_pixels)).astype(np.float32),
+            device=dev)
+        idx, aof, g, kept = _k5_rays(sph, rays, flat, k, g)
+        got = ts._launch_ad(sph, rays, flat, g, k)
+        again = ts._launch_ad(sph, rays, flat, g, k)
+        if not (torch.equal(got[0], again[0])
+                and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
+            raise AssertionError(f"{name}: two K5 launches differ")
+        print(f"  {name}: rays with the same recording on both sides "
+              f"{kept:.5f}")
+        err, frac = _compare_grads(f"{name} K5 vs plain", ts.ad_reference(
+            sph, rays, flat, g, k), got)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["outlier_frac"] = max(res["outlier_frac"], frac)
+        k2 = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+        _compare_grads(f"{name} K5 vs K2", k2, got)
+        res["k2_bits"].append(torch.equal(k2[0], got[0]) and all(
+            torch.equal(a, b) for a, b in zip(k2[1], got[1])))
+    print(f"  two K5 launches bit-identical on every scene; K5 bit-equal to "
+          f"K2 on K1's recording on {sum(res['k2_bits'])} of "
+          f"{len(res['k2_bits'])} scenes")
+    return res
+
+
+def phase_k5_timing(dev, card, k2):
+    """Phase 33: K5 at the main path's shape (the Cornell 1200x900, 6-bounce
+    sample of phase 7's timing) beside its plain version, K2 and its
+    bound; then the Cornell fwd+bwd frame with RAYTPU_SPH_BWD=ad (K5
+    launches == spp, no K2)."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, render, sample_rays)
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.scenes import cornell_box
+    from raytpu_torch.train import (combine_scene, partition_scene,
+                                    photometric_loss)
+
+    scene, cam, cfg = cornell_box(dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
+    cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg), cfg.max_bounces)
+    origin, direction = sample_rays(cam, cfg, pids, cam_d)
+    sph = ts.pack_spheres(scene)
+    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
+    flat = draws.reshape(-1, draws.shape[-1])
+    rays = (*origin, *direction)
+    g = torch.tensor(np.random.default_rng(7).uniform(
+        -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
+    name = f"cornell {cfg.width}x{cfg.height} 6b"
+    print(f"K5 at the main path's shape ({cfg.width}x{cfg.height} rays, 6 "
+          "bounces):")
+    idx, aof, g, kept = _k5_rays(sph, rays, flat, k, g)
+    print(f"  rays with the same recording on both sides {kept:.5f}")
+    got = ts._launch_ad(sph, rays, flat, g, k)
+    max_err, frac = _compare_grads(f"{name} K5 vs plain", ts.ad_reference(
+        sph, rays, flat, g, k), got)
+    _compare_grads(f"{name} K5 vs K2", _sphere_kernel(
+        sph, rays, flat, idx, aof, g, k), got)
+    del got
+    fns = {"k5": lambda: ts._launch_ad(sph, rays, flat, g, k),
+           "plain": lambda: ts.ad_reference(sph, rays, flat, g, k),
+           "k2": lambda: _sphere_kernel(sph, rays, flat, idx, aof, g, k)}
+    t = {w: [] for w in fns}
+    for w in ("plain", "k5", "k2", "k2", "k5", "plain"):
+        t[w].append(_time_ms(fns[w], 2 if w == "plain" else 20))
+    ms = {w: float(np.mean(v)) for w, v in t.items()}
+    bound = k5_bound(k2)
+    print(f"  K5 {ms['k5']:.4f} ms (plain {ms['plain']:.4f} ms; bound "
+          f"{bound[0]:.4f} ms, {bound[1]}); K2 on K1's recording "
+          f"{ms['k2']:.4f} ms; turns {t}")
+    del fns, idx, aof
+
+    cfg = cfg.replace(spp=TRAIN_SPP, use_megakernel=True)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    params, static = partition_scene(scene)
+    params = {n: p.detach().clone().requires_grad_() for n, p in params.items()}
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+
+    def fwd_bwd(c):
+        for p in params.values():
+            p.grad = None
+        sums = render(combine_scene(params, static), cam, c, pids,
+                      rng.prng_key(0))
+        loss = photometric_loss(sums.radiance * (1.0 / c.spp), target)
+        loss.backward()
+        return loss
+
+    prev = os.environ.get("RAYTPU_SPH_BWD")
+    os.environ["RAYTPU_SPH_BWD"] = "ad"
+    try:
+        el, rate, got, idle, loss = _frame(
+            "cornell fwd+bwd with RAYTPU_SPH_BWD=ad (K1 recording, K5)", dev,
+            card, scene, cam, cfg, (2 * cfg.spp, 0, 0, 0, cfg.spp), fwd_bwd)
+    finally:
+        if prev is None:
+            del os.environ["RAYTPU_SPH_BWD"]
+        else:
+            os.environ["RAYTPU_SPH_BWD"] = prev
+    if not (loss.isfinite().item() and all(
+            p.grad.isfinite().all() for p in params.values())):
+        raise AssertionError("cornell fwd+bwd (K5): non-finite")
+    if not params["spheres.mat.diffuse.x"].grad.abs().max().item() > 0.0:
+        raise AssertionError("cornell fwd+bwd (K5): d loss / d diffuse is 0")
+    return dict(ms=ms["k5"], plain_ms=ms["plain"], k2_ms=ms["k2"],
+                bound=bound, max_abs_err=max_err, outlier_frac=frac,
+                frame=dict(s=el, rate=rate, launches=got, idle=idle))
 
 
 def main() -> int:
@@ -2627,7 +3078,11 @@ def main() -> int:
     sky_routes = phase_sky_routes(dev)
     sgrads = phase_scan_grads(dev)
     residue = phase_sky_residue(dev)
-    k5 = k5_bound(k2)
+    merged_k = phase_merged_kernels(dev)
+    merged_t = phase_merged_timing(dev)
+    merged_f = phase_merged_frames(dev, card)
+    k5_k = phase_k5(dev)
+    k5 = phase_k5_timing(dev, card, k2)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
                          k2["n_spheres"], record=False)
@@ -2635,6 +3090,13 @@ def main() -> int:
           f"{sky_k['bit_equal']}, scan path = megakernel {sky_routes}; "
           f"texel flips card vs CPU {sky_tex['direction_flips']:.6f}; "
           f"P-F12 worst rows {sgrads['worst']}; P-F1 residue {residue}")
+    print("merged K3 vs per-triangle (winners at bounce 0, all, outliers): "
+          + "; ".join(f"{n} {r['agree0']:.5f} {r['agree']:.5f} "
+                      f"{r['outliers']:.5f}" for n, r in merged_k.items()))
+    print("merged frames (fwd, fwd+bwd rays/s; Adam losses): " + "; ".join(
+        f"{key} {r['fwd']['rate']:.1f} {r['bwd']['rate']:.1f} {r['losses']}"
+        for key, r in merged_f.items())
+          + f"; K5 Cornell fwd+bwd {k5['frame']['rate']:.1f} rays/s")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "trace_spheres", "route": "cuda",
@@ -2743,10 +3205,35 @@ def main() -> int:
          sky_f["mesh_bwd"]["launches"][2]),
         ("trace_scene_bwd (sky, mesh mode)", "trace_scene_bwd",
          "raytpu/kernels/trace_scene_bwd.py:641", "k2_mesh",
-         sky_f["mesh_bwd"]["launches"][1])))], "unported": [{
-        "name": "trace_spheres backward (K5)",
+         sky_f["mesh_bwd"]["launches"][1]))), *({
+        "name": name, "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_scene.cu",
+        "replaces": "raytpu/kernels/trace_scene.py:431", "launches": launches,
+        "max_abs_err": err, "ms": r[ms], "plain_ms": r[plain],
+        "bound_ms": r[bound][0], "bound_by": r[bound][1], "library_ms": None,
+    } for name, r, ms, plain, bound, err, launches in (
+        ("trace_scene (merged)", merged_t["world"], "ms", "plain_ms", "bound",
+         0.0, merged_f["world"]["fwd"]["launches"][2]),
+        ("trace_scene (merged, recording)", merged_t["world"], "rec_ms",
+         "rec_plain_ms", "rec_bound", merged_t["world"]["rec_err"],
+         merged_f["world"]["bwd"]["launches"][2]),
+        ("trace_scene (merged, sky)", merged_t["sky"], "ms", "plain_ms",
+         "bound", 0.0, merged_f["sky"]["fwd"]["launches"][2]),
+        ("trace_scene (merged, sky, recording)", merged_t["sky"], "rec_ms",
+         "rec_plain_ms", "rec_bound", merged_t["sky"]["rec_err"],
+         merged_f["sky"]["bwd"]["launches"][2]))), {
+        "name": "trace_spheres_bwd (K5)", "route": "cuda",
+        "source": "raytpu_torch/csrc/trace_spheres_bwd.cu",
         "replaces": "raytpu/kernels/trace_spheres.py:460",
-        "launches": 0, "bound_ms": k5[0], "bound_by": k5[1],
+        "launches": k5["frame"]["launches"][4],
+        "launches_by_path": {"fwd_bwd": train["k5_launches"],
+                             "fwd_bwd_sph_bwd_ad": k5["frame"]["launches"][4]},
+        "max_abs_err": max(k5["max_abs_err"], k5_k["max_abs_err"]),
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound"][0], "bound_by": k5["bound"][1],
+        "library_ms": None, "outlier_frac": max(k5["outlier_frac"],
+                                                k5_k["outlier_frac"]),
+        "k2_ms": k5["k2_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

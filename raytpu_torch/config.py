@@ -11,13 +11,18 @@ Port of ``raytpu/config.py`` (``load_scene_file``, ``load_scene``):
     [sky]         file (an equirect P3 PPM), sphere_index (default: the
                   last sphere, "derniere sphere = ciel")
     morton        top-level flag (default true)
-    merge_quads   top-level flag, carried on the config
+    merge_quads   top-level flag (default true): detect the coplanar
+                  triangle pairs for K3's merged-quad search
 
 Paths resolve relative to the TOML file. The scene is built on ``device``
 (the CUDA card when ``None``). Triangles are Morton-ordered as
 ``raytpu``'s are. Not ported yet: meshes other than ``.obj``
-(``raytpu.io.mesh_formats``) raise ``NotImplementedError``; merged-quad
-detection is not run, so the config's ``quad_pairs`` stay empty.
+(``raytpu.io.mesh_formats``) raise ``NotImplementedError``. With
+``merge_quads`` on (the default) and more than one triangle, the loader
+detects the quad pairs (``geometry/quads``) and carries them on the
+config (``quad_pairs``, ``quad_aa_rects``, ``quad_aa_tris``), as
+``raytpu`` does; ``cfg.replace(merge_quads=False)`` after the load turns
+the merged search off again.
 """
 
 from __future__ import annotations
@@ -191,6 +196,15 @@ def load_scene_file(path: str, device=None) -> tuple[Scene, Camera, RenderConfig
     sky, sky_index = SkyTexture.empty(device), -1
     if "sky" in spec:
         sky, sky_index = _load_sky(spec["sky"], base, spheres, path, device)
+    if triangles.count > 1 and cfg.merge_quads:
+        from raytpu_torch.geometry.quads import (classify_axis_aligned,
+                                                 detect_quad_pairs)
+
+        coords = (*triangles.a, *triangles.b, *triangles.c)
+        pairs = detect_quad_pairs(*coords)
+        aa_rects, aa_tris = classify_axis_aligned(*coords, pairs)
+        cfg = cfg.replace(quad_pairs=pairs, quad_aa_rects=aa_rects,
+                          quad_aa_tris=aa_tris)
     return (Scene(spheres, triangles, atlas, mat_table, sky_index, sky), cam,
             cfg)
 

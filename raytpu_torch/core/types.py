@@ -247,10 +247,13 @@ class RenderConfig:
     ``use_pallas`` (the scan path's closest-hit kernel K4: True, False, or
     None for 128 or more triangles on a CUDA device),
     ``bilinear_textures`` and ``sky_texture_grads`` (the sky texels get
-    gradients only with it). Kept for parity and not read:
-    ``pallas_interpret`` and ``sample_chunk`` (JAX execution details) and
-    the merged-quad fields (``merge_quads``, ``quad_*``): K3 searches
-    triangle by triangle, as ``raytpu``'s K3 does with ``merge_quads=False``."""
+    gradients only with it) and the merged-quad fields: with
+    ``merge_quads`` on and ``quad_pairs`` detected (``config`` does it at
+    load), K3 runs its merged search over ``quad_pairs`` and the
+    axis-aligned classes ``quad_aa_rects`` / ``quad_aa_tris``, as
+    ``raytpu``'s K3 does; otherwise it searches triangle by triangle. Kept
+    for parity and not read: ``pallas_interpret`` and ``sample_chunk``
+    (JAX execution details)."""
 
     width: int = 400
     height: int = 300

@@ -3,10 +3,8 @@
 //
 // Replaces raytpu/kernels/trace_scene.py:_kernel (the Pallas TPU kernel
 // launched by _trace_call, body bounce_body, skip_body for finished rays)
-// with its recording mode (with_indices) and its equirect-sky slot, and
-// without the merged-quad loops: it computes what that kernel computes
-// with merge_quads=False. The plain
-// PyTorch version is
+// with its recording mode (with_indices), its equirect-sky slot and its
+// merged-quad search (kMerged, below). The plain PyTorch version is
 // raytpu_torch/kernels/trace_scene.py:trace_scene_reference; both keep
 // raytpu's arithmetic forms (0.5/max(a,1e-20) root scale, spheres scanned
 // before triangles with a strict t < best, inv_det = 1/where(det >=
@@ -56,7 +54,28 @@
 //     sky event; the 7 planes follow the 9 and
 //     raytpu_torch/kernels/trace_spheres.py:compose_sky adds the texel. A
 //     ray that leaves the loop early still writes its slot, after the
-//     loop, with the 9 planes.
+//     loop, with the 9 planes;
+//   * the merged-quad search (kMerged; four more instantiations, so the
+//     per-triangle ones keep their registers), raytpu's use_merged branch:
+//     the running winner is the fraction best / bden, compared by cross
+//     products, and divided once per ray and bounce at the end. The
+//     tables of trace_scene.py:pack_aa and pack_quads (axis-aligned rects
+//     and unpaired triangles, general parallelograms and leftovers with
+//     their chunk boxes) are staged in shared memory in place of the
+//     per-triangle search channels, which the winner's normal and the AO
+//     probes then read from global memory. The six (normal axis, sign)
+//     groups of axis-aligned candidates come first: their candidates share
+//     the denominator detg = -s d_k, so each ~12-operation test ranks by
+//     numerator and the group's winner joins the running one by one
+//     fraction compare. A group is skipped where detg is below the least
+//     det_eps / u of its candidates (or NaN), which every candidate needs
+//     to be valid: an exact skip, which halves the groups a ray tests. Then
+//     the general parallelograms and leftovers, ~30 operations each, in
+//     order (fraction compares do not round transitively, so the fold is
+//     sequential, as in the plain version), behind the per-thread chunk
+//     cull tmin * bden < best once there are more than 64 of them. A
+//     parallelogram's winner is the half on its side of the diagonal, so
+//     the winner stays an original triangle index.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
@@ -87,6 +106,16 @@ struct Knobs {
   int hsl_on;
   float hsl_l, hsl_s;
   int sky_idx;
+};
+
+// The merged search's tables (global; rows of n columns each) and layout.
+constexpr int kGroups = 6;   // (normal axis, sign): (0,+) (0,-) (1,+) ... (2,-)
+constexpr int kAaRows = 8, kAa3Rows = 9, kQuadRows = 14, kLeftRows = 13;
+struct Quads {
+  const float *aa, *aa3, *quad, *qbox, *left, *lbox;
+  int n_aa, n_aa3, n_quad, n_left;
+  int layout[kGroups][3];   // rects with m = 0, rects with m = 1, triangles
+  float hi_eps;             // 1 - tri_eps, rounded once as the plain version does
 };
 
 __device__ __forceinline__ float safe_denom(float x) {
@@ -238,7 +267,140 @@ __device__ float ao_factor(const float* sph, const float* tri_s,
   return occ * k.ao_inv;
 }
 
-template <bool kRecord, bool kSky>
+// The merged search after the spheres (raytpu's use_merged branch of
+// bounce_body), on the tables in shared memory: aa (8 x n_aa), aa3
+// (9 x n_aa3), quad (14 x n_quad), qbox, left (13 x n_left), lbox and
+// gmin (the least det_eps / u of each group). best and bidx hold the
+// spheres' winner (a fraction with denominator 1) and become the search's.
+__device__ __forceinline__ void merged_search(
+    const float* aa, const float* aa3, const float* quad, const float* qbox,
+    const float* left, const float* lbox, const float* gmin, const Quads& q,
+    const Knobs& k, float rox, float roy, float roz, float rdx, float rdy,
+    float rdz, float& best, int& bidx) {
+  const int ns = k.n_spheres;
+  float bden = 1.0f;
+  int r_off = 0, t_off = 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int kx = g >> 1;
+    const bool pos = (g & 1) == 0;
+    const int ca = q.layout[g][0], cb = q.layout[g][1], ct = q.layout[g][2];
+    const int r0 = r_off, t0 = t_off;
+    r_off += ca + cb;
+    t_off += ct;
+    const float dk = kx == 0 ? rdx : (kx == 1 ? rdy : rdz);
+    const float detg = pos ? -dk : dk;
+    // exact: no candidate of the group is valid below its det_eps / u
+    if (!(detg >= gmin[g])) continue;
+    const float ok = kx == 0 ? rox : (kx == 1 ? roy : roz);
+    const float so_k = pos ? ok : -ok;
+    // the in-plane axes i1 < i2
+    const float X1 = (kx == 0 ? roy : rox) * detg;
+    const float X2 = (kx == 2 ? roy : roz) * detg;
+    const float d1 = kx == 0 ? rdy : rdx, d2 = kx == 2 ? rdy : rdz;
+    const float epsd = k.tri_eps * detg, hid = q.hi_eps * detg;
+    float bg = kBig;
+    int gi = -1;
+    // a rect: alpha * detg and beta * detg from its corner and edges
+    auto rect = [&](int lo, int hi, float Xm, float dm, float Xo, float d_o) {
+      const int n = q.n_aa;
+      for (int c = lo; c < hi; ++c) {
+        const float* col = aa + c;
+        const float numr = so_k - col[0];
+        const float pug = (Xm - col[2 * n] * detg + numr * dm) * col[3 * n];
+        const float pvg = (Xo - col[4 * n] * detg + numr * d_o) * col[5 * n];
+        if (detg >= col[n] && numr >= epsd && pug >= epsd && pvg >= epsd &&
+            pug <= hid && pvg <= hid && numr < bg) {
+          bg = numr;
+          gi = (int)(pug + pvg <= detg ? col[6 * n] : col[7 * n]);
+        }
+      }
+    };
+    rect(r0, r0 + ca, X1, d1, X2, d2);
+    rect(r0 + ca, r0 + ca + cb, X2, d2, X1, d1);
+    const int n3 = q.n_aa3;
+    for (int c = t0; c < t0 + ct; ++c) {
+      const float* col = aa3 + c;
+      const float numr = so_k - col[0];
+      const float P1 = X1 - col[2 * n3] * detg + numr * d1;
+      const float P2 = X2 - col[3 * n3] * detg + numr * d2;
+      const float ug = P1 * col[4 * n3] + P2 * col[5 * n3];
+      const float vg = P1 * col[6 * n3] + P2 * col[7 * n3];
+      if (detg >= col[n3] && numr >= epsd && ug >= epsd && vg >= epsd &&
+          ug + vg <= hid && numr < bg) {
+        bg = numr;
+        gi = (int)col[8 * n3];
+      }
+    }
+    const float deng = detg > 0.0f ? detg : 1.0f;
+    // the bg < kBig gate keeps a group's miss out of the fraction compare
+    if (bg < kBig && bg * bden < best * deng) {
+      best = bg; bden = deng; bidx = ns + gi;
+    }
+  }
+
+  // the general candidates: (det, t * det, u * det, v * det) as in
+  // Moller-Trumbore without the division; u pairs with rows 6-8 (a
+  // parallelogram's e2, a triangle's c - a), v with rows 3-5
+  auto terms = [&](const float* col, int n, float& det, float& num,
+                   float& pu, float& pv) {
+    const float aox = rox - col[0], aoy = roy - col[n], aoz = roz - col[2 * n];
+    const float daox = aoy * rdz - aoz * rdy;
+    const float daoy = aoz * rdx - aox * rdz;
+    const float daoz = aox * rdy - aoy * rdx;
+    const float nx = col[9 * n], ny = col[10 * n], nz = col[11 * n];
+    det = -(rdx * nx + rdy * ny + rdz * nz);
+    num = aox * nx + aoy * ny + aoz * nz;
+    pu = col[6 * n] * daox + col[7 * n] * daoy + col[8 * n] * daoz;
+    pv = -(col[3 * n] * daox + col[4 * n] * daoy + col[5 * n] * daoz);
+  };
+  auto fold = [&](float num_c, float den_c, int t) {
+    if (num_c * bden < best * den_c) { best = num_c; bden = den_c; bidx = ns + t; }
+  };
+  auto quad_test = [&](int c) {
+    const int n = q.n_quad;
+    const float* col = quad + c;
+    float det, num, pu, pv;
+    terms(col, n, det, num, pu, pv);
+    const float lo = k.tri_eps * det, hi = q.hi_eps * det;
+    const bool valid = det >= k.det_eps && num >= lo && pu >= lo && pv >= lo &&
+                       pu <= hi && pv <= hi;
+    // the winning half: triangle i spans alpha + beta <= 1
+    fold(valid ? num : kBig, valid ? det : 1.0f,
+         (int)(pu + pv <= det ? col[12 * n] : col[13 * n]));
+  };
+  auto left_test = [&](int c) {
+    const int n = q.n_left;
+    const float* col = left + c;
+    float det, num, pu, pv;
+    terms(col, n, det, num, pu, pv);
+    const float lo = k.tri_eps * det;
+    const bool valid = det >= k.det_eps && num >= lo && pu >= lo && pv >= lo &&
+                       pu + pv <= q.hi_eps * det;
+    fold(valid ? num : kBig, valid ? det : 1.0f, (int)col[12 * n]);
+  };
+  const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
+  // every candidate in order, or past 2 chunks those of the chunks whose
+  // box the ray enters before its running fraction
+  auto loop = [&](int n, const float* boxes, auto test) {
+    const int n_ch = (n + kChunk - 1) / kChunk;
+    const bool culled = n > 2 * kChunk;
+    for (int c = 0; c < n_ch; ++c) {
+      float tmin;
+      if (culled && (!slab(boxes, n_ch, c, rox, roy, roz, inv_x, inv_y,
+                           inv_z, tmin) || !(tmin * bden < best))) {
+        continue;
+      }
+      const int end = min(n, (c + 1) * kChunk);
+      for (int j = c * kChunk; j < end; ++j) test(j);
+    }
+  };
+  loop(q.n_quad, qbox, quad_test);
+  loop(q.n_left, lbox, left_test);
+  best = best / bden;   // the deferred division; a miss keeps kBig / 1
+}
+
+template <bool kRecord, bool kSky, bool kMerged>
 __global__ void __launch_bounds__(kThreads)
 trace_scene_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ search_g,
@@ -251,20 +413,61 @@ trace_scene_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ dy, const float* __restrict__ dz,
                    const float* __restrict__ draws, float* __restrict__ out,
                    int* __restrict__ idx_out, float* __restrict__ aof_out,
-                   int n_rays, Knobs k) {
-  // shared: tri search (T x 12) | spheres (14 x S) | boxes (6 x C) | mats (9 x M)
+                   int n_rays, Knobs k, Quads q) {
+  // shared: tri search (T x 12, per-triangle mode) | spheres (14 x S) |
+  // boxes (6 x C) | mats (9 x M) | merged mode: aa | aa3 | quad | qbox |
+  // left | lbox | gmin (6)
   extern __shared__ float smem[];
   const int ns = k.n_spheres, nt = k.n_tris, nm = k.n_mats;
   const int n_chunks = (nt + kChunk - 1) / kChunk;
-  float* tri_s = smem;
-  float* sph = tri_s + kSearch * nt;
+  const float* tri_s = kMerged ? search_g : smem;
+  float* sph = kMerged ? smem : smem + kSearch * nt;
   float* box = sph + kSphRows * ns;
   float* mats = box + 6 * n_chunks;
-  for (int e = threadIdx.x; e < kSearch * nt; e += blockDim.x) tri_s[e] = search_g[e];
+  if (!kMerged) {
+    for (int e = threadIdx.x; e < kSearch * nt; e += blockDim.x) smem[e] = search_g[e];
+  }
   for (int e = threadIdx.x; e < kSphRows * ns; e += blockDim.x) sph[e] = sph_g[e];
   for (int e = threadIdx.x; e < 6 * n_chunks; e += blockDim.x) box[e] = box_g[e];
   for (int e = threadIdx.x; e < kMatRows * nm; e += blockDim.x) mats[e] = mat_g[e];
+  float* aa = mats + kMatRows * nm;
+  float* aa3 = aa + kAaRows * q.n_aa;
+  float* quad = aa3 + kAa3Rows * q.n_aa3;
+  float* qbox = quad + kQuadRows * q.n_quad;
+  const int q_chunks = (q.n_quad + kChunk - 1) / kChunk;
+  float* left = qbox + 6 * q_chunks;
+  float* lbox = left + kLeftRows * q.n_left;
+  const int l_chunks = (q.n_left + kChunk - 1) / kChunk;
+  float* gmin = lbox + 6 * l_chunks;
+  if (kMerged) {
+    auto stage = [](float* dst, const float* src, int n) {
+      for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+    };
+    stage(aa, q.aa, kAaRows * q.n_aa);
+    stage(aa3, q.aa3, kAa3Rows * q.n_aa3);
+    stage(quad, q.quad, kQuadRows * q.n_quad);
+    stage(qbox, q.qbox, 6 * q_chunks);
+    stage(left, q.left, kLeftRows * q.n_left);
+    stage(lbox, q.lbox, 6 * l_chunks);
+  }
   __syncthreads();
+  if (kMerged) {
+    if (threadIdx.x < kGroups) {   // the least det_eps / u of each group
+      const int g = threadIdx.x;
+      int r0 = 0, t0 = 0;
+      for (int h = 0; h < g; ++h) {
+        r0 += q.layout[h][0] + q.layout[h][1];
+        t0 += q.layout[h][2];
+      }
+      float m = __int_as_float(0x7f800000);   // +inf: an empty group is skipped
+      for (int c = r0; c < r0 + q.layout[g][0] + q.layout[g][1]; ++c) {
+        m = fminf(m, aa[q.n_aa + c]);
+      }
+      for (int c = t0; c < t0 + q.layout[g][2]; ++c) m = fminf(m, aa3[q.n_aa3 + c]);
+      gmin[g] = m;
+    }
+    __syncthreads();
+  }
 
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= n_rays) return;
@@ -307,19 +510,24 @@ trace_scene_kernel(const float* __restrict__ sph_g,
       if (t < best) { best = t; bidx = s; }
     }
 
-    // ---- triangles of the chunks the ray enters before its best ------
-    const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
-    for (int c = 0; c < n_chunks; ++c) {
-      float tmin;
-      if (!slab(box, n_chunks, c, rox, roy, roz, inv_x, inv_y, inv_z, tmin) ||
-          !(tmin < best)) {
-        continue;
-      }
-      const int end = min(nt, (c + 1) * kChunk);
-      for (int t = c * kChunk; t < end; ++t) {
-        const float d = triangle_hit(tri_s + t * kSearch, rox, roy, roz, rdx,
-                                     rdy, rdz, k);
-        if (d < best) { best = d; bidx = ns + t; }
+    if (kMerged) {
+      merged_search(aa, aa3, quad, qbox, left, lbox, gmin, q, k, rox, roy,
+                    roz, rdx, rdy, rdz, best, bidx);
+    } else {
+      // ---- triangles of the chunks the ray enters before its best ----
+      const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
+      for (int c = 0; c < n_chunks; ++c) {
+        float tmin;
+        if (!slab(box, n_chunks, c, rox, roy, roz, inv_x, inv_y, inv_z, tmin) ||
+            !(tmin < best)) {
+          continue;
+        }
+        const int end = min(nt, (c + 1) * kChunk);
+        for (int t = c * kChunk; t < end; ++t) {
+          const float d = triangle_hit(tri_s + t * kSearch, rox, roy, roz, rdx,
+                                       rdy, rdz, k);
+          if (d < best) { best = d; bidx = ns + t; }
+        }
       }
     }
 
@@ -567,17 +775,21 @@ trace_scene_kernel(const float* __restrict__ sph_g,
 }  // namespace
 
 // Plain C entry point, bound with ctypes. All pointers are device
-// pointers to contiguous f32: sph (14, n_spheres); search (n_tris, 12);
-// tri (25, n_tris); boxes (6, ceil(n_tris / 32)); mats (9, n_mats); atlas
-// (4, n_tex), unread when n_tex is 0; ox..dz (n_rays,); draws
-// (bounces * n_draws, n_rays); out (9, n_rays), or (16, n_rays) with the
-// sky slot of sphere sky_idx (-1: no sky). Recording mode when
+// pointers to contiguous f32 but `layout`: sph (14, n_spheres); search
+// (n_tris, 12); tri (25, n_tris); boxes (6, ceil(n_tris / 32)); mats
+// (9, n_mats); atlas (4, n_tex), unread when n_tex is 0; ox..dz (n_rays,);
+// draws (bounces * n_draws, n_rays); out (9, n_rays), or (16, n_rays) with
+// the sky slot of sphere sky_idx (-1: no sky). Recording mode when
 // idx_out is not null: idx_out (bounces, n_rays) i32 winners and, with
-// use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). Sets the
-// kernel's dynamic
-// shared memory (up to ~105 KB at 2048 triangles, above the 48 KB default),
-// launches on `stream` without synchronising and returns the launch's
-// cudaError_t.
+// use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). The
+// merged search when `layout`, a host array of 6 x 3 ints (per (axis,
+// sign) group: rects with m = 0, with m = 1, unpaired triangles), is not
+// null: aa (8, n_aa), aa3 (9, n_aa3), quad (14, n_quad), qbox
+// (6, ceil(n_quad / 32)), left (13, n_left) and lbox (6, ceil(n_left /
+// 32)) are trace_scene.py's pack_aa / pack_quads tables, hi_eps is
+// 1 - tri_eps. Sets the kernel's dynamic shared memory (up to ~105 KB at
+// 2048 triangles, above the 48 KB default), launches on `stream` without
+// synchronising and returns the launch's cudaError_t.
 extern "C" int raytpu_trace_scene(
     const float* sph, const float* search, const float* tri,
     const float* boxes, const float* mats, const float* atlas,
@@ -588,7 +800,10 @@ extern "C" int raytpu_trace_scene(
     float det_eps, float tri_eps, float alpha_lo, float alpha_hi,
     float bright_boost, float bright_threshold, int use_ao, int ao_samples,
     float ao_e_scale, float ao_inv, int hsl_on, float hsl_l, float hsl_s,
-    int sky_idx, void* stream) {
+    int sky_idx, const float* aa, const float* aa3, const float* quad,
+    const float* qbox, const float* left, const float* lbox, int n_aa,
+    int n_aa3, int n_quad, int n_left, const int* layout, float hi_eps,
+    void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 1 ||
       sky_idx < -1 || sky_idx >= n_spheres ||
       n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
@@ -599,27 +814,57 @@ extern "C" int raytpu_trace_scene(
       (aof_out != nullptr && (idx_out == nullptr || !use_ao))) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool merged = layout != nullptr;
+  Quads q{aa, aa3, quad, qbox, left, lbox, n_aa, n_aa3, n_quad, n_left, {},
+          hi_eps};
+  if (merged) {
+    int rects = 0, tris = 0;
+    for (int g = 0; g < kGroups; ++g) {
+      for (int j = 0; j < 3; ++j) {
+        if (layout[3 * g + j] < 0) return (int)cudaErrorInvalidValue;
+        q.layout[g][j] = layout[3 * g + j];
+      }
+      rects += layout[3 * g] + layout[3 * g + 1];
+      tris += layout[3 * g + 2];
+    }
+    if (rects != n_aa || tris != n_aa3 || n_quad < 0 || n_left < 0 ||
+        2 * (n_aa + n_quad) + n_aa3 + n_left != n_tris) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   if (n_rays == 0) return (int)cudaSuccess;
   Knobs k{n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces,
           n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
           bright_boost, bright_threshold, use_ao, ao_samples, ao_e_scale,
           ao_inv, hsl_on, hsl_l, hsl_s, sky_idx};
   const int n_chunks = (n_tris + kChunk - 1) / kChunk;
-  const size_t smem = sizeof(float) * ((size_t)kSearch * n_tris +
-                                       (size_t)kSphRows * n_spheres +
-                                       6 * (size_t)n_chunks +
-                                       (size_t)kMatRows * n_mats);
+  size_t floats = (size_t)kSphRows * n_spheres + 6 * (size_t)n_chunks +
+                  (size_t)kMatRows * n_mats;
+  if (merged) {
+    floats += (size_t)kAaRows * n_aa + (size_t)kAa3Rows * n_aa3 +
+              (size_t)kQuadRows * n_quad + 6 * (size_t)((n_quad + kChunk - 1) / kChunk) +
+              (size_t)kLeftRows * n_left + 6 * (size_t)((n_left + kChunk - 1) / kChunk) +
+              kGroups;
+  } else {
+    floats += (size_t)kSearch * n_tris;
+  }
+  const size_t smem = sizeof(float) * floats;
   const bool record = idx_out != nullptr, sky = sky_idx >= 0;
-  const auto kernel = record ? (sky ? trace_scene_kernel<true, true>
-                                    : trace_scene_kernel<true, false>)
-                             : (sky ? trace_scene_kernel<false, true>
-                                    : trace_scene_kernel<false, false>);
+  const auto kernel =
+      merged ? (record ? (sky ? trace_scene_kernel<true, true, true>
+                              : trace_scene_kernel<true, false, true>)
+                       : (sky ? trace_scene_kernel<false, true, true>
+                              : trace_scene_kernel<false, false, true>))
+             : (record ? (sky ? trace_scene_kernel<true, true, false>
+                              : trace_scene_kernel<true, false, false>)
+                       : (sky ? trace_scene_kernel<false, true, false>
+                              : trace_scene_kernel<false, false, false>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
-      out, idx_out, aof_out, n_rays, k);
+      out, idx_out, aof_out, n_rays, k, q);
   return (int)cudaGetLastError();
 }

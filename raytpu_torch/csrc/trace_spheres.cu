@@ -50,12 +50,13 @@
 
 #include <cuda_runtime.h>
 
+#include "sphere_search.cuh"   // the search and AO probes, shared with K5
+
 namespace {
 
 constexpr int kMaxSpheres = 64;
 constexpr int kRows = 14;          // cx cy cz r | dif3 emi3 estr refl alpha ior
 constexpr int kThreads = 128;
-constexpr float kBig = 3.0e38f;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
 
 struct Knobs {
@@ -123,40 +124,6 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   x *= inv; y *= inv; z *= inv;
 }
 
-// Ambient occlusion (main.c:94-116): hemisphere probes from the hit point,
-// any hit at t >= eps; occluded probes / (ao_samples * ao_intensity).
-__device__ float ao_factor(const float* CX, const float* CY, const float* CZ,
-                           const float* R, int ns, float px, float py,
-                           float pz, float nX, float nY, float nZ,
-                           const float* dr, size_t B, const Knobs& k) {
-  float occ = 0.0f;
-  for (int a = 0; a < k.ao_samples; ++a) {
-    const float au = dr[(3 + 2 * a) * B], av = dr[(4 + 2 * a) * B];
-    const float ath = kTwoPi * au;
-    const float acp = clampf(2.0f * av - 1.0f, -1.0f, 1.0f);
-    const float asp = sqrtf(fmaxf(1.0f - acp * acp, 0.0f));
-    float aox = nX + cosf(ath) * asp;
-    float aoy = nY + sinf(ath) * asp;
-    float aoz = nZ + acp;
-    normalize3(aox, aoy, aoz);
-    const float aq = aox * aox + aoy * aoy + aoz * aoz;
-    const float ai2a = 0.5f / fmaxf(aq, 1e-20f);
-    bool occ_hit = false;
-    for (int s = 0; s < ns && !occ_hit; ++s) {
-      const float ocx = px - CX[s], ocy = py - CY[s], ocz = pz - CZ[s];
-      const float b2 = 2.0f * (ocx * aox + ocy * aoy + ocz * aoz);
-      const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - R[s] * R[s];
-      const float d2 = b2 * b2 - 4.0f * aq * c2;
-      const float sq2 = sqrtf(fmaxf(d2, 1e-30f));
-      const float tt1 = (-b2 - sq2) * ai2a;
-      const float tt2 = (-b2 + sq2) * ai2a;
-      occ_hit = d2 > 0.0f && (tt1 >= k.sphere_eps || tt2 >= k.sphere_eps);
-    }
-    occ = occ + (occ_hit ? 1.0f : 0.0f);
-  }
-  return occ * k.ao_inv;
-}
-
 template <bool kSky>
 __global__ void __launch_bounds__(kThreads)
 trace_spheres_kernel(const float* __restrict__ sph,
@@ -195,23 +162,9 @@ trace_spheres_kernel(const float* __restrict__ sph,
 
   for (int i = 0; i < k.bounces; ++i) {
     // ---- closest sphere: strict t < best in sphere order -------------
-    const float a_quad = rdx * rdx + rdy * rdy + rdz * rdz;
-    const float inv_2a = 0.5f / fmaxf(a_quad, 1e-20f);
-    float best = kBig;
-    int bidx = -1;
-    for (int s = 0; s < ns; ++s) {
-      const float ocx = rox - CX[s], ocy = roy - CY[s], ocz = roz - CZ[s];
-      const float b_ = 2.0f * (ocx * rdx + ocy * rdy + ocz * rdz);
-      const float c_ = ocx * ocx + ocy * ocy + ocz * ocz - R[s] * R[s];
-      const float disc = b_ * b_ - 4.0f * a_quad * c_;
-      const float sq = sqrtf(fmaxf(disc, 1e-30f));
-      const float t1 = (-b_ - sq) * inv_2a;
-      const float t2 = (-b_ + sq) * inv_2a;
-      const bool hit = disc > 0.0f;
-      const float t = (hit && t1 >= k.sphere_eps) ? t1
-                    : ((hit && t2 >= k.sphere_eps) ? t2 : kBig);
-      if (t < best) { best = t; bidx = s; }
-    }
+    float best;
+    const int bidx = closest_sphere(CX, CY, CZ, R, ns, rox, roy, roz, rdx,
+                                    rdy, rdz, k.sphere_eps, best);
 
     // recording: the winner of every ray still in its bounce loop, -1 for
     // a miss and for rays whose loop is over (raytpu's with_indices)
@@ -326,7 +279,8 @@ trace_spheres_kernel(const float* __restrict__ sph,
     const bool accum = live && !do_refract && !cutout;
     float factor = 0.0f;
     if (k.use_ao && (accum || aof_out != nullptr)) {
-      factor = ao_factor(CX, CY, CZ, R, ns, px, py, pz, nX, nY, nZ, dr, B, k);
+      factor = sphere_ao(CX, CY, CZ, R, ns, px, py, pz, nX, nY, nZ, dr, B,
+                         k.ao_samples, k.sphere_eps, k.ao_inv);
       if (aof_out != nullptr) aof_out[(size_t)i * B + ray] = factor;
     }
 

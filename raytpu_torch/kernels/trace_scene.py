@@ -3,14 +3,31 @@
 Port of ``raytpu/kernels/trace_scene.py``: the whole forward bounce loop
 over spheres plus up to 2048 textured triangles in one launch (``_kernel``
 -> ``bounce_body``, launched by ``_trace_call``), with its recording mode
-for the backward and its equirect-sky slot, without the merged-quad
-loops, so it computes what ``raytpu``'s K3 computes with
-``merge_quads=False``.
+for the backward, its equirect-sky slot and its merged-quad search.
 Per ray and bounce: the closest sphere (scanned first, strict t < best),
-then the triangles of every 32-triangle chunk whose box the ray enters
-before its current best (Moller-Trumbore), the winner's barycentric UVs,
-nearest texel and material-table row, the AO probes, and
-``shade_bounce``.
+then the triangles, the winner's barycentric UVs, nearest texel and
+material-table row, the AO probes, and ``shade_bounce``.
+
+The triangle search has two modes, as in ``raytpu``. Triangle by
+triangle (``merge_quads=False``, or no quad pairs): the triangles of every
+32-triangle chunk whose box the ray enters before its current best
+(Moller-Trumbore). Merged (``merge_quads`` with the pairs ``config``
+detected, ``geometry/quads``; ``MeshKnobs.plan``): candidates rank as
+fractions t = num / den, with one division per ray and bounce at the end.
+The six (normal axis, sign) groups of axis-aligned rectangles and unpaired
+triangles run first, in ``aa_layout`` order (rects with e1 on the lower
+in-plane axis, then the higher, then the triangles; the candidates of a
+group share the denominator -s d_k, so they rank by numerator, and the
+group's winner joins the running one by a fraction compare gated on a
+hit), then the general parallelograms and the general leftover
+triangles, each behind a fraction-ranked chunk cull once there are more
+than 2 * CULL_CHUNK of them. A parallelogram's winner is the half on its
+side of the diagonal, so the recorded winner stays an original triangle
+index and K2's mesh mode replays it unchanged; AO probes stay per
+triangle. The merged search accepts the ~tri_eps crack the per-triangle
+test leaves along a pair's diagonal and rounds differently, so the two
+modes agree by winners and outliers (``tests/test_quad_merge.py``'s
+bars), not bit for bit.
 
 The equirect sky (``Scene.sky_index``): the 4096x2048 sky textures are
 not read in the kernel. Each ray keeps one sky slot (``take_sky_slot``):
@@ -27,8 +44,9 @@ the hand-written kernel in ``csrc/trace_scene.cu``; on CPU tensors it runs
 ``trace_scene_reference``, the plain PyTorch version of the same loop,
 which the tests hold against ``raytpu`` and the chip check holds the
 kernel against. The packers (``pack_tri``, ``chunk_boxes``, ``pack_mats``,
-``pack_atlas``) fix the tables both read; ``raytpu``'s bf16 limbs and
-one-hot layouts are TPU tricks and become plain indexed loads.
+``pack_atlas``, and for the merged search ``pack_aa`` and ``pack_quads``)
+fix the tables both read; ``raytpu``'s bf16 limbs, one-hot layouts and
+SMEM padding are TPU tricks and become plain indexed loads.
 
 Gradients: ``TraceMesh`` joins K3 in recording mode (each bounce's winner
 index and AO factor) to K2's mesh mode (``trace_scene_bwd.mesh_backward``);
@@ -49,6 +67,7 @@ and ``alpha_depth`` as int32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -132,10 +151,64 @@ class Knobs:
         return 3 + 2 * (self.ao_samples if self.use_ao else 0)
 
 
+class QuadPlan(NamedTuple):
+    """The merged search's static selection (``raytpu``'s
+    ``_aa_partition`` and the arguments of its ``pack_aa`` /
+    ``pack_quads``), from the config's quad fields."""
+
+    aa_layout: tuple   # 6 x (k, s, rects m=0, rects m=1, triangles), in
+                       # the group order (0,+1) (0,-1) (1,+1) ... (2,-1)
+    rects: tuple       # (i, j, oi, k, s, m) per axis-aligned rect, in table order
+    aa_tris: tuple     # (t, k, s) per axis-aligned unpaired triangle
+    quads: tuple       # (i, j, oi) per general parallelogram
+    leftovers: tuple   # the general unpaired triangles
+
+
+def aa_partition(rect_classes, tri_classes):
+    """``raytpu``'s ``_aa_partition``: ``(layout, rect_sel, tri_sel)``, the
+    six (k, s, n_rect_m0, n_rect_m1, n_tri) groups in fixed order and the
+    (pair index, k, s, m) / (tri, k, s) columns in group-major order."""
+    layout, rect_sel, tri_sel = [], [], []
+    for k in range(3):
+        for s in (1, -1):
+            ra = [p for p, c in enumerate(rect_classes) if c == (k, s, 0)]
+            rb = [p for p, c in enumerate(rect_classes) if c == (k, s, 1)]
+            tt = [t for (t, kk, ss) in tri_classes if (kk, ss) == (k, s)]
+            layout.append((k, s, len(ra), len(rb), len(tt)))
+            rect_sel += [(p, k, s, 0) for p in ra] + [(p, k, s, 1) for p in rb]
+            tri_sel += [(t, k, s) for t in tt]
+    return tuple(layout), rect_sel, tri_sel
+
+
+def quad_plan(cfg: RenderConfig, n_tris: int) -> Optional[QuadPlan]:
+    """The merged search's plan, or None for the per-triangle search (no
+    pairs, or ``merge_quads`` off), as ``raytpu``'s ``_mkm_forward``
+    decides. Rect classes that do not match the pairs in number count
+    as general, as there."""
+    from raytpu_torch.geometry.quads import leftover_indices
+
+    pairs = cfg.quad_pairs if cfg.merge_quads else ()
+    if not pairs:
+        return None
+    rect_classes = (cfg.quad_aa_rects if len(cfg.quad_aa_rects) == len(pairs)
+                    else ((),) * len(pairs))
+    layout, rect_sel, tri_sel = aa_partition(rect_classes, cfg.quad_aa_tris)
+    aa_set = {t for t, _, _ in cfg.quad_aa_tris}
+    return QuadPlan(
+        aa_layout=layout,
+        rects=tuple((*pairs[p], k, s, m) for p, k, s, m in rect_sel),
+        aa_tris=tuple(tri_sel),
+        quads=tuple(p for p, c in zip(pairs, rect_classes) if c == ()),
+        leftovers=tuple(t for t in leftover_indices(n_tris, pairs)
+                        if t not in aa_set),
+    )
+
+
 @dataclass(frozen=True)
 class MeshKnobs(Knobs):
-    """K3's static parameters: K1's plus the triangle epsilons and the
-    table sizes."""
+    """K3's static parameters: K1's plus the triangle epsilons, the table
+    sizes and, for the merged search, its plan (``aa_layout``,
+    ``n_quads``, ``n_leftover``)."""
 
     n_tris: int
     n_mats: int
@@ -144,6 +217,7 @@ class MeshKnobs(Knobs):
     atlas_h: int
     det_eps: float
     tri_eps: float
+    plan: Optional[QuadPlan] = None   # None: the per-triangle search
 
     @staticmethod
     def for_scene(cfg: RenderConfig, scene: Scene, n_draws: int) -> "MeshKnobs":
@@ -153,7 +227,20 @@ class MeshKnobs(Knobs):
             n_mats=scene.mat_table.count, n_tex=scene.atlas.alpha.shape[0],
             atlas_w=scene.atlas.width, atlas_h=scene.atlas.height,
             det_eps=cfg.tri_det_eps, tri_eps=cfg.tri_eps,
+            plan=quad_plan(cfg, scene.triangles.count),
         )
+
+    @property
+    def aa_layout(self) -> Optional[tuple]:
+        return None if self.plan is None else self.plan.aa_layout
+
+    @property
+    def n_quads(self) -> int:
+        return 0 if self.plan is None else len(self.plan.quads)
+
+    @property
+    def n_leftover(self) -> int:
+        return 0 if self.plan is None else len(self.plan.leftovers)
 
     @staticmethod
     def of_spheres(k: Knobs) -> "MeshKnobs":
@@ -387,7 +474,8 @@ def take_sky_slot(sky: tuple, sky_win, emissive_ret, accum, estr, rc,
 
 
 class MeshTables(NamedTuple):
-    """The tables K3 and its plain version read (``pack_scene``)."""
+    """The tables K3 and its plain version read (``pack_scene``); the last
+    six only for the merged search (``pack_aa``, ``pack_quads``)."""
 
     sph: Tensor     # (14, S): cx cy cz r | diffuse3 emission3 estr refl alpha ior
     tri: Tensor     # (25, T): a3 ab3 ac3 n3 b3 c3 ua va ub vb uc vc mat
@@ -396,6 +484,16 @@ class MeshTables(NamedTuple):
     boxes: Tensor   # (6, ceil(T / 32)): per-chunk box lo3 hi3
     mats: Tensor    # (9, M): emission3 estr refl ior alpha_c use_c eft
     atlas: Tensor   # (4, n_tex): r g b alpha texel planes
+    aa: Optional[Tensor] = None     # (8, N) axis-aligned rects
+    aa3: Optional[Tensor] = None    # (9, L3) axis-aligned unpaired triangles
+    quad: Optional[Tensor] = None   # (14, Q) general parallelograms
+    qbox: Optional[Tensor] = None   # (6, ceil(Q / 32)) their chunk boxes
+    left: Optional[Tensor] = None   # (13, L) general leftover triangles
+    lbox: Optional[Tensor] = None   # (6, ceil(L / 32)) their chunk boxes
+
+    def nbytes(self) -> int:
+        """Bytes of every table present."""
+        return sum(4 * t.numel() for t in self if t is not None)
 
 
 def pack_tri(scene: Scene) -> Tensor:
@@ -447,27 +545,145 @@ def pack_atlas(scene: Scene) -> Tensor:
     return torch.stack([*a.rgb, a.alpha]).to(torch.float32).contiguous()
 
 
-def mesh_tables(sph: Tensor, tri: Tensor, mats: Tensor,
-                atlas: Tensor) -> MeshTables:
+# rows of pack_tri's table that hold vertex a, the raw b and the raw c
+VERTEX_ROWS = (0, 12, 15)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_index(plan: QuadPlan, device: str) -> dict:
+    """The index tensors the merged packers gather with, on ``device``
+    (made once per plan and device: a copy to the card per call would
+    wait for it)."""
+    v = lambda *rows: torch.tensor(np.asarray(rows, np.int64).reshape(
+        len(rows), -1), device=device)
+    out = {}
+    if plan.rects:
+        i, j, oi, k, s, m = (np.asarray(c) for c in zip(*plan.rects))
+        i1 = np.where(k == 0, 1, 0)
+        i2 = np.where(k == 2, 1, 2)
+        m_ax, o_ax = np.where(m == 0, i1, i2), np.where(m == 0, i2, i1)
+        base = np.asarray(VERTEX_ROWS)
+        a_row, s1_row, s2_row = base[oi], base[(oi + 1) % 3], base[(oi + 2) % 3]
+        out["rect"] = v(a_row + k, a_row + m_ax, a_row + o_ax, s1_row + m_ax,
+                        s2_row + o_ax, i, j)
+        out["rect_s"] = torch.tensor(s.astype(np.float32), device=device)
+    if plan.aa_tris:
+        t, k, s = (np.asarray(c) for c in zip(*plan.aa_tris))
+        i1 = np.where(k == 0, 1, 0)
+        i2 = np.where(k == 2, 1, 2)
+        out["aa3"] = v(k, i1, i2, t)
+        out["aa3_s"] = torch.tensor(s.astype(np.float32), device=device)
+    if plan.quads:
+        i, j, oi = (np.asarray(c) for c in zip(*plan.quads))
+        base = np.asarray(VERTEX_ROWS)
+        out["quad"] = v(base[oi], base[(oi + 1) % 3], base[(oi + 2) % 3], i, j)
+    if plan.leftovers:
+        out["left"] = v(plan.leftovers)
+    return out
+
+
+def pack_aa(tri: Tensor, plan: QuadPlan, det_eps: float
+            ) -> tuple[Tensor, Tensor]:
+    """The axis-aligned loops' tables (``raytpu``'s ``pack_aa``, its values
+    without the padding), normalised by the normal's length u = |n_k| so
+    that a ray's group scalar detg = -s d_k is each candidate's
+    denominator:
+
+      aa  (8, N)  per rect: s a_k | det_eps / u | a_m | 1 / e1_m | a_o
+                  | 1 / e2_o | i | j   (m: e1's in-plane axis, o: e2's)
+      aa3 (9, L3) per unpaired triangle: s a_k | det_eps / |D| | a_i1
+                  | a_i2 | ac_i2 / D | -ac_i1 / D | -ab_i2 / D | ab_i1 / D
+                  | t   (D: the in-plane 2x2 determinant)
+
+    from ``pack_tri``'s table: a rect's corner and edges from its raw
+    vertices, a triangle's from a, b - a and c - a."""
+    ix = _plan_index(plan, str(tri.device))
+    aa = tri.new_zeros((8, 0))
+    if plan.rects:
+        r = ix["rect"]
+        a_k, a_m, a_o = (tri[r[q], r[5]] for q in range(3))
+        e1m = tri[r[3], r[5]] - a_m
+        e2o = tri[r[4], r[5]] - a_o
+        u = torch.abs(e1m * e2o)
+        aa = torch.stack([ix["rect_s"] * a_k, torch.full_like(u, det_eps) / u,
+                          a_m, 1.0 / e1m, a_o, 1.0 / e2o,
+                          r[5].to(torch.float32), r[6].to(torch.float32)])
+    aa3 = tri.new_zeros((9, 0))
+    if plan.aa_tris:
+        k, i1, i2, t = ix["aa3"]
+        a = lambda base, axis: tri[base + axis, t]
+        ab1, ab2, ac1, ac2 = a(3, i1), a(3, i2), a(6, i1), a(6, i2)
+        D = ab1 * ac2 - ab2 * ac1
+        aa3 = torch.stack([
+            ix["aa3_s"] * a(0, k), torch.full_like(D, det_eps) / torch.abs(D),
+            a(0, i1), a(0, i2), ac2 / D, -ac1 / D, -ab2 / D, ab1 / D,
+            t.to(torch.float32)])
+    return aa.contiguous(), aa3.contiguous()
+
+
+def pack_quads(tri: Tensor, plan: QuadPlan
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The general loops' tables (``raytpu``'s ``pack_quads``, its values
+    without the padding):
+
+      quad (14, Q)  a3 e1_3 e2_3 n3 i j: the corner is triangle i's vertex
+                    opposite the shared edge, e1 / e2 the diagonal's ends
+                    minus it (cyclic order, so n = cross(e1, e2) is
+                    triangle i's raw normal and the back-face cull matches)
+      qbox (6, ceil(Q / 32)) chunk boxes over the four corners
+      left (13, L)  a3 ab3 ac3 n3 t per general unpaired triangle
+      lbox (6, ceil(L / 32)) chunk boxes over a, a + ab, a + ac"""
+    ix = _plan_index(plan, str(tri.device))
+    quad, qbox = tri.new_zeros((14, 0)), tri.new_zeros((6, 0))
+    if plan.quads:
+        ar, s1r, s2r, i, j = ix["quad"]
+        axes = []
+        for ax in range(3):
+            a_, s1, s2 = tri[ar + ax, i], tri[s1r + ax, i], tri[s2r + ax, i]
+            axes.append((a_, s1 - a_, s2 - a_, s1 + s2 - a_, s1, s2))
+        ((ax_, e1x, e2x, d4x, s1x, s2x), (ay_, e1y, e2y, d4y, s1y, s2y),
+         (az_, e1z, e2z, d4z, s1z, s2z)) = axes
+        quad = torch.stack([
+            ax_, ay_, az_, e1x, e1y, e1z, e2x, e2y, e2z,
+            e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
+            e1x * e2y - e1y * e2x, i.to(torch.float32), j.to(torch.float32)])
+        qbox = chunk_boxes([ax_, s1x, s2x, d4x], [ay_, s1y, s2y, d4y],
+                           [az_, s1z, s2z, d4z], len(plan.quads))
+    left, lbox = tri.new_zeros((13, 0)), tri.new_zeros((6, 0))
+    if plan.leftovers:
+        t = ix["left"][0]
+        g = tri[:12, t]
+        left = torch.cat([g, t.to(torch.float32)[None]])
+        lbox = chunk_boxes(*([g[r], g[r] + g[r + 3], g[r] + g[r + 6]]
+                             for r in range(3)), len(plan.leftovers))
+    return quad.contiguous(), qbox, left.contiguous(), lbox
+
+
+def mesh_tables(sph: Tensor, tri: Tensor, mats: Tensor, atlas: Tensor,
+                k: Optional["MeshKnobs"] = None) -> MeshTables:
     """K3's tables from the four packed ones: the search channels and the
     cull boxes are derived from ``tri`` (selection only; the boxes span
     the recomputed corners a, a + ab and a + ac, as ``raytpu``'s
-    ``pack_scene``)."""
+    ``pack_scene``), and with a merged plan on ``k`` so are the merged
+    search's tables."""
     corners = [(tri[r], tri[r] + tri[r + 3], tri[r] + tri[r + 6])
                for r in range(3)]
+    merged = ()
+    if k is not None and k.plan is not None:
+        merged = (*pack_aa(tri, k.plan, k.det_eps), *pack_quads(tri, k.plan))
     return MeshTables(
-        sph=sph, tri=tri, search=tri[:12].T.contiguous(),
-        boxes=chunk_boxes(*map(list, corners), tri.shape[1]),
-        mats=mats, atlas=atlas,
+        sph, tri, tri[:12].T.contiguous(),
+        chunk_boxes(*map(list, corners), tri.shape[1]), mats, atlas, *merged,
     )
 
 
-def pack_scene(scene: Scene) -> MeshTables:
-    """K3's tables for ``scene``."""
+def pack_scene(scene: Scene, k: Optional["MeshKnobs"] = None) -> MeshTables:
+    """K3's tables for ``scene``, with the merged search's when ``k``
+    carries a plan."""
     from raytpu_torch.kernels.trace_spheres import pack_spheres
 
     return mesh_tables(pack_spheres(scene), pack_tri(scene), pack_mats(scene),
-                       pack_atlas(scene))
+                       pack_atlas(scene), k)
 
 
 def _closest_sphere(geo, n_s, rox, roy, roz, rdx, rdy, rdz, eps):
@@ -557,6 +773,166 @@ def _closest_triangle(tb: MeshTables, k: MeshKnobs, o, d, active, best,
     return best, bidx
 
 
+def _aa_group_min(tb: MeshTables, r0: int, nr: int, t0: int, nt: int):
+    """The least det_eps / u of a group's candidates: a ray whose group
+    scalar detg is below it (or NaN) has no valid candidate there, which
+    lets the kernel skip the group exactly."""
+    du = torch.cat([tb.aa[1, r0:r0 + nr], tb.aa3[1, t0:t0 + nt]])
+    return du.min()
+
+
+def _closest_merged(tb: MeshTables, k: MeshKnobs, o, d, active, best, bidx,
+                    counts):
+    """The merged search after the spheres (``raytpu``'s ``use_merged``
+    branch of ``bounce_body``): the running winner as the fraction
+    best / bden (bden is 1 after the spheres, so their strict t < best is
+    the fraction compare with denominator 1), the axis-aligned groups,
+    the general parallelograms and leftovers, then the one division.
+
+    Within a group the candidates share the denominator, so a chunk's
+    first least numerator is the sequential fold's winner; the general
+    loops compare fractions, whose rounding is not transitive, so they
+    fold one candidate at a time, as the kernel does. ``counts`` receives
+    ``aa_rect`` / ``aa_tri`` tests (rays whose group is not skipped by
+    ``_aa_group_min``), ``quad`` / ``left`` tests and the ``slab`` tests
+    of the culled general loops."""
+    plan, ns = k.plan, k.n_spheres
+    bden = torch.ones_like(best)
+    cand = {"aa_rect": 0, "aa_tri": 0, "quad": 0, "left": 0, "slab": 0}
+    r_off = t_off = 0
+    for kx, sgn, ca, cb, ct in plan.aa_layout:
+        r0, t0 = r_off, t_off
+        r_off, t_off = r_off + ca + cb, t_off + ct
+        if ca + cb + ct == 0:
+            continue
+        i1, i2 = [a for a in range(3) if a != kx]
+        detg = -d[kx] if sgn > 0 else d[kx]
+        so_k = o[kx] if sgn > 0 else -o[kx]
+        epsd = (k.tri_eps * detg)[:, None]
+        hid = ((1.0 - k.tri_eps) * detg)[:, None]
+        X1, X2 = (o[i1] * detg)[:, None], (o[i2] * detg)[:, None]
+        d1, d2 = d[i1][:, None], d[i2][:, None]
+        so, dg = so_k[:, None], detg[:, None]
+        if counts is not None:
+            n_in = int((active & (detg >= _aa_group_min(tb, r0, ca + cb, t0,
+                                                         ct))).sum())
+            cand["aa_rect"] += n_in * (ca + cb)
+            cand["aa_tri"] += n_in * ct
+        bg = torch.full_like(best, BIG)
+        gi = torch.full_like(bidx, -1)
+
+        def fold(lo, hi, body, bg, gi):
+            for c0 in range(lo, hi, CULL_CHUNK):
+                num_c, win = body(c0, min(hi, c0 + CULL_CHUNK))
+                m, j = torch.min(num_c, dim=1)      # the first of equal minima
+                better = m < bg
+                bg = torch.where(better, m, bg)
+                gi = torch.where(better, win.gather(1, j[:, None])[:, 0], gi)
+            return bg, gi
+
+        def rect(Xm, dm, Xo, do_):
+            def body(lo, hi):
+                A = tb.aa[:, lo:hi]
+                numr = so - A[0]
+                pug = (Xm - A[2] * dg + numr * dm) * A[3]
+                pvg = (Xo - A[4] * dg + numr * do_) * A[5]
+                valid = ((dg >= A[1]) & (numr >= epsd) & (pug >= epsd)
+                         & (pvg >= epsd) & (pug <= hid) & (pvg <= hid))
+                win = torch.where(pug + pvg <= dg, A[6], A[7])
+                return torch.where(valid, numr, BIG), win.to(torch.int32)
+            return body
+
+        def tri_aa(lo, hi):
+            A = tb.aa3[:, lo:hi]
+            numr = so - A[0]
+            P1 = X1 - A[2] * dg + numr * d1
+            P2 = X2 - A[3] * dg + numr * d2
+            ug = P1 * A[4] + P2 * A[5]
+            vg = P1 * A[6] + P2 * A[7]
+            valid = ((dg >= A[1]) & (numr >= epsd) & (ug >= epsd)
+                     & (vg >= epsd) & (ug + vg <= hid))
+            win = A[8].to(torch.int32).expand_as(numr)
+            return torch.where(valid, numr, BIG), win
+
+        bg, gi = fold(r0, r0 + ca, rect(X1, d1, X2, d2), bg, gi)
+        bg, gi = fold(r0 + ca, r0 + ca + cb, rect(X2, d2, X1, d1), bg, gi)
+        bg, gi = fold(t0, t0 + ct, tri_aa, bg, gi)
+        deng = torch.where(detg > 0.0, detg, 1.0)
+        # the bg < BIG gate keeps a group's miss out of the fraction
+        # compare: with deng > 1 (|d_k| > 1) BIG * bden < best * deng
+        # would otherwise fabricate a hit
+        better = (bg < BIG) & (bg * bden < best * deng)
+        best = torch.where(better, bg, best)
+        bden = torch.where(better, deng, bden)
+        bidx = torch.where(better, ns + gi, bidx)
+
+    oc, dc = [c[:, None] for c in o], [c[:, None] for c in d]
+
+    def quad_body(lo, hi):
+        q = tb.quad[:, lo:hi]
+        det, num, pu, pv = _frac_terms(q, oc, dc, q[6:9], q[3:6])
+        lo_, hi_ = k.tri_eps * det, (1.0 - k.tri_eps) * det
+        valid = ((det >= k.det_eps) & (num >= lo_) & (pu >= lo_)
+                 & (pv >= lo_) & (pu <= hi_) & (pv <= hi_))
+        win = torch.where(pu + pv <= det, q[12], q[13]).to(torch.int32)
+        return valid, num, det, win
+
+    def left_body(lo, hi):
+        q = tb.left[:, lo:hi]
+        det, num, pu, pv = _frac_terms(q, oc, dc, q[6:9], q[3:6])
+        lo_ = k.tri_eps * det
+        valid = ((det >= k.det_eps) & (num >= lo_) & (pu >= lo_)
+                 & (pv >= lo_) & (pu + pv <= (1.0 - k.tri_eps) * det))
+        return valid, num, det, q[12].to(torch.int32).expand_as(num)
+
+    inv = [1.0 / c for c in d]
+    for n, boxes, body, key in ((k.n_quads, tb.qbox, quad_body, "quad"),
+                                (k.n_leftover, tb.lbox, left_body, "left")):
+        culled = n > 2 * CULL_CHUNK
+        for c, lo in enumerate(range(0, n, CULL_CHUNK)):
+            hi = min(n, lo + CULL_CHUNK)
+            enter = active
+            if culled:
+                hit_box, tmin = _slab(boxes, c, *o, *inv)
+                enter = hit_box & active & (tmin * bden < best)
+            if counts is not None:
+                cand["slab"] += int(active.sum()) if culled else 0
+                cand[key] += int(enter.sum()) * (hi - lo)
+            if culled and not bool(enter.any()):
+                continue
+            valid, num, det, win = body(lo, hi)
+            num_c = torch.where(valid, num, BIG)
+            den_c = torch.where(valid, det, 1.0)
+            for j in range(hi - lo):
+                better = enter & (num_c[:, j] * bden < best * den_c[:, j])
+                best = torch.where(better, num_c[:, j], best)
+                bden = torch.where(better, den_c[:, j], bden)
+                bidx = torch.where(better, ns + win[:, j], bidx)
+    if counts is not None:
+        for key, v in cand.items():
+            counts[key] = counts.get(key, 0) + v
+    # the deferred division: one per ray and bounce; a miss keeps BIG / 1
+    return best / bden, bidx
+
+
+def _frac_terms(q: Tensor, o, d, e_u, e_v):
+    """(det, t * det, u * det, v * det) of every ray (rows) against the
+    parallelograms or triangles of ``q`` (columns; rows 0-2 the corner
+    a, 9-11 the raw normal): u pairs with ``e_u`` (a parallelogram's e2,
+    a triangle's c - a) and v with ``e_v`` (e1, b - a), as in
+    Moller-Trumbore without the division."""
+    aox, aoy, aoz = o[0] - q[0], o[1] - q[1], o[2] - q[2]
+    dx, dy, dz = d
+    daox = aoy * dz - aoz * dy
+    daoy = aoz * dx - aox * dz
+    daoz = aox * dy - aoy * dx
+    det = -(dx * q[9] + dy * q[10] + dz * q[11])
+    num = aox * q[9] + aoy * q[10] + aoz * q[11]
+    pu = e_u[0] * daox + e_u[1] * daoy + e_u[2] * daoz
+    pv = -(e_v[0] * daox + e_v[1] * daoy + e_v[2] * daoz)
+    return det, num, pu, pv
+
+
 def _ao_factor(tb: MeshTables, geo, k: MeshKnobs, p: Vec3, n: Vec3, active,
                draws: Tensor, row0: int) -> Tensor:
     """Hemisphere probes from the hit point: any sphere hit at t >= eps
@@ -595,8 +971,9 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
                           dx: Tensor, dy: Tensor, dz: Tensor, draws: Tensor,
                           k: MeshKnobs, counts: Optional[dict] = None,
                           record: bool = False):
-    """Plain PyTorch version of the kernel (``raytpu``'s ``bounce_body``
-    without quads), triangles a chunk of 32 at a time so memory stays
+    """Plain PyTorch version of the kernel (``raytpu``'s ``bounce_body``),
+    triangles (or merged candidates, with ``k.plan``; ``tb`` then carries
+    the merged tables) a chunk of 32 at a time so memory stays
     O(rays x chunk).
 
     rays (B,) each; draws (bounces * n_draws, B). Returns (9, B):
@@ -604,8 +981,9 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     (``k.sky_idx >= 0``) (16, B): those, then the slot's scale xyz, unit
     direction xyz and early flag. ``counts``, a dict, receives the search
     work this input needs: ``live`` (ray, bounce) entries, ``sphere`` and
-    ``slab`` tests, and ``tri`` tests of entered chunks (AO probes not
-    counted).
+    ``slab`` tests, and ``tri`` tests of entered chunks, or in the merged
+    search (``k.plan``) the ``aa_rect``, ``aa_tri``, ``quad`` and ``left``
+    tests of ``_closest_merged`` (AO probes not counted).
 
     With ``record`` returns ``(out, idx, aof)`` as ``raytpu``'s
     ``with_indices``: the per-bounce winner (bounces, B) int32, a triangle
@@ -614,6 +992,9 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     every lane as ``raytpu`` does (else None). A bounce after every ray
     has finished records -1 and 0 (``skip_body``).
     """
+    if k.plan is not None and tb.aa is None:
+        raise ValueError("the merged search needs the tables of "
+                         "pack_scene(scene, k) / mesh_tables(..., k)")
     n_s = k.n_spheres
     sky_on = k.sky_idx >= 0
     carry = initial_carry(ox, oy, oz, dx, dy, dz)
@@ -637,9 +1018,15 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
             live = int(active.sum())
             counts["live"] += live
             counts["sphere"] += live * n_s
-            counts["slab"] += live * k.n_chunks
+            if k.plan is None:
+                counts["slab"] += live * k.n_chunks
         best, bidx = _closest_sphere(geo, n_s, *o, *d, k.sphere_eps)
-        best, bidx = _closest_triangle(tb, k, o, d, active, best, bidx, counts)
+        if k.plan is None:
+            best, bidx = _closest_triangle(tb, k, o, d, active, best, bidx,
+                                           counts)
+        else:
+            best, bidx = _closest_merged(tb, k, o, d, active, best, bidx,
+                                         counts)
         idx_rec.append(torch.where(active, bidx, -1))
         did_hit = bidx >= 0
         tri_wins = bidx >= n_s
@@ -707,6 +1094,10 @@ _ARGTYPES = (
     + [ctypes.c_float] * 2                 # ao_e_scale, ao_inv
     + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
     + [ctypes.c_int]                       # sky_idx
+    + [ctypes.c_void_p] * 6                # merged: aa aa3 quad qbox left lbox
+    + [ctypes.c_int] * 4                   # n_aa n_aa3 n_quad n_left
+    + [ctypes.c_void_p]                    # layout (host int[18]) or null
+    + [ctypes.c_float]                     # hi_eps = 1 - tri_eps
     + [ctypes.c_void_p]                    # stream
 )
 
@@ -743,6 +1134,17 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
         if k.use_ao:
             aof = torch.empty((k.bounces, b), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
+    merged = (None,) * 6
+    layout = None
+    if k.plan is not None:
+        merged = (tb.aa, tb.aa3, tb.quad, tb.qbox, tb.left, tb.lbox)
+        if not all(t is not None and t.is_contiguous() and t.device == dev
+                   and t.dtype == torch.float32 for t in merged):
+            raise ValueError("merged K3 needs the tables of pack_aa and "
+                             "pack_quads (mesh_tables with the knobs)")
+        layout = (ctypes.c_int * 18)(*(c for g in k.aa_layout for c in g[2:]))
+        merged = tuple(t.data_ptr() if t.numel() else None for t in merged)
+    n_aa, n_aa3 = (0, 0) if k.plan is None else (tb.aa.shape[1], tb.aa3.shape[1])
     fn = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -753,7 +1155,8 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold,
             int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
-            int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx, stream,
+            int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx, *merged, n_aa, n_aa3,
+            k.n_quads, k.n_leftover, layout, 1.0 - k.tri_eps, stream,
         )
     if err != 0:
         raise RuntimeError(f"trace_scene kernel launch failed: cudaError {err}")
@@ -785,8 +1188,10 @@ class TraceMesh(torch.autograd.Function):
     or (16, B) with the sky slot, whose direction and early-flag planes
     get no cotangent (they reach the image only through floor() and
     compares), so K2 takes the first 12 planes' cotangent.
-    The search channels and cull boxes are derived from ``tri`` inside:
-    they are selection and carry no cotangent. The table cotangents go
+    The search channels, cull boxes and merged tables are derived from
+    ``tri`` inside: they are selection and carry no cotangent, and the
+    merged search's winners are original triangle indices, which K2
+    replays as the per-triangle search's. The table cotangents go
     back through the packers by autograd, as ``raytpu``'s ``jax.vjp`` of
     ``_pack_diff``; the draws get none (zero by construction).
     """
@@ -798,7 +1203,7 @@ class TraceMesh(torch.autograd.Function):
 
         check_depth(k.bounces)
         rays = (ox, oy, oz, dx, dy, dz)
-        out, idx, aof = _forward(mesh_tables(sph, tri, mats, atlas), rays,
+        out, idx, aof = _forward(mesh_tables(sph, tri, mats, atlas, k), rays,
                                  draws, k, record=True)
         ctx.k = k
         ctx.save_for_backward(sph, tri, mats, atlas, *rays, draws, idx, aof)
@@ -856,7 +1261,7 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     if torch.is_grad_enabled() and requires_grad(*tabs, *rays):
         out = TraceMesh.apply(*tabs, *rays, draws, k)
     else:
-        out = _forward(mesh_tables(*tabs), rays, draws, k)
+        out = _forward(mesh_tables(*tabs, k), rays, draws, k)
     if k.sky_idx >= 0:
         return compose_sky(scene, cfg, out)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

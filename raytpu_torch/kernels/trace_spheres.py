@@ -17,7 +17,14 @@ kernel against. Random draws are made outside the kernel from the
 threefry stream (``core.rng.ray_uniforms``), as in ``raytpu``.
 
 Gradients: ``TraceSpheres`` joins K1 in recording mode to the
-index-replay backward K2 (``kernels/trace_scene_bwd``).
+index-replay backward K2 (``kernels/trace_scene_bwd``), or, with
+``RAYTPU_SPH_BWD=ad`` (read when the backward runs, as ``raytpu``'s
+``_mk_bwd`` reads it), to K5: ``spheres_ad``, the AD of the forward, which
+runs the sphere search and the AO probes again instead of reading the
+recorded winners (the CUDA kernel in ``csrc/trace_spheres_bwd.cu``; its
+plain version ``ad_reference`` is ``torch.autograd.grad`` through
+``trace_spheres_reference``, the counterpart of ``jax.vjp`` of
+``_forward_body``).
 
 The equirect sky (``Scene.sky_index``): the kernel keeps one sky slot a
 ray (``trace_scene.take_sky_slot``) and returns 16 planes; ``compose_sky``
@@ -28,6 +35,7 @@ maps the slot's direction to its texel and adds it outside the kernel, as
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 from torch import Tensor
@@ -46,7 +54,8 @@ from raytpu_torch.materials.texture import sky_texel_index
 MAX_SPHERES = 64
 BIG = 3.0e38
 
-launches = 0   # kernel launches by trace_megakernel (CPU calls do not count)
+launches = 0      # K1 launches by trace_megakernel (CPU calls do not count)
+ad_launches = 0   # K5 launches by spheres_ad (CPU calls do not count)
 
 
 def supported(scene: Scene, cfg: RenderConfig) -> bool:
@@ -288,8 +297,102 @@ def _forward(sph, rays, draws, k: Knobs, record: bool = False):
     raise NotImplementedError(f"trace_spheres: no kernel for {dev}")
 
 
+def ad_reference(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
+    """Plain version of K5: ``torch.autograd.grad`` through
+    ``trace_spheres_reference`` on the sphere table and the six ray planes
+    (``raytpu``'s ``jax.vjp`` of ``_forward_body``). g (9, B) is the
+    cotangent of the radiance, albedo and normal planes, (12, B) with the
+    sky slot's scale. Returns (d_sph (14, S), six ray cotangents (B,));
+    the draws get none (each use ends in a selection or a comparison)."""
+    check_depth(k.bounces)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (sph, *rays)]
+        out = trace_spheres_reference(leaves[0], *leaves[1:], draws.detach(), k)
+        grads = torch.autograd.grad(out[:g.shape[0]], leaves, g,
+                                    allow_unused=True)
+    grads = [torch.zeros_like(t) if d is None else d
+             for t, d in zip(leaves, grads)]
+    return grads[0], tuple(grads[1:])
+
+
+_AD_ARGTYPES = (
+    [ctypes.c_void_p] * 11                 # sph, ox..dz, draws, g, d_rays, partial
+    + [ctypes.c_int] * 4                   # n_rays, n_spheres, bounces, n_draws
+    + [ctypes.c_float] * 5                 # eps, alpha lo/hi, bright boost/threshold
+    + [ctypes.c_int] * 2                   # use_ao, ao_samples
+    + [ctypes.c_float] * 2                 # e_scale_mult, ao_inv
+    + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
+    + [ctypes.c_int]                       # sky_idx
+    + [ctypes.c_void_p] * 2                # d_sph, stream
+)
+
+
+def _launch_ad(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
+    """Launch ``csrc/trace_spheres_bwd.cu`` (the search-and-reverse sweep,
+    then the fixed-order sum over blocks of d_sph) on the current stream:
+    what ``ad_reference`` returns."""
+    from raytpu_torch.kernels import _build
+
+    global ad_launches
+    dev = sph.device
+    b = rays[0].shape[0]
+    for t, shape in ((sph, (14, k.n_spheres)), *((r, (b,)) for r in rays),
+                     (draws, (k.bounces * k.n_draws, b)),
+                     (g, (g_planes(k), b))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(
+                f"trace_spheres_bwd kernel: want contiguous f32 {shape} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = _build.load("trace_spheres_bwd")
+    fn, n_blocks = lib.raytpu_spheres_ad, lib.raytpu_spheres_ad_blocks
+    fn.argtypes, fn.restype = _AD_ARGTYPES, ctypes.c_int
+    n_blocks.argtypes, n_blocks.restype = [ctypes.c_int] * 2, ctypes.c_int
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    d_rays, d_sph = empty(6, b), empty(14, k.n_spheres)
+    partial = empty(max(n_blocks(b, k.n_spheres), 1), 14 * k.n_spheres)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(
+            sph.data_ptr(), *(t.data_ptr() for t in rays), draws.data_ptr(),
+            g.data_ptr(), d_rays.data_ptr(), partial.data_ptr(), b,
+            k.n_spheres, k.bounces, k.n_draws, k.sphere_eps, k.alpha_lo,
+            k.alpha_hi, k.bright_boost, k.bright_threshold, int(k.use_ao),
+            k.ao_samples, k.e_scale_mult, k.ao_inv, int(k.hsl_on), k.hsl_l,
+            k.hsl_s, k.sky_idx, d_sph.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"trace_spheres_bwd kernel launch failed: cudaError {err}")
+    ad_launches += 1
+    return d_sph, tuple(d_rays.unbind(0))
+
+
+def spheres_ad(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
+    """K5: (d_sph (14, S), six ray cotangents) for the output cotangent g
+    (9, B), (12, B) with the sky slot's scale, without recorded winners.
+    The kernel for CUDA tensors, the plain version for CPU tensors;
+    gradients to 48 bounces, ``NotImplementedError`` past that (F4)."""
+    check_depth(k.bounces)
+    dev = sph.device
+    if dev.type == "cuda":
+        return _launch_ad(sph, rays, draws, g, k)
+    if dev.type == "cpu":
+        return ad_reference(sph, rays, draws, g, k)
+    raise NotImplementedError(f"trace_spheres_bwd: no kernel for {dev}")
+
+
+def sphere_bwd_mode() -> str:
+    """``RAYTPU_SPH_BWD``: "replay" (the default, K2) or "ad" (K5)."""
+    mode = os.environ.get("RAYTPU_SPH_BWD", "replay")
+    if mode not in ("replay", "ad"):
+        raise ValueError(f"RAYTPU_SPH_BWD={mode!r}: want 'replay' or 'ad'")
+    return mode
+
+
 class TraceSpheres(torch.autograd.Function):
-    """K1 in recording mode, then the index-replay backward K2.
+    """K1 in recording mode, then the index-replay backward K2 (or, with
+    ``RAYTPU_SPH_BWD=ad``, K5).
 
     Counterpart of ``raytpu``'s ``_mk_vjp`` / ``_mk_fwd`` / ``_mk_bwd``:
     the forward records each bounce's winner index (and AO factor), the
@@ -315,10 +418,12 @@ class TraceSpheres(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         sph, ox, oy, oz, dx, dy, dz, draws, idx, aof = ctx.saved_tensors
-        d_sph, d_rays = sphere_backward(
-            sph, (ox, oy, oz, dx, dy, dz), draws, idx, aof,
-            g[:g_planes(ctx.k)].contiguous(), ctx.k,
-        )
+        rays, g = (ox, oy, oz, dx, dy, dz), g[:g_planes(ctx.k)].contiguous()
+        if sphere_bwd_mode() == "ad":
+            d_sph, d_rays = spheres_ad(sph, rays, draws, g, ctx.k)
+        else:
+            d_sph, d_rays = sphere_backward(sph, rays, draws, idx, aof, g,
+                                            ctx.k)
         return (d_sph, *d_rays, None, None)
 
 

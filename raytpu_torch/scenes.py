@@ -9,7 +9,9 @@ the plain PyTorch path.
 ``write_block_world`` writes a textured mesh scene as files (OBJ, MTL,
 PPM textures, TOML) for ``config.load_scene_file``: the reference's mesh
 assets are not part of the repository, and this procedural world has the
-shape of its largest one. The reference's sky texture is not part of it
+shape of its largest one. ``write_quad_fixture`` writes a mesh that
+reaches every branch of K3's merged-quad search, which the block world's
+all axis-aligned faces do not. The reference's sky texture is not part of it
 either: ``equirect_sky`` makes one with numpy, ``write_equirect_sky``
 writes it as a PPM, and ``write_sky_showcase`` writes
 ``scenes/sky.toml``'s scene around it.
@@ -331,6 +333,144 @@ def write_block_world(directory: str, n_triangles: int = 600,
                                    seed=seed))
         if sky is not None:
             f.write(f'\n[sky]   # the sky dome shows this texture\nfile = "{sky}"\n')
+    return path
+
+
+_QUAD_TOML = """\
+# A mesh fixture for K3's merged-quad search, written by
+# raytpu_torch.scenes.write_quad_fixture(seed={seed}): {n_tris} triangles,
+# {n_boxes} boxes whose faces are axis-aligned rects of both edge
+# orientations in all six (normal axis, sign) groups, {n_aa} unpaired
+# axis-aligned triangles, {n_quads} tilted parallelograms (one with a
+# different material on each half), {n_left} tilted unpaired triangles.
+[render]
+width = 320
+height = 240
+spp = 16
+bounces = 4
+
+[camera]
+origin = [0.4, 2.2, 5.6]
+target = [0.0, 0.2, 0.0]
+up = [0.0, 1.0, 0.0]
+vfov = 48.0
+
+[mesh]
+obj = "quads.obj"
+mtl = "quads.mtl"
+
+[[mesh.materials]]   # glow
+id = 3
+emission = [1.0, 0.8, 0.5]
+emission_strength = 3.0
+
+[[spheres]]   # ground
+center = [0, -500.0, 0]
+radius = 498.5
+diffuse = [0.5, 0.55, 0.5]
+
+[[spheres]]   # sun
+center = [6.0, 10.0, 5.0]
+radius = 2.0
+emission = [1.0, 0.98, 0.9]
+emission_strength = 30.0
+
+[[spheres]]   # sky dome
+center = [0.0, 0.0, 0.0]
+radius = 100.0
+emission = [0.784, 0.965, 1.0]
+emission_strength = 1.0
+"""
+QUAD_MATERIALS = (("red", (0.8, 0.3, 0.25), True), ("blue", (0.25, 0.35, 0.8), True),
+                  ("grey", (0.6, 0.6, 0.6), False), ("glow", (0.95, 0.8, 0.45), False))
+
+
+def write_quad_fixture(directory: str, seed: int = 0, n_boxes: int = 24,
+                       n_aa: int = 12, n_quads: int = 80,
+                       n_left: int = 80) -> str:
+    """Write a mesh fixture that reaches every branch of K3's merged-quad
+    search (OBJ, MTL, 16x16 PPM textures, TOML) into ``directory`` and
+    return the TOML's path; everything is made from ``seed`` with numpy.
+
+    The block world's faces are all axis-aligned rects; this adds what it
+    lacks. ``n_boxes`` boxes give rects in all six (normal axis, sign)
+    groups, their corners and the triangles' first vertices rotated in
+    turn, so both edge orientations (m) and every opposite-vertex slot
+    (oi) occur; ``n_aa`` single triangles in axis planes are unpaired
+    axis-aligned triangles; ``n_quads`` tilted parallelograms (more than
+    64, so the search's chunk cull runs on them; the first has a
+    different material on each half) and ``n_left`` tilted single
+    triangles (also more than 64) are the general loops' candidates.
+    Coordinates are multiples of 1/64 below 4, exact in f32, so every
+    parallelogram closes exactly and is detected."""
+    from raytpu_torch.io.ppm import write_ppm
+
+    rs = np.random.default_rng(seed)
+    grid = lambda v: np.round(np.asarray(v, np.float64) * 64.0) / 64.0
+    faces = {m: [] for m in range(len(QUAD_MATERIALS))}   # material -> [tri]
+    turn = [0]
+
+    def rect(m, p0, e1, e2, m2=None):
+        """Rect / parallelogram p0, p0+e1, p0+e1+e2, p0+e2 (normal e1 x e2)
+        as two triangles, its corners rotated by the running turn and
+        each triangle's vertices rotated too."""
+        c = [p0, p0 + e1, p0 + e1 + e2, p0 + e2]
+        r = turn[0] % 4
+        c = c[r:] + c[:r]
+        for t, mat in (((c[0], c[1], c[2]), m),
+                       ((c[0], c[2], c[3]), m if m2 is None else m2)):
+            k = (turn[0] + (mat != m)) % 3
+            faces[mat].append(t[k:] + t[:k])
+        turn[0] += 1
+
+    for b in range(n_boxes):
+        lo = grid(rs.uniform(-2.5, 2.0, 3) * [1.0, 0.5, 1.0])
+        size = grid(rs.uniform(0.2, 0.6, 3))
+        m = b % 3
+        x, y, z = np.eye(3) * size
+        for p0, e1, e2 in ((lo, y, z), (lo + x, z, y), (lo, z, x),
+                           (lo + y, x, z), (lo, x, y), (lo + z, y, x)):
+            rect(m, p0, e1, e2)
+        turn[0] += 1     # 7 turns a box: each face takes every rotation
+    for t in range(n_aa):
+        k = t % 3
+        p = grid(rs.uniform(-2.5, 2.5, (3, 3)))
+        p[:, k] = p[0, k]                       # one plane of axis k
+        faces[t % 3].append(tuple(p) if t % 2 else tuple(p[::-1]))
+    for q in range(n_quads):
+        p0 = grid(rs.uniform(-2.5, 2.5, 3))
+        e1, e2 = (grid(rs.uniform(-0.5, 0.5, 3)) for _ in range(2))
+        rect(q % 3, p0, e1, e2, m2=3 if q == 0 else None)
+    for t in range(n_left):
+        p0 = grid(rs.uniform(-2.5, 2.5, 3))
+        faces[(t + 1) % 3].append((p0, p0 + grid(rs.uniform(-0.5, 0.5, 3)),
+                                   p0 + grid(rs.uniform(-0.5, 0.5, 3))))
+
+    os.makedirs(os.path.join(directory, "tex"), exist_ok=True)
+    obj = ["# K3 merged-search fixture", "mtllib quads.mtl",
+           "vt 0 0", "vt 1 0", "vt 1 1"]
+    mtl = []
+    n_v = 0
+    for slot, (name, base, textured) in enumerate(QUAD_MATERIALS):
+        obj.append(f"usemtl {name}")
+        for tri in faces[slot]:
+            obj += ["v %.6f %.6f %.6f" % tuple(v) for v in tri]
+            obj.append(f"f {n_v + 1}/1 {n_v + 2}/2 {n_v + 3}/3")
+            n_v += 3
+        mtl += [f"newmtl {name}", "Kd %.3f %.3f %.3f" % base, "d 1.0"]
+        if textured:
+            mtl.append(f"map_Kd tex/{name}.png")   # read as tex/<name>.ppm
+            shade = np.asarray(base) * rs.uniform(0.5, 1.0, (16, 16, 1))
+            write_ppm(os.path.join(directory, "tex", f"{name}.ppm"),
+                      np.rint(255 * shade).astype(np.int64))
+    with open(os.path.join(directory, "quads.obj"), "w") as f:
+        f.write("\n".join(obj) + "\n")
+    with open(os.path.join(directory, "quads.mtl"), "w") as f:
+        f.write("\n".join(mtl) + "\n")
+    path = os.path.join(directory, "quads.toml")
+    with open(path, "w") as f:
+        f.write(_QUAD_TOML.format(seed=seed, n_tris=n_v // 3, n_boxes=n_boxes,
+                                  n_aa=n_aa, n_quads=n_quads, n_left=n_left))
     return path
 
 

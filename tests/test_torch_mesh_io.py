@@ -77,11 +77,10 @@ def test_loader_matches_raytpu(worlds, n):
     for path, want in _jarrays(jcam).items():
         np.testing.assert_array_equal(_leaf(tcam, path), want, err_msg=path)
     for f in dataclasses.fields(jcfg):
-        if f.name not in QUAD_FIELDS:
-            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
-    # raytpu pairs the faces' triangles for its merged-quad loops; the
-    # port's kernel searches triangle by triangle and leaves them empty
-    assert jcfg.quad_pairs and tcfg.quad_pairs == ()
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    # both detect the same quad pairs for K3's merged search
+    assert tcfg.quad_pairs and all(
+        getattr(tcfg, f) == getattr(jcfg, f) for f in QUAD_FIELDS)
 
 
 def test_load_obj_scene_matches_raytpu(worlds):

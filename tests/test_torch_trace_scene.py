@@ -3,10 +3,12 @@ against raytpu.
 
 Same scene, rays and bounce draws (from a numpy seed) on both sides:
 ``raytpu``'s scan trace (``integrator.path.trace``) and its K3 in
-interpret mode with ``merge_quads=False`` on one side, the port's
-``trace_mesh_megakernel`` on CPU tensors (``trace_scene_reference``) on
-the other. The scan trace runs under ``jax.disable_jit``, so that each of
-its operations rounds on its own as the port's do: compiled, XLA fuses
+interpret mode on one side, the port's ``trace_mesh_megakernel`` on CPU
+tensors (``trace_scene_reference``) on the other, both searching triangle
+by triangle (``merge_quads=False``; the merged search is
+``test_torch_trace_scene_quads.py``'s). The scan trace runs under
+``jax.disable_jit``, so that each of its operations rounds on its own
+as the port's do: compiled, XLA fuses
 and contracts them, and a water refraction in the block world then takes
 the other branch on 1-2% of the rays (the jitted scan and the interpret
 K3 agree with each other there, and the eager scan with the port). Scenes: a 60-triangle block world with water (with and without
@@ -77,11 +79,14 @@ def _scenes(world):
     ts, tc, _ = tconfig.load_scene_file(world, device="cpu")
     bs, bc = _synthetic_textured_scene()
     ps, pc, pcfg = mesh_branch_scene(device="cpu")
-    small = dict(width=16, height=12, max_bounces=6)
+    # the per-triangle search on both sides (raytpu's scan has no other);
+    # the merged search is tests/test_torch_trace_scene_quads.py's
+    small = dict(width=16, height=12, max_bounces=6, merge_quads=False)
     return {
         "block_world": (js, jc, ts, tc, jcfg.replace(**small)),
         "block_world_ao": (js, jc, ts, tc, jcfg.replace(
-            width=16, height=12, max_bounces=4, use_ao=True, ao_samples=2)),
+            width=16, height=12, max_bounces=4, use_ao=True, ao_samples=2,
+            merge_quads=False)),
         "untextured": (js.replace(atlas=JAtlas.empty()), jc,
                        dataclasses.replace(ts, atlas=TAtlas.empty("cpu")), tc,
                        jcfg.replace(**small)),
@@ -274,7 +279,8 @@ def test_render_matches_raytpu_and_convert(world):
     bit."""
     js, jc, jcfg = jconfig.load_scene_file(world)
     ts, tc, _ = tconfig.load_scene_file(world, device="cpu")
-    cfg = jcfg.replace(width=12, height=8, spp=2, max_bounces=4)
+    cfg = jcfg.replace(width=12, height=8, spp=2, max_bounces=4,
+                       merge_quads=False)
     pids = np.arange(cfg.n_pixels, dtype=np.int32)
     with jax.disable_jit():
         want = jrender.render(js, jc, cfg, jnp.asarray(pids),
