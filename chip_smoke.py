@@ -6,28 +6,35 @@
 Phases, each of which raises on failure (exit code non-zero):
   1. environment: torch, nvcc and the card (nvidia-smi name, power limit);
   2. build every CUDA source of the port from this checkout;
-  3. RNG parity: the port's threefry stream on the card reproduces a table
-     of ``jax.random`` values (computed with JAX 0.9.0, pasted below);
-  4. the sphere megakernel (K1) against its plain PyTorch version on the
-     card, on four scenes at 64x48 rays, then timed at the main path's
-     shape (1200x900 rays, 6 bounces);
+  3. RNG parity: the eager threefry stream and the RNG kernel
+     (``csrc/rng.cu``: each ray's key and its draw rows, one launch a
+     sample) on the card reproduce a table of ``jax.random`` values
+     (computed with JAX 0.9.0, pasted below); the kernel bit-equal to the
+     eager stream (its plain version) over the full frame's keys for
+     every row layout (RNG_ROWS); both timed;
+  4. the sphere megakernel (K1), which takes each ray's key and hashes its
+     draws, bit-equal to its plain PyTorch version (on the keys' draws)
+     on the card, on five scenes at 64x48 rays, then at the main path's
+     shape (1200x900 rays, 6 bounces), timed;
   5. the forward path: a 1200x900, 6-bounce Cornell frame through
      ``render`` over all block-ordered pixel ids, checked finite and lit,
-     with one K1 launch per sample; a small frame on the card against the
-     same frame on the CPU; the PPM through ``render_image``/``write_ppm``;
-  6. K1 in recording mode against its plain version (winner indices, AO
-     factors) and against its own launch without recording, on the five
-     scenes of phase 4 at 64x48 rays;
-  7. the index-replay backward (K2) against its plain version (the replay
-     under autograd) on those five scenes plus the 19-bounce nested
-     refraction stack, at 64x48 rays; two launches give the same bits;
-     then K1 recording, K2 and K2's plain version timed at the main
-     path's shape;
+     with one K1 and one RNG kernel launch per sample and no eager
+     threefry in the profile; a small frame on the card against the same
+     frame on the CPU; the PPM through ``render_image``/``write_ppm``;
+  6. K1 in recording mode bit-equal to its plain version (planes, winner
+     indices, AO factors) and its planes to its own launch without
+     recording, on the five scenes of phase 4 at 64x48 rays;
+  7. the index-replay backward (K2, sphere mode on the keys) against its
+     plain version (the replay under autograd) on those five scenes plus
+     the 19-bounce nested refraction stack, at 64x48 rays; two launches
+     give the same bits; then K1 recording, K2 and K2's plain version
+     timed at the main path's shape;
   8. the training path: value and gradient of the photometric loss
      through ``render`` at 1200x900, 8 spp, 6 bounces with every sphere
      leaf requiring grad (K2 launches == spp), where its time goes
-     (``torch.profiler``), then 3 Adam steps of ``train.make_train_step``
-     towards a target the port renders with perturbed colours;
+     (``torch.profiler``: RNG kernel launches == 2 x spp, no eager
+     threefry), then 3 Adam steps of ``train.make_train_step`` towards a
+     target the port renders with perturbed colours;
   9. the mesh megakernel (K3) against its plain PyTorch version at 64x48
      rays on six scenes: block worlds written by
      ``scenes.write_block_world`` (60 triangles with water, the same with
@@ -118,7 +125,7 @@ Phases, each of which raises on failure (exit code non-zero):
      (merged) load: forward, fwd+bwd of every float leaf, 3 Adam steps
      whose losses must fall;
   32. the AD sphere backward K5 against its plain version (autograd
-     through K1's plain version) and against K2 on K1's recording, on
+     through K1's plain version) and bit-equal to K2 on K1's recording, on
      phase 7's six scenes and the sky showcase at 64x48 rays; two
      launches bit-identical;
   33. K5 timed at the Cornell 1200x900, 6-bounce shape beside its plain
@@ -127,9 +134,11 @@ Phases, each of which raises on failure (exit code non-zero):
 Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
 per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
-Each path's launch counts (K1-K5) are set to 0 just before it and read
-just after. The last lines are the card, a JSON line per kernel and mode,
-and the result line. Imports no JAX.
+Each path's launch counts (K1-K5 and the RNG kernel) are set to 0 just
+before it and read just after; every render draws through the RNG
+kernel (K3 and the scan path read its bounce rows, the sphere kernels
+hash theirs from its keys). The last lines are the card, a JSON line
+per kernel and mode, and the result line. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -235,7 +244,23 @@ SKY_SLOT_BYTES, SKY_G_BYTES = 7 * 4, 3 * 4
 # H100 SXM peaks (NVIDIA data sheet):
 # HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
-
+# INT32 instructions: the SM's issue limit, 4 schedulers x 32 lanes a
+# clock, x 132 SMs at 1.98 GHz (the data sheet's 67 TFLOP/s FP32 is 128
+# lanes x 132 SMs x 2 (FMA) x 1.98 GHz). The SM has 64 INT32 lanes, but
+# nvcc also issues integer adds and shifts as IMAD on the FMA pipe: the RNG
+# kernel's 22-row launch beat 64 lanes' time on the card (PERF.md). For the
+# threefry hashing of the RNG kernel, K1, K2's sphere mode and K5.
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# csrc/threefry.cuh: INT32 instructions of one fold_in (a hash) and of one
+# draw (a hash and its conversion to U[0, 1)), three-input LOP3 / IADD3
+# counted once
+FOLD_OPS, DRAW_OPS = 73, 76
+# The RNG kernel's row layouts checked against the eager stream at the
+# full frame: K1 / K2 / K5's camera rows, then K3's and the scan path's
+# 4 + bounces x n_bounce_draws (without AO, one and two AO probes, and the
+# 19-bounce stack)
+RNG_ROWS = {"camera (K1, K2, K5)": 4, "6b x 3": 22, "6b x 5 (AO 1)": 34,
+            "6b x 7 (AO 2)": 46, "19b x 3": 61}
 # [seed, pixel, sample, fold_in(PRNGKey(seed), pixel),
 #  fold_in(that, sample), bits of uniform(that key, (22,)) as uint32]
 RNG_TABLE = [
@@ -303,25 +328,40 @@ def _time_ms(fn, iters):
 
 
 def phase_rng(dev):
+    """RNG parity: the eager stream (the RNG kernel's plain version) and the
+    RNG kernel on the card against RNG_TABLE (JAX's bits), then the kernel
+    against the eager stream over the full frame's keys for every row
+    layout of RNG_ROWS, then both timed at the Cornell sample's shape
+    (the camera rows K1 takes, and the 22 rows K3 and the scan path
+    read)."""
+    import numpy as np
     import torch
 
     from raytpu_torch.core import rng
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.integrator.render import blocked_pixel_order
 
     mask = 0xFFFFFFFF
     for seed, pix, smp, kp_want, ks_want, bits_want in RNG_TABLE:
         key = rng.prng_key(seed, device=dev)
-        kp = rng.pixel_keys(key, torch.tensor([pix], device=dev))
+        pids = torch.tensor([pix], device=dev)
+        kp = rng.pixel_keys(key, pids)
         ks = rng.sample_keys(kp, smp)
         cam, bounce = rng.ray_uniforms(ks, 4, 3, 6)
         draws = torch.cat([cam.reshape(-1), bounce.reshape(-1)])
         uni = rng.uniform(ks[0], (22,))
+        k_keys, k_draws = rng._launch(key, pids, smp, 22)
         got = {
             "pixel_keys": kp[0].tolist(), "sample_keys": ks[0].tolist(),
             "ray_uniforms": (draws.view(torch.int32).long() & mask).tolist(),
             "uniform": (uni.view(torch.int32).long() & mask).tolist(),
+            "kernel keys": (k_keys[:, 0].long() & mask).tolist(),
+            "kernel draws": (k_draws[:, 0].view(torch.int32).long()
+                             & mask).tolist(),
         }
         want = {"pixel_keys": kp_want, "sample_keys": ks_want,
-                "ray_uniforms": bits_want, "uniform": bits_want}
+                "ray_uniforms": bits_want, "uniform": bits_want,
+                "kernel keys": ks_want, "kernel draws": bits_want}
         for k in got:
             if got[k] != want[k]:
                 raise AssertionError(
@@ -330,7 +370,44 @@ def phase_rng(dev):
                 )
     print(f"rng parity: {len(RNG_TABLE)}/{len(RNG_TABLE)} (seed, pixel, "
           "sample) rows bit-exact on the card (fold_in, uniform, "
-          "pixel_keys, sample_keys, ray_uniforms)")
+          "pixel_keys, sample_keys, ray_uniforms; the RNG kernel's keys and "
+          "22 draws)")
+
+    frame = (FRAME[0], FRAME[1])
+    pids = torch.as_tensor(blocked_pixel_order(
+        RenderConfig(width=frame[0], height=frame[1])), device=dev).long()
+    key = rng.prng_key(0, device=dev)
+    for name, rows in RNG_ROWS.items():
+        k_keys, k_draws = rng._launch(key, pids, 7, rows)
+        p_keys, p_draws = rng.stream_reference(key, pids, 7, rows)
+        if not (torch.equal(k_keys, p_keys) and torch.equal(k_draws, p_draws)):
+            raise AssertionError(f"RNG kernel != eager stream, rows {name}")
+    print(f"RNG kernel bit-equal to the eager stream over the {frame[0]}x"
+          f"{frame[1]} frame's keys for every row layout: "
+          + ", ".join(f"{n} ({r} rows)" for n, r in RNG_ROWS.items()))
+    res = {}
+    for rows in (4, 22):
+        fns = {"kernel": lambda: rng._launch(key, pids, 0, rows),
+               "plain": lambda: rng.stream_reference(key, pids, 0, rows)}
+        fns["kernel"](), fns["plain"]()
+        t = {w: [] for w in fns}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            t[which].append(_time_ms(fns[which], 20 if which == "kernel" else 3))
+        ms = {w: float(np.mean(v)) for w, v in t.items()}
+        bound = _rng_bound(pids.shape[0], rows)
+        res[rows] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound=bound)
+        print(f"  RNG kernel, {rows} rows at {pids.shape[0]} rays: "
+              f"{ms['kernel']:.4f} ms (eager plain {ms['plain']:.4f} ms; "
+              f"bound {bound[0]:.4f} ms, {bound[1]}; turns {t})")
+    return res
+
+
+def _rng_bound(b, rows):
+    """Least RNG kernel time: 8 B of pixel id in, 8 B of key and 4 B a row
+    out per ray, against two fold_ins and a draw a row per ray at the
+    INT32 issue rate."""
+    return _bound(b * (8 + 8 + 4 * rows) + 16, 0,
+                  b * (2 * FOLD_OPS + rows * DRAW_OPS))
 
 
 def _refractive_scene(dev):
@@ -349,26 +426,60 @@ def _refractive_scene(dev):
 
 
 def _kernel_inputs(scene, cam, cfg, seed, dev):
-    """Camera rays and bounce draws from a numpy seed, on the card."""
+    """(camera rays origin, direction, bounce draws (max_bounces, n_draws,
+    B), ray keys (2, B) int32) on the card: random keys from a numpy seed,
+    the camera rays from their draws 0-3 and the bounce draws theirs
+    (the eager stream), so the keyed kernels (K1, K2's sphere mode, K5)
+    take the keys and their plain versions and K3 the draws."""
     import numpy as np
     import torch
 
+    from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import n_bounce_draws, sample_rays
 
     rs = np.random.default_rng(seed)
     b = cfg.n_pixels
     pids = torch.arange(b, device=dev)
-    cam_draws = torch.tensor(rs.random((4, b), np.float32), device=dev)
-    origin, direction = sample_rays(cam, cfg, pids, cam_draws)
-    draws = torch.tensor(
-        rs.random((cfg.max_bounces, n_bounce_draws(cfg), b), np.float32),
-        device=dev,
-    )
-    return origin, direction, draws
+    keys = torch.tensor(rs.integers(-2**31, 2**31, (2, b)).astype(np.int32),
+                        device=dev)
+    origin, direction = sample_rays(cam, cfg, pids, rng.draws_at(keys, range(4)))
+    draws = rng.bounce_draws(keys, n_bounce_draws(cfg), cfg.max_bounces)
+    return origin, direction, draws.view(cfg.max_bounces, -1, b), keys
 
 
-def _both(scene, cfg, origin, direction, draws):
-    """(plain, kernel) outputs as (9, B) on the same card tensors."""
+def _frame_sample(cam, cfg, dev, rows=None):
+    """Sample 0 of the frame's block-ordered pixel ids under key 0 through
+    the RNG kernel: (origin, direction, ray keys (2, B), bounce draws
+    (max_bounces, n_draws, B), a callable that redoes the sample's RNG
+    kernel and camera rays for timing, the row count it makes). ``rows``:
+    the rows a route's RNG launch makes (default: every row, K3's and the
+    scan path's; 4 for K1's)."""
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (
+        blocked_pixel_order, n_bounce_draws, sample_rays)
+
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    key = rng.prng_key(0, device=dev)
+    nd = n_bounce_draws(cfg)
+    all_rows = 4 + cfg.max_bounces * nd
+    keys, draws = rng.sample_stream(key, pids, 0, all_rows)
+    origin, direction = sample_rays(cam, cfg, pids, draws[:4])
+    rows = all_rows if rows is None else rows
+
+    def redo():
+        return sample_rays(cam, cfg, pids,
+                           rng.sample_stream(key, pids, 0, rows)[1][:4])
+
+    return (origin, direction, keys,
+            draws[4:].view(cfg.max_bounces, nd, -1), redo)
+
+
+def _both(scene, cfg, origin, direction, draws, keys, counts=None):
+    """(plain, kernel) outputs as (9, B) on the same card tensors: the
+    plain version on the keys' draws, the kernel (through the wrapper) on
+    the keys. ``counts`` receives the plain version's work counts."""
     import torch
 
     from raytpu_torch.kernels import trace_spheres as ts
@@ -376,10 +487,25 @@ def _both(scene, cfg, origin, direction, draws):
     sph = ts.pack_spheres(scene)
     k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
     ref = ts.trace_spheres_reference(sph, *origin, *direction,
-                                     draws.reshape(-1, draws.shape[-1]), k)
+                                     draws.reshape(-1, draws.shape[-1]), k,
+                                     counts=counts)
     out = torch.cat([v.to_array().T for v in
-                     ts.trace_megakernel(scene, cfg, origin, direction, draws)])
+                     ts.trace_megakernel(scene, cfg, origin, direction, keys)])
     return ref, out
+
+
+def _bit_equal(name, ref, out):
+    """Raises unless the keyed kernel's output equals its plain version's
+    bit for bit (tensors, or tuples of tensors and None)."""
+    import torch
+
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    out = out if isinstance(out, tuple) else (out,)
+    for a, b in zip(ref, out):
+        if (a is None) != (b is None) or (
+                a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{name}: the kernel is not bit-equal to "
+                                 "its plain version")
 
 
 def phase_k1(dev):
@@ -394,44 +520,37 @@ def phase_k1(dev):
          dict(max_bounces=4, ao_samples=2)),
         ("cornell_cuda hsl+ao", scenes.cornell_box_cuda(dev), {}),
     ]
-    print(f"K1 vs plain at 64x48 rays (outlier: any channel > {ATOL} + "
-          f"{RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
+    print(f"K1 (keyed) vs plain at 64x48 rays: bit-equal required (the "
+          f"differences printed, outlier: any channel > {ATOL} + {RTOL}|x|)")
     for i, (name, (scene, cam, cfg), over) in enumerate(cases):
         cfg = cfg.replace(width=64, height=48, **over)
-        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 100 + i, dev)
-        ref, out = _both(scene, cfg, origin, direction, draws)
+        origin, direction, draws, keys = _kernel_inputs(scene, cam, cfg,
+                                                        100 + i, dev)
+        ref, out = _both(scene, cfg, origin, direction, draws, keys)
         _compare(name, ref, out)
+        _bit_equal(name, ref, out)
+    print("  K1 bit-equal to its plain version on every scene")
 
 
 def phase_k1_timing(dev):
     """K1 and its plain version at the main path's shapes (one sample of
-    the 1200x900, 6-bounce Cornell frame, real RNG draws), plus the RNG
-    work of one sample, timed with CUDA events in turns."""
+    the 1200x900, 6-bounce Cornell frame, the RNG kernel's keys), bit-equal,
+    then timed with CUDA events in turns, with the RNG work of one sample
+    (the RNG kernel's camera rows and the camera rays)."""
     import numpy as np
-    import torch
 
-    from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
     from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
 
     scene, cam, cfg = cornell_box(dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-    pix_keys = rng.pixel_keys(rng.prng_key(0, device=dev), pids)
-
-    def rng_sample():
-        ks = rng.sample_keys(pix_keys, 0)
-        cam_d, bounce_d = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
-                                           cfg.max_bounces)
-        return sample_rays(cam, cfg, pids, cam_d), bounce_d
-
-    (origin, direction), draws = rng_sample()
-    ref, out = _both(scene, cfg, origin, direction, draws)
+    origin, direction, keys, draws, rng_sample = _frame_sample(cam, cfg, dev, 4)
+    counts = {}
+    ref, out = _both(scene, cfg, origin, direction, draws, keys, counts)
     print(f"K1 vs plain at the main path's shape ({cfg.width}x{cfg.height} "
           f"rays, 6 bounces):")
     max_err = _compare(f"cornell {cfg.width}x{cfg.height} 6b", ref, out)
+    _bit_equal("K1 at the main path's shape", ref, out)
     frac = max(_outliers(ref[s], out[s])[0]
                for s in (slice(0, 3), slice(3, 6), slice(6, 9)))
 
@@ -439,7 +558,7 @@ def phase_k1_timing(dev):
     k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
     flat = draws.reshape(-1, draws.shape[-1])
     rays = (*origin, *direction)
-    kernel = lambda: ts._launch(sph, rays, flat, k)
+    kernel = lambda: ts._launch(sph, rays, keys, k)
     plain = lambda: ts.trace_spheres_reference(sph, *rays, flat, k)
     kernel(), plain()                                  # warm up
     t = {"plain": [], "kernel": []}
@@ -449,10 +568,12 @@ def phase_k1_timing(dev):
     rng_ms = np.mean([_time_ms(rng_sample, 5) for _ in range(2)])
     ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
     print(f"  K1 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call "
-          f"(turns: kernel {t['kernel']}, plain {t['plain']}); "
-          f"RNG + camera rays {rng_ms:.4f} ms per sample")
+          f"(turns: kernel {t['kernel']}, plain {t['plain']}); bit-equal; "
+          f"RNG kernel + camera rays {rng_ms:.4f} ms per sample; draws "
+          f"hashed {counts['draws']} (+{counts.get('probe_draws', 0)} AO) "
+          f"over {counts['live']} live (ray, bounce) entries")
     return dict(ms=ms, plain_ms=plain_ms, rng_ms=float(rng_ms),
-                max_abs_err=max_err, outlier_frac=frac)
+                max_abs_err=max_err, outlier_frac=frac, counts=counts)
 
 
 def phase_main(dev, card, timing):
@@ -478,6 +599,10 @@ def phase_main(dev, card, timing):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches, k2_launches, k3_launches, k4_launches, _ = _launches()
+    rng_launches = _rng_launches()
+    if rng_launches != cfg.spp:
+        raise AssertionError(f"main path: {rng_launches} RNG kernel launches, "
+                             f"want {cfg.spp}")
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -494,12 +619,18 @@ def phase_main(dev, card, timing):
     print(f"main path: cornell {cfg.width}x{cfg.height} spp={cfg.spp} "
           f"bounces={cfg.max_bounces}: {elapsed:.4f} s, "
           f"{rays / elapsed:.1f} rays/s end to end on {card}; "
-          f"K1 launches {launches}; mean radiance {mean:.6f}")
-    print(f"  per sample (CUDA events, same shapes): RNG + camera rays "
+          f"K1 launches {launches}, RNG kernel launches {rng_launches}; "
+          f"mean radiance {mean:.6f}")
+    print(f"  per sample (CUDA events, same shapes): RNG kernel + camera rays "
           f"{timing['rng_ms']:.4f} ms, K1 {timing['ms']:.4f} ms -> "
           f"RNG {cfg.spp * timing['rng_ms'] / 1e3:.4f} s, "
           f"K1 {cfg.spp * timing['ms'] / 1e3:.4f} s of the frame; "
           f"K1 alone {cfg.n_pixels * cfg.max_bounces / timing['ms'] * 1e3:.1f} rays/s")
+    frame = _profile(lambda: render(scene, cam, cfg.replace(spp=2), pids, key))
+    _print_profile("the Cornell frame at spp=2", *frame)
+    _no_eager_threefry("the Cornell frame", frame[3])
+    _unprofiled_idle("the Cornell frame", frame[1] / 2,
+                     elapsed * 1e3 / cfg.spp)
 
     # the same small frame on the card (K1) and on the CPU (plain path)
     small = cfg.replace(width=40, height=30, spp=2)
@@ -518,7 +649,8 @@ def phase_main(dev, card, timing):
     means = img.canvas.reshape(-1, 3).mean(axis=0)
     print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
           f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
-    return launches, k2_launches, k3_launches, k4_launches
+    return (launches, k2_launches, k3_launches, k4_launches, rng_launches,
+            frame)
 
 
 def _stack_scene(dev):
@@ -559,25 +691,32 @@ def _record_cases(dev):
     ]
 
 
-def _record_both(scene, cfg, origin, direction, draws):
-    """K1 recording launch and its plain version on the same inputs:
-    (sph, rays, flat draws, knobs, kernel (out, idx, aof), plain ...)."""
+def _record_both(scene, cfg, origin, direction, draws, keys, counts=None):
+    """K1 recording launch (on the keys) and its plain version (on their
+    draws): (sph, rays, flat draws, knobs, kernel (out, idx, aof), plain
+    ...)."""
     from raytpu_torch.kernels import trace_spheres as ts
 
     sph = ts.pack_spheres(scene)
-    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
+    k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
+                        scene.sky_index)
     flat = draws.reshape(-1, draws.shape[-1])
     rays = (*origin, *direction)
-    kern = ts._launch(sph, rays, flat, k, record=True)
-    plain = ts.trace_spheres_reference(sph, *rays, flat, k, record=True)
+    kern = ts._launch(sph, rays, keys, k, record=True)
+    plain = ts.trace_spheres_reference(sph, *rays, flat, k, record=True,
+                                       counts=counts)
     return sph, rays, flat, k, kern, plain
 
 
-def _check_record(name, kern, plain, forward):
+def _check_record(name, kern, plain, forward, bit_equal=False):
     """Raises unless the recording launch's planes equal the plain
     launch's bit for bit, and its indices and AO factors agree with the
-    plain version's (IDX_AGREE, OUTLIER_FRAC)."""
+    plain version's (IDX_AGREE, OUTLIER_FRAC); with ``bit_equal`` (keyed
+    K1) all of them must equal the plain version's."""
     import torch
+
+    if bit_equal:
+        _bit_equal(f"{name} recording", tuple(plain), tuple(kern))
 
     out, idx, aof = kern
     if not torch.equal(out, forward):
@@ -606,10 +745,14 @@ def phase_k1_record(dev):
           f"{IDX_AGREE:.0%}; AO factors where idx agree)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_record_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 100 + i, dev)
+        origin, direction, draws, keys = _kernel_inputs(scene, cam, cfg,
+                                                        100 + i, dev)
         sph, rays, flat, k, kern, plain = _record_both(
-            scene, cfg, origin, direction, draws)
-        _check_record(name, kern, plain, ts._launch(sph, rays, flat, k))
+            scene, cfg, origin, direction, draws, keys)
+        _check_record(name, kern, plain, ts._launch(sph, rays, keys, k),
+                      bit_equal=True)
+    print("  K1 recording bit-equal to its plain version (planes, winners, "
+          "AO factors) on every scene")
 
 
 def _compare_grads(name, ref, got):
@@ -647,14 +790,22 @@ def _sphere_reference(sph, rays, flat, idx, aof, g, k):
     return d_sph, d_rays
 
 
-def _sphere_kernel(sph, rays, flat, idx, aof, g, k):
-    """K2's kernel in sphere mode: (d_sph, six ray cotangents)."""
+def _sphere_kernel(sph, rays, keys, idx, aof, g, k):
+    """K2's kernel in sphere mode on the ray keys: (d_sph, six ray
+    cotangents)."""
     from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
 
-    d_sph, *_, d_rays = tb._launch(tb.Tables.of_spheres(sph), rays, flat, idx,
+    d_sph, *_, d_rays = tb._launch(tb.Tables.of_spheres(sph), rays, keys, idx,
                                    aof, g, tsc.MeshKnobs.of_spheres(k))
     return d_sph, d_rays
+
+
+def _same_grads(a, b):
+    import torch
+
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
 
 
 def phase_k2(dev):
@@ -669,15 +820,15 @@ def phase_k2(dev):
           f"limit {OUTLIER_FRAC:.0%}; d_sph rows within {DSPH_REL} x row max)")
     for i, (name, (scene, cam, cfg), over) in enumerate(cases):
         cfg = cfg.replace(width=64, height=48, **over)
-        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 200 + i, dev)
+        origin, direction, draws, keys = _kernel_inputs(scene, cam, cfg,
+                                                        200 + i, dev)
         sph, rays, flat, k, (_, idx, aof), _ = _record_both(
-            scene, cfg, origin, direction, draws)
+            scene, cfg, origin, direction, draws, keys)
         g = torch.tensor(np.random.default_rng(300 + i).uniform(
             -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-        got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
-        again = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
-        if not (torch.equal(got[0], again[0])
-                and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
+        got = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+        again = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+        if not _same_grads(got, again):
             raise AssertionError(f"{name}: two K2 launches differ")
         ref = _sphere_reference(sph, rays, flat, idx, aof, g, k)
         _compare_grads(f"{name} ({cfg.max_bounces}b)", ref, got)
@@ -685,121 +836,141 @@ def phase_k2(dev):
           "cotangents on every scene")
 
 
-def _k1_bound(b, bounces, n_live, n_spheres, record, sky=False):
-    """Least K1 time: rays 24 B + draws 3 x 4 B per bounce + 9 planes out
+def _k1_bound(b, bounces, counts, n_spheres, record, sky=False):
+    """Least K1 time, the largest of: rays 24 B + key 8 B + 9 planes out
     (+ 4 B of index per bounce when recording; + the sky slot's 7 planes,
-    28 B, with the sky) at HBM speed, against (33 FLOP per sphere test +
-    130 for the shading) for every (ray, bounce) that hit (this run's
-    recorded indices) at the FP32 peak."""
-    nbytes = b * (24 + 12 * bounces + 36 + (4 * bounces if record else 0)
+    28 B, with the sky) at HBM speed; (33 FLOP per sphere test + 130 for
+    the shading) for every (ray, bounce) that hit (``counts["live"]``,
+    the plain version's count on this run's data) at the FP32 peak; the
+    draws it hashes (``counts``' "draws" and "probe_draws") at DRAW_OPS
+    each at the INT32 issue rate."""
+    nbytes = b * (24 + 8 + 36 + (4 * bounces if record else 0)
                   + (SKY_SLOT_BYTES if sky else 0))
-    flops = n_live * (33 * n_spheres + 130)
-    return _bound(nbytes, flops)
+    flops = counts["live"] * (33 * n_spheres + 130)
+    n_draws = counts["draws"] + counts.get("probe_draws", 0)
+    return _bound(nbytes, flops, n_draws * DRAW_OPS)
 
 
-def _k2_bound(b, bounces, n_live, n_spheres, sky=False):
-    """Least K2 time: rays 24 B, draws 0..2 (12 B), index (4 B) per bounce,
-    g 36 B (48 B with the sky scale's cotangent) and the ray cotangents
-    24 B per ray, the table twice; against ~510 FLOP (replayed bounce
-    ~165, its adjoint ~330, the 14 sums) per (ray, bounce) that hit."""
-    nbytes = (b * (24 + 16 * bounces + 36 + 24 + (SKY_G_BYTES if sky else 0))
-              + 2 * 14 * 4 * n_spheres)
-    return _bound(nbytes, n_live * K2_OPS_SPHERE)
+def _k2_bound(b, bounces, counts, n_spheres, sky=False):
+    """Least K2 sphere-mode time, the largest of: rays 24 B, key 8 B,
+    index (4 B) per bounce, g 36 B (48 B with the sky scale's cotangent)
+    and the ray cotangents 24 B per ray, the table twice, at HBM speed;
+    ~510 FLOP (replayed bounce ~165, its adjoint ~330, the 14 sums) per
+    (ray, bounce) that hit at the FP32 peak; the scatter and roulette draws
+    K1 hashes (``counts["draws"]``), hashed twice (the replay and the
+    reverse step), at the INT32 issue rate."""
+    nbytes = (b * (24 + 8 + 4 * bounces + 36 + 24
+                   + (SKY_G_BYTES if sky else 0)) + 2 * 14 * 4 * n_spheres)
+    return _bound(nbytes, counts["live"] * K2_OPS_SPHERE,
+                  2 * counts["draws"] * DRAW_OPS)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, int_ops=0):
+    """(least ms, "bytes" or "operations"): the largest of the bytes at
+    HBM speed, the FP32 operations at the FP32 peak and the INT32
+    operations at the INT32 issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOP_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_k2_timing(dev):
     """At the main path's shape (one sample of the 1200x900, 6-bounce
-    Cornell frame, real RNG draws): K2 against its plain version, then
-    K1 recording, K2 and K2's plain version timed with CUDA events in
-    turns."""
+    Cornell frame, the RNG kernel's keys): K1's recording bit-equal to its
+    plain version, K2 against its plain version, then K1 recording, K2
+    and K2's plain version timed with CUDA events in turns."""
     import numpy as np
     import torch
 
-    from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
-    from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
 
     scene, cam, cfg = cornell_box(dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
-    cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg), cfg.max_bounces)
-    origin, direction = sample_rays(cam, cfg, pids, cam_d)
+    origin, direction, keys, draws, _ = _frame_sample(cam, cfg, dev, 4)
+    counts = {}
     sph, rays, flat, k, (out, idx, aof), plain = _record_both(
-        scene, cfg, origin, direction, draws)
+        scene, cfg, origin, direction, draws, keys, counts)
     name = f"cornell {cfg.width}x{cfg.height} 6b"
     print(f"K1 recording and K2 at the main path's shape ({cfg.width}x"
           f"{cfg.height} rays, 6 bounces):")
     _check_record(name, (out, idx, aof), plain,
-                  ts._launch(sph, rays, flat, k))
+                  ts._launch(sph, rays, keys, k), bit_equal=True)
     g = torch.tensor(np.random.default_rng(7).uniform(
         -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-    got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+    got = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+    if not _same_grads(got, _sphere_kernel(sph, rays, keys, idx, aof, g, k)):
+        raise AssertionError(f"{name}: two K2 launches differ")
     ref = _sphere_reference(sph, rays, flat, idx, aof, g, k)
     max_err, frac = _compare_grads(name, ref, got)
     del ref, plain
 
-    record = lambda: ts._launch(sph, rays, flat, k, record=True)
-    kernel = lambda: _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+    record = lambda: ts._launch(sph, rays, keys, k, record=True)
+    kernel = lambda: _sphere_kernel(sph, rays, keys, idx, aof, g, k)
     plain_fn = lambda: _sphere_reference(sph, rays, flat, idx, aof, g, k)
     t = {"record": [], "kernel": [], "plain": []}
     for which in ("plain", "kernel", "record", "record", "kernel", "plain"):
         fn = {"record": record, "kernel": kernel, "plain": plain_fn}[which]
         t[which].append(_time_ms(fn, 3 if which == "plain" else 20))
-    n_live = int((idx >= 0).sum().item())
+    n_live = counts["live"]
     b, s = cfg.n_pixels, k.n_spheres
-    rec_bound = _k1_bound(b, cfg.max_bounces, n_live, s, record=True)
-    k2_bound = _k2_bound(b, cfg.max_bounces, n_live, s)
+    rec_bound = _k1_bound(b, cfg.max_bounces, counts, s, record=True)
+    k2_bound = _k2_bound(b, cfg.max_bounces, counts, s)
     res = {w: float(np.mean(v)) for w, v in t.items()}
     print(f"  K1 recording {res['record']:.4f} ms (bound {rec_bound[0]:.4f} "
           f"ms, {rec_bound[1]}); K2 {res['kernel']:.4f} ms (bound "
           f"{k2_bound[0]:.4f} ms, {k2_bound[1]}); K2 plain "
           f"{res['plain']:.4f} ms per call (turns {t}); live (ray, bounce) "
-          f"entries {n_live} of {b * cfg.max_bounces}")
+          f"entries {n_live} of {b * cfg.max_bounces}, draws hashed "
+          f"{counts['draws']} by K1, twice by K2; two K2 launches "
+          "bit-identical")
     return dict(record_ms=res["record"], ms=res["kernel"],
                 plain_ms=res["plain"], max_abs_err=max_err,
                 outlier_frac=frac, bound=k2_bound, record_bound=rec_bound,
                 n_live=n_live, n_rays=b, bounces=cfg.max_bounces,
-                n_spheres=s)
+                n_spheres=s, counts=counts)
 
 
 def _profile(work):
     """Device time by kernel over one call of ``work``, and the idle
-    share of the window: torch.profiler with CUDA activity."""
+    share of the window: torch.profiler with CUDA activity. A first call
+    of ``work`` is the schedule's warm-up step, whose events are dropped:
+    a window of a few ms opened cold lost most of its kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        work()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    buckets = {"K1 trace_spheres": 0.0, "K2 backward": 0.0,
-               "K5 spheres_ad": 0.0, "K2/K5 sum_blocks": 0.0,
-               "K3 trace_scene": 0.0,
+        prof.step()
+    buckets = {"RNG kernel": 0.0, "K1 trace_spheres": 0.0,
+               "K2 backward": 0.0, "K5 spheres_ad": 0.0,
+               "K2/K5 sum_blocks": 0.0, "K3 trace_scene": 0.0,
                "K4 intersect": 0.0, "index gather/scatter": 0.0,
-               "int64 (threefry)": 0.0, "other": 0.0}
+               "eager threefry (int64 bitwise)": 0.0, "other": 0.0}
     n_kernels = 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if ev.device_type != torch.autograd.DeviceType.CUDA or not dev_us:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA or not dev_us
+                or ev.key.startswith("ProfilerStep")):
+            # (the schedule's step annotation spans the step's device work)
             continue
         n_kernels += ev.count
         name = ev.key
-        if "trace_spheres_kernel" in name:
+        low = name.lower()
+        if "rng_sample_kernel" in name:
+            buckets["RNG kernel"] += dev_us
+        elif "trace_spheres_kernel" in name:
             buckets["K1 trace_spheres"] += dev_us
         elif "trace_scene_kernel" in name:
             buckets["K3 trace_scene"] += dev_us
@@ -809,18 +980,39 @@ def _profile(work):
             # the scan path's winner gathers (index_select) and their
             # backward (index_add); their int64 indices are not threefry
             buckets["index gather/scatter"] += dev_us
-        elif "::backward_kernel" in name:
+        elif "::backward_kernel" in name or "sphere_backward_kernel" in name:
             buckets["K2 backward"] += dev_us
         elif "spheres_ad_kernel" in name:
             buckets["K5 spheres_ad"] += dev_us
         elif "sum_blocks_kernel" in name:
             buckets["K2/K5 sum_blocks"] += dev_us
-        elif "long" in name.lower() or "int64" in name.lower():
-            buckets["int64 (threefry)"] += dev_us
+        elif (("long" in low or "int64" in low)
+              and any(w in low for w in ("bitwise", "shift", "xor"))):
+            # the eager threefry's uint32 emulation: int64 xor / or /
+            # and / shifts (core/rng.py), which no other path launches
+            buckets["eager threefry (int64 bitwise)"] += dev_us
         else:
             buckets["other"] += dev_us
     busy_ms = sum(buckets.values()) / 1e3
     return wall_ms, busy_ms, n_kernels, {k: v / 1e3 for k, v in buckets.items()}
+
+
+def _unprofiled_idle(what, busy_ms, wall_ms):
+    """Prints the idle share of a frame without the profiler's host cost:
+    1 - (the profiled device busy time a sample) / (the unprofiled wall
+    time a sample)."""
+    print(f"  {what}: device busy {busy_ms:.3f} ms a sample (profiled) "
+          f"against {wall_ms:.3f} ms of wall a sample without the profiler: "
+          f"idle {max(0.0, 1 - busy_ms / wall_ms):.1%}")
+
+
+def _no_eager_threefry(what, buckets):
+    """Raises if the profile shows the eager int64 threefry: the RNG
+    kernel makes every draw of the K1 / K3 / scan routes."""
+    if buckets["eager threefry (int64 bitwise)"] > 0.0:
+        raise AssertionError(f"{what}: eager int64 threefry in the profile")
+    if buckets["RNG kernel"] <= 0.0:
+        raise AssertionError(f"{what}: no RNG kernel in the profile")
 
 
 def _print_profile(what, wall_ms, busy_ms, n_k, buckets):
@@ -867,6 +1059,7 @@ def phase_train(dev, card):
     elapsed = time.perf_counter() - t0
     (k1_launches, k2_launches, k3_launches, k4_launches,
      k5_launches) = _launches()
+    rng_launches = _rng_launches()
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item()
@@ -877,9 +1070,10 @@ def phase_train(dev, card):
             raise AssertionError(f"fwd+bwd: d loss / d {leaf} is all zero")
     if k2_launches != cfg.spp:
         raise AssertionError(f"fwd+bwd: {k2_launches} K2 launches, want {cfg.spp}")
-    if k1_launches != 2 * cfg.spp:
-        raise AssertionError(f"fwd+bwd: {k1_launches} K1 launches, want "
-                             f"{2 * cfg.spp} (forward + checkpoint recompute)")
+    if k1_launches != 2 * cfg.spp or rng_launches != 2 * cfg.spp:
+        raise AssertionError(f"fwd+bwd: {k1_launches} K1 and {rng_launches} "
+                             f"RNG kernel launches, want {2 * cfg.spp} each "
+                             "(forward + checkpoint recompute)")
     if k3_launches != 0 or k4_launches != 0 or k5_launches != 0:
         raise AssertionError(f"fwd+bwd: {k3_launches} K3, {k4_launches} K4 "
                              f"and {k5_launches} K5 launches on the "
@@ -889,14 +1083,17 @@ def phase_train(dev, card):
           f"bounces={cfg.max_bounces}, d loss / d every sphere leaf: "
           f"{elapsed:.4f} s, {rays / elapsed:.1f} rays/s on {card}; "
           f"loss {loss.item():.6f}; K1 launches {k1_launches}, K2 launches "
-          f"{k2_launches}; max |d diffuse.x| "
+          f"{k2_launches}, RNG kernel launches {rng_launches}; max |d diffuse.x| "
           f"{grads['spheres.mat.diffuse.x'].abs().max().item():.4e}, "
           f"max |d emission.x| "
           f"{grads['spheres.mat.emission.x'].abs().max().item():.4e}")
 
     prof_cfg = cfg.replace(spp=2)
-    _print_profile("fwd+bwd at spp=2",
-                   *_profile(lambda: loss_fn(prof_cfg).backward()))
+    frame = _profile(lambda: loss_fn(prof_cfg).backward())
+    _print_profile("fwd+bwd at spp=2", *frame)
+    _no_eager_threefry("the Cornell fwd+bwd frame", frame[3])
+    _unprofiled_idle("the Cornell fwd+bwd frame", frame[1] / 2,
+                     elapsed * 1e3 / cfg.spp)
 
     # 3 Adam steps towards a target with perturbed diffuse colours, with
     # the target's key, so the loss measures the parameters and not noise
@@ -922,8 +1119,9 @@ def phase_train(dev, card):
           f"spp={cfg.spp} towards a perturbed-diffuse target: losses "
           + " ".join(f"{x:.6e}" for x in losses) + f"; {step_s:.4f} s per step")
     return dict(k1_launches=k1_launches, k2_launches=k2_launches,
-                k5_launches=k5_launches,
-                k3_launches=k3_launches, k4_launches=k4_launches, rays_per_s=rays / elapsed)
+                k5_launches=k5_launches, rng_launches=rng_launches,
+                k3_launches=k3_launches, k4_launches=k4_launches,
+                rays_per_s=rays / elapsed, elapsed=elapsed, profile=frame)
 
 
 def _block_world(n: int, seed: int = 0) -> str:
@@ -991,7 +1189,8 @@ def phase_k3(dev):
           f"{RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 400 + i, dev)
+        origin, direction, draws, _ = _kernel_inputs(scene, cam, cfg, 400 + i,
+                                                     dev)
         _compare(name, *_k3_both(scene, cfg, origin, direction, draws))
 
 
@@ -1016,28 +1215,16 @@ def _k3_bound(b, bounces, counts, table_bytes, sky=False):
 
 def phase_k3_timing(dev):
     """K3 and its plain version at the main path's shape (one sample of
-    the 1200x900, 6-bounce block-world frame, real RNG draws), compared,
-    then timed with CUDA events in turns, with the RNG work of a sample."""
+    the 1200x900, 6-bounce block-world frame, the RNG kernel's draws),
+    compared, then timed with CUDA events in turns, with the RNG work of a
+    sample (the RNG kernel's rows and the camera rays)."""
     import numpy as np
-    import torch
 
-    from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
     from raytpu_torch.kernels import trace_scene as tsc
 
     scene, cam, cfg = _per_triangle(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-    pix_keys = rng.pixel_keys(rng.prng_key(0, device=dev), pids)
-
-    def rng_sample():
-        ks = rng.sample_keys(pix_keys, 0)
-        cam_d, bounce_d = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
-                                           cfg.max_bounces)
-        return sample_rays(cam, cfg, pids, cam_d), bounce_d
-
-    (origin, direction), draws = rng_sample()
+    origin, direction, _, draws, rng_sample = _frame_sample(cam, cfg, dev)
     counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
     ref, out = _k3_both(scene, cfg, origin, direction, draws, counts)
     name = f"block world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
@@ -1066,7 +1253,8 @@ def phase_k3_timing(dev):
     b = cfg.n_pixels
     print(f"  K3 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call (turns: "
           f"kernel {t['kernel']}, plain {t['plain']}); bound {bound[0]:.4f} "
-          f"ms ({bound[1]}); RNG + camera rays {rng_ms:.4f} ms per sample")
+          f"ms ({bound[1]}); RNG kernel + camera rays {rng_ms:.4f} ms per "
+          "sample")
     print(f"  search work (plain version's counts): {counts['live']} live "
           f"(ray, bounce) entries of {b * cfg.max_bounces}; per live entry "
           f"{counts['sphere'] / counts['live']:.2f} sphere, "
@@ -1102,6 +1290,7 @@ def phase_mesh(dev, card, timing):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
+    _check_rng("mesh path", cfg.spp)
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -1119,13 +1308,14 @@ def phase_mesh(dev, card, timing):
           f"spp={cfg.spp} bounces={cfg.max_bounces}: {elapsed:.4f} s, "
           f"{rays / elapsed:.1f} rays/s end to end on {card}; K3 launches "
           f"{k3}; mean radiance {mean:.6f}")
-    print(f"  per sample (CUDA events, same shapes): RNG + camera rays "
-          f"{timing['rng_ms']:.4f} ms, K3 {timing['ms']:.4f} ms -> "
+    print(f"  per sample (CUDA events, same shapes): RNG kernel + camera "
+          f"rays {timing['rng_ms']:.4f} ms, K3 {timing['ms']:.4f} ms -> "
           f"RNG {cfg.spp * timing['rng_ms'] / 1e3:.4f} s, "
           f"K3 {cfg.spp * timing['ms'] / 1e3:.4f} s of the frame")
 
-    _print_profile("the mesh frame at spp=2", *_profile(
-        lambda: render(scene, cam, cfg.replace(spp=2), pids, key)))
+    frame = _profile(lambda: render(scene, cam, cfg.replace(spp=2), pids, key))
+    _print_profile("the mesh frame at spp=2", *frame)
+    _no_eager_threefry("the mesh frame", frame[3])
 
     # the same small frame on the card (K3) and on the CPU (plain path)
     small = cfg.replace(width=40, height=30, spp=2)
@@ -1202,7 +1392,7 @@ def phase_k3_record(dev):
           f" AO factors where used)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws = _kernel_inputs(scene, cam, cfg, 500 + i, dev)
+        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 500 + i, dev)
         tb, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
         _check_mesh_record(
             name, tsc._launch(tb, rays, flat, k, record=True),
@@ -1290,7 +1480,7 @@ def phase_k2_mesh(dev):
     rerun = 0.0
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws = _kernel_inputs(scene, cam, cfg, 600 + i, dev)
+        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 600 + i, dev)
         mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
         _, idx, aof = tsc._launch(mt, rays, flat, k, record=True)
         tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
@@ -1399,11 +1589,15 @@ def k5_bound(k2):
     """K5's bound (raytpu/kernels/trace_spheres.py:460, jax.vjp of K1's
     loop) at the flagship fwd+bwd shape, from this run's data: K1's
     forward operations three times per live entry of phase 7's Cornell
-    recording (the loop, then its reverse at about twice the forward),
-    against K2's bytes."""
-    k5_bytes = (k2["n_rays"] * (24 + 16 * k2["bounces"] + 36 + 24)
+    recording (the loop, then its reverse at about twice the forward), the
+    scatter and roulette draws hashed twice (the loop and the reverse
+    step) and the AO probes' once, against rays 24 B, key 8 B, g 36 B and
+    ray cotangents 24 B a ray and the table twice."""
+    c = k2["counts"]
+    k5_bytes = (k2["n_rays"] * (24 + 8 + 36 + 24)
                 + 2 * 14 * 4 * k2["n_spheres"])
-    k5 = _bound(k5_bytes, 3 * k2["n_live"] * (33 * k2["n_spheres"] + 130))
+    k5 = _bound(k5_bytes, 3 * k2["n_live"] * (33 * k2["n_spheres"] + 130),
+                (2 * c["draws"] + c.get("probe_draws", 0)) * DRAW_OPS)
     print(f"  K5's bound {k5[0]:.4f} ms ({k5[1]}; "
           f"{k2['n_live']} live entries at {k2['n_rays']} rays x "
           f"{k2['bounces']} bounces)")
@@ -1445,6 +1639,7 @@ def phase_mesh_train(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
+    _check_rng("mesh fwd+bwd", 2 * cfg.spp)
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item() and all(
@@ -1523,7 +1718,7 @@ def _k4_ray_sets(scene, cam, cfg, seed, dev):
     d /= np.linalg.norm(d, axis=0)
     card = lambda a: Vec3(*(torch.tensor(c, device=dev) for c in a))
     yield "random", card(o), card(d)
-    origin, direction, draws = _kernel_inputs(scene, cam, cfg, seed, dev)
+    origin, direction, draws, _ = _kernel_inputs(scene, cam, cfg, seed, dev)
     geom = precompute(scene.triangles) if scene.n_triangles else None
     state = path.init_state(origin, direction)
     for i in range(cfg.max_bounces):
@@ -1667,13 +1862,29 @@ def phase_scan_checks(dev):
 
 
 def _reset_launches():
+    from raytpu_torch.core import rng
     from raytpu_torch.kernels import intersect
     from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
 
     ts.launches = tb.launches = tsc.launches = intersect.launches = 0
-    ts.ad_launches = 0
+    ts.ad_launches = rng.launches = 0
+
+
+def _check_rng(what, want):
+    """Raises unless the path launched the RNG kernel ``want`` times (one a
+    sample, twice under the checkpoint's recompute)."""
+    if _rng_launches() != want:
+        raise AssertionError(f"{what}: {_rng_launches()} RNG kernel "
+                             f"launches, want {want}")
+
+
+def _rng_launches():
+    """The RNG kernel's launch count (``rng.sample_stream``)."""
+    from raytpu_torch.core import rng
+
+    return rng.launches
 
 
 def _launches():
@@ -1718,6 +1929,7 @@ def phase_scan_frame(dev, card, mesh):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         k1, k2, k3, k4, _ = _launches()
+        _check_rng("scan frame", cfg.spp)
         rad = sums.radiance.to_array()
         mean = rad.double().mean().item() / cfg.spp
         if not all(v.to_array().isfinite().all() for v in sums[:3]):
@@ -1795,6 +2007,7 @@ def phase_scan_train(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
+    _check_rng("scan fwd+bwd", 2 * cfg.spp)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     grads = {n: p.grad for n, p in params.items()}
@@ -2004,28 +2217,29 @@ def phase_sky_kernels(dev):
           "recording and K2's sky cotangent (sphere mode)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k1_sky_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        origin, direction, draws = _kernel_inputs(scene, cam, cfg, 800 + i, dev)
+        origin, direction, draws, keys = _kernel_inputs(scene, cam, cfg,
+                                                        800 + i, dev)
         sph = ts.pack_spheres(scene)
         k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
                             scene.sky_index)
         flat = draws.reshape(-1, draws.shape[-1])
         rays = (*origin, *direction)
         ref = ts.trace_spheres_reference(sph, *rays, flat, k)
-        out = ts._launch(sph, rays, flat, k)
+        out = ts._launch(sph, rays, keys, k)
         if out.shape[0] != 16:
             raise AssertionError(f"{name}: {out.shape[0]} planes, want 16")
         res["k1"] = max(res["k1"], _compare(name, ref, out))
         bits(name, ref, out)
-        kern = ts._launch(sph, rays, flat, k, record=True)
+        _bit_equal(name, ref, out)
+        kern = ts._launch(sph, rays, keys, k, record=True)
         _check_record(name, kern, ts.trace_spheres_reference(
-            sph, *rays, flat, k, record=True), out)
+            sph, *rays, flat, k, record=True), out, bit_equal=True)
         _, idx, aof = kern
         g = torch.tensor(np.random.default_rng(900 + i).uniform(
             -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
-        got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
-        again = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
-        if not (torch.equal(got[0], again[0])
-                and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
+        got = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+        again = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+        if not _same_grads(got, again):
             raise AssertionError(f"{name}: two K2 sky launches differ")
         ref_g = _sphere_reference(sph, rays, flat, idx, aof, g, k)
         res["k2_sphere"] = max(res["k2_sphere"],
@@ -2035,7 +2249,7 @@ def phase_sky_kernels(dev):
           "recording and K2's sky cotangent (mesh mode)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_sky_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws = _kernel_inputs(scene, cam, cfg, 820 + i, dev)
+        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 820 + i, dev)
         mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
         ref = tsc.trace_scene_reference(mt, *rays, flat, k)
         out = tsc._launch(mt, rays, flat, k)
@@ -2116,20 +2330,13 @@ def phase_sky_timing(dev):
     import numpy as np
     import torch
 
-    from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
     from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
 
     def camera_batch(scene, cam, cfg):
-        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
-        cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
-                                        cfg.max_bounces)
-        o, d = sample_rays(cam, cfg, pids, cam_d)
-        return o, d, draws
+        o, d, keys, draws, _ = _frame_sample(cam, cfg, dev)
+        return o, d, draws, keys
 
     def turns(fns, order, iters):
         t = {w: [] for w in fns}
@@ -2139,7 +2346,7 @@ def phase_sky_timing(dev):
 
     res = {}
     scene, cam, cfg = _sky_scene("show", dev)
-    o, d, draws = camera_batch(scene, cam, cfg)
+    o, d, draws, keys = camera_batch(scene, cam, cfg)
     sph = ts.pack_spheres(scene)
     k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
                         scene.sky_index)
@@ -2148,38 +2355,43 @@ def phase_sky_timing(dev):
     name = f"showcase {cfg.width}x{cfg.height} {cfg.max_bounces}b"
     print(f"sky modes at the sky frames' shapes ({name}; sky world "
           f"{MESH_WORLD} {FRAME[0]}x{FRAME[1]} 6b):")
-    ref = ts.trace_spheres_reference(sph, *rays, flat, k)
-    out = ts._launch(sph, rays, flat, k)
+    counts, rec_counts = {}, {}
+    ref = ts.trace_spheres_reference(sph, *rays, flat, k, counts=counts)
+    out = ts._launch(sph, rays, keys, k)
     k1_err = _compare(name, ref, out)
-    kern = ts._launch(sph, rays, flat, k, record=True)
+    _bit_equal(name, ref, out)
+    kern = ts._launch(sph, rays, keys, k, record=True)
     _, idx, aof = kern
     _check_record(name, kern, ts.trace_spheres_reference(
-        sph, *rays, flat, k, record=True), out)
+        sph, *rays, flat, k, record=True, counts=rec_counts), out,
+        bit_equal=True)
     g = torch.tensor(np.random.default_rng(10).uniform(
         -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
-    got = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+    got = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+    if not _same_grads(got, _sphere_kernel(sph, rays, keys, idx, aof, g, k)):
+        raise AssertionError(f"{name}: two K2 sky launches differ")
     k2_err = _compare_grads(f"{name} K2 sky", _sphere_reference(
         sph, rays, flat, idx, aof, g, k), got)[0]
     del ref
-    fns = {"k1": lambda: ts._launch(sph, rays, flat, k),
+    fns = {"k1": lambda: ts._launch(sph, rays, keys, k),
            "k1_plain": lambda: ts.trace_spheres_reference(sph, *rays, flat, k),
-           "k1_rec": lambda: ts._launch(sph, rays, flat, k, record=True),
-           "k2": lambda: _sphere_kernel(sph, rays, flat, idx, aof, g, k),
+           "k1_rec": lambda: ts._launch(sph, rays, keys, k, record=True),
+           "k2": lambda: _sphere_kernel(sph, rays, keys, idx, aof, g, k),
            "k2_plain": lambda: _sphere_reference(sph, rays, flat, idx, aof,
                                                  g, k)}
     ms, t = turns(fns, ("k1_plain", "k1", "k1_rec", "k2_plain", "k2", "k2",
                         "k2_plain", "k1_rec", "k1", "k1_plain"),
                   {w: 3 if w.endswith("plain") else 20 for w in fns})
-    n_live = int((idx >= 0).sum().item())
+    n_live = counts["live"]
     b, s = cfg.n_pixels, k.n_spheres
     res["k1"] = dict(ms=ms["k1"], plain_ms=ms["k1_plain"],
-                     bound=_k1_bound(b, cfg.max_bounces, n_live, s, False, True),
+                     bound=_k1_bound(b, cfg.max_bounces, counts, s, False, True),
                      max_abs_err=k1_err)
     res["k1_rec"] = dict(ms=ms["k1_rec"], plain_ms=ms["k1_plain"],
-                         bound=_k1_bound(b, cfg.max_bounces, n_live, s, True,
-                                         True), max_abs_err=k1_err)
+                         bound=_k1_bound(b, cfg.max_bounces, rec_counts, s,
+                                         True, True), max_abs_err=k1_err)
     res["k2_sphere"] = dict(ms=ms["k2"], plain_ms=ms["k2_plain"],
-                            bound=_k2_bound(b, cfg.max_bounces, n_live, s, True),
+                            bound=_k2_bound(b, cfg.max_bounces, counts, s, True),
                             max_abs_err=k2_err)
     for w in ("k1", "k1_rec", "k2_sphere"):
         r = res[w]
@@ -2190,7 +2402,7 @@ def phase_sky_timing(dev):
 
     scene, cam, cfg = _sky_scene(MESH_WORLD, dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    o, d, draws = camera_batch(scene, cam, cfg)
+    o, d, draws, _ = camera_batch(scene, cam, cfg)
     mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
     name = f"sky world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
     counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
@@ -2271,6 +2483,7 @@ def _frame(what, dev, card, scene, cam, cfg, want, fwd_bwd=None):
     if got != want:
         raise AssertionError(f"{what}: (K1, K2, K3, K4, K5) launches {got}, "
                              f"want {want}")
+    _check_rng(what, cfg.spp * (1 if fwd_bwd is None else 2))
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     wall, busy, n_k, buckets = _profile(lambda: work(cfg.replace(spp=1)))
     idle = max(0.0, 1 - busy / wall)
@@ -2592,20 +2805,22 @@ def phase_sky_residue(dev):
         rad_frac = _outliers(a[:3], b[:3])[0]
         flips = dirs = float("nan")
         if mega:
-            # the slot on the same rays and draws, card and CPU
-            o, d, draws = _kernel_inputs(scene, cam, cfg, 950, dev)
-            flat = draws.reshape(-1, draws.shape[-1])
+            # the slot on the same rays and draws (K1: the same keys),
+            # card and CPU
+            o, d, draws, keys = _kernel_inputs(scene, cam, cfg, 950, dev)
             if scene.n_triangles:
+                src = draws.reshape(-1, draws.shape[-1])
                 k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
                 run = lambda sc, rays, fl: tsc._forward(
                     tsc.pack_scene(sc, k), rays, fl, k)
             else:
+                src = keys
                 k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
                                     scene.sky_index)
                 run = lambda sc, rays, fl: ts._forward(ts.pack_spheres(sc),
                                                        rays, fl, k)
-            card = run(scene, (*o, *d), flat).cpu()
-            host = run(cscene, tuple(c.cpu() for c in (*o, *d)), flat.cpu())
+            card = run(scene, (*o, *d), src).cpu()
+            host = run(cscene, tuple(c.cpu() for c in (*o, *d)), src.cpu())
             both = (card[9:12] != 0).any(0) & (host[9:12] != 0).any(0)
             w, h = scene.sky.width, scene.sky.height
             ic = sky_texel_index(Vec3(*card[12:15]), w, h)
@@ -2666,7 +2881,7 @@ def phase_merged_kernels(dev):
     res = {}
     for i, (name, (scene, cam, cfg), over) in enumerate(_merged_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws = _kernel_inputs(scene, cam, cfg, 1000 + i, dev)
+        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 1000 + i, dev)
         mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
         if k.plan is None:
             raise AssertionError(f"{name}: the default load has no quad plan")
@@ -2867,7 +3082,7 @@ def phase_merged_frames(dev, card):
     return res
 
 
-def _k5_rays(sph, rays, flat, k, g):
+def _k5_rays(sph, rays, flat, keys, k, g):
     """K1's recording and the plain version's on the same rays, and g with
     zero cotangent on the rays whose winners or used AO factors differ
     between the two: K5 and its plain version each run their own search,
@@ -2875,7 +3090,7 @@ def _k5_rays(sph, rays, flat, k, g):
     sends a ray elsewhere. Returns (idx, aof, masked g, fraction kept)."""
     from raytpu_torch.kernels import trace_spheres as ts
 
-    _, idx, aof = ts._launch(sph, rays, flat, k, record=True)
+    _, idx, aof = ts._launch(sph, rays, keys, k, record=True)
     _, p_idx, p_aof = ts.trace_spheres_reference(sph, *rays, flat, k,
                                                  record=True)
     same = (idx == p_idx).all(0)
@@ -2899,7 +3114,8 @@ def phase_k5(dev):
     """Phase 32: K5 against its plain version (autograd through K1's plain
     version) and against K2 on K1's recording, at 64x48 rays with a random
     output cotangent, by K2's rule (_compare_grads); two K5 launches
-    bit-identical."""
+    bit-identical, and K5 bit-equal to K2 (the same search, draws, reverse
+    step and table sums)."""
     import numpy as np
     import torch
 
@@ -2912,7 +3128,7 @@ def phase_k5(dev):
     res = {"max_abs_err": 0.0, "outlier_frac": 0.0, "k2_bits": []}
     for i, (name, (scene, cam, cfg), over) in enumerate(_k5_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws = _kernel_inputs(scene, cam, cfg, 1100 + i, dev)
+        o, d, draws, keys = _kernel_inputs(scene, cam, cfg, 1100 + i, dev)
         sph = ts.pack_spheres(scene)
         k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
                             scene.sky_index)
@@ -2921,11 +3137,10 @@ def phase_k5(dev):
         g = torch.tensor(np.random.default_rng(1200 + i).uniform(
             -1, 1, (tb.g_planes(k), cfg.n_pixels)).astype(np.float32),
             device=dev)
-        idx, aof, g, kept = _k5_rays(sph, rays, flat, k, g)
-        got = ts._launch_ad(sph, rays, flat, g, k)
-        again = ts._launch_ad(sph, rays, flat, g, k)
-        if not (torch.equal(got[0], again[0])
-                and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
+        idx, aof, g, kept = _k5_rays(sph, rays, flat, keys, k, g)
+        got = ts._launch_ad(sph, rays, keys, g, k)
+        again = ts._launch_ad(sph, rays, keys, g, k)
+        if not _same_grads(got, again):
             raise AssertionError(f"{name}: two K5 launches differ")
         print(f"  {name}: rays with the same recording on both sides "
               f"{kept:.5f}")
@@ -2933,13 +3148,14 @@ def phase_k5(dev):
             sph, rays, flat, g, k), got)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["outlier_frac"] = max(res["outlier_frac"], frac)
-        k2 = _sphere_kernel(sph, rays, flat, idx, aof, g, k)
+        k2 = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
         _compare_grads(f"{name} K5 vs K2", k2, got)
-        res["k2_bits"].append(torch.equal(k2[0], got[0]) and all(
-            torch.equal(a, b) for a, b in zip(k2[1], got[1])))
+        if not _same_grads(k2, got):
+            raise AssertionError(f"{name}: K5 is not bit-equal to K2 on K1's "
+                                 "recording")
+        res["k2_bits"].append(True)
     print(f"  two K5 launches bit-identical on every scene; K5 bit-equal to "
-          f"K2 on K1's recording on {sum(res['k2_bits'])} of "
-          f"{len(res['k2_bits'])} scenes")
+          f"K2 on K1's recording on all {len(res['k2_bits'])} scenes")
     return res
 
 
@@ -2952,8 +3168,7 @@ def phase_k5_timing(dev, card, k2):
     import torch
 
     from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, render, sample_rays)
+    from raytpu_torch.integrator.render import render
     from raytpu_torch.kernels import trace_spheres as ts
     from raytpu_torch.scenes import cornell_box
     from raytpu_torch.train import (combine_scene, partition_scene,
@@ -2961,10 +3176,7 @@ def phase_k5_timing(dev, card, k2):
 
     scene, cam, cfg = cornell_box(dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
-    cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg), cfg.max_bounces)
-    origin, direction = sample_rays(cam, cfg, pids, cam_d)
+    origin, direction, keys, draws, _ = _frame_sample(cam, cfg, dev, 4)
     sph = ts.pack_spheres(scene)
     k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1])
     flat = draws.reshape(-1, draws.shape[-1])
@@ -2974,17 +3186,19 @@ def phase_k5_timing(dev, card, k2):
     name = f"cornell {cfg.width}x{cfg.height} 6b"
     print(f"K5 at the main path's shape ({cfg.width}x{cfg.height} rays, 6 "
           "bounces):")
-    idx, aof, g, kept = _k5_rays(sph, rays, flat, k, g)
+    idx, aof, g, kept = _k5_rays(sph, rays, flat, keys, k, g)
     print(f"  rays with the same recording on both sides {kept:.5f}")
-    got = ts._launch_ad(sph, rays, flat, g, k)
+    got = ts._launch_ad(sph, rays, keys, g, k)
     max_err, frac = _compare_grads(f"{name} K5 vs plain", ts.ad_reference(
         sph, rays, flat, g, k), got)
-    _compare_grads(f"{name} K5 vs K2", _sphere_kernel(
-        sph, rays, flat, idx, aof, g, k), got)
-    del got
-    fns = {"k5": lambda: ts._launch_ad(sph, rays, flat, g, k),
+    k2_got = _sphere_kernel(sph, rays, keys, idx, aof, g, k)
+    _compare_grads(f"{name} K5 vs K2", k2_got, got)
+    if not _same_grads(k2_got, got):
+        raise AssertionError(f"{name}: K5 is not bit-equal to K2")
+    del got, k2_got
+    fns = {"k5": lambda: ts._launch_ad(sph, rays, keys, g, k),
            "plain": lambda: ts.ad_reference(sph, rays, flat, g, k),
-           "k2": lambda: _sphere_kernel(sph, rays, flat, idx, aof, g, k)}
+           "k2": lambda: _sphere_kernel(sph, rays, keys, idx, aof, g, k)}
     t = {w: [] for w in fns}
     for w in ("plain", "k5", "k2", "k2", "k5", "plain"):
         t[w].append(_time_ms(fns[w], 2 if w == "plain" else 20))
@@ -2992,7 +3206,7 @@ def phase_k5_timing(dev, card, k2):
     bound = k5_bound(k2)
     print(f"  K5 {ms['k5']:.4f} ms (plain {ms['plain']:.4f} ms; bound "
           f"{bound[0]:.4f} ms, {bound[1]}); K2 on K1's recording "
-          f"{ms['k2']:.4f} ms; turns {t}")
+          f"{ms['k2']:.4f} ms; turns {t}; K5 bit-equal to K2")
     del fns, idx, aof
 
     cfg = cfg.replace(spp=TRAIN_SPP, use_megakernel=True)
@@ -3051,10 +3265,11 @@ def main() -> int:
     print(f"build: {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    phase_rng(dev)
+    rng_t = phase_rng(dev)
     phase_k1(dev)
     timing = phase_k1_timing(dev)
-    launches, render_k2, render_k3, render_k4 = phase_main(dev, card, timing)
+    (launches, render_k2, render_k3, render_k4, render_rng,
+     main_prof) = phase_main(dev, card, timing)
     phase_k1_record(dev)
     phase_k2(dev)
     k2 = phase_k2_timing(dev)
@@ -3084,8 +3299,13 @@ def main() -> int:
     k5_k = phase_k5(dev)
     k5 = phase_k5_timing(dev, card, k2)
 
-    k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], k2["n_live"],
+    k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], timing["counts"],
                          k2["n_spheres"], record=False)
+    print("Cornell frames without eager threefry (device busy ms by "
+          "bucket): fwd " + json.dumps({k: round(v, 4) for k, v in
+                                        main_prof[3].items() if v})
+          + "; fwd+bwd " + json.dumps({k: round(v, 4) for k, v in
+                                       train["profile"][3].items() if v}))
     print(f"sky: forward planes bit-equal to the plain versions "
           f"{sky_k['bit_equal']}, scan path = megakernel {sky_routes}; "
           f"texel flips card vs CPU {sky_tex['direction_flips']:.6f}; "
@@ -3099,6 +3319,17 @@ def main() -> int:
           + f"; K5 Cornell fwd+bwd {k5['frame']['rate']:.1f} rays/s")
     print(card)
     print(json.dumps({"kernels": [{
+        "name": "rng_sample", "route": "cuda",
+        "source": "raytpu_torch/csrc/rng.cu", "replaces": None,
+        "launches": train["rng_launches"],
+        "launches_by_path": {"render": render_rng,
+                             "fwd_bwd": train["rng_launches"]},
+        "max_abs_err": 0.0, "ms": rng_t[4]["ms"],
+        "plain_ms": rng_t[4]["plain_ms"], "bound_ms": rng_t[4]["bound"][0],
+        "bound_by": rng_t[4]["bound"][1], "library_ms": None,
+        "ms_22_rows": rng_t[22]["ms"], "plain_ms_22_rows": rng_t[22]["plain_ms"],
+        "bound_ms_22_rows": rng_t[22]["bound"][0],
+    }, {
         "name": "trace_spheres", "route": "cuda",
         "source": "raytpu_torch/csrc/trace_spheres.cu",
         "replaces": "raytpu/kernels/trace_spheres.py:421",

@@ -36,7 +36,11 @@ def rgb_to_hsl(rgb: Vec3) -> Vec3:
     h_g = (b - r) / d_safe + 2.0
     h_b = (r - g) / d_safe + 4.0
     h = torch.where(cmax == r, h_r, torch.where(cmax == g, h_g, h_b))
-    h = torch.where(gray, 0.0, h / 6.0)
+    # a 0-dim divisor on h's device: a Python-float divisor is a reciprocal
+    # multiply on the card (an ulp off the quotient the kernels and raytpu
+    # compute); on the CPU both divide
+    six = torch.full((), 6.0, dtype=h.dtype, device=h.device)
+    h = torch.where(gray, 0.0, h / six)
     return Vec3(h, s, l)
 
 

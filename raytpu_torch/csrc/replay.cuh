@@ -2,16 +2,19 @@
 // (csrc/trace_scene_bwd.cu) and K5 (csrc/trace_spheres_bwd.cu): the
 // carry and cotangent records, the winner's surface (sphere or triangle)
 // and the shading with their hand-derived adjoints (replay_bounce: one
-// bounce forward, or its reverse step), the per-thread column layout of
-// the deterministic table sums and the fixed-order sum over blocks
-// (sum_blocks_kernel). csrc/trace_scene_bwd.cu's header says what each
-// computes and why; a source that includes this file is rebuilt when it
-// changes (raytpu_torch/kernels/_build.py hashes the headers a source
-// includes).
+// bounce forward, or its reverse step), the deterministic table sums
+// (sphere mode: grouped by winner within each warp, warp_table_sum; mesh
+// mode: per-thread columns) with the fixed-order sum over blocks
+// (sum_blocks_kernel), and the sphere kernels' shared-memory layout.
+// csrc/trace_scene_bwd.cu's header says what each computes and why; a
+// source that includes this file is rebuilt when it changes
+// (raytpu_torch/kernels/_build.py hashes the headers a source includes).
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -24,6 +27,13 @@ constexpr int kTriRows = 25;      // a3 ab3 ac3 n3 b3 c3 ua va ub vb uc vc mat
 constexpr int kMatRows = 9;       // emi3 estr refl ior alpha_c use_c eft
 constexpr int kReduceThreads = 256;
 constexpr int kSmemBudget = 160 * 1024;
+constexpr int kSphereThreads = 128;   // K2's sphere mode and K5: one block size
+// blocks an SM holds of K2's sphere-mode and K5's kernels: 5 caps them at
+// 96 registers (a few spills) against 120-125 unbounded (4 blocks), faster
+// on the Cornell sample; 6 (80 registers) spills more and is slower
+// (PERF.md, kernel_variants.py)
+constexpr int kSphereMinBlocks = 5;
+constexpr int kStagePitch = 33;    // a warp's staged cotangent row: 32 lanes + 1
 constexpr float kBig = 3.0e38f;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
 
@@ -55,6 +65,14 @@ struct Cot {
 // The branches a bounce took that the sky slot reads.
 struct Masks {
   bool emissive_ret, accum;
+};
+
+// A bounce's draws read from K3's buffer ahead of the replay (mesh mode):
+// draw j of the bounce is v[j] (u, v of the scatter direction, the
+// refraction roulette).
+struct LoadedDraws {
+  float v[3];
+  __device__ __forceinline__ float operator()(int j) const { return v[j]; }
 };
 
 // The winner's surface at one bounce: what shade reads.
@@ -193,7 +211,9 @@ __device__ void hsl_boost_bwd(float r, float g, float b, float l_f, float s_f,
 }
 
 // One replayed bounce's shading (shade_bounce of the plain version) at
-// the winner's surface s.
+// the winner's surface s, with the bounce's draws(0..2) (csrc/threefry.cuh's
+// KeyDraws hashes each where it is read: the scatter's two only where the
+// ray scatters, the roulette only where the material can refract).
 // g == nullptr: forward; c becomes the carry after the bounce.
 // g != nullptr: reverse; c is the carry before the bounce, *g holds the
 // cotangent of the carry after it. On return g->rc, inc, alb and nrm hold
@@ -201,10 +221,11 @@ __device__ void hsl_boost_bwd(float r, float g, float b, float l_f, float s_f,
 // the cotangent of the origin and direction by every route but the
 // surface's own dependence on them (g->o and g->d are left to the caller).
 // Both return the bounce's emissive-return and accumulation masks.
+template <class Draws>
 __device__ __forceinline__ Masks shade(int i, Carry& c, const Surf& s,
-                                      float u_d, float v_d, float roulette,
-                                      float aof, const Knobs& k, Cot* g,
-                                      SurfCot* gs, float* go, float* gd) {
+                                      const Draws& draws, float aof,
+                                      const Knobs& k, Cot* g, SurfCot* gs,
+                                      float* go, float* gd) {
   const float* d = c.d;
   const float* n = s.n;
   const float* df = s.df;
@@ -219,26 +240,12 @@ __device__ __forceinline__ Masks shade(int i, Carry& c, const Surf& s,
   const bool emissive_ret = active && did_hit && at_depth && estr > 0.0f;
   const bool live = active && !emissive_ret && did_hit;
 
-  // ---- scatter ------------------------------------------------------------
-  const float theta = kTwoPi * u_d;
-  const float cph = clampf(2.0f * v_d - 1.0f, -1.0f, 1.0f);
-  const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
-  const float ddr[3] = {n[0] + cosf(theta) * sph_, n[1] + sinf(theta) * sph_,
-                        n[2] + cph};
-  const float dn2 = ddr[0] * ddr[0] + ddr[1] * ddr[1] + ddr[2] * ddr[2];
-  const float dinv = dn2 > 0.0f ? 1.0f / sqrtf(fmaxf(dn2, 1e-38f)) : 0.0f;
-  const float dd[3] = {ddr[0] * dinv, ddr[1] * dinv, ddr[2] * dinv};
   const float vdn = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
-  float rf[3], tdr[3];
-  for (int j = 0; j < 3; ++j) {
-    rf[j] = d[j] - 2.0f * vdn * n[j];
-    tdr[j] = rf[j] - dd[j];
-  }
 
   // ---- refraction ---------------------------------------------------------
   const bool refr_case = live && alpha <= k.alpha_hi && alpha >= k.alpha_lo;
   const bool exiting = vdn > 0.0f;
-  const bool do_refract = refr_case && roulette > alpha;
+  const bool do_refract = refr_case && draws(2) > alpha;   // the roulette
   const float sgn = exiting ? -1.0f : 1.0f;
   const float ne[3] = {sgn * n[0], sgn * n[1], sgn * n[2]};
   const float n1 = exiting ? ior : c.med;
@@ -257,6 +264,25 @@ __device__ __forceinline__ Masks shade(int i, Carry& c, const Surf& s,
   const bool cutout = live && alpha < k.alpha_lo;
   const bool opaque = live && alpha > k.alpha_hi;
   const bool accum = live && !do_refract && !cutout;
+
+  // ---- scatter, for a ray that scatters -------------------------------------
+  float ddr[3] = {0, 0, 0}, dd[3] = {0, 0, 0}, rf[3], tdr[3];
+  float dn2 = 0.0f, dinv = 0.0f;
+  if (accum) {
+    const float theta = kTwoPi * draws(0);
+    const float cph = clampf(2.0f * draws(1) - 1.0f, -1.0f, 1.0f);
+    const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
+    ddr[0] = n[0] + cosf(theta) * sph_;
+    ddr[1] = n[1] + sinf(theta) * sph_;
+    ddr[2] = n[2] + cph;
+    dn2 = ddr[0] * ddr[0] + ddr[1] * ddr[1] + ddr[2] * ddr[2];
+    dinv = dn2 > 0.0f ? 1.0f / sqrtf(fmaxf(dn2, 1e-38f)) : 0.0f;
+    for (int j = 0; j < 3; ++j) dd[j] = ddr[j] * dinv;
+  }
+  for (int j = 0; j < 3; ++j) {
+    rf[j] = d[j] - 2.0f * vdn * n[j];
+    tdr[j] = rf[j] - dd[j];
+  }
   const float th = k.bright_threshold, bb = k.bright_boost;
   const bool bright = c.rc[0] > th || c.rc[1] > th || c.rc[2] > th;
   const float e_scale = estr * k.e_scale_mult;
@@ -714,12 +740,13 @@ __device__ __forceinline__ void load_triangle(const float* tri, int nt,
 }
 
 // Draws 0..2 of bounce i (u, v of the scatter direction, the refraction
-// roulette) for one ray.
-__device__ __forceinline__ void load_draws(const float* draws, int i,
-                                           int n_draws, size_t B, int ray,
-                                           float* dr) {
+// roulette) for one ray, from K3's (bounces * n_draws, B) buffer (mesh
+// mode).
+__device__ __forceinline__ LoadedDraws load_draws(const float* draws, int i,
+                                                  int n_draws, size_t B,
+                                                  int ray) {
   const float* p = draws + (size_t)i * n_draws * B + ray;
-  dr[0] = p[0]; dr[1] = p[B]; dr[2] = p[2 * B];
+  return LoadedDraws{{p[0], p[B], p[2 * B]}};
 }
 
 __device__ __forceinline__ void init_carry(Carry& c, int ray,
@@ -749,16 +776,16 @@ __device__ __forceinline__ void init_cot(Cot& g, int ray, size_t B,
 
 // One replayed bounce from the recorded winner (kMesh: mesh mode, where an
 // index >= n_spheres is a triangle; kSky: with the sky slot) with the
-// bounce's draws dr[0..2]. Forward (g == nullptr):
+// bounce's draws(0..2). Forward (g == nullptr):
 // c becomes the next carry. Reverse: c is the bounce's saved carry, *g the
 // cotangent after it becomes the one before it, gw receives the sphere
 // winner's cotangent (when the winner is a sphere) and gt a triangle
 // winner's (when it is a triangle). Returns whether the winner was a
 // triangle.
-template <bool kMesh, bool kSky>
+template <bool kMesh, bool kSky, class Draws>
 __device__ __forceinline__ bool replay_bounce(
     int i, Carry& c, int bidx, const float* tab, const float* tri,
-    const float* mats, const float* atlas, const float* dr, float aof,
+    const float* mats, const float* atlas, const Draws& draws, float aof,
     const Knobs& k, Cot* g, float* gw, TriCot* gt) {
   const int ns = k.n_spheres;
   const bool tri_wins = kMesh && bidx >= ns;
@@ -778,13 +805,13 @@ __device__ __forceinline__ bool replay_bounce(
   const bool sky_win = kSky && s.did_hit && bidx == k.sky_idx;
   if (sky_win) s.em[0] = s.em[1] = s.em[2] = 0.0f;
   if (g == nullptr) {
-    const Masks m = shade(i, c, s, dr[0], dr[1], dr[2], aof, k, nullptr,
-                          nullptr, nullptr, nullptr);
+    const Masks m = shade(i, c, s, draws, aof, k, nullptr, nullptr, nullptr,
+                          nullptr);
     if (sky_win && (m.emissive_ret || m.accum)) c.slot = true;
     return tri_wins;
   }
   SurfCot gs;
-  const Masks m = shade(i, c, s, dr[0], dr[1], dr[2], aof, k, g, &gs, go, gd);
+  const Masks m = shade(i, c, s, draws, aof, k, g, &gs, go, gd);
   if (sky_win) {
     gs.em[0] = gs.em[1] = gs.em[2] = 0.0f;   // a constant zero, not the table's
     if (!c.slot && (m.emissive_ret || m.accum)) {
@@ -812,13 +839,89 @@ __device__ __forceinline__ bool replay_bounce(
   return tri_wins;
 }
 
+// ---- sphere mode (K2's, and K5's): the table sums ------------------------
+
+// The sphere kernels' dynamic shared memory: geo (cx cy cz r a sphere,
+// K5's search), tab (the 14 x S table, row-major), then each warp's table
+// sum wsum (S x 14, sphere-major) and staging (14 x kStagePitch).
+struct SphereSmem {
+  float4* geo;
+  float *tab, *wsum, *stage;
+};
+
+__host__ __device__ inline size_t sphere_shared_floats(int ns, int nt) {
+  const int nw = nt / 32;
+  return (size_t)4 * ns + (size_t)kRows * ns + (size_t)nw * kRows * ns +
+         (size_t)nw * kRows * kStagePitch;
+}
+
+__device__ __forceinline__ SphereSmem sphere_smem(float* smem, int ns, int nt) {
+  const int nw = nt / 32;
+  SphereSmem m;
+  m.geo = reinterpret_cast<float4*>(smem);
+  m.tab = smem + 4 * ns;
+  m.wsum = m.tab + kRows * ns;
+  m.stage = m.wsum + nw * kRows * ns;
+  return m;
+}
+
+// Adds each hit lane's 14-entry sphere cotangent gw into its warp's table
+// sum wsum (S x 14, sphere-major), without per-thread columns and without
+// atomics: the hit lanes stage their rows, are grouped by winner (the
+// lowest pending lane's winner, by ballot), and lanes 0-13 each sum one row
+// over the group's members in lane order and add it to the winner's
+// entry. Every addition's order is fixed by the lanes' winners, so two
+// launches give the same bits. All 32 lanes of the warp call it together.
+__device__ __forceinline__ void warp_table_sum(float* wsum, float* stage,
+                                               int lane, bool hit, int bidx,
+                                               const float* gw) {
+  const unsigned hits = __ballot_sync(0xffffffffu, hit);
+  if (hits == 0u) return;
+  if (hit) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) stage[r * kStagePitch + lane] = gw[r];
+  }
+  __syncwarp();
+  unsigned todo = hits;
+  while (todo != 0u) {
+    const int win = __shfl_sync(0xffffffffu, bidx, __ffs(todo) - 1);
+    const unsigned grp = __ballot_sync(0xffffffffu, hit && bidx == win);
+    todo &= ~grp;
+    if (lane < kRows) {
+      float acc = 0.0f;
+      for (unsigned m = grp; m != 0u; m &= m - 1u) {
+        acc += stage[lane * kStagePitch + __ffs(m) - 1];
+      }
+      wsum[win * kRows + lane] += acc;
+    }
+  }
+  __syncwarp();
+}
+
+// This block's sphere-table sum, partial_row[e] for e = r * S + s (the
+// layout sum_blocks_kernel reads), over its warps' sums in warp order.
+// Called by every thread after a __syncthreads.
+__device__ __forceinline__ void block_table_sum(const float* wsum, int ns,
+                                                int nt, int tid,
+                                                float* partial_row) {
+  const int n_e = kRows * ns, nw = nt / 32;
+  for (int e = tid; e < n_e; e += nt) {
+    const int r = e / ns, s = e - r * ns;
+    float acc = 0.0f;
+    for (int w = 0; w < nw; ++w) acc += wsum[w * n_e + s * kRows + r];
+    partial_row[e] = acc;
+  }
+}
+
+// ---- mesh mode: per-thread columns --------------------------------------
+
 // Entries of the per-thread columns: the sphere table's 14 x S, then rows
-// 0-5 of the material table (6 x M; M is 0 in sphere mode).
+// 0-5 of the material table (6 x M).
 __host__ __device__ inline int column_entries(int ns, int nm) {
   return kRows * ns + 6 * nm;
 }
 
-// Shared memory of both modes: the sphere table (14 x S) and the material
+// Mesh mode's shared memory: the sphere table (14 x S) and the material
 // table (9 x M), then the per-thread columns (entries x (threads + 1)).
 __host__ __device__ inline size_t shared_floats(int ns, int nm, int threads) {
   return (size_t)kRows * ns + (size_t)kMatRows * nm +

@@ -41,14 +41,13 @@
 //
 // What bounds it on this card: per live ray-bounce ~510 FP32 operations
 // in sphere mode, ~1,000 in mesh mode (the replayed bounce, again in the
-// reverse step, and its adjoint) against 16 bytes of index and draws, so
-// the bytes it must move and its FP32 work set about the same least time
-// (0.06 ms at the 1200x900, 6-bounce frame). What holds it above that is
-// the per-thread state: ~118 registers (~160 in mesh mode), the saved
-// carries in local memory and a 14 x S shared-memory column per thread
-// leave few blocks on an SM,
-// too few warps to hide each thread's dependent chain (PERF.md). The
-// design:
+// reverse step, and its adjoint), and in sphere mode the bounce's draws
+// hashed twice (76 INT32 operations a draw, csrc/threefry.cuh), against
+// 4-16 bytes of index (and draws) a bounce, so its FP32 and INT32 work
+// set its least time (chip_smoke._k2_bound). What holds it above that is
+// the per-thread state: ~118 registers (~160 in mesh mode) and the saved
+// carries leave few warps on an SM to hide each thread's dependent chain
+// (PERF.md). The design:
 //   * one thread per ray; the one-hot MXU winner extraction of the TPU
 //     kernel is an indexed load: the sphere and material tables from
 //     shared memory, the winner triangle's 25 channels and its texel from
@@ -56,13 +55,26 @@
 //     carried;
 //   * the replay saves the carry each reverse step needs (origin,
 //     direction, throughput, medium IOR, flags: 11 words) at every bounce
-//     start, in a per-thread array in local memory (bounces <= 48), so
-//     the reverse sweep recomputes one bounce at a time;
+//     start, in a per-thread array in local memory, so the reverse sweep
+//     recomputes one bounce at a time; 48 carries, kMaxBounces (an
+//     8-carry array for short launches and a stack in shared memory both
+//     measured no faster, PERF.md);
+//   * sphere mode: the rays' threefry keys (8 B a ray) in place of a draw
+//     buffer; each bounce's draws hashed where the shading reads them, in
+//     the replay and again in the reverse step (csrc/threefry.cuh, the
+//     counters K1 uses); a ray's replay stops at its first bounce out of
+//     the loop (a miss or an emissive return), since what follows is the
+//     identity on the carry and on its cotangent;
 //   * the sphere-table cotangent is the transpose of the extraction, a sum
-//     into d_sph[k][winner], and so are the material table's rows 0-5. Both
-//     are deterministic without float atomics: each thread sums into its
-//     own column of a (14*S + 6*M, T) shared array, each block sums the
-//     columns in a fixed order into a (blocks, 14*S + 6*M) buffer, and a
+//     into d_sph[k][winner], and so are the material table's rows 0-5.
+//     Both are deterministic without float atomics. Sphere mode: the lanes
+//     of a warp are grouped by winner at each reverse bounce, lanes 0-13
+//     sum each group's 14 entries in lane order into the warp's S x 14
+//     sum in shared memory (replay.cuh: warp_table_sum), and the block
+//     sums its warps in order; its shared memory does not grow with
+//     threads x 14 x S. Mesh mode: each thread sums into its own column
+//     of a (14*S + 6*M, T) shared array and the block sums the columns in
+//     a fixed order. Either writes a (blocks, entries) buffer, and a
 //     second kernel sums the blocks in a fixed tree order. Two launches on
 //     the same inputs give bit-identical d_sph and d_mat;
 //   * d_tri (25 x 2048 floats at most) and d_atlas (4 x n_tex) do not fit
@@ -72,8 +84,8 @@
 //     mesh-mode launches agree on d_tri and d_atlas only to rounding (the
 //     chip check bounds the difference); everything else is bit-identical.
 //
-// The equirect sky (kSky, a template flag like kMesh, so the sky-less
-// instantiations keep their registers): K1 and K3 zero the sky sphere's
+// The equirect sky (kSky, a template flag of both modes' kernels, so the
+// sky-less instantiations keep their registers): K1 and K3 zero the sky sphere's
 // emission and record, per ray, the throughput scale of its first sky
 // event (raytpu's sky slot); the texel is added outside them, so the
 // scale's cotangent g_skl arrives here beside the nine others (12 planes
@@ -105,10 +117,80 @@
 
 namespace {
 
-// The reverse sweep, one thread per ray; kMesh selects mesh mode and kSky
-// the sky slot (separate instantiations, so each mode keeps its
-// registers).
-template <bool kMesh, bool kSky>
+// Sphere mode's reverse sweep, one thread per ray (kSphereThreads a
+// block); kSky the sky slot. Every thread of the block runs the reverse
+// loop over all bounces, rays past n_rays and bounces past a ray's loop
+// included, so that each warp sums its table cotangents together.
+template <bool kSky>
+__global__ void __launch_bounds__(kSphereThreads, kSphereMinBlocks)
+sphere_backward_kernel(
+    const float* __restrict__ sph, const float* __restrict__ ox,
+    const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const uint32_t* __restrict__ keys,
+    const int* __restrict__ idx, const float* __restrict__ aofs,
+    const float* __restrict__ gin, float* __restrict__ d_rays,
+    float* __restrict__ partial, int n_rays, Knobs k) {
+  extern __shared__ float smem[];   // dynamic: 16-byte aligned at its base
+  const int ns = k.n_spheres, nt = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const SphereSmem sm = sphere_smem(smem, ns, nt);
+  for (int e = tid; e < kRows * ns; e += nt) sm.tab[e] = sph[e];
+  for (int e = tid; e < (nt >> 5) * kRows * ns; e += nt) sm.wsum[e] = 0.0f;
+  __syncthreads();
+  float* wsum = sm.wsum + warp * kRows * ns;
+  float* stage = sm.stage + warp * kRows * kStagePitch;
+
+  const int ray = blockIdx.x * nt + tid;
+  const size_t B = (size_t)n_rays;
+  uint32_t k0 = 0u, k1 = 0u;
+  Carry c;
+  Carry saved[kMaxBounces];
+  int last = 0;   // the bounces replayed: the ray's loop, up to its end
+  if (ray < n_rays) {
+    load_key(keys, B, ray, k0, k1);
+    init_carry(c, ray, ox, oy, oz, dx, dy, dz);
+    for (int i = 0; i < k.bounces && c.active; ++i) {
+      saved[i] = c;
+      const int bidx = idx[(size_t)i * B + ray];
+      const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
+      replay_bounce<false, kSky>(i, c, bidx, sm.tab, nullptr, nullptr,
+                                 nullptr, key_draws(k0, k1, i, k.n_draws),
+                                 aof, k, nullptr, nullptr, nullptr);
+      last = i + 1;
+    }
+  }
+
+  Cot g;
+  if (ray < n_rays) init_cot<kSky>(g, ray, B, gin);
+  float gw[kRows];
+  TriCot gt;
+  for (int i = k.bounces - 1; i >= 0; --i) {
+    int bidx = -1;
+    if (i < last) {
+      bidx = idx[(size_t)i * B + ray];
+      const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
+      c = saved[i];
+      replay_bounce<false, kSky>(i, c, bidx, sm.tab, nullptr, nullptr,
+                                 nullptr, key_draws(k0, k1, i, k.n_draws),
+                                 aof, k, &g, gw, &gt);
+    }
+    warp_table_sum(wsum, stage, lane, i < last && is_hit(bidx, ns), bidx, gw);
+  }
+  if (ray < n_rays) {
+    for (int j = 0; j < 3; ++j) {
+      d_rays[j * B + ray] = g.o[j];
+      d_rays[(3 + j) * B + ray] = g.d[j];
+    }
+  }
+  __syncthreads();
+  block_table_sum(sm.wsum, ns, nt, tid,
+                  partial + (size_t)blockIdx.x * kRows * ns);
+}
+
+// Mesh mode's reverse sweep, one thread per ray; kSky the sky slot (a
+// separate instantiation, so each mode keeps its registers).
+template <bool kSky>
 __global__ void backward_kernel(
     const float* __restrict__ sph, const float* __restrict__ tri,
     const float* __restrict__ mat_g, const float* __restrict__ atlas,
@@ -120,6 +202,7 @@ __global__ void backward_kernel(
     float* __restrict__ d_rays, float* __restrict__ partial,
     float* __restrict__ d_tri, float* __restrict__ d_mat,
     float* __restrict__ d_atlas, int n_rays, Knobs k) {
+  constexpr bool kMesh = true;
   extern __shared__ float smem[];
   const int ns = k.n_spheres, nm = k.n_mats;
   const int n_sph = kRows * ns;
@@ -144,13 +227,12 @@ __global__ void backward_kernel(
     init_carry(c, ray, ox, oy, oz, dx, dy, dz);
     // the bounce's scatter draws, read ahead of its replay so the loads
     // overlap the winner's surface (read inside the replay, after it,
-    // they left sphere mode 11% slower: PERF.md)
-    float dr[3];
+    // they left the kernel 11% slower: PERF.md)
     for (int i = 0; i < k.bounces; ++i) {
       saved[i] = c;
       const int bidx = idx[(size_t)i * B + ray];
       const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
-      load_draws(draws, i, k.n_draws, B, ray, dr);
+      const LoadedDraws dr = load_draws(draws, i, k.n_draws, B, ray);
       replay_bounce<kMesh, kSky>(i, c, bidx, tab, tri, mats, atlas, dr, aof,
                                  k, nullptr, nullptr, nullptr);
     }
@@ -162,7 +244,7 @@ __global__ void backward_kernel(
     for (int i = k.bounces - 1; i >= 0; --i) {
       const int bidx = idx[(size_t)i * B + ray];
       const float aof = k.use_ao ? aofs[(size_t)i * B + ray] : 1.0f;
-      load_draws(draws, i, k.n_draws, B, ray, dr);
+      const LoadedDraws dr = load_draws(draws, i, k.n_draws, B, ray);
       c = saved[i];
       if (replay_bounce<kMesh, kSky>(i, c, bidx, tab, tri, mats, atlas, dr,
                                      aof, k, &g, gw, &gt)) {
@@ -205,22 +287,26 @@ __global__ void backward_kernel(
 
 // Blocks of the reverse sweep for n_rays rays: the first dimension of the
 // (blocks, 14 * n_spheres + 6 * n_mats) `partial` buffer the caller
-// allocates (n_mats is 0 in sphere mode).
-extern "C" int raytpu_backward_blocks(int n_rays, int n_spheres, int n_mats) {
-  const int nt = threads_per_block(n_spheres, n_mats);
+// allocates (sphere mode: n_tris and n_mats 0).
+extern "C" int raytpu_backward_blocks(int n_rays, int n_spheres, int n_tris,
+                                      int n_mats) {
+  const int nt = n_tris > 0 ? threads_per_block(n_spheres, n_mats)
+                            : kSphereThreads;
   return (n_rays + nt - 1) / nt;
 }
 
 // Plain C entry point, bound with ctypes. Device pointers: sph (14, S),
 // tri (25, T), mats (9, M) and atlas (4, n_tex) f32 (T = M = n_tex = 0 in
-// sphere mode; atlas unread when n_tex is 0); ox..dz (n_rays,) f32; draws
-// (bounces * n_draws, n_rays) f32, of which draws 0..2 of each bounce are
-// read; idx (bounces, n_rays) i32, the winners K1 or K3 recorded (triangle
+// sphere mode; atlas unread when n_tex is 0); ox..dz (n_rays,) f32; in
+// mesh mode draws (bounces * n_draws, n_rays) f32, of which draws 0..2 of
+// each bounce are read, and keys null; in sphere mode keys (2, n_rays)
+// uint32, the rays' threefry keys (K1's), and draws null; idx (bounces,
+// n_rays) i32, the winners K1 or K3 recorded (triangle
 // t as n_spheres + t); aof (bounces, n_rays) f32 when use_ao, else null; g
 // (9, n_rays) f32, the cotangent of (radiance, albedo, normal), or
 // (12, n_rays) with the sky slot's scale when sky_idx >= 0 (the sky
 // sphere; -1: no sky); d_rays
-// (6, n_rays) f32 out; partial (raytpu_backward_blocks(n_rays, S, M),
+// (6, n_rays) f32 out; partial (raytpu_backward_blocks(n_rays, S, T, M),
 // 14 * S + 6 * M) f32 scratch; d_sph (14, S), d_tri (25, T), d_mat (9, M)
 // and d_atlas (4, n_tex) f32 out. It zeroes d_tri, d_atlas and d_mat's rows
 // 6-8 on `stream`, then the kernels add into the first two and write d_sph
@@ -229,7 +315,8 @@ extern "C" int raytpu_backward_blocks(int n_rays, int n_spheres, int n_mats) {
 extern "C" int raytpu_backward(
     const float* sph, const float* tri, const float* mats, const float* atlas,
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* draws, const int* idx,
+    const float* dy, const float* dz, const float* draws,
+    const uint32_t* keys, const int* idx,
     const float* aof, const float* g, float* d_rays, float* partial,
     int n_rays, int n_spheres, int n_tris, int n_mats, int n_tex, int atlas_w,
     int atlas_h, int bounces, int n_draws, float sphere_eps, float det_eps,
@@ -243,7 +330,8 @@ extern "C" int raytpu_backward(
       n_mats > kMaxMats || n_tex < 0 ||
       (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
       n_rays < 0 || bounces < 0 || bounces > kMaxBounces || n_draws < 3 ||
-      (use_ao && aof == nullptr)) {
+      (use_ao && aof == nullptr) ||
+      (n_tris > 0 ? draws == nullptr : keys == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
@@ -262,24 +350,34 @@ extern "C" int raytpu_backward(
                 n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
                 bright_boost, bright_threshold, use_ao, e_scale_mult, hsl_on,
                 hsl_l, hsl_s, sky_idx};
-  // the reverse sweep, then the fixed-order sum of the column entries
+  // the reverse sweep, then the fixed-order sum of the table entries
   // over blocks
   const int n_e = column_entries(n_spheres, n_mats);
-  const int nt = threads_per_block(n_spheres, n_mats);
-  const int blocks = (n_rays + nt - 1) / nt;
-  if (blocks > 0) {
+  const int blocks = raytpu_backward_blocks(n_rays, n_spheres, n_tris, n_mats);
+  const bool sky = sky_idx >= 0;
+  if (blocks > 0 && n_tris > 0) {
+    const int nt = threads_per_block(n_spheres, n_mats);
     const size_t smem = shared_floats(n_spheres, n_mats, nt) * sizeof(float);
-    const bool sky = sky_idx >= 0;
-    const auto kernel = n_tris > 0 ? (sky ? backward_kernel<true, true>
-                                          : backward_kernel<true, false>)
-                                   : (sky ? backward_kernel<false, true>
-                                          : backward_kernel<false, false>);
+    const auto kernel = sky ? backward_kernel<true> : backward_kernel<false>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<blocks, nt, smem, s>>>(
         sph, tri, mats, atlas, ox, oy, oz, dx, dy, dz, draws, idx, aof, g,
         d_rays, partial, d_tri, d_mat, d_atlas, n_rays, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  } else if (blocks > 0) {
+    const size_t smem =
+        sphere_shared_floats(n_spheres, kSphereThreads) * sizeof(float);
+    const auto kernel = sky ? sphere_backward_kernel<true>
+                            : sphere_backward_kernel<false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kSphereThreads, smem, s>>>(
+        sph, ox, oy, oz, dx, dy, dz, keys, idx, aof, g, d_rays, partial,
+        n_rays, k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

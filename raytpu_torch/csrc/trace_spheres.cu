@@ -13,18 +13,30 @@
 // before its update) so the three implementations agree.
 //
 // What bounds it: per ray-bounce it solves about 10 quadratics (10 more
-// per AO probe) and does ~100 shading ops, against 12-20 bytes of draws
-// read, so at the 1200x900, 6-bounce frame the bytes it must move
-// (~143 MB) and its FP32 work set about the same least time, ~0.04 ms;
-// it takes ~0.22 ms (PERF.md), held by each thread's dependent chain and
-// by divergence between rays that end early and rays that go on. So:
+// per AO probe), does ~130 shading ops and hashes the bounce's draws from
+// the ray's threefry key (csrc/threefry.cuh: 76 INT32 operations a draw,
+// two a scattering bounce, one more where the material refracts, two per
+// AO probe), against 68 bytes a ray (key 8 B, rays 24 B, 9 planes out;
+// + 4 B of index a bounce when recording). At the 1200x900, 6-bounce
+// frame its FP32 work sets its least time (~0.04 ms), above the hashing's
+// issue time (~0.03 ms) and the bytes (~0.02 ms; chip_smoke._k1_bound).
+// A (bounces * n_draws, B) buffer of the draws would be 72 B more a ray,
+// and making it outside the kernel (eager int64 threefry, ~170 passes a
+// sample) costs the frame far more than the kernel. The design:
 //   * one thread per ray on a 1-D grid, the ragged edge masked here;
-//   * the 14 x S sphere table (S <= 64, <= 3.6 KB) in shared memory,
-//     read as broadcasts by every thread of the block;
+//   * the draws hashed in the kernel where the forward reads them (the
+//     scatter's two only for a ray that scatters, the roulette only where
+//     the material can refract), draw j of bounce b at counter
+//     4 + b * n_draws + j with n_draws = integrator/path.n_bounce_draws;
+//   * the sphere table in shared memory: cx cy cz r as one float4 a
+//     sphere, so a sphere test is one 16-byte broadcast load, and the 10
+//     material rows read once for the winner;
 //   * the carried state (origin, direction, throughput, radiance, AOVs,
 //     active/is_alpha flags, alpha depth, medium IOR) in registers;
-//   * draws laid out (bounces * n_draws, B), so neighbouring threads read
-//     neighbouring addresses, each draw read once;
+//   * a ray whose loop is over (a miss or an emissive return: nothing it
+//     carries can change after that) leaves the loop, writing -1 for the
+//     bounces left when recording; in recording mode with AO it stays, as
+//     the plain version records the AO factor of every ray;
 //   * the refraction math only for rays that refract, the AO probes only
 //     for rays that accumulate (their results are discarded elsewhere)
 //     unless recording, which stores the factor of every ray;
@@ -51,11 +63,13 @@
 #include <cuda_runtime.h>
 
 #include "sphere_search.cuh"   // the search and AO probes, shared with K5
+#include "threefry.cuh"        // the draws, hashed from the ray's key
 
 namespace {
 
 constexpr int kMaxSpheres = 64;
-constexpr int kRows = 14;          // cx cy cz r | dif3 emi3 estr refl alpha ior
+// the (14, S) table's rows: cx cy cz r | dif3 emi3 estr refl alpha ior
+constexpr int kMatRows = 10;       // rows 4-13
 constexpr int kThreads = 128;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
 
@@ -130,21 +144,23 @@ trace_spheres_kernel(const float* __restrict__ sph,
                      const float* __restrict__ ox, const float* __restrict__ oy,
                      const float* __restrict__ oz, const float* __restrict__ dx,
                      const float* __restrict__ dy, const float* __restrict__ dz,
-                     const float* __restrict__ draws, float* __restrict__ out,
+                     const uint32_t* __restrict__ keys, float* __restrict__ out,
                      int* __restrict__ idx_out, float* __restrict__ aof_out,
                      int n_rays, Knobs k) {
-  __shared__ float tab[kRows * kMaxSpheres];
+  __shared__ float4 geo[kMaxSpheres];              // cx cy cz r
+  __shared__ float mat[kMatRows * kMaxSpheres];    // row r: mat + r * ns
   const int ns = k.n_spheres;
-  for (int e = threadIdx.x; e < kRows * ns; e += blockDim.x) tab[e] = sph[e];
+  load_geo(geo, sph, ns, threadIdx.x, blockDim.x);
+  for (int e = threadIdx.x; e < kMatRows * ns; e += blockDim.x) {
+    mat[e] = sph[4 * ns + e];
+  }
   __syncthreads();
 
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= n_rays) return;
   const size_t B = (size_t)n_rays;
-  const float* CX = tab;            // row k of the table: tab + k * ns
-  const float* CY = tab + ns;
-  const float* CZ = tab + 2 * ns;
-  const float* R = tab + 3 * ns;
+  uint32_t k0, k1;
+  load_key(keys, B, ray, k0, k1);
 
   float rox = ox[ray], roy = oy[ray], roz = oz[ray];
   float rdx = dx[ray], rdy = dy[ray], rdz = dz[ray];
@@ -159,12 +175,21 @@ trace_spheres_kernel(const float* __restrict__ sph,
   float sklx = 0.0f, skly = 0.0f, sklz = 0.0f;
   float skdx = 0.0f, skdy = 0.0f, skdz = 0.0f;
   bool early = false, slot = false;
+  // recording with AO stores every ray's factor, so no ray leaves early
+  const bool may_leave = aof_out == nullptr || !k.use_ao;
 
   for (int i = 0; i < k.bounces; ++i) {
+    // a ray out of its loop changes nothing more: leave, recording -1
+    if (!active && may_leave) {
+      if (idx_out != nullptr) {
+        for (int j = i; j < k.bounces; ++j) idx_out[(size_t)j * B + ray] = -1;
+      }
+      break;
+    }
     // ---- closest sphere: strict t < best in sphere order -------------
     float best;
-    const int bidx = closest_sphere(CX, CY, CZ, R, ns, rox, roy, roz, rdx,
-                                    rdy, rdz, k.sphere_eps, best);
+    const int bidx = closest_sphere(geo, ns, rox, roy, roz, rdx, rdy, rdz,
+                                    k.sphere_eps, best);
 
     // recording: the winner of every ray still in its bounce loop, -1 for
     // a miss and for rays whose loop is over (raytpu's with_indices)
@@ -173,12 +198,15 @@ trace_spheres_kernel(const float* __restrict__ sph,
     // ---- winner data; a miss reads an all-zero winner ------------------
     const bool did_hit = bidx >= 0;
     const int wi = did_hit ? bidx : 0;   // never index the table with -1
-    float w[kRows];
+    const float4 gw = geo[wi];
+    const float wcx = did_hit ? gw.x : 0.0f, wcy = did_hit ? gw.y : 0.0f;
+    const float wcz = did_hit ? gw.z : 0.0f, wr = did_hit ? gw.w : 0.0f;
+    float w[kMatRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) w[r] = did_hit ? tab[r * ns + wi] : 0.0f;
-    const float dfx = w[4], dfy = w[5], dfz = w[6];
-    float emx = w[7], emy = w[8], emz = w[9];
-    const float estr = w[10], refl = w[11], alpha = w[12], ior = w[13];
+    for (int r = 0; r < kMatRows; ++r) w[r] = did_hit ? mat[r * ns + wi] : 0.0f;
+    const float dfx = w[0], dfy = w[1], dfz = w[2];
+    float emx = w[3], emy = w[4], emz = w[5];
+    const float estr = w[6], refl = w[7], alpha = w[8], ior = w[9];
     // the sky sphere's emission is its texel, added outside the kernel
     const bool sky_win = kSky && did_hit && bidx == k.sky_idx;
     if (sky_win) { emx = 0.0f; emy = 0.0f; emz = 0.0f; }
@@ -188,7 +216,7 @@ trace_spheres_kernel(const float* __restrict__ sph,
     const float pz = roz + rdz * safe_t;
 
     // outward normal; zero on a miss
-    const float nvx = px - w[0], nvy = py - w[1], nvz = pz - w[2];
+    const float nvx = px - wcx, nvy = py - wcy, nvz = pz - wcz;
     const float n2 = nvx * nvx + nvy * nvy + nvz * nvz;
     float inv_len = n2 > 0.0f ? 1.0f / sqrtf(fmaxf(n2, 1e-38f)) : 0.0f;
     inv_len = did_hit ? inv_len : 0.0f;
@@ -220,25 +248,14 @@ trace_spheres_kernel(const float* __restrict__ sph,
     active = active && !emissive_ret;
     const bool live = active && did_hit;
 
-    // ---- scatter: diffuse/specular lerp ---------------------------------
-    const float* dr = draws + (size_t)i * k.n_draws * B + ray;
-    const float u_d = dr[0], v_d = dr[B], roulette = dr[2 * B];
-    const float theta = kTwoPi * u_d;
-    const float cph = clampf(2.0f * v_d - 1.0f, -1.0f, 1.0f);
-    const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
-    float ddx = nX + cosf(theta) * sph_;
-    float ddy = nY + sinf(theta) * sph_;
-    float ddz = nZ + cph;
-    normalize3(ddx, ddy, ddz);
+    // ---- the bounce's draws, hashed where read ---------------------------
+    const KeyDraws draws = key_draws(k0, k1, i, k.n_draws);
     const float vdn = rdx * nX + rdy * nY + rdz * nZ;
-    const float rfx = rdx - 2.0f * vdn * nX;
-    const float rfy = rdy - 2.0f * vdn * nY;
-    const float rfz = rdz - 2.0f * vdn * nZ;
 
     // ---- refraction (reduced pile.h medium stack) -----------------------
     const bool refr_case = live && alpha <= k.alpha_hi && alpha >= k.alpha_lo;
     const bool exiting = vdn > 0.0f;
-    const bool do_refract = refr_case && roulette > alpha;
+    const bool do_refract = refr_case && draws(2) > alpha;   // the roulette
     float refx = 0.0f, refy = 0.0f, refz = 0.0f;
     if (do_refract) {
       const float nex = exiting ? -nX : nX;
@@ -279,7 +296,7 @@ trace_spheres_kernel(const float* __restrict__ sph,
     const bool accum = live && !do_refract && !cutout;
     float factor = 0.0f;
     if (k.use_ao && (accum || aof_out != nullptr)) {
-      factor = sphere_ao(CX, CY, CZ, R, ns, px, py, pz, nX, nY, nZ, dr, B,
+      factor = sphere_ao(geo, ns, px, py, pz, nX, nY, nZ, draws,
                          k.ao_samples, k.sphere_eps, k.ao_inv);
       if (aof_out != nullptr) aof_out[(size_t)i * B + ray] = factor;
     }
@@ -294,10 +311,10 @@ trace_spheres_kernel(const float* __restrict__ sph,
         const float e_scale = k.use_ao ? estr * k.ao_e_scale : estr;
         sklx = e_scale * rcx; skly = e_scale * rcy; sklz = e_scale * rcz;
       }
-      const float r_safe = w[3] > 0.0f ? w[3] : 1.0f;
-      skdx = (px - w[0]) / r_safe;
-      skdy = (py - w[1]) / r_safe;
-      skdz = (pz - w[2]) / r_safe;
+      const float r_safe = wr > 0.0f ? wr : 1.0f;
+      skdx = (px - wcx) / r_safe;
+      skdy = (py - wcy) / r_safe;
+      skdz = (pz - wcz) / r_safe;
     }
 
     // ---- accumulate (reads the throughput before its update) ------------
@@ -320,6 +337,18 @@ trace_spheres_kernel(const float* __restrict__ sph,
     if (do_refract) {
       rdx = refx; rdy = refy; rdz = refz;
     } else if (accum) {
+      // scatter: the diffuse direction about the normal, lerped towards
+      // the mirror direction by the reflection
+      const float theta = kTwoPi * draws(0);
+      const float cph = clampf(2.0f * draws(1) - 1.0f, -1.0f, 1.0f);
+      const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
+      float ddx = nX + cosf(theta) * sph_;
+      float ddy = nY + sinf(theta) * sph_;
+      float ddz = nZ + cph;
+      normalize3(ddx, ddy, ddz);
+      const float rfx = rdx - 2.0f * vdn * nX;
+      const float rfy = rdy - 2.0f * vdn * nY;
+      const float rfz = rdz - 2.0f * vdn * nZ;
       rdx = ddx + (rfx - ddx) * refl;
       rdy = ddy + (rfy - ddy) * refl;
       rdz = ddz + (rfz - ddz) * refl;
@@ -340,8 +369,10 @@ trace_spheres_kernel(const float* __restrict__ sph,
 }  // namespace
 
 // Plain C entry point, bound with ctypes. All pointers are device
-// pointers to contiguous f32: sph (14, n_spheres); ox..dz (n_rays,);
-// draws (bounces * n_draws, n_rays); out (9, n_rays), or (16, n_rays)
+// pointers: sph (14, n_spheres) f32; ox..dz (n_rays,) f32; keys
+// (2, n_rays) uint32, each ray's threefry key (raytpu_torch/core/rng.py:
+// sample_stream), whose draw 4 + b * n_draws + j is draw j of bounce b;
+// out (9, n_rays) f32, or (16, n_rays)
 // with the sky slot of sphere sky_idx (-1: no sky). Recording mode when
 // idx_out is not null: idx_out (bounces, n_rays) i32 winner indices and,
 // with use_ao, aof_out (bounces, n_rays) f32 AO factors (else null).
@@ -349,7 +380,7 @@ trace_spheres_kernel(const float* __restrict__ sph,
 // cudaError_t.
 extern "C" int raytpu_trace_spheres(
     const float* sph, const float* ox, const float* oy, const float* oz,
-    const float* dx, const float* dy, const float* dz, const float* draws,
+    const float* dx, const float* dy, const float* dz, const uint32_t* keys,
     float* out, int* idx_out, float* aof_out, int n_rays, int n_spheres, int bounces, int n_draws,
     float sphere_eps, float alpha_lo, float alpha_hi, float bright_boost,
     float bright_threshold, int use_ao, int ao_samples, float ao_e_scale,
@@ -369,6 +400,6 @@ extern "C" int raytpu_trace_spheres(
   const auto kernel = sky_idx >= 0 ? trace_spheres_kernel<true>
                                    : trace_spheres_kernel<false>;
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      sph, ox, oy, oz, dx, dy, dz, draws, out, idx_out, aof_out, n_rays, k);
+      sph, ox, oy, oz, dx, dy, dz, keys, out, idx_out, aof_out, n_rays, k);
   return (int)cudaGetLastError();
 }

@@ -15,30 +15,31 @@
 // reverse sweep, bounce N-1 down to 0, with K2's hand-derived reverse step
 // (csrc/replay.cuh, sphere mode, with the sky slot's cotangent under
 // kSky): the cotangent of the 9 (12 with the sky's scale) planes goes to
-// the 14 x S sphere table and to the ray origin and direction. The draws
-// get none: each use of a draw ends in a winner selection or a comparison.
+// the 14 x S sphere table and to the ray origin and direction. The draws,
+// hashed from each ray's threefry key where they are read as in K1 and
+// K2 (csrc/threefry.cuh), get none: each use of a draw ends in a winner
+// selection or a comparison.
 // So K5 and K2 share the reverse step and differ in where the winners come
 // from: K5 against K2 on K1's recording checks the search and record step,
 // and K5 against its plain version (autograd) checks the reverse step.
 //
 // What bounds it on this card: per live ray-bounce K1's search and
 // shading (~140 FP32 operations on the Cornell scene's 10 spheres) plus
-// K2's replay, reverse replay and adjoint (~510), against 12 bytes of
-// draws and 36-48 bytes of cotangent per ray, so FP32 operations bound it
+// K2's replay, reverse replay and adjoint (~510), and the draws hashed
+// twice (the forward pass and the reverse step), against 8 bytes of key and
+// 36-48 bytes of cotangent per ray, so FP32 and INT32 operations bound it
 // (chip_smoke.py's k5 bound). What holds it above that is K2's: ~120
 // registers and the saved carries in local memory leave few warps on an SM
 // to hide each thread's dependent chain. The design:
 //   * one thread per ray; the sphere table in shared memory, read as
-//     broadcasts;
+//     broadcasts (cx cy cz r as one float4 a sphere for the search);
 //   * the search, the AO probes and the forward replay in one pass over
-//     the bounces, writing nothing to device memory until the ray
-//     cotangents;
-//   * d_sph summed deterministically as in K2's sphere mode: each thread
-//     into its own column of a shared (14 * S, threads) array, each block
-//     its columns in a fixed order into a (blocks, 14 * S) buffer, and
-//     sum_blocks_kernel over the blocks in a fixed tree order. Two
-//     launches on the same inputs give the same bits; with K2's block
-//     size and the same winners they give K2's bits.
+//     the bounces, up to the ray's first bounce out of its loop, writing
+//     nothing to device memory until the ray cotangents;
+//   * d_sph summed deterministically as in K2's sphere mode (replay.cuh:
+//     warp_table_sum, block_table_sum, sum_blocks_kernel). Two launches on
+//     the same inputs give the same bits; with K2's block size and the
+//     same winners they give K2's bits.
 //
 // F4: gradients to 48 bounces (kMaxBounces), raised past that by the
 // wrapper. F3: no serialisation fence; a NaN in one bounce's cotangent
@@ -60,102 +61,100 @@ struct AoKnobs {
 };
 
 // K1's AO factor at bounce winner bidx (distance best) of carry c, with
-// K1's hit point and outward normal. dr points at the ray's draws of the
-// bounce (stride B).
-__device__ float ao_factor(const float* tab, int ns, const Carry& c,
-                           int bidx, float best, const float* dr, size_t B,
+// K1's hit point and outward normal and the bounce's draws.
+__device__ float ao_factor(const float4* geo, int ns, const Carry& c,
+                           int bidx, float best, const KeyDraws& draws,
                            float eps, const AoKnobs& ao) {
   const float px = c.o[0] + c.d[0] * best;
   const float py = c.o[1] + c.d[1] * best;
   const float pz = c.o[2] + c.d[2] * best;
-  const float nvx = px - tab[bidx], nvy = py - tab[ns + bidx];
-  const float nvz = pz - tab[2 * ns + bidx];
+  const float4 w = geo[bidx];
+  const float nvx = px - w.x, nvy = py - w.y, nvz = pz - w.z;
   const float n2 = nvx * nvx + nvy * nvy + nvz * nvz;
   const float inv_len = n2 > 0.0f ? 1.0f / sqrtf(fmaxf(n2, 1e-38f)) : 0.0f;
-  return sphere_ao(tab, tab + ns, tab + 2 * ns, tab + 3 * ns, ns, px, py, pz,
-                   nvx * inv_len, nvy * inv_len, nvz * inv_len, dr, B,
-                   ao.samples, eps, ao.inv);
+  return sphere_ao(geo, ns, px, py, pz, nvx * inv_len, nvy * inv_len,
+                   nvz * inv_len, draws, ao.samples, eps, ao.inv);
 }
 
-// The search-and-reverse sweep, one thread per ray; kSky: the sky slot's
-// cotangent (a separate instantiation, as in K2).
+// The search-and-reverse sweep, one thread per ray (kSphereThreads a
+// block, as K2's sphere mode); kSky: the sky slot's cotangent (a separate
+// instantiation, as in K2). Every thread runs the reverse loop over all
+// bounces, so that each warp sums its table cotangents together.
 template <bool kSky>
-__global__ void spheres_ad_kernel(
+__global__ void __launch_bounds__(kSphereThreads, kSphereMinBlocks)
+spheres_ad_kernel(
     const float* __restrict__ sph, const float* __restrict__ ox,
     const float* __restrict__ oy, const float* __restrict__ oz,
     const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const float* __restrict__ draws,
+    const float* __restrict__ dz, const uint32_t* __restrict__ keys,
     const float* __restrict__ gin, float* __restrict__ d_rays,
     float* __restrict__ partial, int n_rays, Knobs k, AoKnobs ao) {
   extern __shared__ float smem[];
-  const int ns = k.n_spheres;
-  const int n_e = column_entries(ns, 0);
-  const int nt = blockDim.x;
-  const int stride = nt + 1;   // column pitch, as K2's
-  const int tid = threadIdx.x;
-  float* tab = smem;
-  float* col = tab + kRows * ns;   // col[e * stride + t]: thread t's sum
-  for (int e = tid; e < kRows * ns; e += nt) tab[e] = sph[e];
-  for (int e = 0; e < n_e; ++e) col[e * stride + tid] = 0.0f;
+  const int ns = k.n_spheres, nt = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const SphereSmem sm = sphere_smem(smem, ns, nt);
+  load_geo(sm.geo, sph, ns, tid, nt);
+  for (int e = tid; e < kRows * ns; e += nt) sm.tab[e] = sph[e];
+  for (int e = tid; e < (nt >> 5) * kRows * ns; e += nt) sm.wsum[e] = 0.0f;
   __syncthreads();
+  float* wsum = sm.wsum + warp * kRows * ns;
+  float* stage = sm.stage + warp * kRows * kStagePitch;
 
   const int ray = blockIdx.x * nt + tid;
+  const size_t B = (size_t)n_rays;
+  uint32_t k0 = 0u, k1 = 0u;
+  Carry saved[kMaxBounces];
+  int win[kMaxBounces];
+  float aofs[kMaxBounces];
+  Carry c;
+  int last = 0;   // the bounces of the ray's loop, as K2 replays them
   if (ray < n_rays) {
-    const size_t B = (size_t)n_rays;
-    Carry saved[kMaxBounces];
-    int win[kMaxBounces];
-    float aofs[kMaxBounces];
-    Carry c;
+    load_key(keys, B, ray, k0, k1);
     init_carry(c, ray, ox, oy, oz, dx, dy, dz);
-    float dr[3];
-    for (int i = 0; i < k.bounces; ++i) {
+    for (int i = 0; i < k.bounces && c.active; ++i) {
       saved[i] = c;
-      // K1's recording: the winner of a ray in its loop, else -1; the AO
-      // factor where the bounce can accumulate (K2 reads it only there)
+      // K1's recording of a ray in its loop: the winner, and the AO factor
+      // where the bounce can accumulate (K2 reads it only there)
       float best;
-      const int found = closest_sphere(tab, tab + ns, tab + 2 * ns,
-                                       tab + 3 * ns, ns, c.o[0], c.o[1],
-                                       c.o[2], c.d[0], c.d[1], c.d[2],
-                                       k.sphere_eps, best);
-      const int bidx = c.active ? found : -1;
-      const float* p = draws + (size_t)i * k.n_draws * B + ray;
+      const int bidx = closest_sphere(sm.geo, ns, c.o[0], c.o[1], c.o[2],
+                                      c.d[0], c.d[1], c.d[2], k.sphere_eps,
+                                      best);
+      const KeyDraws draws = key_draws(k0, k1, i, k.n_draws);
       const float aof = (k.use_ao && bidx >= 0)
-          ? ao_factor(tab, ns, c, bidx, best, p, B, k.sphere_eps, ao) : 1.0f;
+          ? ao_factor(sm.geo, ns, c, bidx, best, draws, k.sphere_eps, ao)
+          : 1.0f;
       win[i] = bidx;
       aofs[i] = aof;
-      load_draws(draws, i, k.n_draws, B, ray, dr);
-      replay_bounce<false, kSky>(i, c, bidx, tab, nullptr, nullptr, nullptr,
-                                 dr, aof, k, nullptr, nullptr, nullptr);
+      replay_bounce<false, kSky>(i, c, bidx, sm.tab, nullptr, nullptr,
+                                 nullptr, draws, aof, k, nullptr, nullptr,
+                                 nullptr);
+      last = i + 1;
     }
+  }
 
-    Cot g;
-    init_cot<kSky>(g, ray, B, gin);
-    float gw[kRows];
-    TriCot gt;
-    for (int i = k.bounces - 1; i >= 0; --i) {
-      const int bidx = win[i];
-      load_draws(draws, i, k.n_draws, B, ray, dr);
+  Cot g;
+  if (ray < n_rays) init_cot<kSky>(g, ray, B, gin);
+  float gw[kRows];
+  TriCot gt;
+  for (int i = k.bounces - 1; i >= 0; --i) {
+    const int bidx = i < last ? win[i] : -1;
+    if (i < last) {
       c = saved[i];
-      replay_bounce<false, kSky>(i, c, bidx, tab, nullptr, nullptr, nullptr,
-                                 dr, aofs[i], k, &g, gw, &gt);
-      if (is_hit(bidx, ns)) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) col[(r * ns + bidx) * stride + tid] += gw[r];
-      }
+      replay_bounce<false, kSky>(i, c, bidx, sm.tab, nullptr, nullptr,
+                                 nullptr, key_draws(k0, k1, i, k.n_draws),
+                                 aofs[i], k, &g, gw, &gt);
     }
+    warp_table_sum(wsum, stage, lane, i < last && is_hit(bidx, ns), bidx, gw);
+  }
+  if (ray < n_rays) {
     for (int j = 0; j < 3; ++j) {
       d_rays[j * B + ray] = g.o[j];
       d_rays[(3 + j) * B + ray] = g.d[j];
     }
   }
   __syncthreads();
-
-  // this block's column sums, each over the threads in a fixed order
-  for (int e = tid; e < n_e; e += nt) {
-    float s = 0.0f;
-    for (int t = 0; t < nt; ++t) s += col[e * stride + t];
-    partial[(size_t)blockIdx.x * n_e + e] = s;
-  }
+  block_table_sum(sm.wsum, ns, nt, tid,
+                  partial + (size_t)blockIdx.x * kRows * ns);
 }
 
 }  // namespace
@@ -163,12 +162,13 @@ __global__ void spheres_ad_kernel(
 // Blocks of the sweep for n_rays rays: the first dimension of the
 // (blocks, 14 * n_spheres) `partial` buffer the caller allocates.
 extern "C" int raytpu_spheres_ad_blocks(int n_rays, int n_spheres) {
-  const int nt = threads_per_block(n_spheres, 0);
-  return (n_rays + nt - 1) / nt;
+  (void)n_spheres;
+  return (n_rays + kSphereThreads - 1) / kSphereThreads;
 }
 
 // Plain C entry point, bound with ctypes. Device pointers: sph (14, S) f32;
-// ox..dz (n_rays,) f32; draws (bounces * n_draws, n_rays) f32; g
+// ox..dz (n_rays,) f32; keys (2, n_rays) uint32, the rays' threefry keys
+// (draw 4 + b * n_draws + j is draw j of bounce b); g
 // (9, n_rays) f32, the cotangent of (radiance, albedo, normal), or
 // (12, n_rays) with the sky slot's scale when sky_idx >= 0 (the sky
 // sphere; -1: no sky); d_rays (6, n_rays) f32 out; partial
@@ -177,7 +177,7 @@ extern "C" int raytpu_spheres_ad_blocks(int n_rays, int n_spheres) {
 // returns the first cudaError_t.
 extern "C" int raytpu_spheres_ad(
     const float* sph, const float* ox, const float* oy, const float* oz,
-    const float* dx, const float* dy, const float* dz, const float* draws,
+    const float* dx, const float* dy, const float* dz, const uint32_t* keys,
     const float* g, float* d_rays, float* partial, int n_rays, int n_spheres,
     int bounces, int n_draws, float sphere_eps, float alpha_lo,
     float alpha_hi, float bright_boost, float bright_threshold, int use_ao,
@@ -195,18 +195,18 @@ extern "C" int raytpu_spheres_ad(
                 bright_threshold, use_ao, e_scale_mult, hsl_on, hsl_l, hsl_s,
                 sky_idx};
   const AoKnobs ao{use_ao ? ao_samples : 0, ao_inv};
-  const int n_e = column_entries(n_spheres, 0);
-  const int nt = threads_per_block(n_spheres, 0);
-  const int blocks = (n_rays + nt - 1) / nt;
+  const int n_e = kRows * n_spheres;
+  const int nt = kSphereThreads;
+  const int blocks = raytpu_spheres_ad_blocks(n_rays, n_spheres);
   cudaError_t err = cudaSuccess;
   if (blocks > 0) {
-    const size_t smem = shared_floats(n_spheres, 0, nt) * sizeof(float);
+    const size_t smem = sphere_shared_floats(n_spheres, nt) * sizeof(float);
     const auto kernel = sky_idx >= 0 ? spheres_ad_kernel<true>
                                      : spheres_ad_kernel<false>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, nt, smem, s>>>(sph, ox, oy, oz, dx, dy, dz, draws, g,
+    kernel<<<blocks, nt, smem, s>>>(sph, ox, oy, oz, dx, dy, dz, keys, g,
                                     d_rays, partial, n_rays, k, ao);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -2,8 +2,11 @@
 
 Port of ``raytpu/integrator/render.py``. For each sample index the
 per-(pixel, sample) threefry keys give the camera jitter and every
-bounce's draws, the camera makes one ray per pixel, and the bounce loop
-traces them. Which loop follows ``raytpu.render``: with
+bounce's draws (``rng.sample_stream``: one RNG kernel launch a sample on
+the card, the eager stream on the CPU), the camera makes one ray per
+pixel, and the bounce loop traces them. K1 takes the keys and hashes its
+bounce draws itself, so the stream makes only the 4 camera rows for it;
+K3 and the scan path read every row. Which loop follows ``raytpu.render``: with
 ``cfg.use_megakernel`` the sphere megakernel (K1) where
 ``trace_spheres.supported`` holds, else the mesh megakernel (K3) where
 ``trace_scene.supported`` holds; otherwise, and always without
@@ -52,7 +55,8 @@ class RenderSums(NamedTuple):
 def sample_rays(cam: Camera, cfg: RenderConfig, pixel_ids: Tensor,
                 draws: Tensor) -> tuple[Vec3, Vec3]:
     """One camera ray per pixel id for one sample index.
-    draws: (4, B) U(0,1) camera draws from ``rng.ray_uniforms``."""
+    draws: (4, B) U(0,1) camera draws, rows 0-3 of a ray key's draws
+    (``rng.sample_stream``, ``rng.ray_uniforms``)."""
     i = (pixel_ids % cfg.width).to(torch.float32)
     j = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
     u = (i + (draws[0] - 0.5)) / (cfg.width - 1)
@@ -86,38 +90,42 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     ... ``sample_offset + n - 1``) for a batch of pixel ids.
 
     ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
-    scene's device. One bounce loop per sample (``trace_fn``): a K1 or K3
-    call, or the scan path with one closest-hit selection per bounce (and
-    one per AO probe). When a scene or camera leaf requires grad, the
-    backward recomputes each sample once (the checkpoint): a megakernel
-    then adds a recording call and a K2 call per sample, the scan path
-    its selections again.
+    scene's device. Per sample one ``rng.sample_stream`` call, then one
+    bounce loop (``trace_fn``): a K1 or K3 call, or the scan path with one
+    closest-hit selection per bounce (and one per AO probe). When a scene
+    or camera leaf requires grad, the backward recomputes each sample once
+    (the checkpoint): the stream again, and a megakernel then adds a
+    recording call and a K2 call per sample, the scan path its selections
+    again.
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples
     pixel_ids = torch.as_tensor(pixel_ids, device=dev).to(torch.int64)
-    pix_keys = rng.pixel_keys(key.to(dev), pixel_ids)
+    key = key.to(device=dev, dtype=torch.int64).contiguous()
     b = pixel_ids.shape[0]
     if init is None:
         zeros = Vec3.zeros((b,), device=dev)
         init = RenderSums(zeros, zeros, zeros, 0)
     rad, alb, nrm, count = init
     bounce_loop = trace_fn(scene, cfg)
+    # K1 hashes its bounce draws from the ray keys; the others read them
+    keyed = bounce_loop is trace_spheres.trace_megakernel
+    n_draws = n_bounce_draws(cfg)
+    n_rows = 4 if keyed else 4 + cfg.max_bounces * n_draws
 
     def one_sample(s):
-        ray_keys = rng.sample_keys(pix_keys, s)
-        cam_draws, bounce_draws = rng.ray_uniforms(
-            ray_keys, 4, n_bounce_draws(cfg), cfg.max_bounces
-        )
-        origin, direction = sample_rays(cam, cfg, pixel_ids, cam_draws)
-        r, a, nm = bounce_loop(scene, cfg, origin, direction, bounce_draws)
+        ray_keys, draws = rng.sample_stream(key, pixel_ids, s, n_rows)
+        origin, direction = sample_rays(cam, cfg, pixel_ids, draws[:4])
+        src = ray_keys if keyed else draws[4:].view(cfg.max_bounces,
+                                                    n_draws, b)
+        r, a, nm = bounce_loop(scene, cfg, origin, direction, src)
         return (*r, *a, *nm)
 
     # Differentiated, each sample runs under checkpoint (raytpu's
-    # jax.checkpoint of mk_direct or scan_sample): its residuals (draws,
-    # rays, recorded indices or the scan's intermediates) are dropped
-    # after the forward and rebuilt from the keys in the backward, so
-    # memory holds one sample's worth, not spp's.
+    # jax.checkpoint of mk_direct or scan_sample): its residuals (keys or
+    # draws, rays, recorded indices or the scan's intermediates) are
+    # dropped after the forward and rebuilt from the base key in the
+    # backward, so memory holds one sample's worth, not spp's.
     differentiate = torch.is_grad_enabled() and requires_grad(scene, cam)
     for s in range(sample_offset, sample_offset + n):
         if differentiate:

@@ -38,7 +38,11 @@ the counterpart of ``_replay_all`` under ``jax.vjp``. ``sphere_backward``
 (sphere scenes, after K1) and ``mesh_backward`` (mesh scenes, after K3)
 are the entry points: on CUDA tensors they launch the hand-derived reverse
 sweep in ``csrc/trace_scene_bwd.cu``, on CPU tensors they run the plain
-version.
+version. Sphere mode takes the rays' threefry keys ((2, B) int32) and the
+kernel hashes each bounce's draws from them, in the replay and again in
+the reverse step; mesh mode takes K3's (bounces * n_draws, B) draw buffer.
+On CPU tensors either source works: the plain version reads the keys'
+draws from the eager stream (``core.rng.bounce_draws``).
 
 Depth policy: one cap, ``MAX_BOUNCES = 48`` (the mesh backward's cap,
 ``raytpu/kernels/trace_scene.py:1937``), for the kernels and the plain
@@ -53,6 +57,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from raytpu_torch.core import rng
 from raytpu_torch.kernels.trace_scene import (MeshKnobs, initial_carry,
                                               initial_sky, shade_bounce,
                                               take_sky_slot)
@@ -313,8 +318,8 @@ def replay_reference(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof,
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 16          # sph tri mats atlas, ox..dz, draws, idx,
-                                    # aof, g, d_rays, partial
+    [ctypes.c_void_p] * 17          # sph tri mats atlas, ox..dz, draws, keys,
+                                    # idx, aof, g, d_rays, partial
     + [ctypes.c_int] * 9            # n_rays n_spheres n_tris n_mats n_tex
                                     # atlas_w atlas_h bounces n_draws
     + [ctypes.c_float] * 7          # sphere/det/tri eps, alpha lo/hi,
@@ -333,7 +338,7 @@ def _library():
     lib = _build.load("trace_scene_bwd")
     fn, blocks = lib.raytpu_backward, lib.raytpu_backward_blocks
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    blocks.argtypes, blocks.restype = [ctypes.c_int] * 3, ctypes.c_int
+    blocks.argtypes, blocks.restype = [ctypes.c_int] * 4, ctypes.c_int
     return fn, blocks
 
 
@@ -347,20 +352,25 @@ def _check(tensors, dev) -> None:
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, g: Tensor,
+def _launch(tabs: Tables, rays, src: Tensor, idx: Tensor, aof, g: Tensor,
             k: MeshKnobs):
     """Launch ``csrc/trace_scene_bwd.cu`` (reverse sweep, then the
     fixed-order sum over blocks of d_sph and d_mat) on the current stream:
-    what ``replay_reference`` returns. Sphere mode where ``k.n_tris`` is 0."""
+    what ``replay_reference`` returns. Sphere mode where ``k.n_tris`` is 0,
+    ``src`` the ray keys (2, B) int32; mesh mode ``src`` the draw buffer
+    (bounces * n_draws, B) f32."""
     global launches
     dev = tabs.sph.device
     b = rays[0].shape[0]
+    sphere_mode = k.n_tris == 0
+    src_shape = ((2, b), torch.int32) if sphere_mode else \
+        ((k.bounces * k.n_draws, b), torch.float32)
     shapes = [(tabs.sph, (14, k.n_spheres), torch.float32),
               (tabs.tri, (25, k.n_tris), torch.float32),
               (tabs.mats, (9, k.n_mats), torch.float32),
               (tabs.atlas, (4, k.n_tex), torch.float32),
               *((r, (b,), torch.float32) for r in rays),
-              (draws, (k.bounces * k.n_draws, b), torch.float32),
+              (src, *src_shape),
               (idx, (k.bounces, b), torch.int32),
               (g, (g_planes(k), b), torch.float32)]
     if k.use_ao:
@@ -372,13 +382,14 @@ def _launch(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, g: Tensor,
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     d_rays, d_sph = empty(6, b), empty(14, k.n_spheres)
     d_tri, d_mat, d_atlas = empty(25, k.n_tris), empty(9, k.n_mats), empty(4, k.n_tex)
-    blocks = n_blocks(b, k.n_spheres, k.n_mats)
+    blocks = n_blocks(b, k.n_spheres, k.n_tris, k.n_mats)
     partial = empty(max(blocks, 1), 14 * k.n_spheres + 6 * k.n_mats)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
             *(t.data_ptr() for t in tabs), *(t.data_ptr() for t in rays),
-            draws.data_ptr(), idx.data_ptr(),
+            None if sphere_mode else src.data_ptr(),
+            src.data_ptr() if sphere_mode else None, idx.data_ptr(),
             aof.data_ptr() if k.use_ao else None, g.data_ptr(),
             d_rays.data_ptr(), partial.data_ptr(),
             b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex, k.atlas_w,
@@ -396,31 +407,34 @@ def _launch(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof, g: Tensor,
     return d_sph, d_tri, d_mat, d_atlas, tuple(d_rays.unbind(0))
 
 
-def sphere_backward(sph: Tensor, rays, draws: Tensor, idx: Tensor, aof,
+def sphere_backward(sph: Tensor, rays, src: Tensor, idx: Tensor, aof,
                     g: Tensor, k):
     """(d_sph (14, S), six ray cotangents) for output cotangent g (9, B),
     (12, B) with the sky slot, from the winner indices idx (bounces, B)
-    int32 and, with AO, the
-    factors aof (bounces, B) that K1 recorded: ``mesh_backward`` with no
-    triangles, materials or texels."""
-    d_sph, *_, d_rays = mesh_backward(Tables.of_spheres(sph), rays, draws,
+    int32 and, with AO, the factors aof (bounces, B) that K1 recorded, and
+    the draw source K1 read (the ray keys; on CPU tensors also a draw
+    buffer): ``mesh_backward`` with no triangles, materials or texels."""
+    d_sph, *_, d_rays = mesh_backward(Tables.of_spheres(sph), rays, src,
                                       idx, aof, g, MeshKnobs.of_spheres(k))
     return d_sph, d_rays
 
 
-def mesh_backward(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof,
+def mesh_backward(tabs: Tables, rays, src: Tensor, idx: Tensor, aof,
                   g: Tensor, k):
     """(d_sph, d_tri, d_mat, d_atlas, six ray cotangents) for output
     cotangent g (9, B), (12, B) with the sky slot, from the winners idx
     (bounces, B) int32 and, with
     AO, the factors aof (bounces, B) that K3 recorded; ``k`` is K3's
     ``MeshKnobs``. The kernel for CUDA tensors (its d_tri and d_atlas are
-    sums of float atomics, equal between launches to rounding), the plain
-    version for CPU tensors."""
+    sums of float atomics, equal between launches to rounding; ``src`` the
+    ray keys in sphere mode, the draw buffer in mesh mode), the plain
+    version for CPU tensors (``src`` either)."""
     check_depth(k.bounces)
     dev = tabs.sph.device
     if dev.type == "cuda":
-        return _launch(tabs, rays, draws, idx, aof, g, k)
+        return _launch(tabs, rays, src, idx, aof, g, k)
     if dev.type == "cpu":
-        return replay_reference(tabs, rays, draws, idx, aof, g, k)
+        return replay_reference(tabs, rays,
+                                rng.plain_draws(src, k.n_draws, k.bounces),
+                                idx, aof, g, k)
     raise NotImplementedError(f"trace_scene_bwd: no kernel for {dev}")

@@ -13,8 +13,13 @@ probes, with all state carried between bounces.
 hand-written kernel in ``csrc/trace_spheres.cu``; on CPU tensors it runs
 ``trace_spheres_reference``, the plain PyTorch version of the same loop,
 which the tests hold against ``raytpu`` and the chip check holds the
-kernel against. Random draws are made outside the kernel from the
-threefry stream (``core.rng.ray_uniforms``), as in ``raytpu``.
+kernel against. The kernel takes each ray's threefry key (the (2, B) int32
+words of ``core.rng.sample_stream``) and hashes the bounce draws itself,
+draw j of bounce b at counter ``4 + b * n_draws + j`` with ``n_draws =
+integrator.path.n_bounce_draws(cfg)``; the plain version reads the same
+draws from the eager stream (``core.rng.bounce_draws``), or a draw buffer
+where a caller passes one (CPU tensors only), so its results are
+``raytpu``'s, which draws them with ``jax.random`` outside its kernel.
 
 Gradients: ``TraceSpheres`` joins K1 in recording mode to the
 index-replay backward K2 (``kernels/trace_scene_bwd``), or, with
@@ -40,9 +45,11 @@ import os
 import torch
 from torch import Tensor
 
+from raytpu_torch.core import rng
 from raytpu_torch.core.color import hsl_boost
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.core.vec3 import Vec3
+from raytpu_torch.integrator.path import n_bounce_draws
 from raytpu_torch.kernels.trace_scene import (TWO_PI, Knobs, initial_carry,
                                              initial_sky, out_planes,
                                              shade_bounce, sky_direction,
@@ -152,7 +159,8 @@ def _ao_factor(geo, n_s, px, py, pz, nX, nY, nZ, draws, row0, k: Knobs):
 
 def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
                             dx: Tensor, dy: Tensor, dz: Tensor,
-                            draws: Tensor, k: Knobs, record: bool = False):
+                            draws: Tensor, k: Knobs, record: bool = False,
+                            counts: dict | None = None):
     """Plain PyTorch version of the kernel (``_forward_body``), op for op
     in ``raytpu``'s forms: the closest-hit search, the winner's point and
     normal, the AO probes, then ``trace_scene.shade_bounce``, and with
@@ -165,6 +173,13 @@ def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
     returns ``(out, idx, aof)``: the per-bounce winner index (bounces, B)
     int32, -1 where the ray missed or its bounce loop is over, and with
     ``use_ao`` the per-bounce AO factor (bounces, B) f32 (else None).
+
+    ``counts``, a dict, receives the work the keyed kernels do on these
+    rays: "live", the (ray, bounce) entries in the loop that hit; "draws",
+    the scatter and roulette draws they hash (two for a bounce that
+    scatters, one where the material can refract); "probe_draws", the AO
+    probes' (two a probe of a bounce that accumulates, or of every
+    (ray, bounce) when recording with AO).
     """
     n_s = k.n_spheres
     sky_on = k.sky_idx >= 0
@@ -210,16 +225,18 @@ def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
             aof = _ao_factor(geo, n_s, px, py, pz, nX, nY, nZ, draws, row0, k)
             if record:
                 aof_rec.append(aof)
-        rc = carry[6:9]
-        carry = shade_bounce(
+        rc, was_active = carry[6:9], carry[18] > 0.0
+        carry, e_ret, acc = shade_bounce(
             i, carry, did_hit, px, py, pz, nX, nY, nZ,
             dfx, dfy, dfz, emx, emy, emz, estr, refl, alpha, ior,
             draws[row0], draws[row0 + 1], draws[row0 + 2],
-            e_scale_mult=k.e_scale_mult, ao_factor=aof, with_masks=sky_on,
+            e_scale_mult=k.e_scale_mult, ao_factor=aof, with_masks=True,
             **k.shade_kw,
         )
+        if counts is not None:
+            _count_work(counts, k, record, was_active & did_hit, e_ret, acc,
+                        alpha)
         if sky_on:
-            carry, e_ret, acc = carry
             sky = take_sky_slot(sky, sky_win, e_ret, acc, estr, rc,
                                 k.e_scale_mult, sdir)
 
@@ -230,8 +247,20 @@ def trace_spheres_reference(sph: Tensor, ox: Tensor, oy: Tensor, oz: Tensor,
             torch.stack(aof_rec) if k.use_ao else None)
 
 
+def _count_work(counts, k: Knobs, record, hit, e_ret, acc, alpha):
+    """Adds one bounce's live entries and hashed draws to ``counts``
+    (``trace_spheres_reference``)."""
+    live = hit & ~e_ret
+    refr = live & (alpha <= k.alpha_hi) & (alpha >= k.alpha_lo)
+    probed = (acc.numel() if record else int(acc.sum())) if k.use_ao else 0
+    for name, n in (("live", int(hit.sum())),
+                    ("draws", 2 * int(acc.sum()) + int(refr.sum())),
+                    ("probe_draws", 2 * k.ao_samples * probed)):
+        counts[name] = counts.get(name, 0) + n
+
+
 _ARGTYPES = (
-    [ctypes.c_void_p] * 11                 # sph, ox..dz, draws, out, idx, aof
+    [ctypes.c_void_p] * 11                 # sph, ox..dz, keys, out, idx, aof
     + [ctypes.c_int] * 4                   # n_rays, n_spheres, bounces, n_draws
     + [ctypes.c_float] * 5                 # eps, alpha lo/hi, bright boost/threshold
     + [ctypes.c_int] * 2                   # use_ao, ao_samples
@@ -252,16 +281,18 @@ def _library():
     return fn
 
 
-def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs,
+def _launch(sph: Tensor, rays: tuple, keys: Tensor, k: Knobs,
             record: bool = False):
-    """Launch ``csrc/trace_spheres.cu`` on the current stream. Returns
-    what ``trace_spheres_reference`` returns for the same ``record``."""
+    """Launch ``csrc/trace_spheres.cu`` on the current stream with the ray
+    keys (2, B) int32. Returns what ``trace_spheres_reference`` returns for
+    the same ``record`` and the keys' draws (``rng.bounce_draws``)."""
     global launches
-    tensors = (sph, *rays, draws)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("trace_spheres kernel needs contiguous inputs")
     b = rays[0].shape[0]
     dev = sph.device
+    _check_keys(keys, b, dev, "trace_spheres")
+    tensors = (sph, *rays, keys)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("trace_spheres kernel needs contiguous inputs")
     out = torch.empty((out_planes(k), b), dtype=torch.float32, device=dev)
     idx = aof = None
     if record:
@@ -286,14 +317,27 @@ def _launch(sph: Tensor, rays: tuple, draws: Tensor, k: Knobs,
     return (out, idx, aof) if record else out
 
 
-def _forward(sph, rays, draws, k: Knobs, record: bool = False):
-    """K1 on the device of ``sph``: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _check_keys(keys: Tensor, b: int, dev, what: str) -> None:
+    """Raise unless ``keys`` are (2, b) int32 ray keys on ``dev``: the
+    kernels hash their draws and take no draw buffer."""
+    if (keys.dtype != torch.int32 or tuple(keys.shape) != (2, b)
+            or keys.device != dev):
+        raise ValueError(
+            f"{what} kernel: want the (2, {b}) int32 ray keys of "
+            f"rng.sample_stream on {dev} (it hashes its draws), got "
+            f"{keys.dtype} {tuple(keys.shape)} on {keys.device}")
+
+
+def _forward(sph, rays, src, k: Knobs, record: bool = False):
+    """K1 on the device of ``sph``: the kernel for CUDA tensors (``src``
+    the ray keys), the plain version for CPU tensors (``src`` the keys or
+    a draw buffer)."""
     dev = sph.device
     if dev.type == "cuda":
-        return _launch(sph, rays, draws, k, record)
+        return _launch(sph, rays, src, k, record)
     if dev.type == "cpu":
-        return trace_spheres_reference(sph, *rays, draws, k, record)
+        return trace_spheres_reference(
+            sph, *rays, rng.plain_draws(src, k.n_draws, k.bounces), k, record)
     raise NotImplementedError(f"trace_spheres: no kernel for {dev}")
 
 
@@ -316,7 +360,7 @@ def ad_reference(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
 
 
 _AD_ARGTYPES = (
-    [ctypes.c_void_p] * 11                 # sph, ox..dz, draws, g, d_rays, partial
+    [ctypes.c_void_p] * 11                 # sph, ox..dz, keys, g, d_rays, partial
     + [ctypes.c_int] * 4                   # n_rays, n_spheres, bounces, n_draws
     + [ctypes.c_float] * 5                 # eps, alpha lo/hi, bright boost/threshold
     + [ctypes.c_int] * 2                   # use_ao, ao_samples
@@ -327,17 +371,18 @@ _AD_ARGTYPES = (
 )
 
 
-def _launch_ad(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
+def _launch_ad(sph: Tensor, rays, keys: Tensor, g: Tensor, k: Knobs):
     """Launch ``csrc/trace_spheres_bwd.cu`` (the search-and-reverse sweep,
-    then the fixed-order sum over blocks of d_sph) on the current stream:
-    what ``ad_reference`` returns."""
+    then the fixed-order sum over blocks of d_sph) on the current stream
+    with the ray keys (2, B) int32: what ``ad_reference`` returns for the
+    keys' draws."""
     from raytpu_torch.kernels import _build
 
     global ad_launches
     dev = sph.device
     b = rays[0].shape[0]
+    _check_keys(keys, b, dev, "trace_spheres_bwd")
     for t, shape in ((sph, (14, k.n_spheres)), *((r, (b,)) for r in rays),
-                     (draws, (k.bounces * k.n_draws, b)),
                      (g, (g_planes(k), b))):
         if (t.dtype != torch.float32 or tuple(t.shape) != shape
                 or t.device != dev or not t.is_contiguous()):
@@ -354,7 +399,7 @@ def _launch_ad(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            sph.data_ptr(), *(t.data_ptr() for t in rays), draws.data_ptr(),
+            sph.data_ptr(), *(t.data_ptr() for t in rays), keys.data_ptr(),
             g.data_ptr(), d_rays.data_ptr(), partial.data_ptr(), b,
             k.n_spheres, k.bounces, k.n_draws, k.sphere_eps, k.alpha_lo,
             k.alpha_hi, k.bright_boost, k.bright_threshold, int(k.use_ao),
@@ -368,17 +413,19 @@ def _launch_ad(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
     return d_sph, tuple(d_rays.unbind(0))
 
 
-def spheres_ad(sph: Tensor, rays, draws: Tensor, g: Tensor, k: Knobs):
+def spheres_ad(sph: Tensor, rays, src: Tensor, g: Tensor, k: Knobs):
     """K5: (d_sph (14, S), six ray cotangents) for the output cotangent g
     (9, B), (12, B) with the sky slot's scale, without recorded winners.
-    The kernel for CUDA tensors, the plain version for CPU tensors;
-    gradients to 48 bounces, ``NotImplementedError`` past that (F4)."""
+    The kernel for CUDA tensors (``src`` the ray keys), the plain version
+    for CPU tensors (the keys or a draw buffer); gradients to 48 bounces,
+    ``NotImplementedError`` past that (F4)."""
     check_depth(k.bounces)
     dev = sph.device
     if dev.type == "cuda":
-        return _launch_ad(sph, rays, draws, g, k)
+        return _launch_ad(sph, rays, src, g, k)
     if dev.type == "cpu":
-        return ad_reference(sph, rays, draws, g, k)
+        return ad_reference(sph, rays,
+                            rng.plain_draws(src, k.n_draws, k.bounces), g, k)
     raise NotImplementedError(f"trace_spheres_bwd: no kernel for {dev}")
 
 
@@ -398,31 +445,32 @@ class TraceSpheres(torch.autograd.Function):
     the forward records each bounce's winner index (and AO factor), the
     backward replays the bounces from those indices without a search
     (``trace_scene_bwd.sphere_backward``). Inputs: the (14, S) table of
-    ``pack_spheres``, the six ray planes, the (bounces * n_draws, B)
-    draws and the knobs; output (9, B), or (16, B) with the sky slot, of
-    which K2 takes the first 12 planes' cotangent (the direction and the
-    early flag reach the image only through floor() and compares). The
-    draws get no cotangent (it is zero by construction,
-    ``trace_scene_bwd``).
+    ``pack_spheres``, the six ray planes, the draw source (the (2, B) int32
+    ray keys, whose draws K1 and K2 hash, 8 B a ray; on CPU tensors also a
+    (bounces * n_draws, B) draw buffer) and the knobs; output (9, B), or
+    (16, B) with the sky slot, of which K2 takes the first 12 planes'
+    cotangent (the direction and the early flag reach the image only
+    through floor() and compares). The draws get no cotangent (it is zero
+    by construction, ``trace_scene_bwd``).
     """
 
     @staticmethod
-    def forward(ctx, sph, ox, oy, oz, dx, dy, dz, draws, k: Knobs):
+    def forward(ctx, sph, ox, oy, oz, dx, dy, dz, src, k: Knobs):
         check_depth(k.bounces)
         rays = (ox, oy, oz, dx, dy, dz)
-        out, idx, aof = _forward(sph, rays, draws, k, record=True)
+        out, idx, aof = _forward(sph, rays, src, k, record=True)
         ctx.k = k
-        ctx.save_for_backward(sph, *rays, draws, idx, aof)
+        ctx.save_for_backward(sph, *rays, src, idx, aof)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        sph, ox, oy, oz, dx, dy, dz, draws, idx, aof = ctx.saved_tensors
+        sph, ox, oy, oz, dx, dy, dz, src, idx, aof = ctx.saved_tensors
         rays, g = (ox, oy, oz, dx, dy, dz), g[:g_planes(ctx.k)].contiguous()
         if sphere_bwd_mode() == "ad":
-            d_sph, d_rays = spheres_ad(sph, rays, draws, g, ctx.k)
+            d_sph, d_rays = spheres_ad(sph, rays, src, g, ctx.k)
         else:
-            d_sph, d_rays = sphere_backward(sph, rays, draws, idx, aof, g,
+            d_sph, d_rays = sphere_backward(sph, rays, src, idx, aof, g,
                                             ctx.k)
         return (d_sph, *d_rays, None, None)
 
@@ -450,38 +498,52 @@ def compose_sky(scene: Scene, cfg: RenderConfig, out: Tensor
 
 
 def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
-                     direction: Vec3, bounce_draws: Tensor
+                     direction: Vec3, src: Tensor
                      ) -> tuple[Vec3, Vec3, Vec3]:
     """(radiance, albedo AOV, normal AOV) for a batch of rays.
 
-    bounce_draws: (max_bounces, n_bounce_draws(cfg), B) U(0,1) draws.
-    Runs on the device of the scene: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. When the sphere table or a ray
-    requires grad, it runs ``TraceSpheres`` (K1 recording, then K2 in the
-    backward). A sky scene's slot planes go through ``compose_sky``.
-    Raises ``NotImplementedError`` for scenes the kernel does not cover.
+    src: the rays' threefry keys, (2, B) int32 (``rng.sample_stream``),
+    whose draws K1 hashes (n_bounce_draws(cfg) a bounce, after the 4
+    camera draws); on CPU tensors also a (max_bounces, n_bounce_draws(cfg),
+    B) U(0,1) draw buffer. Runs on the device of the scene: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. When the
+    sphere table or a ray requires grad, it runs ``TraceSpheres`` (K1
+    recording, then K2 in the backward). A sky scene's slot planes go
+    through ``compose_sky``. Raises ``NotImplementedError`` for scenes the
+    kernel does not cover.
     """
     reasons = unsupported_reasons(scene, cfg)
     if reasons:
         raise NotImplementedError("trace_spheres: " + "; ".join(reasons))
     sph = pack_spheres(scene)
     rays = (*origin, *direction)
-    bn, nd, b = bounce_draws.shape
-    k = Knobs.create(cfg, scene.spheres.count, nd, scene.sky_index)
-    if bn != cfg.max_bounces or nd < k.draws_needed:
-        raise ValueError(
-            f"bounce_draws {tuple(bounce_draws.shape)}: need "
-            f"({cfg.max_bounces}, >={k.draws_needed}, B)"
-        )
     dev = sph.device
-    for t in (*rays, bounce_draws):
-        if (t.device != dev or t.dtype != torch.float32
-                or t.shape[-1] != b or (t is not bounce_draws and t.dim() != 1)):
+    b = src.shape[-1]
+    if rng.is_keys(src):
+        nd, draws = n_bounce_draws(cfg), src
+        if src.shape != (2, b) or src.device != dev:
+            raise ValueError(f"trace_spheres: ray keys {tuple(src.shape)} on "
+                             f"{src.device}: need (2, B) on {dev}")
+    else:
+        if dev.type != "cpu":
+            raise ValueError(
+                "trace_spheres: the kernel hashes its draws; pass the ray "
+                "keys of rng.sample_stream, not a draw buffer")
+        bn, nd = src.shape[:2] if src.dim() == 3 else (-1, -1)
+        if bn != cfg.max_bounces or nd < n_bounce_draws(cfg):
+            raise ValueError(
+                f"bounce_draws {tuple(src.shape)}: need "
+                f"({cfg.max_bounces}, >={n_bounce_draws(cfg)}, B)"
+            )
+        draws = src.reshape(bn * nd, b)
+    k = Knobs.create(cfg, scene.spheres.count, nd, scene.sky_index)
+    for t in rays:
+        if (t.device != dev or t.dtype != torch.float32 or t.dim() != 1
+                or t.shape[0] != b):
             raise ValueError(
                 f"trace_spheres: rays and draws must be f32 with B={b} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    draws = bounce_draws.reshape(bn * nd, b)
     if torch.is_grad_enabled() and (
         sph.requires_grad or any(t.requires_grad for t in rays)
     ):

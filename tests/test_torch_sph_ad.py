@@ -214,9 +214,10 @@ def test_library_hash_follows_included_headers(tmp_path, monkeypatch):
     from raytpu_torch.kernels import _build
 
     assert [p.name for p in _build.sources("trace_spheres_bwd")] == [
-        "trace_spheres_bwd.cu", "replay.cuh", "sphere_search.cuh"]
+        "trace_spheres_bwd.cu", "replay.cuh", "sphere_search.cuh",
+        "threefry.cuh"]
     assert [p.name for p in _build.sources("trace_scene_bwd")] == [
-        "trace_scene_bwd.cu", "replay.cuh"]
+        "trace_scene_bwd.cu", "replay.cuh", "threefry.cuh"]
     for p in _build.CSRC.iterdir():
         shutil.copy(p, tmp_path / p.name)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
