@@ -5,7 +5,11 @@
 
 Phases, each of which raises on failure (exit code non-zero):
   1. environment: torch, nvcc and the card (nvidia-smi name, power limit);
-  2. build every CUDA source of the port from this checkout;
+  2. build every CUDA source of the port from this checkout, printing
+     each kernel's ptxas registers, stack, spills and static shared
+     memory from the report kept beside its library (the dynamic shared
+     memory of K3's merged modes and K4, as the driver holds it after
+     their launches, follows in phases 17 and 30);
   3. RNG parity: the eager threefry stream and the RNG kernel
      (``csrc/rng.cu``: each ray's key and its draw rows, one launch a
      sample) on the card reproduce a table of ``jax.random`` values
@@ -68,8 +72,11 @@ Phases, each of which raises on failure (exit code non-zero):
      axis-aligned directions, camera rays and each bounce's rays through
      the scan path) on Cornell, the six mesh scenes of phase 9 and a
      4096-triangle world (K4's limit, twice K3's);
-  17. K4 on the 1200x900 camera rays of the 600- and 4096-triangle worlds,
-     compared and timed beside its plain version and its bound;
+  17. K4 on the 1200x900 camera rays and bounce-2 rays of the 600- and
+     4096-triangle worlds, bit-equal to its plain version, timed beside
+     it and its bound (the plain version's count of the chunks each ray
+     enters before its running best), the bound's share of box tests and
+     the bound with ``raytpu``'s 128-triangle boxes;
   18. the scan path against the megakernels on the card (the 600-triangle
      world against K3, Cornell against K1, 64x48x2spp) and against the
      CPU (the 4096-triangle world, 40x30x2spp);
@@ -120,7 +127,8 @@ Phases, each of which raises on failure (exit code non-zero):
      per-triangle kernel on the same rays (winners at bounce 0 and over
      all bounces, outlier rays: tests/test_quad_merge.py's bars);
   30. the merged modes timed at 1200x900, 6 bounces on the MESH_WORLD
-     world and its sky twin beside their plain versions and bounds;
+     world and its sky twin beside their plain versions and bounds (and
+     the bounds' share of box tests);
   31. the mesh frames of phases 11, 15 and 25 through the default
      (merged) load: forward, fwd+bwd of every float leaf, 3 Adam steps
      whose losses must fall;
@@ -219,16 +227,24 @@ ATOMIC_REL, ZERO_ROW = 1e-5, 1e-6
 QUIET_ROWS = {"d_sph": [12], "d_tri": [*range(9), *range(12, 25)],
               "d_mat": [6, 7, 8], "d_atlas": [3]}
 # K3's FP32 operations (arithmetic and compares, as counted in
-# csrc/trace_scene.cu) per sphere test, slab test and Moller-Trumbore
-# triangle test, and per live (ray, bounce) for the winner's texel,
-# material and shading
-K3_OPS_SPHERE, K3_OPS_SLAB, K3_OPS_TRI, K3_OPS_SHADE = 33, 25, 46, 210
+# csrc/trace_scene.cu) per sphere test and Moller-Trumbore triangle test,
+# and per live (ray, bounce) for the winner's texel, material and shading
+K3_OPS_SPHERE, K3_OPS_TRI, K3_OPS_SHADE = 33, 46, 210
+# a slab test of a cull box, the least it needs, one count for every
+# kernel that runs one (K3's slab, box.cuh's meets_box in K4 and in the
+# merged walk): per axis 2 subtracts, 2 multiplies, a min and a max (18),
+# 2 max and 2 min across the axes (4), 2 compares and their and (3). The
+# kernels' NaN guards (~11 more) are their own cost, not the bound's.
+OPS_SLAB = 25
 # K3's merged search (csrc/trace_scene.cu: merged_search): FP32 operations
-# per axis-aligned rect test, axis-aligned triangle test, general
-# parallelogram test and general leftover test, and per live (ray,
-# bounce) for the six group tests and the set-up of the groups it enters
-K3M_OPS_RECT, K3M_OPS_AATRI, K3M_OPS_QUAD, K3M_OPS_LEFT = 18, 22, 49, 47
-K3M_OPS_GROUPS = 30
+# per axis-aligned rect and triangle the walk tests (its numerator and
+# its two stop compares, then the test), per chunk it visits (its first
+# and last numerators, the stop and reach compares; a chunk box it tests
+# costs OPS_SLAB), per general parallelogram test and general leftover
+# test, and per live (ray, bounce) for the six group tests and the set-up
+# of the groups it enters
+K3M_OPS_RECT, K3M_OPS_AATRI, K3M_OPS_HEAD = 22, 26, 7
+K3M_OPS_QUAD, K3M_OPS_LEFT, K3M_OPS_GROUPS = 49, 47, 30
 # merged against per-triangle (tests/test_quad_merge.py's bars): winners
 # equal at bounce 0 and over all bounces
 AGREE0, AGREE_ALL = 0.99, 0.95
@@ -241,12 +257,16 @@ K2_OPS_SPHERE, K2_OPS_TRI = 510, 1000
 # The equirect sky: the slot's 7 planes out of K1 / K3 (scale 3, unit
 # direction 3, early flag) and the scale's 3 cotangent planes into K2
 SKY_SLOT_BYTES, SKY_G_BYTES = 7 * 4, 3 * 4
-# H100 SXM peaks (NVIDIA data sheet):
-# HBM bytes/s and FP32 (non-tensor) FLOP/s, for the bound_ms column.
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
-# INT32 instructions: the SM's issue limit, 4 schedulers x 32 lanes a
-# clock, x 132 SMs at 1.98 GHz (the data sheet's 67 TFLOP/s FP32 is 128
-# lanes x 132 SMs x 2 (FMA) x 1.98 GHz). The SM has 64 INT32 lanes, but
+# H100 SXM HBM bytes/s (NVIDIA data sheet), for the bound_ms column.
+HBM_BYTES_PER_S = 3.35e12
+# FP32 (non-tensor) operations: the SM's issue limit, 4 schedulers x 32
+# lanes a clock, x 132 SMs at 1.98 GHz. The data sheet's 67 TFLOP/s is
+# that rate x 2, an FMA counted as two operations; every kernel here is
+# built with -fmad=false and the K*_OPS constants count single adds,
+# multiplies and compares, so each counted operation is one issued
+# instruction.
+FP32_OPS_PER_S = 128 * 132 * 1.98e9
+# INT32 instructions: the same issue limit. The SM has 64 INT32 lanes, but
 # nvcc also issues integer adds and shifts as IMAD on the FMA pipe: the RNG
 # kernel's 22-row launch beat 64 lanes' time on the card (PERF.md). For the
 # threefry hashing of the RNG kernel, K1, K2's sphere mode and K5.
@@ -285,6 +305,44 @@ def _run(cmd) -> str:
 def _card() -> str:
     return _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
+
+
+def _ptxas_summary(reports):
+    """{kernel: {registers, stack, spill_stores, static_smem}} from
+    ``{library: _build.ptxas_report(library)}`` (nvcc -Xptxas -v of each
+    library, kept beside it), the entry names demangled by c++filt where
+    the machine has it. Raises if a library's report names no kernel."""
+    import re
+    import shutil
+
+    out = {}
+    for lib, text in reports.items():
+        if "Compiling entry function '" not in text:
+            raise AssertionError(f"ptxas: no kernel in {lib}'s report")
+        for part in text.split("Compiling entry function '")[1:]:
+            name = part.split("'")[0]
+            num = lambda pat: int((re.search(pat, part) or [0, 0])[1])
+            out[(lib, name)] = dict(
+                registers=num(r"Used (\d+) registers"),
+                stack=num(r"(\d+) bytes stack frame"),
+                spill_stores=num(r"(\d+) bytes spill stores"),
+                static_smem=num(r"(\d+) bytes smem"))
+    if shutil.which("c++filt") and out:
+        names = _run(["c++filt", *(n for _, n in out)]).splitlines()
+        out = {(lib, pretty.replace("(anonymous namespace)::", "")
+                .split("(")[0]): v
+               for ((lib, _), v), pretty in zip(out.items(), names)}
+    return {f"{lib}: {name}": v for (lib, name), v in out.items()}
+
+
+def _ptxas_of(ptxas, *needles):
+    """The ``_ptxas_summary`` entry whose name holds one of ``needles``;
+    raises if there is none."""
+    found = next((v for name, v in ptxas.items()
+                  if any(n in name for n in needles)), None)
+    if found is None:
+        raise AssertionError(f"ptxas: no kernel named like {needles}")
+    return found
 
 
 def _outliers(x, y):
@@ -841,7 +899,7 @@ def _k1_bound(b, bounces, counts, n_spheres, record, sky=False):
     (+ 4 B of index per bounce when recording; + the sky slot's 7 planes,
     28 B, with the sky) at HBM speed; (33 FLOP per sphere test + 130 for
     the shading) for every (ray, bounce) that hit (``counts["live"]``,
-    the plain version's count on this run's data) at the FP32 peak; the
+    the plain version's count on this run's data) at the FP32 issue rate; the
     draws it hashes (``counts``' "draws" and "probe_draws") at DRAW_OPS
     each at the INT32 issue rate."""
     nbytes = b * (24 + 8 + 36 + (4 * bounces if record else 0)
@@ -856,7 +914,7 @@ def _k2_bound(b, bounces, counts, n_spheres, sky=False):
     index (4 B) per bounce, g 36 B (48 B with the sky scale's cotangent)
     and the ray cotangents 24 B per ray, the table twice, at HBM speed;
     ~510 FLOP (replayed bounce ~165, its adjoint ~330, the 14 sums) per
-    (ray, bounce) that hit at the FP32 peak; the scatter and roulette draws
+    (ray, bounce) that hit at the FP32 issue rate; the scatter and roulette draws
     K1 hashes (``counts["draws"]``), hashed twice (the replay and the
     reverse step), at the INT32 issue rate."""
     nbytes = (b * (24 + 8 + 4 * bounces + 36 + 24
@@ -867,10 +925,10 @@ def _k2_bound(b, bounces, counts, n_spheres, sky=False):
 
 def _bound(nbytes, flops, int_ops=0):
     """(least ms, "bytes" or "operations"): the largest of the bytes at
-    HBM speed, the FP32 operations at the FP32 peak and the INT32
+    HBM speed, the FP32 operations at the FP32 issue rate and the INT32
     operations at the INT32 issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOP_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    t_ops = max(flops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1199,18 +1257,31 @@ def _k3_bound(b, bounces, counts, table_bytes, sky=False):
     (16 with the sky slot) per ray plus the scene tables at HBM speed,
     against the operations of this run's search (K3_OPS_*: the plain
     version's counts of sphere, slab and entered-chunk triangle tests and
-    live (ray, bounce) entries; K3M_OPS_* for the merged search's
-    candidates) at the FP32 peak."""
+    live (ray, bounce) entries; K3M_OPS_* for the merged search: the
+    walk's tests and binary-search steps, ``_aa_walk``'s counts, and the
+    general candidates) at the FP32 issue rate."""
     nbytes = (b * (24 + 12 * bounces + 36 + (SKY_SLOT_BYTES if sky else 0))
               + table_bytes)
-    ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
+    return _bound(nbytes, _k3_ops(counts))
+
+
+def _k3_ops(counts):
+    """K3's counted FP32 operations for the plain version's ``counts``."""
+    ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * OPS_SLAB
            + counts["tri"] * K3_OPS_TRI + counts["live"] * K3_OPS_SHADE)
     if "aa_rect" in counts:       # the merged search's candidates
         ops += (counts["aa_rect"] * K3M_OPS_RECT
                 + counts["aa_tri"] * K3M_OPS_AATRI
+                + counts["aa_head"] * K3M_OPS_HEAD
+                + counts["aa_slab"] * OPS_SLAB
                 + counts["quad"] * K3M_OPS_QUAD + counts["left"] * K3M_OPS_LEFT
                 + counts["live"] * K3M_OPS_GROUPS)
-    return _bound(nbytes, ops)
+    return ops
+
+
+def _box_share(counts, ops):
+    """The share of ``ops`` that is slab tests of cull boxes."""
+    return (counts["slab"] + counts.get("aa_slab", 0)) * OPS_SLAB / ops
 
 
 def phase_k3_timing(dev):
@@ -1763,17 +1834,27 @@ def _k4_bound(b, counts, table_bytes):
     """Least K4 time: rays 24 B in and (t, index) 8 B out per ray plus the
     tables at HBM speed, against this input's work at ray granularity (the
     plain version's counts: a sphere test per sphere, a slab test per
-    chunk, a triangle test per triangle of every chunk the ray enters, at
-    K3's operation counts for the same tests) at the FP32 peak."""
-    ops = (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * K3_OPS_SLAB
-           + counts["tri"] * K3_OPS_TRI)
-    return _bound(b * (24 + 8) + table_bytes, ops)
+    chunk, a triangle test per triangle of every chunk the ray enters
+    before its running best, at K3's operation counts for the same tests)
+    at the FP32 issue rate."""
+    return _bound(b * (24 + 8) + table_bytes, _k4_ops(counts))
+
+
+def _k4_ops(counts):
+    """K4's counted FP32 operations for the plain version's ``counts``."""
+    return (counts["sphere"] * K3_OPS_SPHERE + counts["slab"] * OPS_SLAB
+            + counts["tri"] * K3_OPS_TRI)
 
 
 def phase_k4_timing(dev):
-    """K4 and its plain version on the 1200x900 camera rays of the 600- and
-    4096-triangle worlds: compared bit for bit, then timed with CUDA
-    events in turns, beside the bound from this input's work."""
+    """K4 and its plain version at 1200x900 on the 600- and 4096-triangle
+    worlds: on the camera rays of the frame's first sample and on one
+    bounce set (bounce 2 of ``_k4_ray_sets``: K4 takes 4 camera and 20
+    bounce launches a 4-spp, 6-bounce frame), compared bit for bit, then
+    timed with CUDA events in turns, beside the bound from this input's
+    work, its share of box tests and the bound the same rays would have
+    with ``raytpu``'s 128-triangle boxes; the kernel's dynamic shared
+    memory as the driver holds it after the launches."""
     import numpy as np
     import torch
 
@@ -1785,39 +1866,62 @@ def phase_k4_timing(dev):
     res = {}
     for n in (MESH_WORLD, SCAN_WORLD):
         scene, cam, cfg = _per_triangle(_block_world(n), dev)
-        cfg = cfg.replace(width=FRAME[0], height=FRAME[1])
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1], use_pallas=True)
         pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
         ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
         cam_d, _ = rng.ray_uniforms(ks, 4, 3, 1)
-        o, d = sample_rays(cam, cfg, pids, cam_d)
-        rays = tuple(c.contiguous() for c in (*o, *d))
-        tabs = intersect.pack_tables(scene, precompute(scene.triangles))
+        sets = {"camera": sample_rays(cam, cfg, pids, cam_d)}
+        for what, o, d in _k4_ray_sets(scene, cam, cfg, 17, dev):
+            if what == "bounce 2":
+                sets[what] = (o, d)
+                break
+        geom = precompute(scene.triangles)
+        tabs = intersect.kernel_tables(scene, geom)
+        tabs128 = intersect.pack_tables(scene, geom)
         eps = (cfg.sphere_eps, cfg.tri_det_eps, cfg.tri_eps)
-        counts = {"sphere": 0, "slab": 0, "tri": 0}
-        pt, pi = intersect.intersect_reference(*tabs, *rays, *eps, counts)
-        kt, ki = intersect._launch(*tabs, rays, *eps)
-        if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
-            raise AssertionError(f"K4 {n} triangles at {cfg.width}x"
-                                 f"{cfg.height}: {(ki != pi).sum().item()} "
-                                 "winners differ")
-        max_err = (kt - pt).abs().max().item()
-        kernel = lambda: intersect._launch(*tabs, rays, *eps)
-        plain = lambda: intersect.intersect_reference(*tabs, *rays, *eps)
-        t = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            t[which].append(_time_ms(kernel if which == "kernel" else plain,
-                                     20 if which == "kernel" else 2))
-        ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
-        b = cfg.n_pixels
-        bound = _k4_bound(b, counts, 4 * sum(x.numel() for x in tabs))
-        print(f"K4 on the {b} camera rays of the {n}-triangle world: equal to "
-              f"its plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(turns: kernel {t['kernel']}, plain {t['plain']}); bound "
-              f"{bound[0]:.4f} ms ({bound[1]}); per ray {counts['sphere'] / b:.2f} "
-              f"sphere, {counts['slab'] / b:.2f} slab and "
-              f"{counts['tri'] / b:.2f} triangle tests; hits "
-              f"{(ki >= 0).float().mean().item():.4f}")
-        res[n] = dict(ms=ms, plain_ms=plain_ms, bound=bound, max_abs_err=max_err)
+        res[n] = {}
+        for what, (o, d) in sets.items():
+            rays = tuple(c.contiguous() for c in (*o, *d))
+            counts = {"sphere": 0, "slab": 0, "tri": 0}
+            pt, pi = intersect.intersect_reference(
+                *tabs, *rays, *eps, counts, chunk=intersect.KERNEL_CHUNK)
+            kt, ki = intersect._launch(*tabs, rays, *eps)
+            if not (torch.equal(ki, pi) and torch.equal(kt, pt)):
+                raise AssertionError(
+                    f"K4 {n} triangles, {what} rays at {cfg.width}x"
+                    f"{cfg.height}: {(ki != pi).sum().item()} winners and "
+                    f"{(kt != pt).sum().item()} distances differ")
+            max_err = (kt - pt).abs().max().item()
+            smem = intersect.func_attrs()["dynamic_smem"]
+            c128 = {"sphere": 0, "slab": 0, "tri": 0}
+            intersect.intersect_reference(*tabs128, *rays, *eps, c128,
+                                          chunk=intersect.CHUNK)
+            kernel = lambda: intersect._launch(*tabs, rays, *eps)
+            plain = lambda: intersect.intersect_reference(*tabs, *rays, *eps)
+            t = {"plain": [], "kernel": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                t[which].append(_time_ms(kernel if which == "kernel" else plain,
+                                         20 if which == "kernel" else 2))
+            ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+            b = cfg.n_pixels
+            bound = _k4_bound(b, counts, 4 * sum(x.numel() for x in tabs))
+            bound128 = _k4_bound(b, c128, 4 * sum(x.numel() for x in tabs128))
+            print(f"K4 on the {b} {what} rays of the {n}-triangle world: equal "
+                  f"to its plain version; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (turns: kernel {t['kernel']}, plain "
+                  f"{t['plain']}); bound {bound[0]:.4f} ms ({bound[1]}), box "
+                  f"tests {_box_share(counts, _k4_ops(counts)):.1%} of its "
+                  f"operations; per ray {counts['sphere'] / b:.2f} sphere, "
+                  f"{counts['slab'] / b:.2f} slab and {counts['tri'] / b:.2f} "
+                  f"triangle tests (chunks entered before the running best, "
+                  f"{intersect.KERNEL_CHUNK} a chunk); with {intersect.CHUNK}"
+                  f"-triangle boxes {c128['slab'] / b:.2f} slab and "
+                  f"{c128['tri'] / b:.2f} triangle tests, bound "
+                  f"{bound128[0]:.4f} ms ({bound128[1]}); {smem} B of dynamic "
+                  f"shared memory a block (the driver's); hits "
+                  f"{(ki >= 0).float().mean().item():.4f}")
+            res[n][what] = dict(ms=ms, plain_ms=plain_ms, bound=bound,
+                                max_abs_err=max_err, smem=smem)
     return res
 
 
@@ -2941,6 +3045,7 @@ def phase_merged_timing(dev):
                                         cfg.max_bounces)
         origin, direction = sample_rays(cam, cfg, pids, cam_d)
         mt, rays, flat, k = _mesh_inputs(scene, cfg, origin, direction, draws)
+        sky = key == "sky"
         counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
         ref = tsc.trace_scene_reference(mt, *rays, flat, k, counts)
         out = tsc._launch(mt, rays, flat, k)
@@ -2948,6 +3053,11 @@ def phase_merged_timing(dev):
             raise AssertionError(f"merged {key} at {cfg.width}x{cfg.height}:"
                                  " planes differ from the plain version's")
         rec = tsc._launch(mt, rays, flat, k, record=True)
+        # the dynamic shared memory each launch set, as the driver holds it
+        smem = {r: tsc.merged_func_attrs(r, sky)["dynamic_smem"]
+                for r in (False, True)}
+        print(f"  merged K3 {key}: {smem[False]} / {smem[True]} B of dynamic "
+              "shared memory a block (forward / recording)")
         _, rec_err = _check_mesh_record(
             f"merged {key} {cfg.width}x{cfg.height}", rec,
             tsc.trace_scene_reference(mt, *rays, flat, k, record=True), out)
@@ -2962,7 +3072,7 @@ def phase_merged_timing(dev):
                   "rec", "rec_plain"):
             t[w].append(_time_ms(fns[w], 2 if w.endswith("plain") else 20))
         ms = {w: float(np.mean(v)) for w, v in t.items()}
-        b, sky = cfg.n_pixels, key == "sky"
+        b = cfg.n_pixels
         bound = _k3_bound(b, cfg.max_bounces, counts, mt.nbytes(), sky)
         rec_bound = _k3_bound(b, cfg.max_bounces, counts,
                               mt.nbytes() + 4 * b * cfg.max_bounces, sky)
@@ -2973,10 +3083,15 @@ def phase_merged_timing(dev):
               f"bound {rec_bound[0]:.4f} ms); turns {t}; per live (ray, "
               f"bounce) of {live}: "
               + ", ".join(f"{counts.get(c, 0) / live:.2f} {c}" for c in (
-                  "sphere", "aa_rect", "aa_tri", "quad", "left", "slab")))
+                  "sphere", "aa_rect", "aa_tri", "aa_head", "aa_slab",
+                  "quad", "left", "slab"))
+              + f" (aa: the walk's tests, of {k.n_tris} triangles); box "
+              f"tests {_box_share(counts, _k3_ops(counts)):.1%} of the "
+              "bound's operations")
         res[key] = dict(ms=ms["fwd"], plain_ms=ms["fwd_plain"], bound=bound,
                         rec_ms=ms["rec"], rec_plain_ms=ms["rec_plain"],
-                        rec_bound=rec_bound, rec_err=rec_err, counts=counts)
+                        rec_bound=rec_bound, rec_err=rec_err, counts=counts,
+                        smem=smem)
         del mt, rays, flat, draws
     return res
 
@@ -3264,6 +3379,15 @@ def main() -> int:
     libs = _build.build_all(verbose=True)
     print(f"build: {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s")
+    ptxas = _ptxas_summary({p.stem: _build.ptxas_report(p.stem)
+                            for p in sorted(_build.CSRC.glob("*.cu"))})
+    print("ptxas (registers, stack B, spill stores B, static shared memory "
+          "B; dynamic shared memory at the timed shapes in phases 17 and "
+          "30):")
+    for name, v in ptxas.items():
+        print(f"  {name}: {v['registers']} registers, {v['stack']} B stack, "
+              f"{v['spill_stores']} B spill stores, {v['static_smem']} B "
+              "static shared memory")
 
     rng_t = phase_rng(dev)
     phase_k1(dev)
@@ -3406,12 +3530,19 @@ def main() -> int:
                              "scan_render": scan[SCAN_WORLD]["k4"],
                              "scan_render_600": scan[MESH_WORLD]["k4"],
                              "scan_fwd_bwd": strain["k4"]},
-        "max_abs_err": k4[SCAN_WORLD]["max_abs_err"],
-        "ms": k4[SCAN_WORLD]["ms"], "plain_ms": k4[SCAN_WORLD]["plain_ms"],
-        "bound_ms": k4[SCAN_WORLD]["bound"][0],
-        "bound_by": k4[SCAN_WORLD]["bound"][1], "library_ms": None,
-        "ms_600": k4[MESH_WORLD]["ms"], "plain_ms_600": k4[MESH_WORLD]["plain_ms"],
-        "bound_ms_600": k4[MESH_WORLD]["bound"][0],
+        "max_abs_err": max(r["max_abs_err"] for w in k4.values()
+                           for r in w.values()),
+        "ms": k4[SCAN_WORLD]["camera"]["ms"],
+        "plain_ms": k4[SCAN_WORLD]["camera"]["plain_ms"],
+        "bound_ms": k4[SCAN_WORLD]["camera"]["bound"][0],
+        "bound_by": k4[SCAN_WORLD]["camera"]["bound"][1], "library_ms": None,
+        "ptxas": _ptxas_of(ptxas, "intersect_kernel"),
+        "dynamic_smem_bytes": k4[SCAN_WORLD]["camera"]["smem"],
+        **{f"{key}_{n}_{what.replace(' ', '')}": (
+            r[field][0] if field == "bound" else r[field])
+           for n, w in k4.items() for what, r in w.items()
+           for key, field in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                              ("bound_ms", "bound"))},
     }, *({
         "name": name, "route": "cuda", "source": f"raytpu_torch/csrc/{src}.cu",
         "replaces": rep, "launches": launches,
@@ -3442,6 +3573,12 @@ def main() -> int:
         "replaces": "raytpu/kernels/trace_scene.py:431", "launches": launches,
         "max_abs_err": err, "ms": r[ms], "plain_ms": r[plain],
         "bound_ms": r[bound][0], "bound_by": r[bound][1], "library_ms": None,
+        "ptxas": _ptxas_of(
+            ptxas, f"trace_scene_kernel_merged<{str(ms == 'rec_ms').lower()}, "
+            f"{str(r is merged_t['sky']).lower()}>",
+            f"trace_scene_kernel_mergedILb{int(ms == 'rec_ms')}"
+            f"ELb{int(r is merged_t['sky'])}E"),
+        "dynamic_smem_bytes": r["smem"][ms == "rec_ms"],
     } for name, r, ms, plain, bound, err, launches in (
         ("trace_scene (merged)", merged_t["world"], "ms", "plain_ms", "bound",
          0.0, merged_f["world"]["fwd"]["launches"][2]),

@@ -1,20 +1,37 @@
-"""Variant builds of the keyed sphere kernels, timed on the card.
+"""Variant builds of the port's kernels, timed on the card.
 
-    python3 kernel_variants.py [--tree DIR ...]   # from the repo's root
+    python3 kernel_variants.py [--only REGEX] [--tree DIR ...]   # from the repo's root
 
 Each variant is a copy of ``raytpu_torch/csrc`` with text substitutions
-(``VARIANTS``), built with the port's nvcc flags and ``-Xptxas -v``, loaded
-in place of the shipped library and timed with CUDA events at the Cornell
-sample (1200x900 rays, 6 bounces, the RNG kernel's keys), beside the
-shipped build in the same process; its ptxas registers and spill stores
-are printed. A text that does not occur exactly once in its library's
-sources stops the script before anything is built. Some variants compute wrong results on purpose, to measure
-what a part of a kernel costs (``no_hash``: draws from the key bits
-without threefry; ``sums_in_registers``: K2's table sums kept per lane).
-``--tree DIR`` first times K1, K1's recording, K2 and K5 in another
-checkout (for example the parent commit, unpacked by ``git archive``), in
-a subprocess, with that tree's own API (ray keys, or a draw buffer), so
-two versions compare in one call. Needs a CUDA card; imports no JAX.
+(``VARIANTS``), built with the port's nvcc flags and ``-Xptxas -v`` (all
+variants at once, one nvcc each), loaded in place of the shipped library
+and timed with CUDA events on its library's workloads (``workloads``),
+beside the shipped build in the same process; its ptxas registers and
+spill stores are printed. ``--only`` keeps the variants whose names match.
+A text that does not occur exactly once in its library's sources stops
+the script before anything is built. Some variants compute wrong results
+on purpose, to measure what a part of a kernel costs (``*_no_hash``: draws
+from the key bits without threefry; ``k3m_fixed_winner``: the shading of
+triangle 0; each says what it does). A variant built for another cull
+box size (``CHUNK_OF``: K4's ``kChunk``, the walk's ``kWalkChunk``) is
+timed on its workloads rebuilt with tables of that size.
+
+The workloads, at the main paths' shapes: K1, K1's recording, K2's sphere
+mode and K5 at the Cornell sample (1200x900 rays, 6 bounces, the RNG
+kernel's keys); K4 on the camera rays and on the bounce-2 rays (through
+the scan path) of the 600- and 4096-triangle block worlds at 1200x900; K3's
+merged modes (forward, recording, sky, sky recording) at 1200x900, 6
+bounces on the 600-triangle world and its sky twin (the default load).
+
+``--tree DIR`` first times every workload in another checkout (for
+example the parent commit, unpacked by ``git archive``): this script runs
+there in a subprocess with ``--here`` and imports that tree's
+``raytpu_torch`` and ``chip_smoke``, so two versions compare in one call.
+With ``--frames`` it first times, in turns (the tree, this checkout twice,
+the tree), the frames K3 and K4 set the pace of: the merged 600-triangle
+block world and its sky twin, forward at 16 spp and forward+backward at 4
+spp, and the scan path's 4096-triangle world forward at 4 spp (1200x900, 6
+bounces, wall seconds). Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +57,44 @@ _K5_BOUNDS = ("__launch_bounds__(kSphereThreads, kSphereMinBlocks)\n"
 _K2_SUM = ("    warp_table_sum(wsum, stage, lane, i < last && is_hit(bidx, ns), "
            "bidx, gw);\n  }\n  if (ray < n_rays) {\n    for (int j = 0; j < 3; "
            "++j) {\n      d_rays[j * B + ray] = g.o[j];")
+# K3's merged search, called where the forward and recording modes call
+# it, in this tree and in the parent commit
+_K3M_CALL = ("      merged_search(aa, aa3, quad, qbox, left, lbox, aa_box, "
+             "aa3_box, gmin,\n                    q, k, rox, roy, roz, rdx, "
+             "rdy, rdz, best, bidx);")
+
+
+def _search_twice(call):
+    """The merged search run twice, the first result kept opaque to the
+    compiler: the paths stay the same, so the difference is one search."""
+    twice = call.replace("rox, roy,", "o2[0], o2[1],").replace(
+        "roz, rdx, rdy, rdz, best, bidx", "o2[2], o2[3], o2[4], o2[5], b2, i2")
+    twice = twice.replace("rox, roy, roz, rdx, rdy, rdz, best, bidx",
+                          "o2[0], o2[1], o2[2], o2[3], o2[4], o2[5], b2, i2")
+    return (call, (
+        "      {\n        float o2[6] = {rox, roy, roz, rdx, rdy, rdz}, b2 = best;\n"
+        "        int i2 = bidx;\n"
+        "        asm volatile(\"\" : \"+f\"(o2[0]), \"+f\"(o2[1]), \"+f\"(o2[2]),"
+        " \"+f\"(o2[3]), \"+f\"(o2[4]), \"+f\"(o2[5]), \"+f\"(b2), \"+r\"(i2));\n"
+        + twice + "\n        asm volatile(\"\" :: \"f\"(b2), \"r\"(i2));\n      }\n"
+        + call))
+# K4's block size, its triangles a cull box and its warp's cull
+_K4_THREADS = "constexpr int kThreads = 1024;"
+_K4_CHUNK = "constexpr int kChunk = 32;"
+_K4_CULL = ("inv_y, inv_z, tmin) && tmin < best;\n"
+            "      if (!__any_sync(0xffffffffu, in)) continue;")
+# the walk's chunk-box test in K3's merged search (negated)
+_K3_MEETS = ("!meets_box(box, nb, box0 + (cs - lo) / kWalkChunk, rox, roy, roz,\n"
+             "                       inv_x, inv_y, inv_z, tmin)")
+# its columns per chunk box
+_K3_WALK_CHUNK = "constexpr int kWalkChunk = 8;"
+# the merged search's loop over the six groups
+_K3_GROUPS = ("#pragma unroll 1\n  for (int g = 0; g < kGroups; ++g) {\n"
+              "    const int kx = g >> 1;")
+# the merged modes' launch bound
+_K3M_BLOCKS = "constexpr int kMergedMinBlocks = 4;"
+# the triangle winner's index in K3's shading
+_K3_WINNER = "      const int t = bidx - ns;\n      const size_t T = (size_t)nt;"
 
 # name -> (library, [(text, replacement), ...]); each text occurs once in
 # the library's sources
@@ -63,51 +118,46 @@ VARIANTS = {
         "k.bounces - 1;")]),
     "k5_unbounded": ("trace_spheres_bwd", [(_K5_BOUNDS, _K5_BOUNDS.replace(
         ", kSphereMinBlocks", ""))]),
+    # K4: blocks of 512 or 256 threads in place of 1024; 16, 64 or 128
+    # triangles a cull box in place of 32; the warp's cull on the box
+    # alone, without the running best
+    "k4_threads_512": ("intersect", [(_K4_THREADS, _K4_THREADS.replace(
+        "1024", "512"))]),
+    "k4_threads_256": ("intersect", [(_K4_THREADS, _K4_THREADS.replace(
+        "1024", "256"))]),
+    **{f"k4_chunk_{c}": ("intersect", [(_K4_CHUNK, _K4_CHUNK.replace(
+        "32", str(c)))]) for c in (16, 64, 128)},
+    "k4_no_best_cull": ("intersect", [(_K4_CULL, _K4_CULL.replace(
+        " && tmin < best", ""))]),
+    # K3's merged walk without its chunk boxes (every chunk from the ray's
+    # first plane on is scanned); the six groups' loop unrolled
+    "k3m_no_walk_boxes": ("trace_scene", [(_K3_MEETS, "false")]),
+    "k3m_unrolled": ("trace_scene", [(_K3_GROUPS, _K3_GROUPS.replace(
+        "unroll 1", "unroll"))]),
+    # the merged modes held to 3 blocks an SM, or unbounded
+    "k3m_min_blocks_3": ("trace_scene", [(_K3M_BLOCKS, _K3M_BLOCKS.replace(
+        "4", "3"))]),
+    "k3m_unbounded": ("trace_scene", [(
+        "__launch_bounds__(kThreads, kMergedMinBlocks)",
+        "__launch_bounds__(kThreads)")]),
+    # chunks of 4 or 16 columns in place of 8
+    **{f"k3m_walk_chunk_{c}": ("trace_scene", [(
+        _K3_WALK_CHUNK, _K3_WALK_CHUNK.replace("8", str(c)))])
+       for c in (4, 16)},
+    # the shading reads triangle 0 for every triangle winner (its loads
+    # cached and uniform; the hit distance kept, the paths changed)
+    "k3m_fixed_winner": ("trace_scene", [(_K3_WINNER, _K3_WINNER.replace(
+        "bidx - ns", "0"))]),
+    # the search run twice (paths unchanged: the difference is one search)
+    "k3m_search_twice": ("trace_scene", [_search_twice(_K3M_CALL)]),
 }
 
-# times K1, K1 recording, K2 and K5 at the Cornell sample with the API of
-# the checkout it runs in
-_TREE_TIMING = r'''
-import json, os, sys
-sys.path.insert(0, os.getcwd())
-import numpy as np, torch
-from raytpu_torch import scenes
-from raytpu_torch.core import rng
-from raytpu_torch.integrator.render import blocked_pixel_order, n_bounce_draws, sample_rays
-from raytpu_torch.kernels import _build, trace_scene_bwd as tb, trace_spheres as ts
-dev = torch.device("cuda", 0)
-_build.build_all()
-scene, cam, cfg = scenes.cornell_box(dev)
-cfg = cfg.replace(width=1200, height=900, max_bounces=6)
-pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-key = rng.prng_key(0, device=dev)
-if hasattr(rng, "sample_stream"):
-    src, cam_d = rng.sample_stream(key, pids, 0, 4)
-else:
-    cam_d, d = rng.ray_uniforms(rng.sample_keys(rng.pixel_keys(key, pids), 0), 4,
-                                n_bounce_draws(cfg), 6)
-    src = d.reshape(-1, pids.shape[0])
-o, d = sample_rays(cam, cfg, pids, cam_d)
-rays = tuple(t.contiguous() for t in (*o, *d))
-sph = ts.pack_spheres(scene)
-k = ts.Knobs.create(cfg, scene.spheres.count, n_bounce_draws(cfg))
-_, idx, aof = ts._launch(sph, rays, src, k, record=True)
-g = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-fns = {"k1": lambda: ts._launch(sph, rays, src, k),
-       "k1_rec": lambda: ts._launch(sph, rays, src, k, record=True),
-       "k2": lambda: tb.sphere_backward(sph, rays, src, idx, aof, g, k),
-       "k5": lambda: ts._launch_ad(sph, rays, src, g, k)}
-res = {}
-for n, f in fns.items():
-    f(); f()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(30):
-        f()
-    e.record(); torch.cuda.synchronize()
-    res[n] = round(s.elapsed_time(e) / 30, 4)
-print(json.dumps(res))
-'''
+# the cull box size each chunk variant was built for: its workloads take
+# tables of that size
+CHUNK_OF = {**{f"k4_chunk_{c}": c for c in (16, 64, 128)},
+            **{f"k3m_walk_chunk_{c}": c for c in (4, 16)}}
+
+_CORNELL = ("trace_spheres", "trace_scene_bwd", "trace_spheres_bwd")
 
 
 def _time_ms(fn, iters=30):
@@ -123,8 +173,8 @@ def _time_ms(fn, iters=30):
     return start.elapsed_time(end) / iters
 
 
-def _cornell_sample():
-    """(timed callables by library name) at the Cornell sample."""
+def _cornell(dev):
+    """K1, K1 recording, K2 and K5 at the Cornell sample."""
     import numpy as np
     import torch
 
@@ -135,7 +185,6 @@ def _cornell_sample():
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
 
-    dev = torch.device("cuda", 0)
     scene, cam, cfg = scenes.cornell_box(dev)
     cfg = cfg.replace(width=1200, height=900, max_bounces=6)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
@@ -147,18 +196,184 @@ def _cornell_sample():
     _, idx, aof = ts._launch(sph, rays, keys, k, record=True)
     g = torch.tensor(np.random.default_rng(7).uniform(
         -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-    return {"trace_spheres": lambda: ts._launch(sph, rays, keys, k),
-            "trace_scene_bwd": lambda: tb.sphere_backward(sph, rays, keys, idx,
-                                                          aof, g, k),
-            "trace_spheres_bwd": lambda: ts._launch_ad(sph, rays, keys, g, k)}
+    return {
+        "k1": ("trace_spheres", lambda: ts._launch(sph, rays, keys, k)),
+        "k1_rec": ("trace_spheres",
+                   lambda: ts._launch(sph, rays, keys, k, record=True)),
+        "k2": ("trace_scene_bwd",
+               lambda: tb.sphere_backward(sph, rays, keys, idx, aof, g, k)),
+        "k5": ("trace_spheres_bwd",
+               lambda: ts._launch_ad(sph, rays, keys, g, k)),
+    }
 
 
-def check_variants() -> None:
+def _at(module, attr, value, fn):
+    """``fn`` run with ``module.attr`` set to ``value``: the cull box size
+    a chunk variant was built for, which ``_launch`` checks the tables
+    against."""
+    def run():
+        old = getattr(module, attr)
+        setattr(module, attr, value)
+        try:
+            return fn()
+        finally:
+            setattr(module, attr, old)
+    return run
+
+
+def _k4(dev, chunk=None):
+    """K4 on the camera rays and the bounce-2 rays of the 600- and
+    4096-triangle worlds at 1200x900 (``chip_smoke``'s ray sets), with
+    the checkout's tables, or with ``chunk`` triangles a cull box."""
+    import chip_smoke as cs
+    from raytpu_torch.geometry.triangle import precompute
+    from raytpu_torch.kernels import intersect
+
+    tables = getattr(intersect, "kernel_tables", intersect.pack_tables)
+    out = {}
+    for n in (cs.MESH_WORLD, cs.SCAN_WORLD):
+        scene, cam, cfg = cs._per_triangle(cs._block_world(n), dev)
+        cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1],
+                          use_pallas=True)
+        geom = precompute(scene.triangles)
+        eps = (cfg.sphere_eps, cfg.tri_det_eps, cfg.tri_eps)
+        for what, o, d in cs._k4_ray_sets(scene, cam, cfg, 0, dev):
+            if what in ("bounce 0", "bounce 2"):
+                rays = tuple(c.contiguous() for c in (*o, *d))
+                name = f"k4_{n}_{'camera' if what == 'bounce 0' else 'bounce2'}"
+                t = (tables(scene, geom) if chunk is None
+                     else intersect.pack_tables(scene, geom, chunk))
+                run = lambda t=t, r=rays: intersect._launch(*t, r, *eps)
+                out[name] = ("intersect", run if chunk is None else
+                             _at(intersect, "KERNEL_CHUNK", chunk, run))
+            if what == "bounce 2":
+                break
+    return out
+
+
+def _k3_merged(dev, chunk=None):
+    """K3's merged forward and recording on the 600-triangle world and
+    its sky twin at 1200x900, 6 bounces (the default load), with the
+    checkout's walk tables, or with ``chunk`` columns a chunk box of the
+    walk."""
+    import torch
+
+    import chip_smoke as cs
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (blocked_pixel_order,
+                                                n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    out = {}
+    for key, path in (("", cs._block_world(cs.MESH_WORLD)),
+                      ("_sky", cs._sky_files()[cs.MESH_WORLD])):
+        scene, cam, cfg = load_scene_file(path, dev)
+        cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1], max_bounces=6)
+        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev),
+                                            pids), 0)
+        cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
+                                        cfg.max_bounces)
+        origin, direction = sample_rays(cam, cfg, pids, cam_d)
+        mt, rays, flat, k = cs._mesh_inputs(scene, cfg, origin, direction,
+                                            draws)
+        if chunk is not None:
+            mt = mt._replace(**dict(zip(
+                ("aa_walk", "aa3_walk", "aa_box", "aa3_box"),
+                tsc.walk_tables(mt.tri, mt.aa, mt.aa3, k.plan, chunk))))
+        for rec in (False, True):
+            run = lambda a=(mt, rays, flat, k), r=rec: tsc._launch(*a, record=r)
+            out[f"k3m{key}{'_rec' if rec else ''}"] = (
+                "trace_scene", run if chunk is None else
+                _at(tsc, "WALK_CHUNK", chunk, run))
+    return out
+
+
+def _frames(dev):
+    """The frames K3 and K4 set the pace of, at 1200x900, 6 bounces, over
+    all block-ordered pixel ids, ended by a synchronize: the merged
+    600-triangle block world forward at 16 spp and forward+backward of
+    every float leaf at 4 spp, its sky twin likewise (the sky texels
+    too), and the scan path's 4096-triangle world forward at 4 spp."""
+    import torch
+
+    import chip_smoke as cs
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import blocked_pixel_order, render
+    from raytpu_torch.train import (combine_scene, partition_scene,
+                                    photometric_loss)
+
+    def frame(scene, cam, cfg, grads):
+        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
+        params, static = partition_scene(scene)
+        params = {n: p.detach().clone().requires_grad_(grads)
+                  for n, p in params.items()}
+        target = torch.zeros((cfg.n_pixels, 3), device=dev)
+
+        def run():
+            for p in params.values():
+                p.grad = None
+            s = render(combine_scene(params, static), cam, cfg, pids,
+                       rng.prng_key(0))
+            if grads:
+                photometric_loss(s.radiance * (1.0 / cfg.spp),
+                                 target).backward()
+            torch.cuda.synchronize()
+        return run
+
+    out = {}
+    for key, path in (("block", cs._block_world(cs.MESH_WORLD)),
+                      ("sky", cs._sky_files()[cs.MESH_WORLD])):
+        scene, cam, cfg = load_scene_file(path, dev)
+        cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1],
+                          max_bounces=6, use_megakernel=True,
+                          sky_texture_grads=key == "sky")
+        out[f"{key}_fwd_16spp"] = frame(scene, cam, cfg.replace(spp=16), False)
+        out[f"{key}_fwd_bwd_4spp"] = frame(scene, cam, cfg.replace(spp=4),
+                                           True)
+    scene, cam, cfg = cs._per_triangle(cs._block_world(cs.SCAN_WORLD), dev)
+    out["scan4096_fwd_4spp"] = frame(scene, cam, cfg.replace(
+        width=cs.FRAME[0], height=cs.FRAME[1], spp=4, max_bounces=6), False)
+    return out
+
+
+def time_frames(dev, reps=3) -> dict:
+    """Seconds of wall per frame of ``_frames``: the mean of ``reps`` after
+    one warm-up run."""
+    import time
+
+    out = {}
+    for name, run in _frames(dev).items():
+        run()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        out[name] = round((time.perf_counter() - t0) / reps, 4)
+    return out
+
+
+def workloads(dev, libs, chunk=None):
+    """name -> (library, callable) for the libraries in ``libs``; with
+    ``chunk``, K4's and the walk's at that cull box size."""
+    out = {}
+    if set(libs) & set(_CORNELL):
+        out.update(_cornell(dev))
+    if "intersect" in libs:
+        out.update(_k4(dev, chunk))
+    if "trace_scene" in libs:
+        out.update(_k3_merged(dev, chunk))
+    return {n: w for n, w in out.items() if w[0] in libs}
+
+
+def check_variants(names) -> None:
     """Each text a variant replaces occurs exactly once in its library's
     sources, so every variant builds what it says."""
     from raytpu_torch.kernels import _build
 
-    for name, (lib, subs) in VARIANTS.items():
+    for name in names:
+        lib, subs = VARIANTS[name]
         text = "".join(p.read_text() for p in _build.sources(lib))
         for old, _ in subs:
             if text.count(old) != 1:
@@ -179,47 +394,119 @@ def variant_source(root: str, lib: str, subs) -> None:
         open(path, "w").write(text)
 
 
-def main() -> int:
+def _time_all(fns) -> dict:
+    """ms per call of each workload."""
+    return {n: round(_time_ms(f), 4) for n, (_, f) in fns.items()}
+
+
+def here(frames: bool) -> int:
+    """Time every workload (or, with ``frames``, every frame) with the
+    checkout in the working directory."""
     import torch
 
     from raytpu_torch.kernels import _build
 
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    if frames:
+        print(json.dumps(time_frames(dev)))
+        return 0
+    fns = workloads(dev, {*_CORNELL, "intersect", "trace_scene"})
+    print(json.dumps(_time_all(fns)))
+    return 0
+
+
+def _run_here(tree: str, frames: bool) -> str:
+    """This script's ``--here`` in ``tree``: the last line it prints."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--here",
+                          *(["--frames"] if frames else [])], cwd=tree,
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"kernel_variants: {tree}:\n{out.stderr}")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def build_variants(tmp, names):
+    """Build every variant's library at once; (name -> (.so path, ptxas
+    registers, spill stores))."""
+    from raytpu_torch.kernels import _build
+
+    jobs = {}
+    for name in names:
+        lib, subs = VARIANTS[name]
+        src = os.path.join(tmp, name)
+        shutil.copytree(_build.CSRC, src)
+        variant_source(src, lib, subs)
+        so = os.path.join(src, f"lib{lib}.so")
+        jobs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
+             os.path.join(src, f"{lib}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    for name, (so, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_variants: {name} failed:\n{err}")
+        out[name] = (so, re.findall(r"Used (\d+) registers", err),
+                     re.findall(r"(\d+) bytes spill stores", err))
+    return out
+
+
+def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", default=[],
-                    help="another checkout whose K1/K2/K5 to time first")
+                    help="another checkout whose kernels to time first")
+    ap.add_argument("--only", default="",
+                    help="time only the variants whose names match")
+    ap.add_argument("--frames", action="store_true",
+                    help="with --tree: time the K3 and K4 frames of the tree "
+                         "and this checkout in turns (tree, this, this, "
+                         "tree) before the kernels")
+    ap.add_argument("--here", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    check_variants()
+    if args.here:
+        sys.path.insert(0, os.getcwd())
+        return here(args.frames)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from raytpu_torch.kernels import _build
+
+    names = [n for n in VARIANTS if re.search(args.only, n)]
+    check_variants(names)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
         return 1
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
     for tree in args.tree:
-        out = subprocess.run([sys.executable, "-c", _TREE_TIMING], cwd=tree,
-                             capture_output=True, text=True, check=True)
-        print(f"tree {tree}: ms {out.stdout.strip().splitlines()[-1]}")
+        if args.frames:
+            for who in (tree, root, root, tree):
+                print(f"frames of {who}: s {_run_here(who, True)}",
+                      flush=True)
+        print(f"tree {tree}: ms {_run_here(tree, False)}", flush=True)
     _build.build_all()
-    fns = _cornell_sample()
-    shipped = {lib: _time_ms(fn) for lib, fn in fns.items()}
-    print("shipped build: ms " + json.dumps(
-        {lib: round(t, 4) for lib, t in shipped.items()}))
+    dev = torch.device("cuda", 0)
+    libs = {VARIANTS[n][0] for n in names} | (
+        {*_CORNELL, "intersect", "trace_scene"} if args.tree else set())
+    fns = workloads(dev, libs)
+    print("shipped build: ms " + json.dumps(_time_all(fns)), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (lib, subs) in VARIANTS.items():
-            src = os.path.join(tmp, name)
-            shutil.copytree(_build.CSRC, src)
-            variant_source(src, lib, subs)
-            so = os.path.join(src, f"lib{lib}.so")
-            r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                                "-Xptxas", "-v", "-o", so,
-                                os.path.join(src, f"{lib}.cu")],
-                               capture_output=True, text=True, check=True)
-            regs = re.findall(r"Used (\d+) registers", r.stderr)
-            spills = re.findall(r"(\d+) bytes spill stores", r.stderr)
+        for name, (so, regs, spills) in build_variants(tmp, names).items():
+            lib = VARIANTS[name][0]
+            shipped = {n: w for n, w in fns.items() if w[0] == lib}
+            mine = (workloads(dev, {lib}, CHUNK_OF[name])
+                    if name in CHUNK_OF else shipped)
             shipped_lib = _build._loaded.get(lib)
             _build._loaded[lib] = ctypes.CDLL(so)
-            ms = _time_ms(fns[lib])
+            ms = _time_all(mine)
             _build._loaded[lib] = shipped_lib
-            again = _time_ms(fns[lib])
-            print(f"{name}: {ms:.4f} ms (shipped {again:.4f} ms after it); "
-                  f"ptxas registers {regs}, spill stores {spills}")
+            again = _time_all(shipped)
+            print(f"{name}: ms {json.dumps(ms)} (shipped {json.dumps(again)} "
+                  f"after it); ptxas registers {regs}, spill stores {spills}",
+                  flush=True)
     return 0
 
 

@@ -15,27 +15,34 @@
 // ties go to the earlier one. A triangle t is reported as n_spheres + t;
 // a miss as (3e38, -1).
 //
-// What bounds it: per ray, ~33 FP32 operations per sphere, ~25 per
-// 128-triangle chunk box and ~46 per triangle of every chunk scanned,
-// against 24 bytes of ray read and 8 bytes written: FP32 operations
-// (PERF.md gives the count and the card's time). So:
-//   * one thread per ray, 256 rays a block, the ragged edge masked here;
-//   * the sphere table (4 x S) read from global memory at a block-uniform
+// What bounds it: per ray, ~33 FP32 operations per sphere, 25 per chunk
+// box (a slab test's least; box.cuh's NaN guard adds ~11) and ~46 per
+// triangle of every chunk scanned, against 24 bytes of
+// ray read and 8 bytes written: FP32 operations (PERF.md gives the count
+// and the card's time). So:
+//   * the triangle table is staged once per block, for all of its rays:
+//     persistent blocks, as many as fit on the card, loop over the rays.
+//     A triangle is three float4s in shared memory, (a, n.x), (b - a,
+//     n.y), (c - a, n.z), read as one LDS.128 each (48 B x 4096 = 192 KB,
+//     under the 227 KB a block may use), with the chunk boxes beside
+//     them; every lane of a warp reads the same triangle (broadcast);
+//   * no block barrier after the staging: each warp walks its own chunks;
+//   * the cull is per warp and against the running best: the warp scans
+//     a chunk when any of its lanes' lines enters the chunk's box with
+//     tmin < best (__any_sync). Chunks are visited in index order, the
+//     boxes are inflated by 1e-5 (|x| + 1) per side, and a triangle wins
+//     only on a strictly smaller t, so the result is the full scan's, bit
+//     for bit: the full scan's winner w has every earlier primitive at a
+//     larger t, so when its chunk comes the running best is above t_w >=
+//     tmin, and a lane that scans a chunk it did not need only folds in
+//     primitives that cannot displace w. The box test is box.cuh's
+//     meets_box, which leaves an axis with a NaN slab product
+//     unconstrained;
+//   * the sphere table (4 x S) read from global memory at a warp-uniform
 //     index, so each load is one broadcast through L1;
-//   * the triangle table (12 x T: a, b - a, c - a, the raw normal; 192 KB
-//     at 4096 triangles, too much to stage whole with enough blocks per
-//     SM) staged one 128-triangle chunk (6 KB) at a time in shared memory,
-//     read by every thread of the block at the same address (broadcast);
-//   * the cull of the TPU kernel, at block granularity: a chunk is staged
-//     and scanned when any ray of the block enters its box
-//     (__syncthreads_or), the GPU form of the TPU's tile-level any. A
-//     chunk that no ray of the block enters holds no triangle any of them
-//     hits (the boxes are inflated by 1e-5 (|x| + 1) per side), so the
-//     result is the full scan's, bit for bit. An axis on which the slab
-//     product is NaN (the origin on a box plane and the direction's
-//     component zero) is unconstrained: the line lies in that slab, so
-//     it cannot cull (the TPU's NaN culls the ray, which its tile-level
-//     any hides).
+//   * 1024 threads a block (32 warps, 64 registers a thread at most), so
+//     a block with the 4096-triangle table alone on its SM still keeps 8
+//     warps on each scheduler.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (raytpu_torch/kernels/_build.py).
@@ -44,43 +51,16 @@
 
 #include <cuda_runtime.h>
 
+#include "box.cuh"
+
 namespace {
 
 constexpr int kMaxPrims = 4096;    // raytpu's MAX_SMEM_PRIMS, per class
-constexpr int kChunk = 128;        // triangles per cull box
-constexpr int kRows = 12;          // a3 ab3 ac3 n3 per triangle
-constexpr int kThreads = 256;
+constexpr int kChunk = 32;         // triangles per cull box (intersect.py:
+                                   // KERNEL_CHUNK; PERF.md: 32 beat 16, 64
+                                   // and 128 on the card)
+constexpr int kThreads = 1024;
 constexpr float kBig = 3.0e38f;
-
-// (entry, exit) parameters of the line o + t d in the slab [lo, hi] of
-// one axis; (-inf, inf) where the product is NaN (see the header)
-__device__ __forceinline__ void slab_axis(float lo, float hi, float o,
-                                          float inv, float& t_near,
-                                          float& t_far) {
-  const float t0 = (lo - o) * inv;
-  const float t1 = (hi - o) * inv;
-  if (isnan(t0) || isnan(t1)) {
-    t_near = -INFINITY;
-    t_far = INFINITY;
-  } else {
-    t_near = fminf(t0, t1);
-    t_far = fmaxf(t0, t1);
-  }
-}
-
-__device__ __forceinline__ bool enters(const float* __restrict__ boxes,
-                                       int n_chunks, int c, float ox,
-                                       float oy, float oz, float inv_x,
-                                       float inv_y, float inv_z) {
-  float nx, fx, ny, fy, nz, fz;
-  slab_axis(boxes[c], boxes[3 * n_chunks + c], ox, inv_x, nx, fx);
-  slab_axis(boxes[n_chunks + c], boxes[4 * n_chunks + c], oy, inv_y, ny, fy);
-  slab_axis(boxes[2 * n_chunks + c], boxes[5 * n_chunks + c], oz, inv_z, nz,
-            fz);
-  const float tmin = fmaxf(fmaxf(nx, ny), nz);
-  const float tmax = fminf(fminf(fx, fy), fz);
-  return tmax >= tmin && tmax >= 0.0f;
-}
 
 __global__ void __launch_bounds__(kThreads) intersect_kernel(
     const float* __restrict__ sph, const float* __restrict__ tri,
@@ -90,86 +70,101 @@ __global__ void __launch_bounds__(kThreads) intersect_kernel(
     const float* __restrict__ dz, float* __restrict__ t_out,
     int* __restrict__ idx_out, int n_rays, int n_spheres, int n_tris,
     float sphere_eps, float det_eps, float tri_eps) {
-  __shared__ float s_tri[kRows][kChunk];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n_rays;
-  const float rox = live ? ox[i] : 0.0f, roy = live ? oy[i] : 0.0f,
-              roz = live ? oz[i] : 0.0f;
-  const float rdx = live ? dx[i] : 1.0f, rdy = live ? dy[i] : 1.0f,
-              rdz = live ? dz[i] : 1.0f;
-
-  float best = kBig;
-  int bidx = -1;
-  const float a_quad = rdx * rdx + rdy * rdy + rdz * rdz;
-  const float inv_2a = 0.5f / fmaxf(a_quad, 1e-20f);
-  for (int s = 0; s < n_spheres; ++s) {
-    const float cx = sph[s], cy = sph[n_spheres + s],
-                cz = sph[2 * n_spheres + s], r = sph[3 * n_spheres + s];
-    const float ocx = rox - cx, ocy = roy - cy, ocz = roz - cz;
-    const float b = 2.0f * (ocx * rdx + ocy * rdy + ocz * rdz);
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-    const float disc = b * b - 4.0f * a_quad * c;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float t1 = (-b - sq) * inv_2a;
-    const float t2 = (-b + sq) * inv_2a;
-    const bool hit = disc > 0.0f;
-    const float t = (hit && t1 >= sphere_eps)   ? t1
-                    : (hit && t2 >= sphere_eps) ? t2
-                                                : kBig;
-    if (t < best) {
-      best = t;
-      bidx = s;
-    }
-  }
-
+  extern __shared__ float4 s_tri[];   // 3 per triangle, then the boxes
   const int n_chunks = (n_tris + kChunk - 1) / kChunk;
-  const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
-  for (int c = 0; c < n_chunks; ++c) {
-    const bool in = live && enters(boxes, n_chunks, c, rox, roy, roz, inv_x,
-                                   inv_y, inv_z);
-    if (!__syncthreads_or(in)) continue;   // block-uniform
-    const int lo = c * kChunk;
-    const int n = min(kChunk, n_tris - lo);
-    for (int j = threadIdx.x; j < kRows * kChunk; j += kThreads) {
-      const int row = j / kChunk, col = j % kChunk;
-      s_tri[row][col] = col < n ? tri[(size_t)row * n_tris + lo + col] : 0.0f;
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float ax = s_tri[0][j], ay = s_tri[1][j], az = s_tri[2][j];
-      const float abx = s_tri[3][j], aby = s_tri[4][j], abz = s_tri[5][j];
-      const float acx = s_tri[6][j], acy = s_tri[7][j], acz = s_tri[8][j];
-      const float nx = s_tri[9][j], ny = s_tri[10][j], nz = s_tri[11][j];
-      const float aox = rox - ax, aoy = roy - ay, aoz = roz - az;
-      const float daox = aoy * rdz - aoz * rdy;
-      const float daoy = aoz * rdx - aox * rdz;
-      const float daoz = aox * rdy - aoy * rdx;
-      const float det = -(rdx * nx + rdy * ny + rdz * nz);
-      const float inv_det = 1.0f / (det >= det_eps ? det : 1.0f);
-      const float dst = (aox * nx + aoy * ny + aoz * nz) * inv_det;
-      const float u = (acx * daox + acy * daoy + acz * daoz) * inv_det;
-      const float v = -(abx * daox + aby * daoy + abz * daoz) * inv_det;
-      const float w = 1.0f - u - v;
-      const bool valid = det >= det_eps && dst >= tri_eps && u >= tri_eps &&
-                         v >= tri_eps && w >= tri_eps;
-      if (valid && dst < best) {
-        best = dst;
-        bidx = n_spheres + lo + j;
+  float* s_box = reinterpret_cast<float*>(s_tri + 3 * n_tris);
+  for (int j = threadIdx.x; j < n_tris; j += kThreads) {
+    const float* col = tri + j;
+    s_tri[3 * j] = make_float4(col[0], col[n_tris], col[2 * n_tris],
+                               col[9 * n_tris]);
+    s_tri[3 * j + 1] = make_float4(col[3 * n_tris], col[4 * n_tris],
+                                   col[5 * n_tris], col[10 * n_tris]);
+    s_tri[3 * j + 2] = make_float4(col[6 * n_tris], col[7 * n_tris],
+                                   col[8 * n_tris], col[11 * n_tris]);
+  }
+  for (int j = threadIdx.x; j < 6 * n_chunks; j += kThreads) s_box[j] = boxes[j];
+  __syncthreads();
+
+  // the block's rays: base is block-uniform, so every lane of a warp runs
+  // every pass and __any_sync sees the whole warp
+  for (int base = blockIdx.x * kThreads; base < n_rays;
+       base += gridDim.x * kThreads) {
+    const int i = base + threadIdx.x;
+    const bool live = i < n_rays;
+    const float rox = live ? ox[i] : 0.0f, roy = live ? oy[i] : 0.0f,
+                roz = live ? oz[i] : 0.0f;
+    const float rdx = live ? dx[i] : 1.0f, rdy = live ? dy[i] : 1.0f,
+                rdz = live ? dz[i] : 1.0f;
+
+    float best = kBig;
+    int bidx = -1;
+    const float a_quad = rdx * rdx + rdy * rdy + rdz * rdz;
+    const float inv_2a = 0.5f / fmaxf(a_quad, 1e-20f);
+    for (int s = 0; s < n_spheres; ++s) {
+      const float cx = sph[s], cy = sph[n_spheres + s],
+                  cz = sph[2 * n_spheres + s], r = sph[3 * n_spheres + s];
+      const float ocx = rox - cx, ocy = roy - cy, ocz = roz - cz;
+      const float b = 2.0f * (ocx * rdx + ocy * rdy + ocz * rdz);
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+      const float disc = b * b - 4.0f * a_quad * c;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float t1 = (-b - sq) * inv_2a;
+      const float t2 = (-b + sq) * inv_2a;
+      const bool hit = disc > 0.0f;
+      const float t = (hit && t1 >= sphere_eps)   ? t1
+                      : (hit && t2 >= sphere_eps) ? t2
+                                                  : kBig;
+      if (t < best) {
+        best = t;
+        bidx = s;
       }
     }
-    __syncthreads();   // the chunk is read before the next one is staged
-  }
-  if (live) {
-    t_out[i] = best;
-    idx_out[i] = bidx;
+
+    const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
+    for (int c = 0; c < n_chunks; ++c) {
+      float tmin;
+      const bool in = live &&
+                      meets_box(s_box, n_chunks, c, rox, roy, roz, inv_x,
+                                inv_y, inv_z, tmin) && tmin < best;
+      if (!__any_sync(0xffffffffu, in)) continue;   // warp-uniform
+      const int end = min(n_tris, (c + 1) * kChunk);
+      for (int j = c * kChunk; j < end; ++j) {
+        const float4 p = s_tri[3 * j], q = s_tri[3 * j + 1],
+                     e = s_tri[3 * j + 2];
+        const float aox = rox - p.x, aoy = roy - p.y, aoz = roz - p.z;
+        const float daox = aoy * rdz - aoz * rdy;
+        const float daoy = aoz * rdx - aox * rdz;
+        const float daoz = aox * rdy - aoy * rdx;
+        const float det = -(rdx * p.w + rdy * q.w + rdz * e.w);
+        const float inv_det = 1.0f / (det >= det_eps ? det : 1.0f);
+        const float dst = (aox * p.w + aoy * q.w + aoz * e.w) * inv_det;
+        const float u = (e.x * daox + e.y * daoy + e.z * daoz) * inv_det;
+        const float v = -(q.x * daox + q.y * daoy + q.z * daoz) * inv_det;
+        const float w = 1.0f - u - v;
+        const bool valid = det >= det_eps && dst >= tri_eps && u >= tri_eps &&
+                           v >= tri_eps && w >= tri_eps;
+        if (valid && dst < best) {
+          best = dst;
+          bidx = n_spheres + j;
+        }
+      }
+    }
+    if (live) {
+      t_out[i] = best;
+      idx_out[i] = bidx;
+    }
   }
 }
 
 }  // namespace
 
-// sph (4, n_spheres): cx cy cz r; tri (12, n_tris); boxes (6, ceil(n_tris
-// / 128)): lo3 hi3; six (n_rays,) ray planes; outputs (n_rays,) best t and
-// winner index. Returns the cudaError_t of the launch.
+// sph (4, n_spheres): cx cy cz r; tri (12, n_tris): a3 ab3 ac3 n3; boxes
+// (6, ceil(n_tris / kChunk)): lo3 hi3 of each run of kChunk triangles;
+// six (n_rays,) ray planes; outputs (n_rays,) best t and winner index.
+// Sets the kernel's dynamic shared memory (48 B a triangle and 24 B a
+// box: up to ~195 KB at 4096 triangles), launches as many blocks as fit
+// on the card at once (no more than the rays need) on `stream` without
+// synchronising, and returns the cudaError_t of the launch.
 extern "C" int raytpu_intersect(const float* sph, const float* tri,
                                 const float* boxes, const float* ox,
                                 const float* oy, const float* oz,
@@ -183,9 +178,40 @@ extern "C" int raytpu_intersect(const float* sph, const float* tri,
     return (int)cudaErrorInvalidValue;
   }
   if (n_rays == 0) return (int)cudaSuccess;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  intersect_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int n_chunks = (n_tris + kChunk - 1) / kChunk;
+  const size_t smem = 3 * sizeof(float4) * (size_t)n_tris +
+                      6 * sizeof(float) * (size_t)n_chunks;
+  cudaError_t err = cudaFuncSetAttribute(
+      intersect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, intersect_kernel, kThreads, smem)) != cudaSuccess) {
+    return (int)err;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int need = (n_rays + kThreads - 1) / kThreads;
+  const int blocks = need < sms * per_sm ? need : sms * per_sm;
+  intersect_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       sph, tri, boxes, ox, oy, oz, dx, dy, dz, t_out, idx_out, n_rays,
       n_spheres, n_tris, sphere_eps, det_eps, tri_eps);
   return (int)cudaGetLastError();
+}
+
+// The kernel's attributes as the driver holds them: out[0..3] = registers
+// a thread, local (stack and spill) bytes a thread, static shared bytes,
+// and the dynamic shared bytes the last raytpu_intersect set. Returns the
+// cudaError_t of the query.
+extern "C" int raytpu_intersect_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, intersect_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return (int)cudaSuccess;
 }

@@ -59,17 +59,26 @@
 //     per-triangle ones keep their registers), raytpu's use_merged branch:
 //     the running winner is the fraction best / bden, compared by cross
 //     products, and divided once per ray and bounce at the end. The
-//     tables of trace_scene.py:pack_aa and pack_quads (axis-aligned rects
-//     and unpaired triangles, general parallelograms and leftovers with
-//     their chunk boxes) are staged in shared memory in place of the
-//     per-triangle search channels, which the winner's normal and the AO
-//     probes then read from global memory. The six (normal axis, sign)
-//     groups of axis-aligned candidates come first: their candidates share
-//     the denominator detg = -s d_k, so each ~12-operation test ranks by
-//     numerator and the group's winner joins the running one by one
-//     fraction compare. A group is skipped where detg is below the least
-//     det_eps / u of its candidates (or NaN), which every candidate needs
-//     to be valid: an exact skip, which halves the groups a ray tests. Then
+//     tables of trace_scene.py:pack_aa (in walk order: walk_tables) and
+//     pack_quads (axis-aligned rects and unpaired triangles, general
+//     parallelograms and leftovers with their chunk boxes) are staged in
+//     shared memory in place of the per-triangle search channels, which
+//     the winner's normal and the AO probes then read from global memory.
+//     The six (normal axis, sign) groups of axis-aligned candidates come
+//     first: their candidates share the denominator detg = -s d_k, so each
+//     ~12-operation test ranks by numerator and the group's winner joins
+//     the running one by one fraction compare. A group is skipped where
+//     detg is below the least det_eps / u of its candidates (or NaN),
+//     which every candidate needs to be valid: an exact skip, which halves
+//     the groups a ray tests. Inside a group each sub-list (rects with
+//     m = 0, rects with m = 1, triangles) is sorted by plane offset, so a
+//     ray's numerator rises along it: an exact plane-order walk
+//     (merged_search) scans it in chunks of kWalkChunk columns, each whole
+//     and branch-free as the table-order scan, only where the chunk
+//     reaches past tri_eps and the ray's line meets its box, and stops at
+//     the winner's plane or where no candidate can pass the group's gate;
+//     the six groups run in a loop (unrolled, they overflow the
+//     instruction cache). Then
 //     the general parallelograms and leftovers, ~30 operations each, in
 //     order (fraction compares do not round transitively, so the fold is
 //     sequential, as in the plain version), behind the per-thread chunk
@@ -83,6 +92,8 @@
 // product and sum rounds on its own, as in the plain version.
 
 #include <cuda_runtime.h>
+
+#include "box.cuh"
 
 namespace {
 
@@ -110,10 +121,12 @@ struct Knobs {
 
 // The merged search's tables (global; rows of n columns each) and layout.
 constexpr int kGroups = 6;   // (normal axis, sign): (0,+) (0,-) (1,+) ... (2,-)
-constexpr int kAaRows = 8, kAa3Rows = 9, kQuadRows = 14, kLeftRows = 13;
+constexpr int kAaRows = 9, kAa3Rows = 10, kQuadRows = 14, kLeftRows = 13;
+constexpr int kWalkChunk = 8;   // columns per chunk box of the walk
+                                // (trace_scene.py:WALK_CHUNK)
 struct Quads {
-  const float *aa, *aa3, *quad, *qbox, *left, *lbox;
-  int n_aa, n_aa3, n_quad, n_left;
+  const float *aa, *aa3, *quad, *qbox, *left, *lbox, *aa_box, *aa3_box;
+  int n_aa, n_aa3, n_quad, n_left, n_aa_box, n_aa3_box;
   int layout[kGroups][3];   // rects with m = 0, rects with m = 1, triangles
   float hi_eps;             // 1 - tri_eps, rounded once as the plain version does
 };
@@ -268,26 +281,35 @@ __device__ float ao_factor(const float* sph, const float* tri_s,
 }
 
 // The merged search after the spheres (raytpu's use_merged branch of
-// bounce_body), on the tables in shared memory: aa (8 x n_aa), aa3
-// (9 x n_aa3), quad (14 x n_quad), qbox, left (13 x n_left), lbox and
-// gmin (the least det_eps / u of each group). best and bidx hold the
-// spheres' winner (a fraction with denominator 1) and become the search's.
+// bounce_body), on the tables in shared memory: aa (9 x n_aa) and aa3
+// (10 x n_aa3) in walk order (trace_scene.py:walk_tables; the last row
+// each column's original column) with their chunk boxes aa_box and
+// aa3_box, quad (14 x n_quad), qbox, left (13 x n_left), lbox and gmin
+// (the least det_eps / u of each group). best and bidx hold the spheres'
+// winner (a fraction with denominator 1) and become the search's.
 __device__ __forceinline__ void merged_search(
     const float* aa, const float* aa3, const float* quad, const float* qbox,
-    const float* left, const float* lbox, const float* gmin, const Quads& q,
-    const Knobs& k, float rox, float roy, float roz, float rdx, float rdy,
-    float rdz, float& best, int& bidx) {
+    const float* left, const float* lbox, const float* aa_box,
+    const float* aa3_box, const float* gmin, const Quads& q, const Knobs& k,
+    float rox, float roy, float roz, float rdx, float rdy, float rdz,
+    float& best, int& bidx) {
   const int ns = k.n_spheres;
+  const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
   float bden = 1.0f;
-  int r_off = 0, t_off = 0;
-#pragma unroll
+  int r_off = 0, t_off = 0, rb_off = 0, tb_off = 0;
+  // not unrolled: six copies of the walk overflow the instruction cache
+  // (PERF.md: 1.71 against 3.37 ms unrolled)
+#pragma unroll 1
   for (int g = 0; g < kGroups; ++g) {
     const int kx = g >> 1;
     const bool pos = (g & 1) == 0;
     const int ca = q.layout[g][0], cb = q.layout[g][1], ct = q.layout[g][2];
-    const int r0 = r_off, t0 = t_off;
+    const int r0 = r_off, t0 = t_off, rb0 = rb_off, tb0 = tb_off;
+    const int rb1 = rb0 + (ca + kWalkChunk - 1) / kWalkChunk;
     r_off += ca + cb;
     t_off += ct;
+    rb_off = rb1 + (cb + kWalkChunk - 1) / kWalkChunk;
+    tb_off += (ct + kWalkChunk - 1) / kWalkChunk;
     const float dk = kx == 0 ? rdx : (kx == 1 ? rdy : rdz);
     const float detg = pos ? -dk : dk;
     // exact: no candidate of the group is valid below its det_eps / u
@@ -299,42 +321,81 @@ __device__ __forceinline__ void merged_search(
     const float X2 = (kx == 2 ? roy : roz) * detg;
     const float d1 = kx == 0 ? rdy : rdx, d2 = kx == 2 ? rdy : rdz;
     const float epsd = k.tri_eps * detg, hid = q.hi_eps * detg;
+    const float deng = detg > 0.0f ? detg : 1.0f;
+    const float bar = best * deng;   // the group's gate: numr * bden < bar
     float bg = kBig;
     int gi = -1;
-    // a rect: alpha * detg and beta * detg from its corner and edges
-    auto rect = [&](int lo, int hi, float Xm, float dm, float Xo, float d_o) {
-      const int n = q.n_aa;
-      for (int c = lo; c < hi; ++c) {
-        const float* col = aa + c;
-        const float numr = so_k - col[0];
-        const float pug = (Xm - col[2 * n] * detg + numr * dm) * col[3 * n];
-        const float pvg = (Xo - col[4 * n] * detg + numr * d_o) * col[5 * n];
-        if (detg >= col[n] && numr >= epsd && pug >= epsd && pvg >= epsd &&
-            pug <= hid && pvg <= hid && numr < bg) {
-          bg = numr;
-          gi = (int)(pug + pvg <= detg ? col[6 * n] : col[7 * n]);
+    // The walk of one sub-list, columns [lo, hi) of `tab` (n columns a
+    // row) in chunks of kWalkChunk with boxes box0.. of `box` (nb
+    // columns), whose numerators numr = so_k - col[0] rise along it. The
+    // sub-list's winner is its least valid numerator, ties to the least
+    // original column (the table-order scan's strict numr < bg). The walk
+    // scans, every column of it as the table-order scan does, each chunk
+    // whose last numerator reaches epsd and whose box the ray's line meets,
+    // until the chunk's first numerator is past the winner's so far, or
+    // not below bg (a later sub-list wins only on a strictly smaller
+    // numerator), or fails the gate numr * bden < bar: no later column can
+    // change what the group gives. `test` returns validity and sets the
+    // winning triangle.
+    auto walk = [&](const float* tab, int n, int orig_row, int lo, int hi,
+                    const float* box, int nb, int box0, auto test) {
+      float sbg = kBig, spos = kBig;
+      int sgi = -1;
+      for (int cs = lo; cs < hi; cs += kWalkChunk) {
+        const int ce = min(hi, cs + kWalkChunk);
+        const float head = so_k - tab[cs];
+        if ((sgi >= 0 && head > sbg) || !(head < bg && head * bden < bar)) {
+          break;
+        }
+        float tmin;
+        if (!(so_k - tab[ce - 1] >= epsd) ||
+            !meets_box(box, nb, box0 + (cs - lo) / kWalkChunk, rox, roy, roz,
+                       inv_x, inv_y, inv_z, tmin)) {
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < kWalkChunk; ++j) {
+          const int c = min(cs + j, ce - 1);   // a short chunk repeats its last
+          const float* col = tab + c;
+          const float numr = so_k - col[0];
+          const float orig = col[orig_row * n];
+          int win;
+          if (test(col, numr, win) &&
+              (numr < sbg || (numr == sbg && orig < spos))) {
+            sbg = numr; spos = orig; sgi = win;
+          }
         }
       }
+      if (sgi >= 0 && sbg < bg) { bg = sbg; gi = sgi; }
     };
-    rect(r0, r0 + ca, X1, d1, X2, d2);
-    rect(r0 + ca, r0 + ca + cb, X2, d2, X1, d1);
-    const int n3 = q.n_aa3;
-    for (int c = t0; c < t0 + ct; ++c) {
-      const float* col = aa3 + c;
-      const float numr = so_k - col[0];
-      const float P1 = X1 - col[2 * n3] * detg + numr * d1;
-      const float P2 = X2 - col[3 * n3] * detg + numr * d2;
-      const float ug = P1 * col[4 * n3] + P2 * col[5 * n3];
-      const float vg = P1 * col[6 * n3] + P2 * col[7 * n3];
-      if (detg >= col[n3] && numr >= epsd && ug >= epsd && vg >= epsd &&
-          ug + vg <= hid && numr < bg) {
-        bg = numr;
-        gi = (int)col[8 * n3];
-      }
-    }
-    const float deng = detg > 0.0f ? detg : 1.0f;
+    // a rect: alpha * detg and beta * detg from its corner and edges
+    auto rect = [&](float Xm, float dm, float Xo, float d_o) {
+      return [=, &q](const float* col, float numr, int& win) {
+        const int n = q.n_aa;
+        const float pug = (Xm - col[2 * n] * detg + numr * dm) * col[3 * n];
+        const float pvg = (Xo - col[4 * n] * detg + numr * d_o) * col[5 * n];
+        win = (int)(pug + pvg <= detg ? col[6 * n] : col[7 * n]);
+        return detg >= col[n] && numr >= epsd && pug >= epsd && pvg >= epsd &&
+               pug <= hid && pvg <= hid;
+      };
+    };
+    walk(aa, q.n_aa, 8, r0, r0 + ca, aa_box, q.n_aa_box, rb0,
+         rect(X1, d1, X2, d2));
+    walk(aa, q.n_aa, 8, r0 + ca, r0 + ca + cb, aa_box, q.n_aa_box, rb1,
+         rect(X2, d2, X1, d1));
+    walk(aa3, q.n_aa3, 9, t0, t0 + ct, aa3_box, q.n_aa3_box, tb0,
+         [=, &q](const float* col, float numr, int& win) {
+           const int n3 = q.n_aa3;
+           const float P1 = X1 - col[2 * n3] * detg + numr * d1;
+           const float P2 = X2 - col[3 * n3] * detg + numr * d2;
+           const float ug = P1 * col[4 * n3] + P2 * col[5 * n3];
+           const float vg = P1 * col[6 * n3] + P2 * col[7 * n3];
+           win = (int)col[8 * n3];
+           return detg >= col[n3] && numr >= epsd && ug >= epsd &&
+                  vg >= epsd && ug + vg <= hid;
+         });
     // the bg < kBig gate keeps a group's miss out of the fraction compare
-    if (bg < kBig && bg * bden < best * deng) {
+    if (bg < kBig && bg * bden < bar) {
       best = bg; bden = deng; bidx = ns + gi;
     }
   }
@@ -379,7 +440,6 @@ __device__ __forceinline__ void merged_search(
                        pu + pv <= q.hi_eps * det;
     fold(valid ? num : kBig, valid ? det : 1.0f, (int)col[12 * n]);
   };
-  const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
   // every candidate in order, or past 2 chunks those of the chunks whose
   // box the ray enters before its running fraction
   auto loop = [&](int n, const float* boxes, auto test) {
@@ -400,23 +460,25 @@ __device__ __forceinline__ void merged_search(
   best = best / bden;   // the deferred division; a miss keeps kBig / 1
 }
 
+// The kernel's body: trace_scene_kernel instantiates it for the
+// per-triangle search, trace_scene_kernel_merged for the merged one.
 template <bool kRecord, bool kSky, bool kMerged>
-__global__ void __launch_bounds__(kThreads)
-trace_scene_kernel(const float* __restrict__ sph_g,
-                   const float* __restrict__ search_g,
-                   const float* __restrict__ tri,
-                   const float* __restrict__ box_g,
-                   const float* __restrict__ mat_g,
-                   const float* __restrict__ atlas,
-                   const float* __restrict__ ox, const float* __restrict__ oy,
-                   const float* __restrict__ oz, const float* __restrict__ dx,
-                   const float* __restrict__ dy, const float* __restrict__ dz,
-                   const float* __restrict__ draws, float* __restrict__ out,
-                   int* __restrict__ idx_out, float* __restrict__ aof_out,
-                   int n_rays, Knobs k, Quads q) {
+__device__ __forceinline__ void
+trace_scene_body(const float* __restrict__ sph_g,
+                 const float* __restrict__ search_g,
+                 const float* __restrict__ tri,
+                 const float* __restrict__ box_g,
+                 const float* __restrict__ mat_g,
+                 const float* __restrict__ atlas,
+                 const float* __restrict__ ox, const float* __restrict__ oy,
+                 const float* __restrict__ oz, const float* __restrict__ dx,
+                 const float* __restrict__ dy, const float* __restrict__ dz,
+                 const float* __restrict__ draws, float* __restrict__ out,
+                 int* __restrict__ idx_out, float* __restrict__ aof_out,
+                 int n_rays, Knobs k, Quads q) {
   // shared: tri search (T x 12, per-triangle mode) | spheres (14 x S) |
   // boxes (6 x C) | mats (9 x M) | merged mode: aa | aa3 | quad | qbox |
-  // left | lbox | gmin (6)
+  // left | lbox | aa_box | aa3_box | gmin (6)
   extern __shared__ float smem[];
   const int ns = k.n_spheres, nt = k.n_tris, nm = k.n_mats;
   const int n_chunks = (nt + kChunk - 1) / kChunk;
@@ -438,7 +500,9 @@ trace_scene_kernel(const float* __restrict__ sph_g,
   float* left = qbox + 6 * q_chunks;
   float* lbox = left + kLeftRows * q.n_left;
   const int l_chunks = (q.n_left + kChunk - 1) / kChunk;
-  float* gmin = lbox + 6 * l_chunks;
+  float* aa_box = lbox + 6 * l_chunks;
+  float* aa3_box = aa_box + 6 * q.n_aa_box;
+  float* gmin = aa3_box + 6 * q.n_aa3_box;
   if (kMerged) {
     auto stage = [](float* dst, const float* src, int n) {
       for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
@@ -449,6 +513,8 @@ trace_scene_kernel(const float* __restrict__ sph_g,
     stage(qbox, q.qbox, 6 * q_chunks);
     stage(left, q.left, kLeftRows * q.n_left);
     stage(lbox, q.lbox, 6 * l_chunks);
+    stage(aa_box, q.aa_box, 6 * q.n_aa_box);
+    stage(aa3_box, q.aa3_box, 6 * q.n_aa3_box);
   }
   __syncthreads();
   if (kMerged) {
@@ -511,8 +577,8 @@ trace_scene_kernel(const float* __restrict__ sph_g,
     }
 
     if (kMerged) {
-      merged_search(aa, aa3, quad, qbox, left, lbox, gmin, q, k, rox, roy,
-                    roz, rdx, rdy, rdz, best, bidx);
+      merged_search(aa, aa3, quad, qbox, left, lbox, aa_box, aa3_box, gmin,
+                    q, k, rox, roy, roz, rdx, rdy, rdz, best, bidx);
     } else {
       // ---- triangles of the chunks the ray enters before its best ----
       const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
@@ -772,6 +838,37 @@ trace_scene_kernel(const float* __restrict__ sph_g,
   }
 }
 
+#define TRACE_SCENE_PARAMS                                                    \
+  const float *__restrict__ sph_g, const float *__restrict__ search_g,        \
+      const float *__restrict__ tri, const float *__restrict__ box_g,         \
+      const float *__restrict__ mat_g, const float *__restrict__ atlas,       \
+      const float *__restrict__ ox, const float *__restrict__ oy,             \
+      const float *__restrict__ oz, const float *__restrict__ dx,             \
+      const float *__restrict__ dy, const float *__restrict__ dz,             \
+      const float *__restrict__ draws, float *__restrict__ out,               \
+      int *__restrict__ idx_out, float *__restrict__ aof_out, int n_rays,     \
+      Knobs k, Quads q
+#define TRACE_SCENE_ARGS                                                      \
+  sph_g, search_g, tri, box_g, mat_g, atlas, ox, oy, oz, dx, dy, dz, draws,  \
+      out, idx_out, aof_out, n_rays, k, q
+
+template <bool kRecord, bool kSky>
+__global__ void __launch_bounds__(kThreads)
+trace_scene_kernel(TRACE_SCENE_PARAMS) {
+  trace_scene_body<kRecord, kSky, false>(TRACE_SCENE_ARGS);
+}
+
+// the merged search held to 4 blocks an SM (64 registers; its spills cost
+// less than the occupancy they buy: PERF.md, 1.20 against 1.45 ms
+// unbounded and 1.23 at 3 blocks)
+constexpr int kMergedMinBlocks = 4;
+
+template <bool kRecord, bool kSky>
+__global__ void __launch_bounds__(kThreads, kMergedMinBlocks)
+trace_scene_kernel_merged(TRACE_SCENE_PARAMS) {
+  trace_scene_body<kRecord, kSky, true>(TRACE_SCENE_ARGS);
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. All pointers are device
@@ -784,12 +881,13 @@ trace_scene_kernel(const float* __restrict__ sph_g,
 // use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). The
 // merged search when `layout`, a host array of 6 x 3 ints (per (axis,
 // sign) group: rects with m = 0, with m = 1, unpaired triangles), is not
-// null: aa (8, n_aa), aa3 (9, n_aa3), quad (14, n_quad), qbox
-// (6, ceil(n_quad / 32)), left (13, n_left) and lbox (6, ceil(n_left /
-// 32)) are trace_scene.py's pack_aa / pack_quads tables, hi_eps is
-// 1 - tri_eps. Sets the kernel's dynamic shared memory (up to ~105 KB at
-// 2048 triangles, above the 48 KB default), launches on `stream` without
-// synchronising and returns the launch's cudaError_t.
+// null: aa (9, n_aa), aa3 (10, n_aa3), quad (14, n_quad), qbox
+// (6, ceil(n_quad / 32)), left (13, n_left), lbox (6, ceil(n_left /
+// 32)), aa_box and aa3_box (6, the sub-lists' ceil(n / kWalkChunk)
+// summed) are trace_scene.py's walk_tables / pack_quads tables, hi_eps
+// is 1 - tri_eps. Sets the kernel's dynamic shared memory (up to ~105 KB
+// at 2048 triangles, above the 48 KB default), launches on `stream`
+// without synchronising and returns the launch's cudaError_t.
 extern "C" int raytpu_trace_scene(
     const float* sph, const float* search, const float* tri,
     const float* boxes, const float* mats, const float* atlas,
@@ -801,9 +899,9 @@ extern "C" int raytpu_trace_scene(
     float bright_boost, float bright_threshold, int use_ao, int ao_samples,
     float ao_e_scale, float ao_inv, int hsl_on, float hsl_l, float hsl_s,
     int sky_idx, const float* aa, const float* aa3, const float* quad,
-    const float* qbox, const float* left, const float* lbox, int n_aa,
-    int n_aa3, int n_quad, int n_left, const int* layout, float hi_eps,
-    void* stream) {
+    const float* qbox, const float* left, const float* lbox,
+    const float* aa_box, const float* aa3_box, int n_aa, int n_aa3,
+    int n_quad, int n_left, const int* layout, float hi_eps, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 1 ||
       sky_idx < -1 || sky_idx >= n_spheres ||
       n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
@@ -815,14 +913,16 @@ extern "C" int raytpu_trace_scene(
     return (int)cudaErrorInvalidValue;
   }
   const bool merged = layout != nullptr;
-  Quads q{aa, aa3, quad, qbox, left, lbox, n_aa, n_aa3, n_quad, n_left, {},
-          hi_eps};
+  Quads q{aa, aa3, quad, qbox, left, lbox, aa_box, aa3_box, n_aa, n_aa3,
+          n_quad, n_left, 0, 0, {}, hi_eps};
   if (merged) {
     int rects = 0, tris = 0;
     for (int g = 0; g < kGroups; ++g) {
       for (int j = 0; j < 3; ++j) {
-        if (layout[3 * g + j] < 0) return (int)cudaErrorInvalidValue;
-        q.layout[g][j] = layout[3 * g + j];
+        const int n = layout[3 * g + j];
+        if (n < 0) return (int)cudaErrorInvalidValue;
+        q.layout[g][j] = n;
+        (j < 2 ? q.n_aa_box : q.n_aa3_box) += (n + kWalkChunk - 1) / kWalkChunk;
       }
       rects += layout[3 * g] + layout[3 * g + 1];
       tris += layout[3 * g + 2];
@@ -844,21 +944,21 @@ extern "C" int raytpu_trace_scene(
     floats += (size_t)kAaRows * n_aa + (size_t)kAa3Rows * n_aa3 +
               (size_t)kQuadRows * n_quad + 6 * (size_t)((n_quad + kChunk - 1) / kChunk) +
               (size_t)kLeftRows * n_left + 6 * (size_t)((n_left + kChunk - 1) / kChunk) +
-              kGroups;
+              6 * (size_t)(q.n_aa_box + q.n_aa3_box) + kGroups;
   } else {
     floats += (size_t)kSearch * n_tris;
   }
   const size_t smem = sizeof(float) * floats;
   const bool record = idx_out != nullptr, sky = sky_idx >= 0;
   const auto kernel =
-      merged ? (record ? (sky ? trace_scene_kernel<true, true, true>
-                              : trace_scene_kernel<true, false, true>)
-                       : (sky ? trace_scene_kernel<false, true, true>
-                              : trace_scene_kernel<false, false, true>))
-             : (record ? (sky ? trace_scene_kernel<true, true, false>
-                              : trace_scene_kernel<true, false, false>)
-                       : (sky ? trace_scene_kernel<false, true, false>
-                              : trace_scene_kernel<false, false, false>));
+      merged ? (record ? (sky ? trace_scene_kernel_merged<true, true>
+                              : trace_scene_kernel_merged<true, false>)
+                       : (sky ? trace_scene_kernel_merged<false, true>
+                              : trace_scene_kernel_merged<false, false>))
+             : (record ? (sky ? trace_scene_kernel<true, true>
+                              : trace_scene_kernel<true, false>)
+                       : (sky ? trace_scene_kernel<false, true>
+                              : trace_scene_kernel<false, false>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -867,4 +967,23 @@ extern "C" int raytpu_trace_scene(
       sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
       out, idx_out, aof_out, n_rays, k, q);
   return (int)cudaGetLastError();
+}
+
+// A merged instantiation's attributes as the driver holds them: out[0..3]
+// = registers a thread, local (stack and spill) bytes a thread, static
+// shared bytes, and the dynamic shared bytes its last launch set. Returns
+// the cudaError_t of the query.
+extern "C" int raytpu_trace_scene_merged_attrs(int record, int sky, int* out) {
+  const auto kernel = record ? (sky ? trace_scene_kernel_merged<true, true>
+                                    : trace_scene_kernel_merged<true, false>)
+                             : (sky ? trace_scene_kernel_merged<false, true>
+                                    : trace_scene_kernel_merged<false, false>);
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return (int)cudaSuccess;
 }

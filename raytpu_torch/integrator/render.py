@@ -26,6 +26,7 @@ differentiated by autograd. Each sample runs under ``checkpoint``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -110,6 +111,10 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     bounce_loop = trace_fn(scene, cfg)
     # K1 hashes its bounce draws from the ray keys; the others read them
     keyed = bounce_loop is trace_spheres.trace_megakernel
+    if bounce_loop is trace_scene.trace_mesh_megakernel:
+        # K3's selection tables depend on the scene alone: built once here
+        bounce_loop = functools.partial(
+            bounce_loop, selection=trace_scene.frame_selection(scene, cfg))
     n_draws = n_bounce_draws(cfg)
     n_rows = 4 if keyed else 4 + cfg.max_bounces * n_draws
 

@@ -6,7 +6,10 @@ library with a plain C interface, at first use, into ``_build/`` beside
 library's file name carries a hash of the source, of the ``csrc/``
 headers it includes (``#include "x.cuh"``, followed into the headers'
 own includes) and of the flags, so an edited source or header is rebuilt
-and a stale library is never loaded.
+and a stale library is never loaded. ptxas's report of each build
+(``-Xptxas -v``: registers, stack, spills and static shared memory of
+each kernel) is kept beside its library, so ``ptxas_report`` holds for a
+library built by an earlier process too.
 
 No fast-math flags: the kernels keep IEEE ``sqrtf``/division and the
 accurate ``cosf``/``sinf``, which the comparison with ``raytpu`` needs.
@@ -32,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -75,7 +78,7 @@ def library_path(name: str) -> Path:
 
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    ``verbose`` prints the compiler's report."""
     return build_all(verbose, [name])[0]
 
 
@@ -101,9 +104,8 @@ def build_all(verbose: bool = False, names=None) -> list[Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS,
-               *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((name, proc, tmp, out))
@@ -114,5 +116,29 @@ def build_all(verbose: bool = False, names=None) -> list[Path]:
             raise RuntimeError(f"nvcc failed ({rc}) on {name}.cu:\n{stderr}")
         if verbose:
             print(f"{name}.cu: {stdout}{stderr}", flush=True)
+        report = tmp.with_suffix(".ptxas.tmp")
+        report.write_text(stderr)
+        os.replace(report, _report_path(out))
         os.replace(tmp, out)   # atomic: a concurrent process never loads a partial file
     return outs
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas")
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's report (nvcc's stderr) of the library of ``csrc/<name>.cu``
+    as built from the sources now on disk; raises if it was never built."""
+    return _report_path(library_path(name)).read_text()
+
+
+def func_attrs(query, *args) -> dict:
+    """A library's ``*_attrs`` query (``cudaFuncGetAttributes`` of one
+    kernel), called with ``args`` and an int[4] it fills."""
+    out = (ctypes.c_int * 4)()
+    err = query(*args, out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem"), out))

@@ -13,12 +13,14 @@ which differs from ``geometry.sphere.sphere_distances`` in its sqrt floor
 ``pallas_select`` is the entry point. On CUDA tensors it launches the
 hand-written kernel in ``csrc/intersect.cu``; on CPU tensors it runs
 ``intersect_reference``, the plain PyTorch version, which scans every
-primitive with no cull (the kernel culls 128-triangle chunks by box, and
-equals this version bit for bit on the card, which is what shows the cull
-exact). Selection only: the result carries no gradient, and the scan path
-recomputes the winner's distance differentiably. The tables
-(``pack_tables``) are ``raytpu``'s without its 128-lane padding: spheres
-(4, S), triangles (12, T) and one box per 128-triangle chunk (6, C).
+primitive with no cull (the kernel culls KERNEL_CHUNK-triangle chunks by
+box against each ray's running best, and equals this version bit for bit
+on the card, which is what shows the cull exact). Selection only: the
+result carries no gradient, and the scan path recomputes the winner's
+distance differentiably. The tables (``pack_tables``) are ``raytpu``'s
+without its 128-lane padding: spheres (4, S), triangles (12, T) and one
+box per chunk of triangles (6, C), 128 a chunk as in ``raytpu`` unless
+asked otherwise (``kernel_tables``: the kernel's chunk).
 """
 
 from __future__ import annotations
@@ -32,11 +34,13 @@ from torch import Tensor
 from raytpu_torch.core.types import Scene
 from raytpu_torch.core.vec3 import Vec3
 from raytpu_torch.geometry.triangle import TriangleGeom, triangle_distances
-from raytpu_torch.kernels.trace_scene import chunk_boxes
+from raytpu_torch.kernels.trace_scene import chunk_boxes, entered_boxes
 
 BIG = 3.0e38
 MAX_PRIMS = 4096    # raytpu's MAX_SMEM_PRIMS, kept so both route the same scenes
-CHUNK = 128         # triangles per cull box
+CHUNK = 128         # triangles per box in raytpu's tables
+KERNEL_CHUNK = 32   # triangles per cull box of the kernel (csrc/intersect.cu:
+                    # kChunk; PERF.md: 32 beat 16, 64 and 128 on the card)
 BLOCK_ELEMS = 1 << 24   # (rays x primitives) entries per block of rays
 
 launches = 0   # kernel launches by pallas_select (CPU calls do not count)
@@ -58,10 +62,10 @@ def ray_blocks(n_rays: int, n_prims: int):
         yield slice(lo, lo + step)
 
 
-def pack_tables(scene: Scene, geom: Optional[TriangleGeom]
-                ) -> tuple[Tensor, Tensor, Tensor]:
+def pack_tables(scene: Scene, geom: Optional[TriangleGeom],
+                chunk: int = CHUNK) -> tuple[Tensor, Tensor, Tensor]:
     """(sph (4, S): cx cy cz r; tri (12, T): a, b - a, c - a, raw normal;
-    boxes (6, ceil(T / 128)): lo3 hi3 over each chunk's corners a, a + ab
+    boxes (6, ceil(T / chunk)): lo3 hi3 over each chunk's corners a, a + ab
     and a + ac, inflated by 1e-5 (|x| + 1)), contiguous f32, detached."""
     s = scene.spheres
     sph = torch.stack([*s.center, s.radius])
@@ -70,12 +74,18 @@ def pack_tables(scene: Scene, geom: Optional[TriangleGeom]
                            *geom.normal_raw])
         corners = [(tri[r], tri[r] + tri[r + 3], tri[r] + tri[r + 6])
                    for r in range(3)]
-        boxes = chunk_boxes(*map(list, corners), tri.shape[1], CHUNK)
+        boxes = chunk_boxes(*map(list, corners), tri.shape[1], chunk)
     else:
         tri = sph.new_zeros((12, 0))
         boxes = sph.new_zeros((6, 0))
     f = lambda t: t.detach().to(torch.float32).contiguous()
     return f(sph), f(tri), f(boxes)
+
+
+def kernel_tables(scene: Scene, geom: Optional[TriangleGeom]
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """``pack_tables`` with the kernel's chunk boxes."""
+    return pack_tables(scene, geom, KERNEL_CHUNK)
 
 
 def _sphere_hits(sph: Tensor, o, d, a_quad, inv_2a, eps: float) -> Tensor:
@@ -98,31 +108,43 @@ def _sphere_hits(sph: Tensor, o, d, a_quad, inv_2a, eps: float) -> Tensor:
 def _entered_chunks(boxes: Tensor, o, d) -> Tensor:
     """(B, C) whether each ray's line enters each chunk box ahead of its
     origin, an axis with a NaN product unconstrained (the kernel's test)."""
-    t_near, t_far = [], []
-    for r, (oc, dc) in enumerate(zip(o, d)):
-        inv = (1.0 / dc)[:, None]
-        t0 = (boxes[r][None, :] - oc[:, None]) * inv
-        t1 = (boxes[r + 3][None, :] - oc[:, None]) * inv
-        nan = t0.isnan() | t1.isnan()
-        t_near.append(torch.where(nan, -torch.inf, torch.minimum(t0, t1)))
-        t_far.append(torch.where(nan, torch.inf, torch.maximum(t0, t1)))
-    tmin = torch.maximum(torch.maximum(t_near[0], t_near[1]), t_near[2])
-    tmax = torch.minimum(torch.minimum(t_far[0], t_far[1]), t_far[2])
-    return (tmax >= tmin) & (tmax >= 0.0)
+    return entered_boxes(boxes, o, d)[0]
+
+
+def _culled_tests(boxes: Tensor, o, d, best: Tensor, tt: Tensor,
+                  chunk: int) -> int:
+    """Triangle tests of the kernel's cull at ray granularity: the chunks
+    each ray enters before its running best (the spheres' winner ``best``,
+    then each entered chunk's least distance of ``tt``, (B, T)), in index
+    order."""
+    enter, tmin = entered_boxes(boxes, o, d)
+    n_c = boxes.shape[1]
+    pad = n_c * chunk - tt.shape[1]
+    mins = torch.nn.functional.pad(tt, (0, pad), value=BIG).view(
+        -1, n_c, chunk).amin(dim=2)
+    sizes = torch.clamp(tt.shape[1] - chunk * torch.arange(
+        n_c, device=tt.device), max=chunk)
+    tests = torch.zeros_like(best, dtype=torch.int64)
+    for c in range(n_c):
+        e = enter[:, c] & (tmin[:, c] < best)
+        tests += e.long() * sizes[c]
+        best = torch.where(e, torch.minimum(best, mins[:, c]), best)
+    return int(tests.sum())
 
 
 @torch.no_grad()
 def intersect_reference(sph: Tensor, tri: Tensor, boxes: Tensor, ox: Tensor,
                         oy: Tensor, oz: Tensor, dx: Tensor, dy: Tensor,
                         dz: Tensor, sphere_eps: float, det_eps: float,
-                        tri_eps: float, counts: Optional[dict] = None
-                        ) -> tuple[Tensor, Tensor]:
+                        tri_eps: float, counts: Optional[dict] = None,
+                        chunk: int = CHUNK) -> tuple[Tensor, Tensor]:
     """Plain PyTorch version of the kernel: every primitive of every ray,
     no cull, over ``ray_blocks``. Ties go to the
     first primitive, as the kernel's strict t < best. ``counts``, a dict,
     receives the work this input needs at ray granularity: ``sphere``
-    tests, ``slab`` tests and ``tri`` tests of the chunks each ray
-    enters."""
+    tests, ``slab`` tests (one a box of ``chunk`` triangles) and ``tri``
+    tests of the chunks each ray enters before its running best, in index
+    order (the kernel's cull)."""
     n_s, n_t = sph.shape[1], tri.shape[1]
     b = ox.shape[0]
     best_t = torch.full((b,), BIG, dtype=torch.float32, device=ox.device)
@@ -142,23 +164,20 @@ def intersect_reference(sph: Tensor, tri: Tensor, boxes: Tensor, ox: Tensor,
             better = t_s < t
             t = torch.where(better, t_s, t)
             idx = torch.where(better, j.to(torch.int32), idx)
+        if counts is not None:
+            n = o[0].shape[0]
+            counts["sphere"] += n * n_s
+            counts["slab"] += n * boxes.shape[1]
         if n_t:
             tt = triangle_distances(Vec3(*o), Vec3(*d), geom, det_eps, tri_eps)
+            if counts is not None:
+                counts["tri"] += _culled_tests(boxes, o, d, t, tt, chunk)
             t_t, j = torch.min(tt, dim=1)
             better = t_t < t
             t = torch.where(better, t_t, t)
             idx = torch.where(better, (n_s + j).to(torch.int32), idx)
         best_t[sl] = t
         best_i[sl] = idx
-        if counts is not None:
-            n = o[0].shape[0]
-            counts["sphere"] += n * n_s
-            counts["slab"] += n * boxes.shape[1]
-            if n_t:
-                sizes = torch.clamp(n_t - CHUNK * torch.arange(
-                    boxes.shape[1], device=ox.device), max=CHUNK)
-                counts["tri"] += int((_entered_chunks(boxes, o, d).long()
-                                      * sizes).sum())
     return best_t, best_i
 
 
@@ -180,7 +199,8 @@ def _library():
 def _launch(sph: Tensor, tri: Tensor, boxes: Tensor, rays: tuple,
             sphere_eps: float, det_eps: float, tri_eps: float
             ) -> tuple[Tensor, Tensor]:
-    """Launch ``csrc/intersect.cu`` on the current stream."""
+    """Launch ``csrc/intersect.cu`` on the current stream; ``boxes`` are
+    those of KERNEL_CHUNK triangles (``kernel_tables``)."""
     global launches
     dev = rays[0].device
     b = rays[0].shape[0]
@@ -191,6 +211,9 @@ def _launch(sph: Tensor, tri: Tensor, boxes: Tensor, rays: tuple,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if any(r.shape != (b,) for r in rays):
         raise ValueError("intersect kernel: the six ray planes must be (B,)")
+    if boxes.shape != (6, -(-tri.shape[1] // KERNEL_CHUNK)):
+        raise ValueError(f"intersect kernel: boxes {tuple(boxes.shape)} are "
+                         f"not those of {KERNEL_CHUNK}-triangle chunks")
     best_t = torch.empty((b,), dtype=torch.float32, device=dev)
     best_i = torch.empty((b,), dtype=torch.int32, device=dev)
     fn = _library()
@@ -204,6 +227,17 @@ def _launch(sph: Tensor, tri: Tensor, boxes: Tensor, rays: tuple,
         raise RuntimeError(f"intersect kernel launch failed: cudaError {err}")
     launches += 1
     return best_t, best_i
+
+
+def func_attrs() -> dict:
+    """The kernel's attributes as the driver of the current card holds
+    them (``cudaFuncGetAttributes``): registers and local bytes a thread,
+    static shared bytes, and the dynamic shared bytes of the last launch."""
+    from raytpu_torch.kernels import _build
+
+    fn = _build.load("intersect").raytpu_intersect_attrs
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    return _build.func_attrs(fn)
 
 
 @torch.no_grad()
@@ -220,7 +254,7 @@ def pallas_select(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
         raise ValueError(f"intersect: {scene.spheres.count} spheres and "
                          f"{scene.triangles.count} triangles; at most "
                          f"{MAX_PRIMS} of each")
-    tables = pack_tables(scene, geom)
+    tables = kernel_tables(scene, geom)
     rays = tuple(c.detach().to(torch.float32).contiguous()
                  for c in (*origin, *direction))
     dev = rays[0].device

@@ -19,7 +19,9 @@ triangles run first, in ``aa_layout`` order (rects with e1 on the lower
 in-plane axis, then the higher, then the triangles; the candidates of a
 group share the denominator -s d_k, so they rank by numerator, and the
 group's winner joins the running one by a fraction compare gated on a
-hit), then the general parallelograms and the general leftover
+hit; the kernel walks each group's sub-lists in plane order over
+``walk_tables``, which ``_aa_walk`` emulates for the tests and the
+counts), then the general parallelograms and the general leftover
 triangles, each behind a fraction-ranked chunk cull once there are more
 than 2 * CULL_CHUNK of them. A parallelogram's winner is the half on its
 side of the diagonal, so the recorded winner stays an original triangle
@@ -44,8 +46,9 @@ the hand-written kernel in ``csrc/trace_scene.cu``; on CPU tensors it runs
 ``trace_scene_reference``, the plain PyTorch version of the same loop,
 which the tests hold against ``raytpu`` and the chip check holds the
 kernel against. The packers (``pack_tri``, ``chunk_boxes``, ``pack_mats``,
-``pack_atlas``, and for the merged search ``pack_aa`` and ``pack_quads``)
-fix the tables both read; ``raytpu``'s bf16 limbs, one-hot layouts and
+``pack_atlas``, and for the merged search ``pack_aa``, ``pack_quads`` and
+``walk_tables``) fix the tables both read (``render`` builds the ones
+derived from ``tri`` once a call: ``frame_selection``); ``raytpu``'s bf16 limbs, one-hot layouts and
 SMEM padding are TPU tricks and become plain indexed loads.
 
 Gradients: ``TraceMesh`` joins K3 in recording mode (each bounce's winner
@@ -91,6 +94,8 @@ MAX_MATS = 64
 MAX_TEX_W4 = 256    # raytpu's texture-row fetch bounds (4 * atlas width,
 MAX_TEX_ROWS = 512  # texture rows), kept for the same reason
 CULL_CHUNK = 32     # triangles per cull box
+WALK_CHUNK = 8      # columns per chunk box of the merged search's walk
+                    # (csrc/trace_scene.cu: kWalkChunk)
 
 launches = 0   # kernel launches by trace_mesh_megakernel (CPU calls do not count)
 
@@ -475,7 +480,9 @@ def take_sky_slot(sky: tuple, sky_win, emissive_ret, accum, estr, rc,
 
 class MeshTables(NamedTuple):
     """The tables K3 and its plain version read (``pack_scene``); the last
-    six only for the merged search (``pack_aa``, ``pack_quads``)."""
+    ten only for the merged search (``pack_aa``, ``pack_quads``,
+    ``walk_tables``: the kernel reads the walk tables and their chunk
+    boxes in place of aa and aa3)."""
 
     sph: Tensor     # (14, S): cx cy cz r | diffuse3 emission3 estr refl alpha ior
     tri: Tensor     # (25, T): a3 ab3 ac3 n3 b3 c3 ua va ub vb uc vc mat
@@ -490,6 +497,11 @@ class MeshTables(NamedTuple):
     qbox: Optional[Tensor] = None   # (6, ceil(Q / 32)) their chunk boxes
     left: Optional[Tensor] = None   # (13, L) general leftover triangles
     lbox: Optional[Tensor] = None   # (6, ceil(L / 32)) their chunk boxes
+    aa_walk: Optional[Tensor] = None    # (9, N) aa's columns in walk order,
+                                        # row 8 the original column
+    aa3_walk: Optional[Tensor] = None   # (10, L3) aa3's likewise, row 9
+    aa_box: Optional[Tensor] = None     # (6, chunks) the walk's chunk boxes
+    aa3_box: Optional[Tensor] = None    # (6, chunks) likewise
 
     def nbytes(self) -> int:
         """Bytes of every table present."""
@@ -526,6 +538,25 @@ def chunk_boxes(xs, ys, zs, n: int, chunk: int = CULL_CHUNK) -> Tensor:
     boxes = torch.stack(lo + hi)
     eps = 1e-5 * (boxes.abs() + 1.0)
     return (boxes + torch.cat([-eps[:3], eps[3:]])).contiguous()
+
+
+def entered_boxes(boxes: Tensor, o, d) -> tuple[Tensor, Tensor]:
+    """(B, C) whether each ray's line meets each box (lo3 hi3 rows) ahead
+    of its origin, and its entry t. An axis whose slab product is NaN
+    (the origin on a box plane and the direction's component zero) is
+    unconstrained: the line lies in that slab. The conservative test of
+    the culls that must skip no valid hit (K4's and the merged walk's)."""
+    t_near, t_far = [], []
+    for r, (oc, dc) in enumerate(zip(o, d)):
+        inv = (1.0 / dc)[:, None]
+        t0 = (boxes[r][None, :] - oc[:, None]) * inv
+        t1 = (boxes[r + 3][None, :] - oc[:, None]) * inv
+        nan = t0.isnan() | t1.isnan()
+        t_near.append(torch.where(nan, -torch.inf, torch.minimum(t0, t1)))
+        t_far.append(torch.where(nan, torch.inf, torch.maximum(t0, t1)))
+    tmin = torch.maximum(torch.maximum(t_near[0], t_near[1]), t_near[2])
+    tmax = torch.minimum(torch.minimum(t_far[0], t_far[1]), t_far[2])
+    return (tmax >= tmin) & (tmax >= 0.0), tmin
 
 
 def pack_mats(scene: Scene) -> Tensor:
@@ -579,7 +610,32 @@ def _plan_index(plan: QuadPlan, device: str) -> dict:
         out["quad"] = v(base[oi], base[(oi + 1) % 3], base[(oi + 2) % 3], i, j)
     if plan.leftovers:
         out["left"] = v(plan.leftovers)
+    # the walk's sub-lists: each aa column's (group, m) and each aa3
+    # column's group, in table order
+    for key, sizes in _sub_list_sizes(plan).items():
+        out[f"{key}_sub"] = torch.tensor(
+            np.repeat(np.arange(len(sizes)), sizes), device=device)
     return out
+
+
+def _sub_list_sizes(plan: QuadPlan) -> dict:
+    """The walk's sub-list lengths in table order: aa's (rects with m = 0,
+    m = 1 of each group), aa3's (each group's triangles)."""
+    return {"aa": [c for g in plan.aa_layout for c in g[2:4]],
+            "aa3": [g[4] for g in plan.aa_layout]}
+
+
+@functools.lru_cache(maxsize=64)
+def _walk_pad(sizes: tuple, chunk: int, device: str) -> Tensor:
+    """Each sub-list's runs of ``chunk`` columns as a (chunks, chunk)
+    column index, -1 past the sub-list's end."""
+    pad, lo = [np.zeros(0, np.int64)], 0
+    for n in sizes:
+        cols = np.full(-(-n // chunk) * chunk, -1)
+        cols[:n] = np.arange(lo, lo + n)
+        pad.append(cols)
+        lo += n
+    return torch.tensor(np.concatenate(pad).reshape(-1, chunk), device=device)
 
 
 def pack_aa(tri: Tensor, plan: QuadPlan, det_eps: float
@@ -621,6 +677,48 @@ def pack_aa(tri: Tensor, plan: QuadPlan, det_eps: float
     return aa.contiguous(), aa3.contiguous()
 
 
+def walk_tables(tri: Tensor, aa: Tensor, aa3: Tensor, plan: QuadPlan,
+                chunk: int = WALK_CHUNK
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The kernel's walk order of ``pack_aa``'s tables, and its chunk
+    boxes: (aa_walk (9, N), aa3_walk (10, L3), aa_box, aa3_box).
+
+    Each sub-list of a group (rects with m = 0, rects with m = 1,
+    triangles) is sorted by its plane offset s a_k (row 0) descending,
+    stably, so along it a ray's numerator s o_k - s a_k rises, and within
+    a plane the columns keep their order (the load's Morton order, so a
+    chunk of them is compact); one more row holds each column's original
+    column, the tie-break of the kernel's strict t < best. The boxes (6,
+    chunks): lo3 hi3 of each sub-list's runs of ``chunk`` columns, over
+    their triangles' corners a, a + ab and a + ac from ``pack_tri``'s
+    table (a rect's two triangles), inflated by 1e-5 (|x| + 1) as
+    ``chunk_boxes``: a chunk whose box a ray's line does not meet ahead
+    of its origin holds no valid candidate for it."""
+    ix = _plan_index(plan, str(aa.device))
+
+    def walk(tab, sub):
+        by_offset = torch.sort(tab[0], descending=True, stable=True).indices
+        perm = by_offset[torch.sort(sub[by_offset], stable=True).indices]
+        return torch.cat([tab[:, perm], perm.to(tab.dtype)[None]]).contiguous()
+
+    def boxes(walked, rows, pad):
+        t = walked[list(rows)].long()                           # (R, n)
+        a = tri[0:3][:, t]
+        pts = torch.cat([a, a + tri[3:6][:, t], a + tri[6:9][:, t]], dim=1)
+        g = pts[:, :, pad.clamp(min=0)]               # (3, 3R, chunks, chunk)
+        used = pad >= 0
+        box = torch.cat([torch.where(used, g, math.inf).amin(dim=(1, 3)),
+                         torch.where(used, g, -math.inf).amax(dim=(1, 3))])
+        eps = 1e-5 * (box.abs() + 1.0)
+        return (box + torch.cat([-eps[:3], eps[3:]])).contiguous()
+
+    pad = {key: _walk_pad(tuple(n), chunk, str(aa.device))
+           for key, n in _sub_list_sizes(plan).items()}
+    aa_w, aa3_w = walk(aa, ix["aa_sub"]), walk(aa3, ix["aa3_sub"])
+    return (aa_w, aa3_w, boxes(aa_w, (6, 7), pad["aa"]),
+            boxes(aa3_w, (8,), pad["aa3"]))
+
+
 def pack_quads(tri: Tensor, plan: QuadPlan
                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The general loops' tables (``raytpu``'s ``pack_quads``, its values
@@ -659,22 +757,34 @@ def pack_quads(tri: Tensor, plan: QuadPlan
     return quad.contiguous(), qbox, left.contiguous(), lbox
 
 
-def mesh_tables(sph: Tensor, tri: Tensor, mats: Tensor, atlas: Tensor,
-                k: Optional["MeshKnobs"] = None) -> MeshTables:
-    """K3's tables from the four packed ones: the search channels and the
-    cull boxes are derived from ``tri`` (selection only; the boxes span
-    the recomputed corners a, a + ab and a + ac, as ``raytpu``'s
-    ``pack_scene``), and with a merged plan on ``k`` so are the merged
-    search's tables."""
+def selection_tables(tri: Tensor, k: Optional["MeshKnobs"] = None) -> dict:
+    """The tables K3 selects with, all derived from ``tri``: the search
+    channels and the cull boxes (over the recomputed corners a, a + ab and
+    a + ac, as ``raytpu``'s ``pack_scene``) and, with a merged plan on
+    ``k``, the merged search's tables and its walk's. They carry no
+    gradient (the winners are indices), so ``render`` builds them once
+    for all the samples of a call (``frame_selection``)."""
     corners = [(tri[r], tri[r] + tri[r + 3], tri[r] + tri[r + 6])
                for r in range(3)]
-    merged = ()
+    sel = dict(search=tri[:12].T.contiguous(),
+               boxes=chunk_boxes(*map(list, corners), tri.shape[1]))
     if k is not None and k.plan is not None:
-        merged = (*pack_aa(tri, k.plan, k.det_eps), *pack_quads(tri, k.plan))
-    return MeshTables(
-        sph, tri, tri[:12].T.contiguous(),
-        chunk_boxes(*map(list, corners), tri.shape[1]), mats, atlas, *merged,
-    )
+        aa = pack_aa(tri, k.plan, k.det_eps)
+        sel.update(zip(("aa", "aa3", "quad", "qbox", "left", "lbox",
+                        "aa_walk", "aa3_walk", "aa_box", "aa3_box"),
+                       (*aa, *pack_quads(tri, k.plan),
+                        *walk_tables(tri, *aa, k.plan))))
+    return sel
+
+
+def mesh_tables(sph: Tensor, tri: Tensor, mats: Tensor, atlas: Tensor,
+                k: Optional["MeshKnobs"] = None,
+                selection: Optional[dict] = None) -> MeshTables:
+    """K3's tables from the four packed ones and ``selection_tables`` of
+    ``tri`` (built here unless given)."""
+    if selection is None:
+        selection = selection_tables(tri, k)
+    return MeshTables(sph=sph, tri=tri, mats=mats, atlas=atlas, **selection)
 
 
 def pack_scene(scene: Scene, k: Optional["MeshKnobs"] = None) -> MeshTables:
@@ -781,90 +891,215 @@ def _aa_group_min(tb: MeshTables, r0: int, nr: int, t0: int, nt: int):
     return du.min()
 
 
+def _groups(plan: QuadPlan):
+    """(kx, sign, rects m = 0, rects m = 1, triangles, first rect column,
+    first triangle column) of each non-empty axis-aligned group."""
+    r_off = t_off = 0
+    for kx, sgn, ca, cb, ct in plan.aa_layout:
+        if ca + cb + ct:
+            yield kx, sgn, ca, cb, ct, r_off, t_off
+        r_off, t_off = r_off + ca + cb, t_off + ct
+
+
+def _group_rays(k: MeshKnobs, o, d, kx: int, sgn: int) -> dict:
+    """A group's per-ray scalars, each (B, 1): the shared denominator
+    detg = -s d_k, the numerator's s o_k, tri_eps and 1 - tri_eps times
+    detg, the in-plane origin times detg and the in-plane direction."""
+    i1, i2 = [a for a in range(3) if a != kx]
+    detg = -d[kx] if sgn > 0 else d[kx]
+    col = lambda t: t[:, None]
+    return dict(dg=col(detg), so=col(o[kx] if sgn > 0 else -o[kx]),
+                epsd=col(k.tri_eps * detg), hid=col((1.0 - k.tri_eps) * detg),
+                X1=col(o[i1] * detg), X2=col(o[i2] * detg), d1=col(d[i1]),
+                d2=col(d[i2]))
+
+
+def _rect_test(g: dict, m: int):
+    """Validity and winning triangle of rays (rows) against aa rect
+    columns A whose numerators are numr: alpha * detg and beta * detg
+    from the corner and the edges' reciprocals (e1 on axis i1 for m = 0,
+    on i2 for m = 1)."""
+    Xm, dm, Xo, do_ = ((g["X1"], g["d1"], g["X2"], g["d2"]) if m == 0 else
+                       (g["X2"], g["d2"], g["X1"], g["d1"]))
+
+    def test(A, numr):
+        dg, epsd, hid = g["dg"], g["epsd"], g["hid"]
+        pug = (Xm - A[2] * dg + numr * dm) * A[3]
+        pvg = (Xo - A[4] * dg + numr * do_) * A[5]
+        valid = ((dg >= A[1]) & (numr >= epsd) & (pug >= epsd)
+                 & (pvg >= epsd) & (pug <= hid) & (pvg <= hid))
+        return valid, torch.where(pug + pvg <= dg, A[6], A[7]).to(torch.int32)
+    return test
+
+
+def _tri_test(g: dict):
+    """``_rect_test`` for aa3's unpaired triangles."""
+    def test(A, numr):
+        dg, epsd = g["dg"], g["epsd"]
+        P1 = g["X1"] - A[2] * dg + numr * g["d1"]
+        P2 = g["X2"] - A[3] * dg + numr * g["d2"]
+        ug = P1 * A[4] + P2 * A[5]
+        vg = P1 * A[6] + P2 * A[7]
+        valid = ((dg >= A[1]) & (numr >= epsd) & (ug >= epsd)
+                 & (vg >= epsd) & (ug + vg <= g["hid"]))
+        return valid, A[8].to(torch.int32).expand_as(numr)
+    return test
+
+
+def _fold_group(best, bden, bidx, bg, gi, detg, ns):
+    """Join a group's winner (numerator bg over detg) to the running
+    fraction best / bden; the bg < BIG gate keeps a group's miss out of
+    the compare: with deng > 1 (|d_k| > 1) BIG * bden < best * deng would
+    otherwise fabricate a hit."""
+    deng = torch.where(detg > 0.0, detg, 1.0)
+    better = (bg < BIG) & (bg * bden < best * deng)
+    return (torch.where(better, bg, best), torch.where(better, deng, bden),
+            torch.where(better, ns + gi, bidx))
+
+
+def _aa_groups(tb: MeshTables, k: MeshKnobs, o, d, best, bidx):
+    """The axis-aligned groups after the spheres: (best, bden, bidx). In a
+    group the candidates share the denominator, so a chunk's first least
+    numerator is the sequential fold's winner."""
+    bden = torch.ones_like(best)
+    for kx, sgn, ca, cb, ct, r0, t0 in _groups(k.plan):
+        g = _group_rays(k, o, d, kx, sgn)
+        bg = torch.full_like(best, BIG)
+        gi = torch.full_like(bidx, -1)
+        for tab, lo, hi, test in ((tb.aa, r0, r0 + ca, _rect_test(g, 0)),
+                                  (tb.aa, r0 + ca, r0 + ca + cb,
+                                   _rect_test(g, 1)),
+                                  (tb.aa3, t0, t0 + ct, _tri_test(g))):
+            for c0 in range(lo, hi, CULL_CHUNK):
+                A = tab[:, c0:min(hi, c0 + CULL_CHUNK)]
+                numr = g["so"] - A[0]
+                valid, win = test(A, numr)
+                m, j = torch.min(torch.where(valid, numr, BIG), dim=1)
+                better = m < bg          # the first of equal minima
+                bg = torch.where(better, m, bg)
+                gi = torch.where(better, win.gather(1, j[:, None])[:, 0], gi)
+        best, bden, bidx = _fold_group(best, bden, bidx, bg, gi, g["dg"][:, 0],
+                                       k.n_spheres)
+    return best, bden, bidx
+
+
+WALK_BLOCK = 1 << 22   # (rays x columns) entries of the walk emulation at once
+
+
+def _walk(A: Tensor, g: dict, test, enter: Tensor, chunk: int, bar: Tensor,
+          bden: Tensor, bg: Tensor, gi: Tensor):
+    """The kernel's walk of one sub-list, for every ray: A, the sub-list's
+    columns in walk order (last row the original column), has numerators
+    numr = s o_k - s a_k that rise along it; ``enter`` (B, chunks) says
+    which of its ``chunk``-column chunk boxes each ray's line meets. The
+    sub-list's winner is its least valid numerator, ties to the least
+    original column, over the chunks the ray needs: those not past its
+    end (a chunk whose first numerator is past the winner's so far, or
+    not below bg, the earlier sub-lists' winner, or failing the gate
+    numr * bden < bar = best * deng, ends the walk), whose last numerator
+    reaches epsd and whose box the line meets. It joins bg on a strictly
+    smaller numerator. Returns (bg, gi, columns tested, chunk boxes
+    tested, chunks visited) per ray."""
+    n = A.shape[1]
+    numr = g["so"] - A[0]
+    valid, win = test(A, numr)
+    epsd = g["epsd"][:, 0]
+    sbg = torch.full_like(bg, BIG)
+    spos = torch.full_like(bg, math.inf)
+    sgi = torch.full_like(gi, -1)
+    done = torch.zeros_like(gi, dtype=torch.bool)
+    tests = torch.zeros_like(gi, dtype=torch.int64)
+    slabs = torch.zeros_like(tests)
+    visits = torch.zeros_like(tests)
+    for ch, cs in enumerate(range(0, n, chunk)):
+        ce = min(n, cs + chunk)
+        head = numr[:, cs]
+        visits += ~done
+        done = (done | ((sgi >= 0) & (head > sbg))
+                | ~((head < bg) & (head * bden < bar)))
+        live = ~done & (numr[:, ce - 1] >= epsd)
+        need = live & enter[:, ch]
+        slabs += live
+        tests += need * (ce - cs)
+        for c in range(cs, ce):
+            nc, oc = numr[:, c], A[-1, c]
+            better = need & valid[:, c] & ((nc < sbg) | ((nc == sbg)
+                                                         & (oc < spos)))
+            sbg = torch.where(better, nc, sbg)
+            spos = torch.where(better, oc, spos)
+            sgi = torch.where(better, win[:, c], sgi)
+    take = (sgi >= 0) & (sbg < bg)
+    return (torch.where(take, sbg, bg), torch.where(take, sgi, gi), tests,
+            slabs, visits)
+
+
+def _aa_walk(tb: MeshTables, k: MeshKnobs, o, d, active, best, bidx,
+             cand: dict, chunk: int = WALK_CHUNK):
+    """The kernel's axis-aligned search, emulated: ``_aa_groups``'s result
+    (best, bden, bidx) by the walk over ``walk_tables``' sub-lists and
+    their ``chunk``-column boxes (exact: equal to ``_aa_groups``'s bits)
+    and, into ``cand``, the walk's work on the active rays whose group is
+    not skipped: ``aa_rect`` / ``aa_tri`` columns tested, ``aa_head``
+    chunks visited and ``aa_slab`` chunk boxes tested."""
+    bden = torch.ones_like(best)
+    box_off = {"aa": 0, "aa3": 0}
+    for kx, sgn, ca, cb, ct, r0, t0 in _groups(k.plan):
+        g = _group_rays(k, o, d, kx, sgn)
+        detg = g["dg"][:, 0]
+        walked = active & (detg >= _aa_group_min(tb, r0, ca + cb, t0, ct))
+        bar = best * torch.where(detg > 0.0, detg, 1.0)
+        bg = torch.full_like(best, BIG)
+        gi = torch.full_like(bidx, -1)
+        for key, lo, hi, m in (("aa", r0, r0 + ca, 0),
+                               ("aa", r0 + ca, r0 + ca + cb, 1),
+                               ("aa3", t0, t0 + ct, None)):
+            n_box = -(-(hi - lo) // chunk)
+            tab, boxes = ((tb.aa_walk, tb.aa_box) if key == "aa" else
+                          (tb.aa3_walk, tb.aa3_box))
+            boxes = boxes[:, box_off[key]:box_off[key] + n_box]
+            box_off[key] += n_box
+            if hi == lo:
+                continue
+            step = max(1, WALK_BLOCK // (hi - lo))
+            parts = []
+            for r in range(0, best.shape[0], step):
+                sl = slice(r, r + step)
+                gs = {n: v[sl] for n, v in g.items()}
+                test = _tri_test(gs) if m is None else _rect_test(gs, m)
+                enter = entered_boxes(boxes, [c[sl] for c in o],
+                                      [c[sl] for c in d])[0]
+                parts.append(_walk(tab[:, lo:hi], gs, test, enter, chunk,
+                                   bar[sl], bden[sl], bg[sl], gi[sl]))
+            bg, gi, tests, slabs, visits = (torch.cat(p) for p in zip(*parts))
+            cand["aa_rect" if m is not None else "aa_tri"] += int(
+                tests[walked].sum())
+            cand["aa_slab"] += int(slabs[walked].sum())
+            cand["aa_head"] += int(visits[walked].sum())
+        best, bden, bidx = _fold_group(best, bden, bidx, bg, gi, detg,
+                                       k.n_spheres)
+    return best, bden, bidx
+
+
 def _closest_merged(tb: MeshTables, k: MeshKnobs, o, d, active, best, bidx,
                     counts):
     """The merged search after the spheres (``raytpu``'s ``use_merged``
     branch of ``bounce_body``): the running winner as the fraction
     best / bden (bden is 1 after the spheres, so their strict t < best is
-    the fraction compare with denominator 1), the axis-aligned groups,
-    the general parallelograms and leftovers, then the one division.
+    the fraction compare with denominator 1), the axis-aligned groups
+    (``_aa_groups``), the
+    general parallelograms and leftovers, then the one division.
 
-    Within a group the candidates share the denominator, so a chunk's
-    first least numerator is the sequential fold's winner; the general
-    loops compare fractions, whose rounding is not transitive, so they
-    fold one candidate at a time, as the kernel does. ``counts`` receives
-    ``aa_rect`` / ``aa_tri`` tests (rays whose group is not skipped by
-    ``_aa_group_min``), ``quad`` / ``left`` tests and the ``slab`` tests
-    of the culled general loops."""
-    plan, ns = k.plan, k.n_spheres
-    bden = torch.ones_like(best)
-    cand = {"aa_rect": 0, "aa_tri": 0, "quad": 0, "left": 0, "slab": 0}
-    r_off = t_off = 0
-    for kx, sgn, ca, cb, ct in plan.aa_layout:
-        r0, t0 = r_off, t_off
-        r_off, t_off = r_off + ca + cb, t_off + ct
-        if ca + cb + ct == 0:
-            continue
-        i1, i2 = [a for a in range(3) if a != kx]
-        detg = -d[kx] if sgn > 0 else d[kx]
-        so_k = o[kx] if sgn > 0 else -o[kx]
-        epsd = (k.tri_eps * detg)[:, None]
-        hid = ((1.0 - k.tri_eps) * detg)[:, None]
-        X1, X2 = (o[i1] * detg)[:, None], (o[i2] * detg)[:, None]
-        d1, d2 = d[i1][:, None], d[i2][:, None]
-        so, dg = so_k[:, None], detg[:, None]
-        if counts is not None:
-            n_in = int((active & (detg >= _aa_group_min(tb, r0, ca + cb, t0,
-                                                         ct))).sum())
-            cand["aa_rect"] += n_in * (ca + cb)
-            cand["aa_tri"] += n_in * ct
-        bg = torch.full_like(best, BIG)
-        gi = torch.full_like(bidx, -1)
-
-        def fold(lo, hi, body, bg, gi):
-            for c0 in range(lo, hi, CULL_CHUNK):
-                num_c, win = body(c0, min(hi, c0 + CULL_CHUNK))
-                m, j = torch.min(num_c, dim=1)      # the first of equal minima
-                better = m < bg
-                bg = torch.where(better, m, bg)
-                gi = torch.where(better, win.gather(1, j[:, None])[:, 0], gi)
-            return bg, gi
-
-        def rect(Xm, dm, Xo, do_):
-            def body(lo, hi):
-                A = tb.aa[:, lo:hi]
-                numr = so - A[0]
-                pug = (Xm - A[2] * dg + numr * dm) * A[3]
-                pvg = (Xo - A[4] * dg + numr * do_) * A[5]
-                valid = ((dg >= A[1]) & (numr >= epsd) & (pug >= epsd)
-                         & (pvg >= epsd) & (pug <= hid) & (pvg <= hid))
-                win = torch.where(pug + pvg <= dg, A[6], A[7])
-                return torch.where(valid, numr, BIG), win.to(torch.int32)
-            return body
-
-        def tri_aa(lo, hi):
-            A = tb.aa3[:, lo:hi]
-            numr = so - A[0]
-            P1 = X1 - A[2] * dg + numr * d1
-            P2 = X2 - A[3] * dg + numr * d2
-            ug = P1 * A[4] + P2 * A[5]
-            vg = P1 * A[6] + P2 * A[7]
-            valid = ((dg >= A[1]) & (numr >= epsd) & (ug >= epsd)
-                     & (vg >= epsd) & (ug + vg <= hid))
-            win = A[8].to(torch.int32).expand_as(numr)
-            return torch.where(valid, numr, BIG), win
-
-        bg, gi = fold(r0, r0 + ca, rect(X1, d1, X2, d2), bg, gi)
-        bg, gi = fold(r0 + ca, r0 + ca + cb, rect(X2, d2, X1, d1), bg, gi)
-        bg, gi = fold(t0, t0 + ct, tri_aa, bg, gi)
-        deng = torch.where(detg > 0.0, detg, 1.0)
-        # the bg < BIG gate keeps a group's miss out of the fraction
-        # compare: with deng > 1 (|d_k| > 1) BIG * bden < best * deng
-        # would otherwise fabricate a hit
-        better = (bg < BIG) & (bg * bden < best * deng)
-        best = torch.where(better, bg, best)
-        bden = torch.where(better, deng, bden)
-        bidx = torch.where(better, ns + gi, bidx)
+    The general loops compare fractions, whose rounding is not
+    transitive, so they fold one candidate at a time, as the kernel does.
+    ``counts`` receives the kernel's work: ``aa_rect`` / ``aa_tri`` /
+    ``aa_head`` / ``aa_slab`` of its walk (``_aa_walk``), ``quad`` /
+    ``left`` tests and the ``slab`` tests of the culled general loops."""
+    ns = k.n_spheres
+    cand = {"aa_rect": 0, "aa_tri": 0, "aa_head": 0, "aa_slab": 0,
+            "quad": 0, "left": 0, "slab": 0}
+    if counts is not None:
+        _aa_walk(tb, k, o, d, active, best, bidx, cand)
+    best, bden, bidx = _aa_groups(tb, k, o, d, best, bidx)
 
     oc, dc = [c[:, None] for c in o], [c[:, None] for c in d]
 
@@ -1094,7 +1329,8 @@ _ARGTYPES = (
     + [ctypes.c_float] * 2                 # ao_e_scale, ao_inv
     + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
     + [ctypes.c_int]                       # sky_idx
-    + [ctypes.c_void_p] * 6                # merged: aa aa3 quad qbox left lbox
+    + [ctypes.c_void_p] * 8                # merged: aa aa3 (walk order) quad
+                                           # qbox left lbox aa_box aa3_box
     + [ctypes.c_int] * 4                   # n_aa n_aa3 n_quad n_left
     + [ctypes.c_void_p]                    # layout (host int[18]) or null
     + [ctypes.c_float]                     # hi_eps = 1 - tri_eps
@@ -1119,7 +1355,8 @@ def _library():
 def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
             record: bool = False):
     """Launch ``csrc/trace_scene.cu`` on the current stream. Returns what
-    ``trace_scene_reference`` returns for the same ``record``."""
+    ``trace_scene_reference`` returns for the same ``record``; a merged
+    plan's walk boxes are those of WALK_CHUNK columns."""
     global launches
     tensors = (tb.sph, tb.search, tb.tri, tb.boxes, tb.mats, tb.atlas,
                *rays, draws)
@@ -1134,14 +1371,20 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
         if k.use_ao:
             aof = torch.empty((k.bounces, b), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    merged = (None,) * 6
+    merged = (None,) * 8
     layout = None
     if k.plan is not None:
-        merged = (tb.aa, tb.aa3, tb.quad, tb.qbox, tb.left, tb.lbox)
+        merged = (tb.aa_walk, tb.aa3_walk, tb.quad, tb.qbox, tb.left, tb.lbox,
+                  tb.aa_box, tb.aa3_box)
         if not all(t is not None and t.is_contiguous() and t.device == dev
                    and t.dtype == torch.float32 for t in merged):
-            raise ValueError("merged K3 needs the tables of pack_aa and "
+            raise ValueError("merged K3 needs the tables of walk_tables and "
                              "pack_quads (mesh_tables with the knobs)")
+        n_box = [sum(-(-n // WALK_CHUNK) for n in sizes)
+                 for sizes in _sub_list_sizes(k.plan).values()]
+        if [tb.aa_box.shape[1], tb.aa3_box.shape[1]] != n_box:
+            raise ValueError(f"merged K3: walk boxes are not those of "
+                             f"{WALK_CHUNK}-column chunks")
         layout = (ctypes.c_int * 18)(*(c for g in k.aa_layout for c in g[2:]))
         merged = tuple(t.data_ptr() if t.numel() else None for t in merged)
     n_aa, n_aa3 = (0, 0) if k.plan is None else (tb.aa.shape[1], tb.aa3.shape[1])
@@ -1162,6 +1405,19 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
         raise RuntimeError(f"trace_scene kernel launch failed: cudaError {err}")
     launches += 1
     return (out, idx, aof) if record else out
+
+
+def merged_func_attrs(record: bool, sky: bool) -> dict:
+    """A merged instantiation's attributes as the driver of the current
+    card holds them (``cudaFuncGetAttributes``): registers and local bytes
+    a thread, static shared bytes, and the dynamic shared bytes of its last
+    launch."""
+    from raytpu_torch.kernels import _build
+
+    fn = _build.load("trace_scene").raytpu_trace_scene_merged_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return _build.func_attrs(fn, int(record), int(sky))
 
 
 def _forward(tb: MeshTables, rays, draws: Tensor, k: MeshKnobs,
@@ -1198,12 +1454,13 @@ class TraceMesh(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sph, tri, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
-                k: MeshKnobs):
+                k: MeshKnobs, selection: Optional[dict] = None):
         from raytpu_torch.kernels.trace_scene_bwd import check_depth
 
         check_depth(k.bounces)
         rays = (ox, oy, oz, dx, dy, dz)
-        out, idx, aof = _forward(mesh_tables(sph, tri, mats, atlas, k), rays,
+        out, idx, aof = _forward(mesh_tables(sph, tri, mats, atlas, k,
+                                             selection), rays,
                                  draws, k, record=True)
         ctx.k = k
         ctx.save_for_backward(sph, tri, mats, atlas, *rays, draws, idx, aof)
@@ -1218,11 +1475,20 @@ class TraceMesh(torch.autograd.Function):
         *d_tabs, d_rays = mesh_backward(Tables(sph, tri, mats, atlas), rays,
                                         draws, idx, aof,
                                         g[:g_planes(ctx.k)].contiguous(), ctx.k)
-        return (*d_tabs, *d_rays, None, None)
+        return (*d_tabs, *d_rays, None, None, None)
+
+
+def frame_selection(scene: Scene, cfg: RenderConfig) -> dict:
+    """``selection_tables`` of ``scene`` under ``cfg``'s plan, detached:
+    what every sample of a render call shares."""
+    with torch.no_grad():
+        return selection_tables(pack_tri(scene),
+                                MeshKnobs.for_scene(cfg, scene, 0))
 
 
 def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
-                          direction: Vec3, bounce_draws: Tensor
+                          direction: Vec3, bounce_draws: Tensor,
+                          selection: Optional[dict] = None
                           ) -> tuple[Vec3, Vec3, Vec3]:
     """(radiance, albedo AOV, normal AOV) for a batch of rays through a
     mesh scene.
@@ -1234,7 +1500,8 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     mode in the backward). A sky scene's slot planes are composed with
     the sky texels by ``trace_spheres.compose_sky``. Raises
     ``NotImplementedError`` for scenes the kernel does not cover
-    (``unsupported_reasons``).
+    (``unsupported_reasons``). ``selection``: ``frame_selection`` of the
+    same scene and config, or None to build it here.
     """
     from raytpu_torch.kernels.trace_spheres import compose_sky, pack_spheres
 
@@ -1259,9 +1526,9 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     draws = bounce_draws.reshape(bn * nd, b).contiguous()
     rays = tuple(t.contiguous() for t in rays)
     if torch.is_grad_enabled() and requires_grad(*tabs, *rays):
-        out = TraceMesh.apply(*tabs, *rays, draws, k)
+        out = TraceMesh.apply(*tabs, *rays, draws, k, selection)
     else:
-        out = _forward(mesh_tables(*tabs, k), rays, draws, k)
+        out = _forward(mesh_tables(*tabs, k, selection), rays, draws, k)
     if k.sky_idx >= 0:
         return compose_sky(scene, cfg, out)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])
