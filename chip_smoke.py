@@ -39,32 +39,37 @@ Phases, each of which raises on failure (exit code non-zero):
      (``torch.profiler``: RNG kernel launches == 2 x spp, no eager
      threefry), then 3 Adam steps of ``train.make_train_step`` towards a
      target the port renders with perturbed colours;
-  9. the mesh megakernel (K3) against its plain PyTorch version at 64x48
-     rays on six scenes: block worlds written by
+  9. the mesh megakernel (K3), which takes each ray's key and hashes its
+     draws, bit-equal to its plain PyTorch version (on the keys' draws)
+     at 64x48 rays on six scenes: block worlds written by
      ``scenes.write_block_world`` (60 triangles with water, the same with
      AO, the same untextured; 600 triangles; 2048, K3's limit) and the
      4-triangle cutout / window / emissive scene;
-  10. K3 against its plain version at the main path's shape (the
-     600-triangle world, 1200x900 rays, 6 bounces, real RNG draws), both
-     timed, the plain version counting the search work for the bound;
+  10. K3 bit-equal to its plain version at the main path's shape (the
+     600-triangle world, 1200x900 rays, 6 bounces, the RNG kernel's keys),
+     both timed, the plain version counting the search work and the
+     hashed draws for the bound;
   11. the mesh forward path: the 600-triangle world at 1200x900, 16 spp,
      6 bounces through ``render`` over all block-ordered pixel ids,
-     checked finite and lit, with one K3 launch per sample and no K1 or
-     K2 launch; where its time goes (``torch.profiler``); a small frame on
+     checked finite and lit, with one K3 launch and one RNG kernel launch
+     of 4 rows per sample and no K1 or K2 launch; where its time goes (``torch.profiler``); a small frame on
      the card against the CPU; the PPM;
   12. K3 in recording mode against its plain version on the six mesh
-     scenes of phase 9 (planes unchanged, winners, AO factors where used);
-  13. K2's mesh mode against its plain version on those scenes, with the
-     winners K3 recorded: ray cotangents and every row of the four table
-     cotangents (the rows that get no cotangent, ``QUIET_ROWS``, at
-     rounding level on both sides), and two launches against each other;
+     scenes of phase 9 (planes bit-equal and unchanged, winners, AO
+     factors where used);
+  13. K2's mesh mode (on the keys) against its plain version on those
+     scenes, with the winners K3 recorded: ray cotangents and every row of
+     the four table cotangents (the rows that get no cotangent,
+     ``QUIET_ROWS``, at rounding level on both sides), and two launches
+     bit-identical in all four tables and the ray cotangents; again with
+     the texels' table in global memory (``MESH_SMEM_BUDGET`` 0);
   14. K3 recording and K2 mesh mode at the main path's shape (the
      600-triangle world, 1200x900 rays, 6 bounces), compared and timed
      beside their plain versions and bounds;
   15. the mesh training path: value and gradient of the photometric loss
      through ``render`` on that world at 1200x900, 4 spp, 6 bounces with
      every float leaf requiring grad (K3 recording launches == 2 x spp,
-     K2 mesh launches == spp), where its time goes, then 3 Adam steps
+     K2 mesh launches == spp, RNG launches of 4 rows), where its time goes, then 3 Adam steps
      towards a target with perturbed atlas and material colours, whose
      losses must fall;
   16. the scan path's closest-hit kernel (K4) against its plain version,
@@ -100,8 +105,9 @@ Phases, each of which raises on failure (exit code non-zero):
      planes) and its recording on the showcase (also with AO and the HSL
      boost, and with a cutout sphere), K3's on the 60-triangle sky world
      (also with AO and with every texel a cutout) and the MESH_WORLD one,
-     rays that leave K3's loop early among them; K2's sky cotangent in
-     sphere and mesh modes, two launches compared;
+     rays that leave K3's loop early among them, K3 bit-equal to its
+     plain version; K2's sky cotangent in sphere and mesh modes, two
+     launches bit-identical;
   23. the texel index on the card: the 0-dim tensor divisor's quotient
      correctly rounded, and texel indices of the same directions on the
      card and the CPU;
@@ -144,8 +150,8 @@ per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
 Each path's launch counts (K1-K5 and the RNG kernel) are set to 0 just
 before it and read just after; every render draws through the RNG
-kernel (K3 and the scan path read its bounce rows, the sphere kernels
-hash theirs from its keys). The last lines are the card, a JSON line
+kernel (the scan path reads its bounce rows, K1, K2, K3 and K5 hash
+theirs from its keys, so the megakernel routes' launches write 4 rows). The last lines are the card, a JSON line
 per kernel and mode, and the result line. Imports no JAX.
 """
 
@@ -212,10 +218,9 @@ IDX_AGREE = 0.98
 # sphere table's cotangent is a sum over all rays: each row may differ by
 # at most DSPH_REL times that row's largest |entry|.
 G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
-# K2's mesh mode sums d_tri and d_atlas with float atomics, whose order
-# changes between launches: two launches may differ by at most ATOMIC_REL
-# of each row's largest |entry| (d_sph, d_mat and the ray cotangents stay
-# bit-identical). QUIET_ROWS get no cotangent: the rows that enter only
+# K2 sums every table cotangent in a fixed order, without float atomics:
+# two launches on the same inputs must give the same bits in all four
+# tables and the ray cotangents. QUIET_ROWS get no cotangent: the rows that enter only
 # comparisons, indices and floor() (csrc/trace_scene_bwd.cu's header), and
 # d_tri's rows 0-2, the vertex a, which is zero in exact arithmetic: a
 # triangle's hit distance reaches the output only as the next ray's
@@ -223,7 +228,7 @@ G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
 # direction) orthogonal to the direction. Both sides must hold them under
 # ZERO_ROW of their table's largest |entry|; every other row is measured
 # against its largest |entry|, floored at ZERO_ROW of the table's.
-ATOMIC_REL, ZERO_ROW = 1e-5, 1e-6
+ZERO_ROW = 1e-6
 QUIET_ROWS = {"d_sph": [12], "d_tri": [*range(9), *range(12, 25)],
               "d_mat": [6, 7, 8], "d_atlas": [3]}
 # K3's FP32 operations (arithmetic and compares, as counted in
@@ -487,8 +492,8 @@ def _kernel_inputs(scene, cam, cfg, seed, dev):
     """(camera rays origin, direction, bounce draws (max_bounces, n_draws,
     B), ray keys (2, B) int32) on the card: random keys from a numpy seed,
     the camera rays from their draws 0-3 and the bounce draws theirs
-    (the eager stream), so the keyed kernels (K1, K2's sphere mode, K5)
-    take the keys and their plain versions and K3 the draws."""
+    (the eager stream), so the keyed kernels (K1, K2, K3, K5) take the
+    keys and their plain versions the draws."""
     import numpy as np
     import torch
 
@@ -510,8 +515,8 @@ def _frame_sample(cam, cfg, dev, rows=None):
     the RNG kernel: (origin, direction, ray keys (2, B), bounce draws
     (max_bounces, n_draws, B), a callable that redoes the sample's RNG
     kernel and camera rays for timing, the row count it makes). ``rows``:
-    the rows a route's RNG launch makes (default: every row, K3's and the
-    scan path's; 4 for K1's)."""
+    the rows a route's RNG launch makes (default: every row, the scan
+    path's; 4 for K1's and K3's)."""
     import torch
 
     from raytpu_torch.core import rng
@@ -1225,9 +1230,10 @@ def _k3_cases(dev):
     ]
 
 
-def _k3_both(scene, cfg, origin, direction, draws, counts=None):
-    """(plain, kernel) outputs of K3 as (9, B) on the same card tensors;
-    the kernel through its wrapper. ``counts`` goes to the plain version."""
+def _k3_both(scene, cfg, origin, direction, draws, keys, counts=None):
+    """(plain, kernel) outputs of K3 as (9, B) on the same card tensors:
+    the plain version on the keys' draws, the kernel (through its wrapper)
+    on the keys. ``counts`` goes to the plain version."""
     import torch
 
     from raytpu_torch.kernels import trace_scene as tsc
@@ -1238,31 +1244,35 @@ def _k3_both(scene, cfg, origin, direction, draws, counts=None):
                                     draws.reshape(-1, draws.shape[-1]), k,
                                     counts)
     out = torch.cat([v.to_array().T for v in tsc.trace_mesh_megakernel(
-        scene, cfg, origin, direction, draws)])
+        scene, cfg, origin, direction, keys)])
     return ref, out
 
 
 def phase_k3(dev):
-    print(f"K3 vs plain at 64x48 rays (outlier: any channel > {ATOL} + "
-          f"{RTOL}|x|; limit {OUTLIER_FRAC:.0%} of rays)")
+    print(f"K3 on the ray keys vs plain on their draws at 64x48 rays, bit "
+          f"for bit (outliers: any channel > {ATOL} + {RTOL}|x|)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        origin, direction, draws, _ = _kernel_inputs(scene, cam, cfg, 400 + i,
-                                                     dev)
-        _compare(name, *_k3_both(scene, cfg, origin, direction, draws))
+        origin, direction, draws, keys = _kernel_inputs(scene, cam, cfg,
+                                                        400 + i, dev)
+        ref, out = _k3_both(scene, cfg, origin, direction, draws, keys)
+        _compare(name, ref, out)
+        _bit_equal(name, ref, out)
 
 
 def _k3_bound(b, bounces, counts, table_bytes, sky=False):
-    """Least K3 time: rays 24 B, draws 3 x 4 B per bounce and 9 planes out
-    (16 with the sky slot) per ray plus the scene tables at HBM speed,
-    against the operations of this run's search (K3_OPS_*: the plain
-    version's counts of sphere, slab and entered-chunk triangle tests and
-    live (ray, bounce) entries; K3M_OPS_* for the merged search: the
-    walk's tests and binary-search steps, ``_aa_walk``'s counts, and the
-    general candidates) at the FP32 issue rate."""
-    nbytes = (b * (24 + 12 * bounces + 36 + (SKY_SLOT_BYTES if sky else 0))
-              + table_bytes)
-    return _bound(nbytes, _k3_ops(counts))
+    """Least K3 time: rays 24 B, the key 8 B and 9 planes out (16 with the
+    sky slot) per ray plus the scene tables at HBM speed, against the
+    operations of this run's search (K3_OPS_*: the plain version's counts
+    of sphere, slab and entered-chunk triangle tests and live (ray,
+    bounce) entries; K3M_OPS_* for the merged search: the walk's tests and
+    binary-search steps, ``_aa_walk``'s counts, and the general
+    candidates) at the FP32 issue rate, and the draws it hashes (the plain
+    version's "draws" and "probe_draws") at DRAW_OPS INT32 operations
+    each."""
+    nbytes = b * (24 + 8 + 36 + (SKY_SLOT_BYTES if sky else 0)) + table_bytes
+    n_draws = counts.get("draws", 0) + counts.get("probe_draws", 0)
+    return _bound(nbytes, _k3_ops(counts), n_draws * DRAW_OPS)
 
 
 def _k3_ops(counts):
@@ -1295,13 +1305,15 @@ def phase_k3_timing(dev):
 
     scene, cam, cfg = _per_triangle(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    origin, direction, _, draws, rng_sample = _frame_sample(cam, cfg, dev)
+    origin, direction, keys, draws, rng_sample = _frame_sample(cam, cfg, dev,
+                                                               4)
     counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
-    ref, out = _k3_both(scene, cfg, origin, direction, draws, counts)
+    ref, out = _k3_both(scene, cfg, origin, direction, draws, keys, counts)
     name = f"block world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
     print(f"K3 vs plain at the main path's shape ({cfg.width}x{cfg.height} "
           f"rays, 6 bounces, {scene.triangles.count} triangles):")
     max_err = _compare(name, ref, out)
+    _bit_equal(name, ref, out)
     frac = max(_outliers(ref[s], out[s])[0]
                for s in (slice(0, 3), slice(3, 6), slice(6, 9)))
     del ref, out
@@ -1310,7 +1322,7 @@ def phase_k3_timing(dev):
     tb = tsc.pack_scene(scene, k)
     flat = draws.reshape(-1, draws.shape[-1])
     rays = (*origin, *direction)
-    kernel = lambda: tsc._launch(tb, rays, flat, k)
+    kernel = lambda: tsc._launch(tb, rays, keys, k)
     plain = lambda: tsc.trace_scene_reference(tb, *rays, flat, k)
     kernel(), plain()                                  # warm up
     t = {"plain": [], "kernel": []}
@@ -1327,7 +1339,8 @@ def phase_k3_timing(dev):
           f"ms ({bound[1]}); RNG kernel + camera rays {rng_ms:.4f} ms per "
           "sample")
     print(f"  search work (plain version's counts): {counts['live']} live "
-          f"(ray, bounce) entries of {b * cfg.max_bounces}; per live entry "
+          f"(ray, bounce) entries of {b * cfg.max_bounces}, draws hashed "
+          f"{counts['draws']} (+{counts['probe_draws']} AO); per live entry "
           f"{counts['sphere'] / counts['live']:.2f} sphere, "
           f"{counts['slab'] / counts['live']:.2f} slab and "
           f"{counts['tri'] / counts['live']:.2f} triangle tests; "
@@ -1361,7 +1374,7 @@ def phase_mesh(dev, card, timing):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
-    _check_rng("mesh path", cfg.spp)
+    _check_rng("mesh path", cfg.spp, rows=4)
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -1408,13 +1421,18 @@ def phase_mesh(dev, card, timing):
                 ms_per_sample=elapsed / cfg.spp * 1e3)
 
 
-def _mesh_inputs(scene, cfg, origin, direction, draws):
-    """K3's tables, rays, flat draws and knobs for one batch."""
+def _mesh_inputs(scene, cfg, origin, direction, keys):
+    """K3's tables, rays, the ray keys (the kernels' draw source), their
+    bounce draws (bounces * n_draws, B) (the plain versions') and knobs for
+    one batch."""
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import n_bounce_draws
     from raytpu_torch.kernels import trace_scene as tsc
 
-    k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
-    return (tsc.pack_scene(scene, k), (*origin, *direction),
-            draws.reshape(-1, draws.shape[-1]), k)
+    nd = n_bounce_draws(cfg)
+    k = tsc.MeshKnobs.for_scene(cfg, scene, nd)
+    return (tsc.pack_scene(scene, k), (*origin, *direction), keys,
+            rng.bounce_draws(keys, nd, cfg.max_bounces), k)
 
 
 def _check_mesh_record(name, kern, plain, forward):
@@ -1463,12 +1481,15 @@ def phase_k3_record(dev):
           f" AO factors where used)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 500 + i, dev)
-        tb, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        o, d, _, keys = _kernel_inputs(scene, cam, cfg, 500 + i, dev)
+        tb, rays, keys, flat, k = _mesh_inputs(scene, cfg, o, d, keys)
+        forward = tsc._launch(tb, rays, keys, k)
+        _bit_equal(name, tsc.trace_scene_reference(tb, *rays, flat, k),
+                   forward)
         _check_mesh_record(
-            name, tsc._launch(tb, rays, flat, k, record=True),
+            name, tsc._launch(tb, rays, keys, k, record=True),
             tsc.trace_scene_reference(tb, *rays, flat, k, record=True),
-            tsc._launch(tb, rays, flat, k))
+            forward)
 
 
 def _compare_mesh_grads(name, ref, got, again):
@@ -1478,11 +1499,9 @@ def _compare_mesh_grads(name, ref, got, again):
     either side, on d_tri's normal rows (9-11) under it where there are
     triangle winners, on another row off by more than DSPH_REL of its
     largest |entry| (at least ZERO_ROW of the table's), and on two
-    launches whose d_tri or d_atlas rows differ by more than ATOMIC_REL of
-    that (the atomics' order) or whose d_sph, d_mat or ray cotangents
-    differ at all. Returns (max |diff|, outlier fraction of rays, worst
-    launch-to-launch difference / row scale, largest quiet row / table
-    max)."""
+    launches that differ in any bit of the four tables or the ray
+    cotangents. Returns (max |diff|, outlier fraction of rays, largest
+    quiet row / table max)."""
     import torch
 
     r_ref, r_got = torch.stack(ref[4]), torch.stack(got[4])
@@ -1491,9 +1510,9 @@ def _compare_mesh_grads(name, ref, got, again):
             raise AssertionError(f"{name}: non-finite cotangent")
     diff = (r_got - r_ref).abs()
     frac = (diff > G_ATOL + G_RTOL * r_ref.abs()).any(0).float().mean().item()
-    worst, rerun, quiet, max_err = {}, 0.0, 0.0, diff.max().item()
-    for tname, a, w, b in zip(("d_sph", "d_tri", "d_mat", "d_atlas"),
-                              got[:4], ref[:4], again[:4]):
+    worst, quiet, max_err = {}, 0.0, diff.max().item()
+    for tname, a, w in zip(("d_sph", "d_tri", "d_mat", "d_atlas"), got[:4],
+                           ref[:4]):
         if w.numel() == 0:
             continue
         top = w.abs().max().item()
@@ -1516,22 +1535,18 @@ def _compare_mesh_grads(name, ref, got, again):
         if (row_err > DSPH_REL * scale).any():
             raise AssertionError(f"{name}: {tname} differs by "
                                  f"{worst[tname]:.3e} of a row")
-        run_err = (a[loud] - b[loud]).abs().amax(1)
-        rerun = max(rerun, (run_err / scale.clamp(min=1e-30)).max().item())
-        if (run_err > ATOMIC_REL * scale).any():
-            raise AssertionError(f"{name}: two launches' {tname} differ by "
-                                 f"more than {ATOMIC_REL} of a row")
-    if not (torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+    if not (all(torch.equal(x, y) for x, y in zip(got[:4], again[:4]))
             and all(torch.equal(x, y) for x, y in zip(got[4], again[4]))):
-        raise AssertionError(f"{name}: two launches' d_sph, d_mat or ray "
-                             "cotangents differ")
+        raise AssertionError(f"{name}: two launches differ in d_sph, d_tri, "
+                             "d_mat, d_atlas or the ray cotangents")
     print(f"  {name:28s} ray outliers {frac:.5f}  max|d ray| diff "
           f"{diff.max().item():.3e}  worst row err / row max "
           + " ".join(f"{k} {v:.3e}" for k, v in worst.items())
-          + f"; quiet rows / table max {quiet:.3e}; two launches {rerun:.3e}")
+          + f"; quiet rows / table max {quiet:.3e}; two launches "
+          "bit-identical")
     if frac > OUTLIER_FRAC:
         raise AssertionError(f"{name}: {frac:.2%} rays' cotangents differ")
-    return max_err, frac, rerun, quiet
+    return max_err, frac, quiet
 
 
 def phase_k2_mesh(dev):
@@ -1547,36 +1562,57 @@ def phase_k2_mesh(dev):
     print(f"K2 mesh mode vs plain at 64x48 rays, K3's recorded idx/aof, random "
           f"g (ray outlier: any > {G_ATOL} + {G_RTOL}|x|, limit "
           f"{OUTLIER_FRAC:.0%}; every table row within {DSPH_REL} x row max; "
-          f"two launches within {ATOMIC_REL} x row max)")
-    rerun = 0.0
+          f"two launches bit-identical; each scene also with the texels' "
+          f"table in global memory)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 600 + i, dev)
-        mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
-        _, idx, aof = tsc._launch(mt, rays, flat, k, record=True)
+        o, d, _, keys = _kernel_inputs(scene, cam, cfg, 600 + i, dev)
+        mt, rays, keys, flat, k = _mesh_inputs(scene, cfg, o, d, keys)
+        _, idx, aof = tsc._launch(mt, rays, keys, k, record=True)
         tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
         g = torch.tensor(np.random.default_rng(700 + i).uniform(
             -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-        got = tb._launch(tabs, rays, flat, idx, aof, g, k)
-        again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+        got = tb._launch(tabs, rays, keys, idx, aof, g, k)
+        again = tb._launch(tabs, rays, keys, idx, aof, g, k)
         ref = tb.replay_reference(tabs, rays, flat, idx, aof, g, k)
-        rerun = max(rerun, _compare_mesh_grads(
-            f"{name} ({cfg.max_bounces}b)", ref, got, again)[2])
-    return rerun
+        _compare_mesh_grads(f"{name} ({cfg.max_bounces}b)", ref, got, again)
+        # the texels' table in the blocks' rows of the scratch buffer
+        budget, tb.MESH_SMEM_BUDGET = tb.MESH_SMEM_BUDGET, 0
+        try:
+            glob = tb._launch(tabs, rays, keys, idx, aof, g, k)
+            _compare_mesh_grads(f"{name} (global texels)", ref, glob,
+                                tb._launch(tabs, rays, keys, idx, aof, g, k))
+        finally:
+            tb.MESH_SMEM_BUDGET = budget
 
 
-def _k2_mesh_bound(b, bounces, idx, n_spheres, table_bytes, sky=False):
-    """Least K2 mesh-mode time: per ray its rays 24 B, draws 0..2 (12 B)
-    and index (4 B) per bounce, g 36 B (48 B with the sky scale's
-    cotangent) and the ray cotangents 24 B; the tables read once and their
-    cotangents written once; against K2_OPS_TRI FLOP per live (ray,
+def _k2_mesh_bound(b, bounces, idx, n_spheres, table_bytes, counts,
+                   scratch_bytes, sky=False):
+    """Least K2 mesh-mode time: per ray its rays 24 B, key 8 B, index 4 B
+    per bounce, g 36 B (48 B with the sky scale's cotangent) and the ray
+    cotangents 24 B; the tables read once and their cotangents written
+    once; the scratch buffer of the blocks' table sums written once and
+    read once (``scratch_bytes``); against K2_OPS_TRI FLOP per live (ray,
     bounce) with a triangle winner and K2_OPS_SPHERE per other live entry
-    (this run's recorded winners)."""
+    (this run's recorded winners), and the three draws of each replayed
+    bounce (K3's plain version's ``counts["live"]``: the bounces a ray
+    starts in its loop), hashed once, at DRAW_OPS INT32 operations
+    each."""
     n_tri = int((idx >= n_spheres).sum().item())
     n_sph = int(((idx >= 0) & (idx < n_spheres)).sum().item())
-    nbytes = (b * (24 + 16 * bounces + 36 + 24 + (SKY_G_BYTES if sky else 0))
-              + 2 * table_bytes)
-    return _bound(nbytes, n_tri * K2_OPS_TRI + n_sph * K2_OPS_SPHERE)
+    nbytes = (b * (24 + 8 + 4 * bounces + 36 + 24
+                   + (SKY_G_BYTES if sky else 0))
+              + 2 * table_bytes + 2 * scratch_bytes)
+    return _bound(nbytes, n_tri * K2_OPS_TRI + n_sph * K2_OPS_SPHERE,
+                  3 * counts["live"] * DRAW_OPS)
+
+
+def _k2_mesh_scratch(b, k):
+    """Bytes of K2 mesh mode's scratch buffer for b rays on this card."""
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    blocks, entries = tb.scratch_shape(b, k)
+    return 4 * blocks * entries
 
 
 def phase_mesh_bwd_timing(dev):
@@ -1588,43 +1624,42 @@ def phase_mesh_bwd_timing(dev):
     import torch
 
     from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.integrator.render import blocked_pixel_order, sample_rays
     from raytpu_torch.kernels import trace_scene as tsc
     from raytpu_torch.kernels import trace_scene_bwd as tb
 
     scene, cam, cfg = _per_triangle(_block_world(MESH_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-    ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev), pids), 0)
-    cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg), cfg.max_bounces)
+    keys, cam_d = rng.sample_stream(rng.prng_key(0, device=dev), pids, 0, 4)
     origin, direction = sample_rays(cam, cfg, pids, cam_d)
-    mt, rays, flat, k = _mesh_inputs(scene, cfg, origin, direction, draws)
+    mt, rays, keys, flat, k = _mesh_inputs(scene, cfg, origin, direction,
+                                           keys)
     name = f"block world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
     print(f"K3 recording and K2 mesh mode at the main path's shape "
           f"({cfg.width}x{cfg.height} rays, 6 bounces, "
           f"{scene.triangles.count} triangles):")
     counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
-    kern = tsc._launch(mt, rays, flat, k, record=True)
+    kern = tsc._launch(mt, rays, keys, k, record=True)
     plain = tsc.trace_scene_reference(mt, *rays, flat, k, counts, record=True)
     rec_agree, rec_err = _check_mesh_record(name, kern, plain,
-                                            tsc._launch(mt, rays, flat, k))
+                                            tsc._launch(mt, rays, keys, k))
     del plain
     _, idx, aof = kern
     tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
     g = torch.tensor(np.random.default_rng(8).uniform(
         -1, 1, (9, cfg.n_pixels)).astype(np.float32), device=dev)
-    got = tb._launch(tabs, rays, flat, idx, aof, g, k)
-    again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+    got = tb._launch(tabs, rays, keys, idx, aof, g, k)
+    again = tb._launch(tabs, rays, keys, idx, aof, g, k)
     ref = tb.replay_reference(tabs, rays, flat, idx, aof, g, k)
-    max_err, frac, rerun, quiet = _compare_mesh_grads(name, ref, got, again)
+    max_err, frac, quiet = _compare_mesh_grads(name, ref, got, again)
     del ref, got, again
 
     fns = {
-        "record": lambda: tsc._launch(mt, rays, flat, k, record=True),
+        "record": lambda: tsc._launch(mt, rays, keys, k, record=True),
         "record_plain": lambda: tsc.trace_scene_reference(
             mt, *rays, flat, k, record=True),
-        "k2": lambda: tb._launch(tabs, rays, flat, idx, aof, g, k),
+        "k2": lambda: tb._launch(tabs, rays, keys, idx, aof, g, k),
         "k2_plain": lambda: tb.replay_reference(tabs, rays, flat, idx, aof,
                                                 g, k),
     }
@@ -1640,7 +1675,8 @@ def phase_mesh_bwd_timing(dev):
     rec_bound = _k3_bound(b, cfg.max_bounces, counts,
                           mt.nbytes() + 4 * b * cfg.max_bounces)
     k2_bound = _k2_mesh_bound(b, cfg.max_bounces, idx, k.n_spheres,
-                              table_bytes)
+                              table_bytes, counts, _k2_mesh_scratch(b, k))
+    smem = tb.mesh_func_attrs(False)["dynamic_smem"]
     n_tri = int((idx >= k.n_spheres).sum().item())
     print(f"  K3 recording {res['record']:.4f} ms (plain "
           f"{res['record_plain']:.4f} ms; bound {rec_bound[0]:.4f} ms, "
@@ -1648,12 +1684,14 @@ def phase_mesh_bwd_timing(dev):
           f"{res['k2_plain']:.4f} ms; bound {k2_bound[0]:.4f} ms, "
           f"{k2_bound[1]}) per call (turns {t}); live (ray, bounce) entries "
           f"{int((idx >= 0).sum().item())} of {b * cfg.max_bounces}, "
-          f"{n_tri} with a triangle winner")
+          f"{n_tri} with a triangle winner; K2 scratch "
+          f"{tb.scratch_shape(b, k)} (blocks, entries), {smem} B of dynamic "
+          f"shared memory a block")
     return dict(record_ms=res["record"], record_plain_ms=res["record_plain"],
                 record_bound=rec_bound, record_agree=rec_agree,
                 record_err=rec_err,
                 ms=res["k2"], plain_ms=res["k2_plain"], bound=k2_bound,
-                max_abs_err=max_err, outlier_frac=frac, rerun=rerun)
+                max_abs_err=max_err, outlier_frac=frac, smem=smem)
 
 
 def k5_bound(k2):
@@ -1710,7 +1748,7 @@ def phase_mesh_train(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
-    _check_rng("mesh fwd+bwd", 2 * cfg.spp)
+    _check_rng("mesh fwd+bwd", 2 * cfg.spp, rows=4)
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item() and all(
@@ -1973,15 +2011,23 @@ def _reset_launches():
     from raytpu_torch.kernels import trace_spheres as ts
 
     ts.launches = tb.launches = tsc.launches = intersect.launches = 0
-    ts.ad_launches = rng.launches = 0
+    ts.ad_launches = rng.launches = rng.rows_written = 0
 
 
-def _check_rng(what, want):
+def _check_rng(what, want, rows=None):
     """Raises unless the path launched the RNG kernel ``want`` times (one a
-    sample, twice under the checkpoint's recompute)."""
+    sample, twice under the checkpoint's recompute), and with ``rows``
+    unless each launch wrote that many draw rows (4 on the megakernel
+    routes, whose kernels hash their bounce draws from the keys)."""
+    from raytpu_torch.core import rng
+
     if _rng_launches() != want:
         raise AssertionError(f"{what}: {_rng_launches()} RNG kernel "
                              f"launches, want {want}")
+    if rows is not None and rng.rows_written != want * rows:
+        raise AssertionError(f"{what}: the RNG kernel wrote "
+                             f"{rng.rows_written} rows in {want} launches, "
+                             f"want {rows} a launch")
 
 
 def _rng_launches():
@@ -2353,15 +2399,16 @@ def phase_sky_kernels(dev):
           "recording and K2's sky cotangent (mesh mode)")
     for i, (name, (scene, cam, cfg), over) in enumerate(_k3_sky_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 820 + i, dev)
-        mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        o, d, _, keys = _kernel_inputs(scene, cam, cfg, 820 + i, dev)
+        mt, rays, keys, flat, k = _mesh_inputs(scene, cfg, o, d, keys)
         ref = tsc.trace_scene_reference(mt, *rays, flat, k)
-        out = tsc._launch(mt, rays, flat, k)
+        out = tsc._launch(mt, rays, keys, k)
         if out.shape[0] != 16:
             raise AssertionError(f"{name}: {out.shape[0]} planes, want 16")
         res["k3"] = max(res["k3"], _compare(name, ref, out))
         bits(name, ref, out)
-        kern = tsc._launch(mt, rays, flat, k, record=True)
+        _bit_equal(name, ref, out)
+        kern = tsc._launch(mt, rays, keys, k, record=True)
         _check_mesh_record(name, kern, tsc.trace_scene_reference(
             mt, *rays, flat, k, record=True), out)
         _, idx, aof = kern
@@ -2376,8 +2423,8 @@ def phase_sky_kernels(dev):
         tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
         g = torch.tensor(np.random.default_rng(920 + i).uniform(
             -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
-        got = tb._launch(tabs, rays, flat, idx, aof, g, k)
-        again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+        got = tb._launch(tabs, rays, keys, idx, aof, g, k)
+        again = tb._launch(tabs, rays, keys, idx, aof, g, k)
         ref_g = tb.replay_reference(tabs, rays, flat, idx, aof, g, k)
         res["k2_mesh"] = max(res["k2_mesh"], _compare_mesh_grads(
             f"{name} K2 sky", ref_g, got, again)[0])
@@ -2506,32 +2553,33 @@ def phase_sky_timing(dev):
 
     scene, cam, cfg = _sky_scene(MESH_WORLD, dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
-    o, d, draws, _ = camera_batch(scene, cam, cfg)
-    mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+    o, d, _, keys = camera_batch(scene, cam, cfg)
+    mt, rays, keys, flat, k = _mesh_inputs(scene, cfg, o, d, keys)
     name = f"sky world {MESH_WORLD} {cfg.width}x{cfg.height} 6b"
     counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
     ref = tsc.trace_scene_reference(mt, *rays, flat, k, counts)
-    out = tsc._launch(mt, rays, flat, k)
+    out = tsc._launch(mt, rays, keys, k)
     k3_err = _compare(name, ref, out)
+    _bit_equal(name, ref, out)
     del ref
-    kern = tsc._launch(mt, rays, flat, k, record=True)
+    kern = tsc._launch(mt, rays, keys, k, record=True)
     _, rec_err = _check_mesh_record(name, kern, tsc.trace_scene_reference(
         mt, *rays, flat, k, record=True), out)
     _, idx, aof = kern
     tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
     g = torch.tensor(np.random.default_rng(12).uniform(
         -1, 1, (12, cfg.n_pixels)).astype(np.float32), device=dev)
-    got = tb._launch(tabs, rays, flat, idx, aof, g, k)
-    again = tb._launch(tabs, rays, flat, idx, aof, g, k)
+    got = tb._launch(tabs, rays, keys, idx, aof, g, k)
+    again = tb._launch(tabs, rays, keys, idx, aof, g, k)
     k2m_err = _compare_mesh_grads(f"{name} K2 sky", tb.replay_reference(
         tabs, rays, flat, idx, aof, g, k), got, again)[0]
     del got, again
-    fns = {"k3": lambda: tsc._launch(mt, rays, flat, k),
+    fns = {"k3": lambda: tsc._launch(mt, rays, keys, k),
            "k3_plain": lambda: tsc.trace_scene_reference(mt, *rays, flat, k),
-           "k3_rec": lambda: tsc._launch(mt, rays, flat, k, record=True),
+           "k3_rec": lambda: tsc._launch(mt, rays, keys, k, record=True),
            "k3_rec_plain": lambda: tsc.trace_scene_reference(
                mt, *rays, flat, k, record=True),
-           "k2": lambda: tb._launch(tabs, rays, flat, idx, aof, g, k),
+           "k2": lambda: tb._launch(tabs, rays, keys, idx, aof, g, k),
            "k2_plain": lambda: tb.replay_reference(tabs, rays, flat, idx,
                                                    aof, g, k)}
     ms, t = turns(fns, ("k3_plain", "k3", "k3", "k3_plain", "k3_rec_plain",
@@ -2551,7 +2599,9 @@ def phase_sky_timing(dev):
                           bound=_k2_mesh_bound(b, cfg.max_bounces, idx,
                                                k.n_spheres,
                                                4 * sum(x.numel() for x in tabs),
-                                               True), max_abs_err=k2m_err)
+                                               counts, _k2_mesh_scratch(b, k),
+                                               True), max_abs_err=k2m_err,
+                          smem=tb.mesh_func_attrs(True)["dynamic_smem"])
     for w in ("k3", "k3_rec", "k2_mesh"):
         r = res[w]
         print(f"  {w:9s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; "
@@ -2587,7 +2637,9 @@ def _frame(what, dev, card, scene, cam, cfg, want, fwd_bwd=None):
     if got != want:
         raise AssertionError(f"{what}: (K1, K2, K3, K4, K5) launches {got}, "
                              f"want {want}")
-    _check_rng(what, cfg.spp * (1 if fwd_bwd is None else 2))
+    # the megakernel routes' RNG launches write the 4 camera rows
+    _check_rng(what, cfg.spp * (1 if fwd_bwd is None else 2),
+               rows=4 if want[0] or want[2] else None)
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     wall, busy, n_k, buckets = _profile(lambda: work(cfg.replace(spp=1)))
     idle = max(0.0, 1 - busy / wall)
@@ -2909,22 +2961,19 @@ def phase_sky_residue(dev):
         rad_frac = _outliers(a[:3], b[:3])[0]
         flips = dirs = float("nan")
         if mega:
-            # the slot on the same rays and draws (K1: the same keys),
-            # card and CPU
+            # the slot on the same rays and keys, card and CPU
             o, d, draws, keys = _kernel_inputs(scene, cam, cfg, 950, dev)
             if scene.n_triangles:
-                src = draws.reshape(-1, draws.shape[-1])
                 k = tsc.MeshKnobs.for_scene(cfg, scene, draws.shape[1])
-                run = lambda sc, rays, fl: tsc._forward(
-                    tsc.pack_scene(sc, k), rays, fl, k)
+                run = lambda sc, rays, ks: tsc._forward(
+                    tsc.pack_scene(sc, k), rays, ks, k)
             else:
-                src = keys
                 k = ts.Knobs.create(cfg, scene.spheres.count, draws.shape[1],
                                     scene.sky_index)
-                run = lambda sc, rays, fl: ts._forward(ts.pack_spheres(sc),
-                                                       rays, fl, k)
-            card = run(scene, (*o, *d), src).cpu()
-            host = run(cscene, tuple(c.cpu() for c in (*o, *d)), src.cpu())
+                run = lambda sc, rays, ks: ts._forward(ts.pack_spheres(sc),
+                                                       rays, ks, k)
+            card = run(scene, (*o, *d), keys).cpu()
+            host = run(cscene, tuple(c.cpu() for c in (*o, *d)), keys.cpu())
             both = (card[9:12] != 0).any(0) & (host[9:12] != 0).any(0)
             w, h = scene.sky.width, scene.sky.height
             ic = sky_texel_index(Vec3(*card[12:15]), w, h)
@@ -2985,22 +3034,22 @@ def phase_merged_kernels(dev):
     res = {}
     for i, (name, (scene, cam, cfg), over) in enumerate(_merged_cases(dev)):
         cfg = cfg.replace(width=64, height=48, **over)
-        o, d, draws, _ = _kernel_inputs(scene, cam, cfg, 1000 + i, dev)
-        mt, rays, flat, k = _mesh_inputs(scene, cfg, o, d, draws)
+        o, d, _, keys = _kernel_inputs(scene, cam, cfg, 1000 + i, dev)
+        mt, rays, keys, flat, k = _mesh_inputs(scene, cfg, o, d, keys)
         if k.plan is None:
             raise AssertionError(f"{name}: the default load has no quad plan")
         ref = tsc.trace_scene_reference(mt, *rays, flat, k)
-        out = tsc._launch(mt, rays, flat, k)
+        out = tsc._launch(mt, rays, keys, k)
         if not torch.equal(ref, out):
             _compare(name, ref, out)
             raise AssertionError(f"{name}: merged planes differ from the "
                                  "plain version's bits")
-        kern = tsc._launch(mt, rays, flat, k, record=True)
+        kern = tsc._launch(mt, rays, keys, k, record=True)
         _check_mesh_record(name, kern, tsc.trace_scene_reference(
             mt, *rays, flat, k, record=True), out)
         tk = tsc.MeshKnobs.for_scene(cfg.replace(merge_quads=False), scene,
-                                     draws.shape[1])
-        tri, tri_idx, _ = tsc._launch(tsc.pack_scene(scene, tk), rays, flat,
+                                     k.n_draws)
+        tri, tri_idx, _ = tsc._launch(tsc.pack_scene(scene, tk), rays, keys,
                                       tk, record=True)
         a0 = (kern[1][0] == tri_idx[0]).float().mean().item()
         a_all = (kern[1] == tri_idx).float().mean().item()
@@ -3029,8 +3078,7 @@ def phase_merged_timing(dev):
 
     from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
+    from raytpu_torch.integrator.render import blocked_pixel_order, sample_rays
     from raytpu_torch.kernels import trace_scene as tsc
 
     res = {}
@@ -3039,20 +3087,19 @@ def phase_merged_timing(dev):
         scene, cam, cfg = load_scene_file(path, dev)
         cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
         pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev),
-                                            pids), 0)
-        cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
-                                        cfg.max_bounces)
+        keys, cam_d = rng.sample_stream(rng.prng_key(0, device=dev), pids, 0,
+                                        4)
         origin, direction = sample_rays(cam, cfg, pids, cam_d)
-        mt, rays, flat, k = _mesh_inputs(scene, cfg, origin, direction, draws)
+        mt, rays, keys, flat, k = _mesh_inputs(scene, cfg, origin, direction,
+                                               keys)
         sky = key == "sky"
         counts = {"live": 0, "sphere": 0, "slab": 0, "tri": 0}
         ref = tsc.trace_scene_reference(mt, *rays, flat, k, counts)
-        out = tsc._launch(mt, rays, flat, k)
+        out = tsc._launch(mt, rays, keys, k)
         if not torch.equal(ref, out):
             raise AssertionError(f"merged {key} at {cfg.width}x{cfg.height}:"
                                  " planes differ from the plain version's")
-        rec = tsc._launch(mt, rays, flat, k, record=True)
+        rec = tsc._launch(mt, rays, keys, k, record=True)
         # the dynamic shared memory each launch set, as the driver holds it
         smem = {r: tsc.merged_func_attrs(r, sky)["dynamic_smem"]
                 for r in (False, True)}
@@ -3062,9 +3109,9 @@ def phase_merged_timing(dev):
             f"merged {key} {cfg.width}x{cfg.height}", rec,
             tsc.trace_scene_reference(mt, *rays, flat, k, record=True), out)
         del ref, out, rec
-        fns = {"fwd": lambda: tsc._launch(mt, rays, flat, k),
+        fns = {"fwd": lambda: tsc._launch(mt, rays, keys, k),
                "fwd_plain": lambda: tsc.trace_scene_reference(mt, *rays, flat, k),
-               "rec": lambda: tsc._launch(mt, rays, flat, k, record=True),
+               "rec": lambda: tsc._launch(mt, rays, keys, k, record=True),
                "rec_plain": lambda: tsc.trace_scene_reference(
                    mt, *rays, flat, k, record=True)}
         t = {w: [] for w in fns}
@@ -3092,7 +3139,7 @@ def phase_merged_timing(dev):
                         rec_ms=ms["rec"], rec_plain_ms=ms["rec_plain"],
                         rec_bound=rec_bound, rec_err=rec_err, counts=counts,
                         smem=smem)
-        del mt, rays, flat, draws
+        del mt, rays, flat, keys
     return res
 
 
@@ -3402,7 +3449,7 @@ def main() -> int:
     k3 = phase_k3_timing(dev)
     mesh = phase_mesh(dev, card, k3)
     phase_k3_record(dev)
-    rerun = phase_k2_mesh(dev)
+    phase_k2_mesh(dev)
     mbwd = phase_mesh_bwd_timing(dev)
     mtrain = phase_mesh_train(dev, card)
     phase_k4(dev)
@@ -3517,7 +3564,10 @@ def main() -> int:
         "ms": mbwd["ms"], "plain_ms": mbwd["plain_ms"],
         "bound_ms": mbwd["bound"][0], "bound_by": mbwd["bound"][1],
         "library_ms": None, "outlier_frac": mbwd["outlier_frac"],
-        "two_launches_rel": max(rerun, mbwd["rerun"]),
+        "two_launches_bit_identical": True,
+        "ptxas": _ptxas_of(ptxas, " backward_kernel<false>",
+                           "15backward_kernelILb0E"),
+        "dynamic_smem_bytes": mbwd["smem"],
     }, {
         "name": "intersect", "route": "cuda",
         "source": "raytpu_torch/csrc/intersect.cu",
@@ -3549,6 +3599,10 @@ def main() -> int:
         "max_abs_err": sky_t[key]["max_abs_err"], "ms": sky_t[key]["ms"],
         "plain_ms": sky_t[key]["plain_ms"], "bound_ms": sky_t[key]["bound"][0],
         "bound_by": sky_t[key]["bound"][1], "library_ms": None,
+        **({"ptxas": _ptxas_of(ptxas, " backward_kernel<true>",
+                               "15backward_kernelILb1E"),
+            "dynamic_smem_bytes": sky_t[key]["smem"]} if key == "k2_mesh"
+           else {}),
     } for name, src, rep, key, launches in (
         ("trace_spheres (sky)", "trace_spheres",
          "raytpu/kernels/trace_spheres.py:421", "k1",

@@ -12,7 +12,10 @@ A text that does not occur exactly once in its library's sources stops
 the script before anything is built. Some variants compute wrong results
 on purpose, to measure what a part of a kernel costs (``*_no_hash``: draws
 from the key bits without threefry; ``k3m_fixed_winner``: the shading of
-triangle 0; each says what it does). A variant built for another cull
+triangle 0; each says what it does). A variant that changes K2's draws
+(``k2_no_hash``, ``k2m0_no_draw_loads``) sends the replay off the recorded
+winners (a recorded hit recomputes as a miss and the ray's loop ends), so
+it times less work, not the draws alone. A variant built for another cull
 box size (``CHUNK_OF``: K4's ``kChunk``, the walk's ``kWalkChunk``) is
 timed on its workloads rebuilt with tables of that size.
 
@@ -20,13 +23,17 @@ The workloads, at the main paths' shapes: K1, K1's recording, K2's sphere
 mode and K5 at the Cornell sample (1200x900 rays, 6 bounces, the RNG
 kernel's keys); K4 on the camera rays and on the bounce-2 rays (through
 the scan path) of the 600- and 4096-triangle block worlds at 1200x900; K3's
-merged modes (forward, recording, sky, sky recording) at 1200x900, 6
-bounces on the 600-triangle world and its sky twin (the default load).
+merged and per-triangle modes (forward, recording, sky, sky recording) at
+1200x900, 6 bounces on the 600-triangle world and its sky twin; K2's mesh
+mode on K3's recording of both.
 
 ``--tree DIR`` first times every workload in another checkout (for
 example the parent commit, unpacked by ``git archive``): this script runs
 there in a subprocess with ``--here`` and imports that tree's
-``raytpu_torch`` and ``chip_smoke``, so two versions compare in one call.
+``raytpu_torch`` and ``chip_smoke``, so two versions compare in one call;
+``--tree-only REGEX`` times the variants of that tree's sources whose
+names match there too (``k2m0_*``: the K2 mesh mode of this change's
+parent).
 With ``--frames`` it first times, in turns (the tree, this checkout twice,
 the tree), the frames K3 and K4 set the pace of: the merged 600-triangle
 block world and its sky twin, forward at 16 spp and forward+backward at 4
@@ -93,8 +100,75 @@ _K3_GROUPS = ("#pragma unroll 1\n  for (int g = 0; g < kGroups; ++g) {\n"
               "    const int kx = g >> 1;")
 # the merged modes' launch bound
 _K3M_BLOCKS = "constexpr int kMergedMinBlocks = 4;"
+# K3's draws: hashed where read, the roulette and the scatter's two
+_K3_DRAWS = ("    const CalledDraws draws = called_draws(k0, k1, i, "
+             "k.n_draws);\n")
+# K2 mesh mode's three draws of a bounce, hashed by the called copy
+_K2M_CALLED = "  const CalledDraws d = called_draws(k0, k1, i, n_draws);"
+_K3_ROULETTE = "refr_case && draws(2) > alpha;"
+_K3_KEY = ("  uint32_t k0, k1;   // the ray's threefry key\n"
+           "  load_key(keys, B, ray, k0, k1);\n")
+_K3_SCATTER = ("      const float theta = kTwoPi * draws(0);\n"
+               "      const float cph = clampf(2.0f * draws(1) - 1.0f, -1.0f, "
+               "1.0f);")
 # the triangle winner's index in K3's shading
 _K3_WINNER = "      const int t = bidx - ns;\n      const size_t T = (size_t)nt;"
+
+# The parent commit's K2 mesh mode (before its redesign: a replay of every
+# bounce, float atomics into d_tri and d_atlas, per-thread columns for
+# d_sph and d_mat, the draws read from K3's buffer), for Step 0's
+# variants, built in a checkout of that commit (``--tree DIR --tree-only
+# '^k2m0_'``): the loops cut at the ray's last bounce (exact: the entries
+# past it are the identity); the atomics and the column adds replaced by
+# no-op uses of their values (wrong sums on purpose); the draws a
+# constant in place of the buffer's loads (wrong paths on purpose)
+_K2M0_FWD = ("    Carry saved[kMaxBounces];\n    Carry c;\n    init_carry(c, ray, "
+             "ox, oy, oz, dx, dy, dz);")
+_K2M0_LOOP = "    for (int i = 0; i < k.bounces; ++i) {\n      saved[i] = c;"
+_K2M0_REV = ("    for (int i = k.bounces - 1; i >= 0; --i) {\n      const int bidx "
+             "= idx[(size_t)i * B + ray];")
+_K2M0_TRI = ("            atomicAdd(&d_tri[j * k.n_tris + t], gt.a[j]);\n"
+             "            atomicAdd(&d_tri[(9 + j) * k.n_tris + t], gt.nraw[j]);")
+_K2M0_TEX = ("          for (int j = 0; j < 3; ++j) atomicAdd(&d_atlas[j * n_tex "
+             "+ gt.texel], gt.tex[j]);")
+_K2M0_MAT = ("            col[(n_sph + r * nm + gt.mat_id) * stride + tid] += "
+             "gt.mat[r];")
+_K2M0_SPH = ("        for (int r = 0; r < kRows; ++r) col[(r * ns + bidx) * stride "
+             "+ tid] += gw[r];")
+_K2M0_DRAWS = ("  const float* p = draws + (size_t)i * n_draws * B + ray;\n"
+               "  return LoadedDraws{{p[0], p[B], p[2 * B]}};")
+_K2M0_CUT = [(_K2M0_FWD, _K2M0_FWD.replace("Carry c;", "Carry c;\n    int last = 0;")),
+             (_K2M0_LOOP, _K2M0_LOOP.replace("k.bounces;", "k.bounces && c.active;")
+              + "\n      last = i + 1;"),
+             (_K2M0_REV, _K2M0_REV.replace("k.bounces - 1", "last - 1"))]
+_K2M0_NO_ATOMICS = [
+    (_K2M0_TRI, '            asm volatile("" :: "f"(gt.a[j]), "f"(gt.nraw[j]));'),
+    (_K2M0_TEX, '          for (int j = 0; j < 3; ++j) asm volatile("" :: '
+                '"f"(gt.tex[j]));')]
+_K2M0_NO_COLUMNS = [
+    (_K2M0_MAT, '            asm volatile("" :: "f"(gt.mat[r]));'),
+    (_K2M0_SPH, '        for (int r = 0; r < kRows; ++r) asm volatile("" :: '
+                '"f"(gw[r]));')]
+_K2M0_NO_DRAWS = [(_K2M0_DRAWS, "  return LoadedDraws{{0.31f, 0.57f, 0.9f}};")]
+
+# K2's mesh mode: the call of its table sums (the warp's grouping and the
+# warps' turns), the turns' loop and barrier, its block size and the
+# blocks an SM its launch bound asks for
+_K2M_SUM = ("      __syncwarp();\n"
+            "      mesh_table_sum(stage, gmask, lane, warp, key, table);")
+_K2M_TURNS = ("  for (int w = 0; w < kMeshWarps; ++w) {\n    if (w == warp) {")
+_K2M_TURN_SYNC = ("        }\n      }\n    }\n    __syncthreads();\n  }\n}")
+_K2M_THREADS = "constexpr int kMeshThreads = 256;"
+_K2M_SYNC = ("      if (!__syncthreads_or(i < last)) continue;   // past every "
+             "ray's loop")
+_K2M_INIT = ("    if (ray < n_rays) {\n      uint32_t k0, k1;\n"
+             "      load_key(keys, B, ray, k0, k1);\n"
+             "      init_carry(c, ray, ox, oy, oz, dx, dy, dz);")
+_K2M_FWD = ("      for (int i = 0; i < k.bounces && c.active; ++i) {\n"
+            "        saved[i] = c;")
+_K2M_MATCH = "    const unsigned peers = __match_any_sync(0xffffffffu, key[q]);"
+_K2M_PAIRS = ("    const int pairs = shared[q] ? __popc(lead[q]) * rows : 0;")
+_K2M_BLOCKS = "constexpr int kMeshMinBlocks = 2;"
 
 # name -> (library, [(text, replacement), ...]); each text occurs once in
 # the library's sources
@@ -148,8 +222,97 @@ VARIANTS = {
     # cached and uniform; the hit distance kept, the paths changed)
     "k3m_fixed_winner": ("trace_scene", [(_K3_WINNER, _K3_WINNER.replace(
         "bidx - ns", "0"))]),
+    # K3's three draws hashed together (three independent chains) where
+    # the bounce is live, ahead of the shading that reads them
+    "k3_eager_draws": ("trace_scene", [
+        (_K3_DRAWS, _K3_DRAWS + (
+            "    float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;\n"
+            "    if (live) { d0 = draws(0); d1 = draws(1); d2 = draws(2); }\n")),
+        (_K3_ROULETTE, "refr_case && d2 > alpha;"),
+        (_K3_SCATTER, _K3_SCATTER.replace("draws(0)", "d0").replace(
+            "draws(1)", "d1"))]),
+    # the draw's hash inlined at every read, in place of one called copy
+    # (K3; K2's mesh mode)
+    "k3_hash_inlined": ("trace_scene", [(_K3_DRAWS, (
+        "    const KeyDraws draws = key_draws(k0, k1, i, k.n_draws);\n"))]),
+    "k2m_hash_inlined": ("trace_scene_bwd", [(_K2M_CALLED, (
+        "  const KeyDraws d = key_draws(k0, k1, i, n_draws);"))]),
+    # K3's key read where the bounce's draws are hashed (an L1 hit), not
+    # held in two registers across the search
+    "k3_key_in_loop": ("trace_scene", [
+        (_K3_KEY, ""),
+        (_K3_DRAWS, "    uint32_t k0, k1;\n"
+                    "    asm volatile(\"ld.global.u32 %0, [%1];\" : \"=r\"(k0) "
+                    ": \"l\"(keys + ray));\n"
+                    "    asm volatile(\"ld.global.u32 %0, [%1];\" : \"=r\"(k1) "
+                    ": \"l\"(keys + B + ray));\n" + _K3_DRAWS)]),
     # the search run twice (paths unchanged: the difference is one search)
     "k3m_search_twice": ("trace_scene", [_search_twice(_K3M_CALL)]),
+    # K2's mesh mode without its table sums (the staged cotangents kept:
+    # wrong tables on purpose); with the warps' turns unordered and
+    # without their barriers (racy sums, wrong on purpose); blocks of 128
+    # threads (4 warps, 3 blocks an SM); 3 blocks an SM of 256 threads
+    "k2m_no_table_sums": ("trace_scene_bwd", [(_K2M_SUM, (
+        "      __syncwarp();\n      for (int r = 0; r < kStageRows; ++r) "
+        "asm volatile(\"\" :: \"f\"(stage[r * kStagePitch + lane]), "
+        "\"r\"(key[r & 3]));"))]),
+    "k2m_unordered_turns": ("trace_scene_bwd", [
+        (_K2M_TURNS, "  for (int w = 0; w < 1; ++w) {\n    if (true) {"),
+        (_K2M_TURN_SYNC, "        }\n      }\n    }\n  }\n}")]),
+    # the above and no block barrier in the reverse loop (each warp runs
+    # its own bounces); the warp's grouping without __match_any_sync (every
+    # lane its own group) or without its pair sums (wrong sums on purpose)
+    "k2m_no_sums_no_barrier": ("trace_scene_bwd", [(_K2M_SUM, (
+        "      for (int r = 0; r < kStageRows; ++r) "
+        "asm volatile(\"\" :: \"f\"(stage[r * kStagePitch + lane]), "
+        "\"r\"(key[r & 3]));")), (_K2M_SYNC, "      if (i >= last) continue;")]),
+    "k2m_no_match": ("trace_scene_bwd", [(_K2M_MATCH, (
+        "    const unsigned neg = __ballot_sync(0xffffffffu, key[q] < 0);\n"
+        "    const unsigned peers = key[q] >= 0 ? 1u << lane : neg;"))]),
+    "k2m_no_pair_sums": ("trace_scene_bwd", [(_K2M_PAIRS, (
+        "    const int pairs = 0;"))]),
+    # the replay's forward loop in step across the block too (a barrier a
+    # bounce); blocks of 512 threads, one an SM
+    "k2m_forward_in_step": ("trace_scene_bwd", [(_K2M_INIT, (
+        "    c.active = false;\n    {\n      uint32_t k0 = 0u, k1 = 0u;\n"
+        "      if (ray < n_rays) {\n        load_key(keys, B, ray, k0, k1);\n"
+        "        init_carry(c, ray, ox, oy, oz, dx, dy, dz);\n      }")),
+        (_K2M_FWD, (
+        "      for (int i = 0; i < k.bounces; ++i) {\n"
+        "        if (!__syncthreads_or(c.active)) break;\n"
+        "        if (!c.active) continue;\n"
+        "        saved[i] = c;"))]),
+    "k2m_threads_512": ("trace_scene_bwd", [
+        (_K2M_THREADS, _K2M_THREADS.replace("256", "512")),
+        (_K2M_BLOCKS, _K2M_BLOCKS.replace("2", "1"))]),
+    # the draws hashed where the shading reads them, in the replay and
+    # again in the reverse step (sphere mode's way), not once ahead
+    "k2m_hash_where_read": ("trace_scene_bwd", [
+        (_K2M_INIT, _K2M_INIT.replace(
+            "    if (ray < n_rays) {\n      uint32_t k0, k1;\n",
+            "    uint32_t k0 = 0u, k1 = 0u;\n    if (ray < n_rays) {\n")),
+        ("        saved_draws[i] = hash_draws(k0, k1, i, k.n_draws);\n", ""),
+        ("                                   saved_draws[i], aof, k, nullptr,",
+         "                                   key_draws(k0, k1, i, k.n_draws), "
+         "aof, k, nullptr,"),
+        ("                                       saved_draws[i], aof, k, &g, "
+         "gw, &gt)) {", "                                       key_draws(k0, "
+         "k1, i, k.n_draws), aof, k, &g, gw, &gt)) {")]),
+    "k2m_threads_128": ("trace_scene_bwd", [
+        (_K2M_THREADS, _K2M_THREADS.replace("256", "128")),
+        (_K2M_BLOCKS, _K2M_BLOCKS.replace("2", "4"))]),
+    "k2m_min_blocks_3": ("trace_scene_bwd", [
+        (_K2M_BLOCKS, _K2M_BLOCKS.replace("2", "3"))]),
+    "k2m_unbounded": ("trace_scene_bwd", [(
+        "__launch_bounds__(kMeshThreads, kMeshMinBlocks)",
+        "__launch_bounds__(kMeshThreads)")]),
+    # Step 0: the parent's K2 mesh mode (--tree-only '^k2m0_')
+    "k2m0_cut_at_last": ("trace_scene_bwd", _K2M0_CUT),
+    "k2m0_no_atomics": ("trace_scene_bwd", _K2M0_NO_ATOMICS),
+    "k2m0_no_columns": ("trace_scene_bwd", _K2M0_NO_COLUMNS),
+    "k2m0_no_draw_loads": ("trace_scene_bwd", _K2M0_NO_DRAWS),
+    "k2m0_all_four": ("trace_scene_bwd", _K2M0_CUT + _K2M0_NO_ATOMICS
+                      + _K2M0_NO_COLUMNS + _K2M0_NO_DRAWS),
 }
 
 # the cull box size each chunk variant was built for: its workloads take
@@ -251,42 +414,92 @@ def _k4(dev, chunk=None):
     return out
 
 
+def _mesh_batch(dev, scene, cam, cfg):
+    """K3's tables, the camera rays, the draw source and the knobs of one
+    sample at 1200x900, 6 bounces under key 0 (the RNG kernel's keys). A
+    checkout whose K3 and K2 mesh mode take the draw buffer
+    (``_launch(..., draws, ...)``: the parent of their keyed versions)
+    gets the keys' draws."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import (blocked_pixel_order,
+                                                n_bounce_draws, sample_rays)
+    from raytpu_torch.kernels import trace_scene as tsc
+
+    cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1], max_bounces=6)
+    pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
+    keys, cam_d = rng.sample_stream(rng.prng_key(0, device=dev), pids, 0, 4)
+    origin, direction = sample_rays(cam, cfg, pids, cam_d)
+    nd = n_bounce_draws(cfg)
+    keyed = "keys" in inspect.signature(tsc._launch).parameters
+    src = keys if keyed else rng.bounce_draws(keys, nd, cfg.max_bounces)
+    k = tsc.MeshKnobs.for_scene(cfg, scene, nd)
+    rays = tuple(t.contiguous() for t in (*origin, *direction))
+    return tsc.pack_scene(scene, k), rays, src, k
+
+
 def _k3_merged(dev, chunk=None):
     """K3's merged forward and recording on the 600-triangle world and
     its sky twin at 1200x900, 6 bounces (the default load), with the
     checkout's walk tables, or with ``chunk`` columns a chunk box of the
-    walk."""
-    import torch
-
+    walk; without ``chunk`` also the per-triangle forward and recording
+    (merge_quads off)."""
     import chip_smoke as cs
     from raytpu_torch.config import load_scene_file
-    from raytpu_torch.core import rng
-    from raytpu_torch.integrator.render import (blocked_pixel_order,
-                                                n_bounce_draws, sample_rays)
     from raytpu_torch.kernels import trace_scene as tsc
 
     out = {}
     for key, path in (("", cs._block_world(cs.MESH_WORLD)),
                       ("_sky", cs._sky_files()[cs.MESH_WORLD])):
         scene, cam, cfg = load_scene_file(path, dev)
-        cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1], max_bounces=6)
-        pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
-        ks = rng.sample_keys(rng.pixel_keys(rng.prng_key(0, device=dev),
-                                            pids), 0)
-        cam_d, draws = rng.ray_uniforms(ks, 4, n_bounce_draws(cfg),
-                                        cfg.max_bounces)
-        origin, direction = sample_rays(cam, cfg, pids, cam_d)
-        mt, rays, flat, k = cs._mesh_inputs(scene, cfg, origin, direction,
-                                            draws)
+        mt, rays, src, k = _mesh_batch(dev, scene, cam, cfg)
         if chunk is not None:
             mt = mt._replace(**dict(zip(
                 ("aa_walk", "aa3_walk", "aa_box", "aa3_box"),
                 tsc.walk_tables(mt.tri, mt.aa, mt.aa3, k.plan, chunk))))
         for rec in (False, True):
-            run = lambda a=(mt, rays, flat, k), r=rec: tsc._launch(*a, record=r)
+            run = lambda a=(mt, rays, src, k), r=rec: tsc._launch(*a, record=r)
             out[f"k3m{key}{'_rec' if rec else ''}"] = (
                 "trace_scene", run if chunk is None else
                 _at(tsc, "WALK_CHUNK", chunk, run))
+        if chunk is None:
+            tri = _mesh_batch(dev, scene, cam, cfg.replace(merge_quads=False))
+            for rec in (False, True):
+                out[f"k3t{key}{'_rec' if rec else ''}"] = (
+                    "trace_scene",
+                    lambda a=tri, r=rec: tsc._launch(*a, record=r))
+    return out
+
+
+def _k2_mesh(dev):
+    """K2's mesh mode on K3's recording of the 600-triangle world
+    (per-triangle, as ``chip_smoke.phase_mesh_bwd_timing``) and of its sky
+    twin (``chip_smoke._sky_scene``) at 1200x900, 6 bounces, one sample of
+    the RNG kernel's keys (or their draws, ``_mesh_batch``), a random
+    cotangent."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.kernels import trace_scene_bwd as tb
+
+    out = {}
+    for key, (scene, cam, cfg) in (
+            ("", cs._per_triangle(cs._block_world(cs.MESH_WORLD), dev)),
+            ("_sky", cs._sky_scene(cs.MESH_WORLD, dev))):
+        mt, rays, src, k = _mesh_batch(dev, scene, cam, cfg)
+        _, idx, aof = tsc._launch(mt, rays, src, k, record=True)
+        tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
+        g = torch.tensor(np.random.default_rng(8).uniform(
+            -1, 1, (tb.g_planes(k), rays[0].shape[0])).astype(np.float32),
+            device=dev)
+        out[f"k2m{key}"] = ("trace_scene_bwd", lambda a=(
+            tabs, rays, src, idx, aof, g, k): tb.mesh_backward(*a))
     return out
 
 
@@ -364,6 +577,8 @@ def workloads(dev, libs, chunk=None):
         out.update(_k4(dev, chunk))
     if "trace_scene" in libs:
         out.update(_k3_merged(dev, chunk))
+    if "trace_scene_bwd" in libs:
+        out.update(_k2_mesh(dev))
     return {n: w for n, w in out.items() if w[0] in libs}
 
 
@@ -399,31 +614,62 @@ def _time_all(fns) -> dict:
     return {n: round(_time_ms(f), 4) for n, (_, f) in fns.items()}
 
 
-def here(frames: bool) -> int:
+def time_variants(dev, names, fns) -> None:
+    """Build the variants ``names`` of the checkout whose ``raytpu_torch``
+    is imported, then time each beside that checkout's build on its
+    library's workloads in ``fns`` (rebuilt at a chunk variant's size)."""
+    from raytpu_torch.kernels import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (so, regs, spills) in build_variants(tmp, names).items():
+            lib = VARIANTS[name][0]
+            shipped = {n: w for n, w in fns.items() if w[0] == lib}
+            mine = (workloads(dev, {lib}, CHUNK_OF[name])
+                    if name in CHUNK_OF else shipped)
+            shipped_lib = _build._loaded.get(lib)
+            _build._loaded[lib] = ctypes.CDLL(so)
+            ms = _time_all(mine)
+            _build._loaded[lib] = shipped_lib
+            again = _time_all(shipped)
+            print(f"{name}: ms {json.dumps(ms)} (shipped {json.dumps(again)} "
+                  f"after it); ptxas registers {regs}, spill stores {spills}",
+                  flush=True)
+
+
+_ALL = {*_CORNELL, "intersect", "trace_scene"}
+
+
+def here(frames: bool, only: str) -> int:
     """Time every workload (or, with ``frames``, every frame) with the
-    checkout in the working directory."""
+    checkout in the working directory, then its variants matching
+    ``only`` (none if empty)."""
     import torch
 
     from raytpu_torch.kernels import _build
 
+    names = [n for n in VARIANTS if only and re.search(only, n)]
+    check_variants(names)
     _build.build_all()
     dev = torch.device("cuda", 0)
     if frames:
         print(json.dumps(time_frames(dev)))
         return 0
-    fns = workloads(dev, {*_CORNELL, "intersect", "trace_scene"})
-    print(json.dumps(_time_all(fns)))
+    fns = workloads(dev, _ALL)
+    print(json.dumps(_time_all(fns)), flush=True)
+    time_variants(dev, names, fns)
     return 0
 
 
-def _run_here(tree: str, frames: bool) -> str:
-    """This script's ``--here`` in ``tree``: the last line it prints."""
+def _run_here(tree: str, frames: bool, only: str = "") -> str:
+    """This script's ``--here`` in ``tree``: what it prints (the timings
+    of the tree's build on the first line, then its variants')."""
     out = subprocess.run([sys.executable, os.path.abspath(__file__), "--here",
-                          *(["--frames"] if frames else [])], cwd=tree,
+                          *(["--frames"] if frames else []),
+                          *(["--only", only] if only else [])], cwd=tree,
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"kernel_variants: {tree}:\n{out.stderr}")
-    return out.stdout.strip().splitlines()[-1]
+    return out.stdout.strip()
 
 
 def build_variants(tmp, names):
@@ -458,6 +704,9 @@ def main() -> int:
                     help="another checkout whose kernels to time first")
     ap.add_argument("--only", default="",
                     help="time only the variants whose names match")
+    ap.add_argument("--tree-only", default="",
+                    help="with --tree: time the variants whose names match "
+                         "built from the tree's sources, in its run")
     ap.add_argument("--frames", action="store_true",
                     help="with --tree: time the K3 and K4 frames of the tree "
                          "and this checkout in turns (tree, this, this, "
@@ -466,13 +715,14 @@ def main() -> int:
     args = ap.parse_args()
     if args.here:
         sys.path.insert(0, os.getcwd())
-        return here(args.frames)
+        return here(args.frames, args.only)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     from raytpu_torch.kernels import _build
 
-    names = [n for n in VARIANTS if re.search(args.only, n)]
+    names = [n for n in VARIANTS if re.search(args.only, n)
+             and not (args.tree_only and re.search(args.tree_only, n))]
     check_variants(names)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA card", file=sys.stderr)
@@ -486,27 +736,16 @@ def main() -> int:
             for who in (tree, root, root, tree):
                 print(f"frames of {who}: s {_run_here(who, True)}",
                       flush=True)
-        print(f"tree {tree}: ms {_run_here(tree, False)}", flush=True)
+        first, *rest = _run_here(tree, False, args.tree_only).splitlines()
+        print(f"tree {tree}: ms {first}", flush=True)
+        for line in rest:
+            print(f"tree {tree}: {line}", flush=True)
     _build.build_all()
     dev = torch.device("cuda", 0)
-    libs = {VARIANTS[n][0] for n in names} | (
-        {*_CORNELL, "intersect", "trace_scene"} if args.tree else set())
+    libs = {VARIANTS[n][0] for n in names} | (_ALL if args.tree else set())
     fns = workloads(dev, libs)
     print("shipped build: ms " + json.dumps(_time_all(fns)), flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, (so, regs, spills) in build_variants(tmp, names).items():
-            lib = VARIANTS[name][0]
-            shipped = {n: w for n, w in fns.items() if w[0] == lib}
-            mine = (workloads(dev, {lib}, CHUNK_OF[name])
-                    if name in CHUNK_OF else shipped)
-            shipped_lib = _build._loaded.get(lib)
-            _build._loaded[lib] = ctypes.CDLL(so)
-            ms = _time_all(mine)
-            _build._loaded[lib] = shipped_lib
-            again = _time_all(shipped)
-            print(f"{name}: ms {json.dumps(ms)} (shipped {json.dumps(again)} "
-                  f"after it); ptxas registers {regs}, spill stores {spills}",
-                  flush=True)
+    time_variants(dev, names, fns)
     return 0
 
 

@@ -18,10 +18,9 @@ follows JAX 0.9.0 (``jax/_src/prng.py``: ``_threefry2x32_lowering``,
 (uint32 bits; ``key_words`` / ``key_pairs`` convert) and the first
 ``n_rows`` draws of that key. On CUDA tensors it launches the RNG kernel
 (``csrc/rng.cu``, hashing in native uint32 with ``csrc/threefry.cuh``); on
-CPU tensors it runs the eager code above, its plain version. The sphere
-kernels (K1, K2's sphere mode, K5) take the keys and hash their bounce
-draws themselves (``draws_at`` is their per-draw formula); K3 and the scan
-path read every row.
+CPU tensors it runs the eager code above, its plain version. The kernels
+K1, K2, K3 and K5 take the keys and hash their bounce draws themselves
+(``draws_at`` is their per-draw formula); the scan path reads every row.
 """
 
 from __future__ import annotations
@@ -150,6 +149,17 @@ def is_keys(src: Tensor) -> bool:
     return src.dtype == torch.int32
 
 
+def check_keys(keys: Tensor, b: int, dev, what: str) -> None:
+    """Raise unless ``keys`` are (2, b) int32 ray keys on ``dev``: the
+    kernels hash their draws and take no draw buffer."""
+    if (keys.dtype != torch.int32 or tuple(keys.shape) != (2, b)
+            or keys.device != dev):
+        raise ValueError(
+            f"{what} kernel: want the (2, {b}) int32 ray keys of "
+            f"rng.sample_stream on {dev} (it hashes its draws), got "
+            f"{keys.dtype} {tuple(keys.shape)} on {keys.device}")
+
+
 def bounce_draws(ray_keys: Tensor, n_draws: int, bounces: int) -> Tensor:
     """The (bounces * n_draws, B) bounce draws of the keys, counters
     4 .. 4 + bounces * n_draws - 1: the buffer the plain versions of the
@@ -164,6 +174,7 @@ def plain_draws(src: Tensor, n_draws: int, bounces: int) -> Tensor:
 
 
 launches = 0   # RNG kernel launches by sample_stream (CPU calls do not count)
+rows_written = 0   # draw rows those launches wrote, summed
 
 
 def _launch(key: Tensor, pixel_ids: Tensor, sample_id: int, n_rows: int):
@@ -171,7 +182,7 @@ def _launch(key: Tensor, pixel_ids: Tensor, sample_id: int, n_rows: int):
     int32, draws (n_rows, B) f32)."""
     from raytpu_torch.kernels import _build
 
-    global launches
+    global launches, rows_written
     dev = pixel_ids.device
     for t, shape in ((key, (2,)), (pixel_ids, (pixel_ids.shape[0],))):
         if (t.dtype != torch.int64 or tuple(t.shape) != shape
@@ -195,6 +206,7 @@ def _launch(key: Tensor, pixel_ids: Tensor, sample_id: int, n_rows: int):
     if err != 0:
         raise RuntimeError(f"rng kernel launch failed: cudaError {err}")
     launches += 1
+    rows_written += n_rows
     return keys, draws
 
 

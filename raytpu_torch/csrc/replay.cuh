@@ -2,10 +2,10 @@
 // (csrc/trace_scene_bwd.cu) and K5 (csrc/trace_spheres_bwd.cu): the
 // carry and cotangent records, the winner's surface (sphere or triangle)
 // and the shading with their hand-derived adjoints (replay_bounce: one
-// bounce forward, or its reverse step), the deterministic table sums
-// (sphere mode: grouped by winner within each warp, warp_table_sum; mesh
-// mode: per-thread columns) with the fixed-order sum over blocks
-// (sum_blocks_kernel), and the sphere kernels' shared-memory layout.
+// bounce forward, or its reverse step), the sphere kernels' deterministic
+// table sums (grouped by winner within each warp, warp_table_sum) with the
+// fixed-order sum over blocks (sum_blocks_kernel), and their shared-memory
+// layout.
 // csrc/trace_scene_bwd.cu's header says what each computes and why; a
 // source that includes this file is rebuilt when it changes
 // (raytpu_torch/kernels/_build.py hashes the headers a source includes).
@@ -26,7 +26,6 @@ constexpr int kRows = 14;         // cx cy cz r | dif3 emi3 estr refl alpha ior
 constexpr int kTriRows = 25;      // a3 ab3 ac3 n3 b3 c3 ua va ub vb uc vc mat
 constexpr int kMatRows = 9;       // emi3 estr refl ior alpha_c use_c eft
 constexpr int kReduceThreads = 256;
-constexpr int kSmemBudget = 160 * 1024;
 constexpr int kSphereThreads = 128;   // K2's sphere mode and K5: one block size
 // blocks an SM holds of K2's sphere-mode and K5's kernels: 5 caps them at
 // 96 registers (a few spills) against 120-125 unbounded (4 blocks), faster
@@ -65,14 +64,6 @@ struct Cot {
 // The branches a bounce took that the sky slot reads.
 struct Masks {
   bool emissive_ret, accum;
-};
-
-// A bounce's draws read from K3's buffer ahead of the replay (mesh mode):
-// draw j of the bounce is v[j] (u, v of the scatter direction, the
-// refraction roulette).
-struct LoadedDraws {
-  float v[3];
-  __device__ __forceinline__ float operator()(int j) const { return v[j]; }
 };
 
 // The winner's surface at one bounce: what shade reads.
@@ -739,16 +730,6 @@ __device__ __forceinline__ void load_triangle(const float* tri, int nt,
   for (int r = 0; r < kTriRows; ++r) w[r] = in ? tri[(size_t)r * nt + t] : 0.0f;
 }
 
-// Draws 0..2 of bounce i (u, v of the scatter direction, the refraction
-// roulette) for one ray, from K3's (bounces * n_draws, B) buffer (mesh
-// mode).
-__device__ __forceinline__ LoadedDraws load_draws(const float* draws, int i,
-                                                  int n_draws, size_t B,
-                                                  int ray) {
-  const float* p = draws + (size_t)i * n_draws * B + ray;
-  return LoadedDraws{{p[0], p[B], p[2 * B]}};
-}
-
 __device__ __forceinline__ void init_carry(Carry& c, int ray,
                                            const float* ox, const float* oy,
                                            const float* oz, const float* dx,
@@ -913,27 +894,11 @@ __device__ __forceinline__ void block_table_sum(const float* wsum, int ns,
   }
 }
 
-// ---- mesh mode: per-thread columns --------------------------------------
-
-// Entries of the per-thread columns: the sphere table's 14 x S, then rows
-// 0-5 of the material table (6 x M).
-__host__ __device__ inline int column_entries(int ns, int nm) {
-  return kRows * ns + 6 * nm;
-}
-
-// Mesh mode's shared memory: the sphere table (14 x S) and the material
-// table (9 x M), then the per-thread columns (entries x (threads + 1)).
-__host__ __device__ inline size_t shared_floats(int ns, int nm, int threads) {
-  return (size_t)kRows * ns + (size_t)kMatRows * nm +
-         (size_t)column_entries(ns, nm) * (threads + 1);
-}
-
-// The sum over blocks of partial[b][e], in a fixed tree order, into d_sph
-// (e < n_sph) or rows 0-5 of d_mat (the rest).
+// The sum over blocks of partial[b][e], in a fixed tree order, into
+// d_sph[e].
 __global__ void __launch_bounds__(kReduceThreads)
 sum_blocks_kernel(const float* __restrict__ partial, int blocks, int n_e,
-                  int n_sph, float* __restrict__ d_sph,
-                  float* __restrict__ d_mat) {
+                  float* __restrict__ d_sph) {
   __shared__ float red[kReduceThreads];
   const int e = blockIdx.x, tid = threadIdx.x;
   float s = 0.0f;
@@ -944,19 +909,7 @@ sum_blocks_kernel(const float* __restrict__ partial, int blocks, int n_e,
     if (tid < half) red[tid] += red[tid + half];
     __syncthreads();
   }
-  if (tid == 0) {
-    if (e < n_sph) d_sph[e] = red[0];
-    else d_mat[e - n_sph] = red[0];
-  }
-}
-
-int threads_per_block(int n_spheres, int n_mats) {
-  int nt = 128;
-  while (nt > 32 && shared_floats(n_spheres, n_mats, nt) * sizeof(float) >
-                        (size_t)kSmemBudget) {
-    nt /= 2;
-  }
-  return nt;
+  if (tid == 0) d_sph[e] = red[0];
 }
 
 }  // namespace

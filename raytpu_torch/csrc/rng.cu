@@ -6,11 +6,10 @@
 // ray_uniforms), and the port did so with eager int64 tensor code
 // (raytpu_torch/core/rng.py, about 170 passes a sample; its plain version
 // here). Per ray: key = fold_in(fold_in(base key, pixel_id), sample_id),
-// then draws 0 .. n_rows-1 of that key (csrc/threefry.cuh). K1, K2's
-// sphere mode and K5 hash their bounce draws from the key themselves and
-// take only the 4 camera rows; K3 and the scan path (K4 and the eager
-// shading) read all 4 + max_bounces * n_bounce_draws rows, in
-// ray_uniforms's layout.
+// then draws 0 .. n_rows-1 of that key (csrc/threefry.cuh). K1, K2, K3
+// and K5 hash their bounce draws from the key themselves and take only
+// the 4 camera rows; the scan path (K4 and the eager shading) reads all 4
+// + max_bounces * n_bounce_draws rows, in ray_uniforms's layout.
 //
 // What bounds it: 8 B of pixel id in, 8 B of key and 4 B per row out per
 // ray, against 2 hashes for the key and one per row (73-76 integer

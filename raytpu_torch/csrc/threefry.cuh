@@ -1,7 +1,7 @@
 // JAX 0.9.0's threefry2x32 stream in native uint32, for the kernels that
 // hash their random draws themselves: the RNG kernel (csrc/rng.cu), K1
-// (csrc/trace_spheres.cu), K2's sphere mode (csrc/trace_scene_bwd.cu) and
-// K5 (csrc/trace_spheres_bwd.cu). The plain version is
+// (csrc/trace_spheres.cu), K2 (csrc/trace_scene_bwd.cu), K3
+// (csrc/trace_scene.cu) and K5 (csrc/trace_spheres_bwd.cu). The plain version is
 // raytpu_torch/core/rng.py (threefry2x32, fold_in, draws_at), which emulates
 // the same uint32 arithmetic in int64 tensors; both follow jax/_src/prng.py
 // (_threefry2x32_lowering, threefry_fold_in, the partitionable random bits)
@@ -88,6 +88,28 @@ struct KeyDraws {
 __device__ __forceinline__ KeyDraws key_draws(uint32_t k0, uint32_t k1,
                                               int i, int n_draws) {
   return KeyDraws{k0, k1, (uint32_t)(kCamDraws + i * n_draws)};
+}
+
+// uniform_draw as a call: one copy of the hash in a kernel's code in
+// place of one at every read. K3, whose code is large, runs 3-6% faster
+// so and K2's mesh mode up to 3% (PERF.md); K2's sphere mode ran 3%
+// slower.
+__device__ __noinline__ float uniform_draw_call(uint32_t k0, uint32_t k1,
+                                                uint32_t c) {
+  return uniform_draw(k0, k1, c);
+}
+
+// KeyDraws through uniform_draw_call.
+struct CalledDraws {
+  uint32_t k0, k1, base;
+  __device__ __forceinline__ float operator()(int j) const {
+    return uniform_draw_call(k0, k1, base + (uint32_t)j);
+  }
+};
+
+__device__ __forceinline__ CalledDraws called_draws(uint32_t k0, uint32_t k1,
+                                                    int i, int n_draws) {
+  return CalledDraws{k0, k1, (uint32_t)(kCamDraws + i * n_draws)};
 }
 
 // The ray's key (k0, k1) from the (2, n_rays) key planes the RNG kernel

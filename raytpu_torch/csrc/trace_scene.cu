@@ -15,10 +15,17 @@
 // What bounds it: per live (ray, bounce) it runs a sphere test per
 // sphere, one slab test per 32-triangle chunk and ~46 operations per
 // triangle of every chunk the ray enters (55 triangles on the
-// 600-triangle block world), against 12 bytes of draws read, so it is
-// bound by FP32 operations (PERF.md gives the count and the card's
-// time). So:
+// 600-triangle block world), and hashes the bounce's draws from the ray's
+// threefry key (csrc/threefry.cuh: 76 INT32 operations a draw), against
+// 8 bytes of key a ray, so it is bound by FP32 operations (PERF.md gives
+// the count and the card's time). So:
 //   * one thread per ray on a 1-D grid, the ragged edge masked here;
+//   * the draws hashed where the loop reads them, at K1's counters: draw
+//     j of bounce b is the key's draw 4 + b * n_draws + j (the scatter's
+//     two only for a ray that scatters, the roulette only where the
+//     material can refract, the AO probes' pairs 3 + 2s and 4 + 2s only
+//     where the probes run), in place of a (bounces * n_draws, B) buffer
+//     of them that the RNG kernel would write and this kernel read;
 //   * the search channels of every triangle (a, b - a, c - a, the raw
 //     normal: 12 x T f32, 96 KB at 2048 triangles), the chunk boxes, the
 //     sphere table and the material table staged in dynamic shared memory
@@ -94,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include "box.cuh"
+#include "threefry.cuh"        // the draws, hashed from the ray's key
 
 namespace {
 
@@ -237,14 +245,16 @@ __device__ __forceinline__ float triangle_hit(const float* s, float ox,
 // Ambient occlusion (main.c:94-116): hemisphere probes from the hit point,
 // occluded by any sphere root at t >= eps or any valid triangle of the
 // chunks the probe enters; occluded probes / (ao_samples * ao_intensity).
+// Probe a reads the bounce's draws 3 + 2a and 4 + 2a.
+template <class Draws>
 __device__ float ao_factor(const float* sph, const float* tri_s,
                            const float* box, int n_chunks, float px,
                            float py, float pz, float nX, float nY, float nZ,
-                           const float* dr, size_t B, const Knobs& k) {
+                           const Draws& draws, const Knobs& k) {
   const int ns = k.n_spheres;
   float occ = 0.0f;
   for (int a = 0; a < k.ao_samples; ++a) {
-    const float au = dr[(3 + 2 * a) * B], av = dr[(4 + 2 * a) * B];
+    const float au = draws(3 + 2 * a), av = draws(4 + 2 * a);
     const float ath = kTwoPi * au;
     const float acp = clampf(2.0f * av - 1.0f, -1.0f, 1.0f);
     const float asp = sqrtf(fmaxf(1.0f - acp * acp, 0.0f));
@@ -473,7 +483,7 @@ trace_scene_body(const float* __restrict__ sph_g,
                  const float* __restrict__ ox, const float* __restrict__ oy,
                  const float* __restrict__ oz, const float* __restrict__ dx,
                  const float* __restrict__ dy, const float* __restrict__ dz,
-                 const float* __restrict__ draws, float* __restrict__ out,
+                 const uint32_t* __restrict__ keys, float* __restrict__ out,
                  int* __restrict__ idx_out, float* __restrict__ aof_out,
                  int n_rays, Knobs k, Quads q) {
   // shared: tri search (T x 12, per-triangle mode) | spheres (14 x S) |
@@ -540,6 +550,8 @@ trace_scene_body(const float* __restrict__ sph_g,
   const size_t B = (size_t)n_rays;
   const size_t n_tex = (size_t)k.n_tex;
 
+  uint32_t k0, k1;   // the ray's threefry key
+  load_key(keys, B, ray, k0, k1);
   float rox = ox[ray], roy = oy[ray], roz = oz[ray];
   float rdx = dx[ray], rdy = dy[ray], rdz = dz[ray];
   float rcx = 1.0f, rcy = 1.0f, rcz = 1.0f;      // throughput
@@ -717,25 +729,15 @@ trace_scene_body(const float* __restrict__ sph_g,
     active = !emissive_ret;
     const bool live = active && did_hit;
 
-    // ---- scatter: diffuse/specular lerp ---------------------------------
-    const float* dr = draws + (size_t)i * k.n_draws * B + ray;
-    const float u_d = dr[0], v_d = dr[B], roulette = dr[2 * B];
-    const float theta = kTwoPi * u_d;
-    const float cph = clampf(2.0f * v_d - 1.0f, -1.0f, 1.0f);
-    const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
-    float ddx = nX + cosf(theta) * sph_;
-    float ddy = nY + sinf(theta) * sph_;
-    float ddz = nZ + cph;
-    normalize3(ddx, ddy, ddz);
+    // ---- the bounce's draws, hashed where read (one copy of the hash,
+    // called: csrc/threefry.cuh) -----------------------------------------
+    const CalledDraws draws = called_draws(k0, k1, i, k.n_draws);
     const float vdn = rdx * nX + rdy * nY + rdz * nZ;
-    const float rfx = rdx - 2.0f * vdn * nX;
-    const float rfy = rdy - 2.0f * vdn * nY;
-    const float rfz = rdz - 2.0f * vdn * nZ;
 
     // ---- refraction (reduced pile.h medium stack) -----------------------
     const bool refr_case = live && alpha <= k.alpha_hi && alpha >= k.alpha_lo;
     const bool exiting = vdn > 0.0f;
-    const bool do_refract = refr_case && roulette > alpha;
+    const bool do_refract = refr_case && draws(2) > alpha;   // the roulette
     float refx = 0.0f, refy = 0.0f, refz = 0.0f;
     if (do_refract) {
       const float nex = exiting ? -nX : nX;
@@ -777,7 +779,7 @@ trace_scene_body(const float* __restrict__ sph_g,
     float factor = 0.0f;
     if (k.use_ao && (accum || kRecord)) {
       factor = ao_factor(sph, tri_s, box, n_chunks, px, py, pz, nX, nY, nZ,
-                         dr, B, k);
+                         draws, k);
       if (kRecord) aof_out[(size_t)i * B + ray] = factor;
     }
 
@@ -817,6 +819,18 @@ trace_scene_body(const float* __restrict__ sph_g,
     if (do_refract) {
       rdx = refx; rdy = refy; rdz = refz;
     } else if (accum) {
+      // scatter: the diffuse direction about the normal, lerped towards
+      // the mirror direction by the reflection
+      const float theta = kTwoPi * draws(0);
+      const float cph = clampf(2.0f * draws(1) - 1.0f, -1.0f, 1.0f);
+      const float sph_ = sqrtf(fmaxf(1.0f - cph * cph, 0.0f));
+      float ddx = nX + cosf(theta) * sph_;
+      float ddy = nY + sinf(theta) * sph_;
+      float ddz = nZ + cph;
+      normalize3(ddx, ddy, ddz);
+      const float rfx = rdx - 2.0f * vdn * nX;
+      const float rfy = rdy - 2.0f * vdn * nY;
+      const float rfz = rdz - 2.0f * vdn * nZ;
       rdx = ddx + (rfx - ddx) * refl;
       rdy = ddy + (rfy - ddy) * refl;
       rdz = ddz + (rfz - ddz) * refl;
@@ -845,11 +859,11 @@ trace_scene_body(const float* __restrict__ sph_g,
       const float *__restrict__ ox, const float *__restrict__ oy,             \
       const float *__restrict__ oz, const float *__restrict__ dx,             \
       const float *__restrict__ dy, const float *__restrict__ dz,             \
-      const float *__restrict__ draws, float *__restrict__ out,               \
+      const uint32_t *__restrict__ keys, float *__restrict__ out,             \
       int *__restrict__ idx_out, float *__restrict__ aof_out, int n_rays,     \
       Knobs k, Quads q
 #define TRACE_SCENE_ARGS                                                      \
-  sph_g, search_g, tri, box_g, mat_g, atlas, ox, oy, oz, dx, dy, dz, draws,  \
+  sph_g, search_g, tri, box_g, mat_g, atlas, ox, oy, oz, dx, dy, dz, keys,   \
       out, idx_out, aof_out, n_rays, k, q
 
 template <bool kRecord, bool kSky>
@@ -875,7 +889,9 @@ trace_scene_kernel_merged(TRACE_SCENE_PARAMS) {
 // pointers to contiguous f32 but `layout`: sph (14, n_spheres); search
 // (n_tris, 12); tri (25, n_tris); boxes (6, ceil(n_tris / 32)); mats
 // (9, n_mats); atlas (4, n_tex), unread when n_tex is 0; ox..dz (n_rays,);
-// draws (bounces * n_draws, n_rays); out (9, n_rays), or (16, n_rays) with
+// keys (2, n_rays) uint32, each ray's threefry key
+// (raytpu_torch/core/rng.py: sample_stream), whose draw 4 + b * n_draws
+// + j is draw j of bounce b; out (9, n_rays), or (16, n_rays) with
 // the sky slot of sphere sky_idx (-1: no sky). Recording mode when
 // idx_out is not null: idx_out (bounces, n_rays) i32 winners and, with
 // use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). The
@@ -892,7 +908,7 @@ extern "C" int raytpu_trace_scene(
     const float* sph, const float* search, const float* tri,
     const float* boxes, const float* mats, const float* atlas,
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* draws, float* out,
+    const float* dy, const float* dz, const uint32_t* keys, float* out,
     int* idx_out, float* aof_out, int n_rays, int n_spheres, int n_tris, int n_mats, int n_tex,
     int atlas_w, int atlas_h, int bounces, int n_draws, float sphere_eps,
     float det_eps, float tri_eps, float alpha_lo, float alpha_hi,
@@ -906,7 +922,7 @@ extern "C" int raytpu_trace_scene(
       sky_idx < -1 || sky_idx >= n_spheres ||
       n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
       (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
-      n_rays < 0 || bounces < 0 ||
+      n_rays < 0 || bounces < 0 || keys == nullptr ||
       n_draws < 3 + (use_ao ? 2 * ao_samples : 0) ||
       (idx_out != nullptr && use_ao && aof_out == nullptr) ||
       (aof_out != nullptr && (idx_out == nullptr || !use_ao))) {
@@ -964,7 +980,7 @@ extern "C" int raytpu_trace_scene(
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
+      sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, keys,
       out, idx_out, aof_out, n_rays, k, q);
   return (int)cudaGetLastError();
 }

@@ -211,7 +211,7 @@ extern "C" int raytpu_spheres_ad(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  sum_blocks_kernel<<<n_e, kReduceThreads, 0, s>>>(partial, blocks, n_e, n_e,
-                                                   d_sph, nullptr);
+  sum_blocks_kernel<<<n_e, kReduceThreads, 0, s>>>(partial, blocks, n_e,
+                                                   d_sph);
   return (int)cudaGetLastError();
 }

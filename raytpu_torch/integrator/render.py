@@ -4,9 +4,10 @@ Port of ``raytpu/integrator/render.py``. For each sample index the
 per-(pixel, sample) threefry keys give the camera jitter and every
 bounce's draws (``rng.sample_stream``: one RNG kernel launch a sample on
 the card, the eager stream on the CPU), the camera makes one ray per
-pixel, and the bounce loop traces them. K1 takes the keys and hashes its
-bounce draws itself, so the stream makes only the 4 camera rows for it;
-K3 and the scan path read every row. Which loop follows ``raytpu.render``: with
+pixel, and the bounce loop traces them. K1 and K3 take the keys and hash
+their bounce draws themselves, so the stream makes only the 4 camera rows
+for them; the scan path reads every row. Which loop follows
+``raytpu.render``: with
 ``cfg.use_megakernel`` the sphere megakernel (K1) where
 ``trace_spheres.supported`` holds, else the mesh megakernel (K3) where
 ``trace_scene.supported`` holds; otherwise, and always without
@@ -109,8 +110,10 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
         init = RenderSums(zeros, zeros, zeros, 0)
     rad, alb, nrm, count = init
     bounce_loop = trace_fn(scene, cfg)
-    # K1 hashes its bounce draws from the ray keys; the others read them
-    keyed = bounce_loop is trace_spheres.trace_megakernel
+    # K1 and K3 hash their bounce draws from the ray keys; the scan path
+    # reads them
+    keyed = bounce_loop in (trace_spheres.trace_megakernel,
+                            trace_scene.trace_mesh_megakernel)
     if bounce_loop is trace_scene.trace_mesh_megakernel:
         # K3's selection tables depend on the scene alone: built once here
         bounce_loop = functools.partial(

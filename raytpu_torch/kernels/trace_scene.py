@@ -42,8 +42,11 @@ first sky event ends the ray's sky contribution. With the sky on, the
 kernel returns 16 planes instead of 9.
 
 ``trace_mesh_megakernel`` is the entry point. On CUDA tensors it launches
-the hand-written kernel in ``csrc/trace_scene.cu``; on CPU tensors it runs
-``trace_scene_reference``, the plain PyTorch version of the same loop,
+the hand-written kernel in ``csrc/trace_scene.cu``, which takes the rays'
+threefry keys ((2, B) int32, ``rng.sample_stream``) and hashes each
+bounce's draws where it reads them, at K1's counters; on CPU tensors it
+runs ``trace_scene_reference``, the plain PyTorch version of the same
+loop, on the keys' draws (``rng.bounce_draws``) or on a draw buffer,
 which the tests hold against ``raytpu`` and the chip check holds the
 kernel against. The packers (``pack_tri``, ``chunk_boxes``, ``pack_mats``,
 ``pack_atlas``, and for the merged search ``pack_aa``, ``pack_quads`` and
@@ -79,6 +82,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from raytpu_torch.core import rng
 from raytpu_torch.core.color import hsl_boost
 from raytpu_torch.core.types import (MatTable, RenderConfig, Scene, TextureAtlas,
                                      requires_grad)
@@ -1218,7 +1222,11 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     work this input needs: ``live`` (ray, bounce) entries, ``sphere`` and
     ``slab`` tests, and ``tri`` tests of entered chunks, or in the merged
     search (``k.plan``) the ``aa_rect``, ``aa_tri``, ``quad`` and ``left``
-    tests of ``_closest_merged`` (AO probes not counted).
+    tests of ``_closest_merged`` (AO probes not counted); and the draws the
+    kernel hashes: ``draws``, the scatter's two where a bounce scatters and
+    the roulette where the material can refract, ``probe_draws``, the AO
+    probes' two a probe where they run (a bounce that accumulates, or with
+    ``record`` every live entry).
 
     With ``record`` returns ``(out, idx, aof)`` as ``raytpu``'s
     ``with_indices``: the per-bounce winner (bounces, B) int32, a triangle
@@ -1298,17 +1306,25 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
             em = tuple(torch.where(sky_win, 0.0, e) for e in em)
             sdir = sky_direction(*p, scx, scy, scz, sr)
         rc = carry[6:9]
-        carry = shade_bounce(
+        alpha = sel(m.alpha, salpha)
+        carry, e_ret, acc = shade_bounce(
             i, carry, did_hit, *p, *nrm,
             sel(m.diffuse.x, sdfx), sel(m.diffuse.y, sdfy),
             sel(m.diffuse.z, sdfz), *em, estr, sel(m.reflection, srefl),
-            sel(m.alpha, salpha), sel(m.ior, sior),
+            alpha, sel(m.ior, sior),
             draws[row0], draws[row0 + 1], draws[row0 + 2],
-            e_scale_mult=k.e_scale_mult, ao_factor=aof, with_masks=sky_on,
+            e_scale_mult=k.e_scale_mult, ao_factor=aof, with_masks=True,
             **k.shade_kw,
         )
+        if counts is not None:
+            live = active & did_hit & ~e_ret
+            refr = live & (alpha <= k.alpha_hi) & (alpha >= k.alpha_lo)
+            probed = int((active if record else acc).sum()) if k.use_ao else 0
+            counts["draws"] = (counts.get("draws", 0) + 2 * int(acc.sum())
+                               + int(refr.sum()))
+            counts["probe_draws"] = (counts.get("probe_draws", 0)
+                                     + 2 * k.ao_samples * probed)
         if sky_on:
-            carry, e_ret, acc = carry
             sky = take_sky_slot(sky, sky_win, e_ret, acc, estr, rc,
                                 k.e_scale_mult, sdir)
     out = torch.stack(carry[9:18] + sky[:7])
@@ -1319,7 +1335,7 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 16                 # 6 tables, 6 rays, draws, out,
+    [ctypes.c_void_p] * 16                 # 6 tables, 6 rays, keys, out,
                                            # idx_out, aof_out
     + [ctypes.c_int] * 9                   # n_rays n_spheres n_tris n_mats n_tex
                                            # atlas_w atlas_h bounces n_draws
@@ -1352,18 +1368,21 @@ def _library():
     return fn
 
 
-def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
+def _launch(tb: MeshTables, rays: tuple, keys: Tensor, k: MeshKnobs,
             record: bool = False):
-    """Launch ``csrc/trace_scene.cu`` on the current stream. Returns what
-    ``trace_scene_reference`` returns for the same ``record``; a merged
-    plan's walk boxes are those of WALK_CHUNK columns."""
+    """Launch ``csrc/trace_scene.cu`` on the current stream with the ray
+    keys (2, B) int32. Returns what ``trace_scene_reference`` returns for
+    the same ``record`` and the keys' draws (``rng.bounce_draws``); a
+    merged plan's walk boxes are those of WALK_CHUNK columns."""
     global launches
-    tensors = (tb.sph, tb.search, tb.tri, tb.boxes, tb.mats, tb.atlas,
-               *rays, draws)
-    if not all(t.is_contiguous() and t.dtype == torch.float32 for t in tensors):
-        raise ValueError("trace_scene kernel needs contiguous f32 inputs")
     b = rays[0].shape[0]
     dev = rays[0].device
+    rng.check_keys(keys, b, dev, "trace_scene")
+    tensors = (tb.sph, tb.search, tb.tri, tb.boxes, tb.mats, tb.atlas, *rays)
+    if not all(t.is_contiguous() and t.dtype == torch.float32 for t in tensors):
+        raise ValueError("trace_scene kernel needs contiguous f32 inputs")
+    if not keys.is_contiguous():
+        raise ValueError("trace_scene kernel needs contiguous ray keys")
     out = torch.empty((out_planes(k), b), dtype=torch.float32, device=dev)
     idx = aof = None
     if record:
@@ -1392,7 +1411,8 @@ def _launch(tb: MeshTables, rays: tuple, draws: Tensor, k: MeshKnobs,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), ptr(idx),
+            *(t.data_ptr() for t in tensors), keys.data_ptr(), out.data_ptr(),
+            ptr(idx),
             ptr(aof), b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex,
             k.atlas_w, k.atlas_h, k.bounces, k.n_draws,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
@@ -1420,15 +1440,18 @@ def merged_func_attrs(record: bool, sky: bool) -> dict:
     return _build.func_attrs(fn, int(record), int(sky))
 
 
-def _forward(tb: MeshTables, rays, draws: Tensor, k: MeshKnobs,
+def _forward(tb: MeshTables, rays, src: Tensor, k: MeshKnobs,
              record: bool = False):
-    """K3 on the device of the tables: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """K3 on the device of the tables: the kernel for CUDA tensors (``src``
+    the ray keys), the plain version for CPU tensors (``src`` the keys or
+    a draw buffer)."""
     dev = tb.sph.device
     if dev.type == "cuda":
-        return _launch(tb, rays, draws, k, record)
+        return _launch(tb, rays, src, k, record)
     if dev.type == "cpu":
-        return trace_scene_reference(tb, *rays, draws, k, record=record)
+        return trace_scene_reference(
+            tb, *rays, rng.plain_draws(src, k.n_draws, k.bounces), k,
+            record=record)
     raise NotImplementedError(f"trace_scene: no kernel for {dev}")
 
 
@@ -1440,7 +1463,9 @@ class TraceMesh(torch.autograd.Function):
     backward replays the bounces from them without a search
     (``trace_scene_bwd.mesh_backward``). Inputs: the packed tables sph
     (14, S), tri (25, T), mats (9, M) and atlas (4, n_tex), the six ray
-    planes, the (bounces * n_draws, B) draws and the knobs; output (9, B),
+    planes, the draw source (the (2, B) int32 ray keys, whose draws K3 and
+    K2 hash, 8 B a ray; on CPU tensors also a (bounces * n_draws, B) draw
+    buffer) and the knobs; output (9, B),
     or (16, B) with the sky slot, whose direction and early-flag planes
     get no cotangent (they reach the image only through floor() and
     compares), so K2 takes the first 12 planes' cotangent.
@@ -1453,7 +1478,7 @@ class TraceMesh(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, sph, tri, mats, atlas, ox, oy, oz, dx, dy, dz, draws,
+    def forward(ctx, sph, tri, mats, atlas, ox, oy, oz, dx, dy, dz, src,
                 k: MeshKnobs, selection: Optional[dict] = None):
         from raytpu_torch.kernels.trace_scene_bwd import check_depth
 
@@ -1461,9 +1486,9 @@ class TraceMesh(torch.autograd.Function):
         rays = (ox, oy, oz, dx, dy, dz)
         out, idx, aof = _forward(mesh_tables(sph, tri, mats, atlas, k,
                                              selection), rays,
-                                 draws, k, record=True)
+                                 src, k, record=True)
         ctx.k = k
-        ctx.save_for_backward(sph, tri, mats, atlas, *rays, draws, idx, aof)
+        ctx.save_for_backward(sph, tri, mats, atlas, *rays, src, idx, aof)
         return out
 
     @staticmethod
@@ -1471,9 +1496,9 @@ class TraceMesh(torch.autograd.Function):
         from raytpu_torch.kernels.trace_scene_bwd import (Tables, g_planes,
                                                           mesh_backward)
 
-        sph, tri, mats, atlas, *rays, draws, idx, aof = ctx.saved_tensors
+        sph, tri, mats, atlas, *rays, src, idx, aof = ctx.saved_tensors
         *d_tabs, d_rays = mesh_backward(Tables(sph, tri, mats, atlas), rays,
-                                        draws, idx, aof,
+                                        src, idx, aof,
                                         g[:g_planes(ctx.k)].contiguous(), ctx.k)
         return (*d_tabs, *d_rays, None, None, None)
 
@@ -1487,48 +1512,63 @@ def frame_selection(scene: Scene, cfg: RenderConfig) -> dict:
 
 
 def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
-                          direction: Vec3, bounce_draws: Tensor,
+                          direction: Vec3, src: Tensor,
                           selection: Optional[dict] = None
                           ) -> tuple[Vec3, Vec3, Vec3]:
     """(radiance, albedo AOV, normal AOV) for a batch of rays through a
     mesh scene.
 
-    bounce_draws: (max_bounces, n_bounce_draws(cfg), B) U(0,1) draws.
-    Runs on the device of the scene: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. When a table leaf or a ray
-    requires grad it runs ``TraceMesh`` (K3 recording, then K2's mesh
-    mode in the backward). A sky scene's slot planes are composed with
-    the sky texels by ``trace_spheres.compose_sky``. Raises
+    src: the rays' threefry keys, (2, B) int32 (``rng.sample_stream``),
+    whose draws K3 hashes (n_bounce_draws(cfg) a bounce, after the 4
+    camera draws); on CPU tensors also a (max_bounces, n_bounce_draws(cfg),
+    B) U(0,1) draw buffer. Runs on the device of the scene: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. When a
+    table leaf or a ray requires grad it runs ``TraceMesh`` (K3 recording,
+    then K2's mesh mode in the backward). A sky scene's slot planes are
+    composed with the sky texels by ``trace_spheres.compose_sky``. Raises
     ``NotImplementedError`` for scenes the kernel does not cover
     (``unsupported_reasons``). ``selection``: ``frame_selection`` of the
     same scene and config, or None to build it here.
     """
+    from raytpu_torch.integrator.path import n_bounce_draws
     from raytpu_torch.kernels.trace_spheres import compose_sky, pack_spheres
 
     reasons = unsupported_reasons(scene, cfg)
     if reasons:
         raise NotImplementedError("trace_scene: " + "; ".join(reasons))
     rays = (*origin, *direction)
-    bn, nd, b = bounce_draws.shape
-    k = MeshKnobs.for_scene(cfg, scene, nd)
-    if bn != cfg.max_bounces or nd < k.draws_needed:
-        raise ValueError(f"bounce_draws {tuple(bounce_draws.shape)}: need "
-                         f"({cfg.max_bounces}, >={k.draws_needed}, B)")
     dev = scene.device
-    for t in (*rays, bounce_draws):
-        if (t.device != dev or t.dtype != torch.float32 or t.shape[-1] != b
-                or (t is not bounce_draws and t.dim() != 1)):
+    b = src.shape[-1]
+    if rng.is_keys(src):
+        nd = n_bounce_draws(cfg)
+        if src.shape != (2, b) or src.device != dev:
+            raise ValueError(f"trace_scene: ray keys {tuple(src.shape)} on "
+                             f"{src.device}: need (2, B) on {dev}")
+    else:
+        if dev.type != "cpu":
             raise ValueError(
-                f"trace_scene: rays and draws must be f32 with B={b} on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+                "trace_scene: the kernel hashes its draws; pass the ray "
+                "keys of rng.sample_stream, not a draw buffer")
+        bn, nd = src.shape[:2] if src.dim() == 3 else (-1, -1)
+        if bn != cfg.max_bounces or nd < n_bounce_draws(cfg):
+            raise ValueError(
+                f"bounce_draws {tuple(src.shape)}: need "
+                f"({cfg.max_bounces}, >={n_bounce_draws(cfg)}, B)")
+        src = src.reshape(bn * nd, b).contiguous()
+    k = MeshKnobs.for_scene(cfg, scene, nd)
+    for t in rays:
+        if (t.device != dev or t.dtype != torch.float32 or t.dim() != 1
+                or t.shape[0] != b):
+            raise ValueError(
+                f"trace_scene: rays must be f32 (B,) with B={b} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     tabs = (pack_spheres(scene), pack_tri(scene), pack_mats(scene),
             pack_atlas(scene))
-    draws = bounce_draws.reshape(bn * nd, b).contiguous()
     rays = tuple(t.contiguous() for t in rays)
     if torch.is_grad_enabled() and requires_grad(*tabs, *rays):
-        out = TraceMesh.apply(*tabs, *rays, draws, k, selection)
+        out = TraceMesh.apply(*tabs, *rays, src, k, selection)
     else:
-        out = _forward(mesh_tables(*tabs, k, selection), rays, draws, k)
+        out = _forward(mesh_tables(*tabs, k, selection), rays, src, k)
     if k.sky_idx >= 0:
         return compose_sky(scene, cfg, out)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

@@ -38,11 +38,17 @@ the counterpart of ``_replay_all`` under ``jax.vjp``. ``sphere_backward``
 (sphere scenes, after K1) and ``mesh_backward`` (mesh scenes, after K3)
 are the entry points: on CUDA tensors they launch the hand-derived reverse
 sweep in ``csrc/trace_scene_bwd.cu``, on CPU tensors they run the plain
-version. Sphere mode takes the rays' threefry keys ((2, B) int32) and the
-kernel hashes each bounce's draws from them, in the replay and again in
-the reverse step; mesh mode takes K3's (bounces * n_draws, B) draw buffer.
-On CPU tensors either source works: the plain version reads the keys'
-draws from the eager stream (``core.rng.bounce_draws``).
+version. Both modes take the rays' threefry keys ((2, B) int32) and the
+kernel hashes each bounce's draws from them: sphere mode where it reads
+them, in the replay and again in the reverse step; mesh mode once, ahead
+of the replayed bounce. On CPU tensors the plain version takes the keys,
+whose draws it reads from the eager stream (``core.rng.bounce_draws``), or
+a (bounces * n_draws, B) draw buffer.
+
+Every table cotangent the kernel returns is a sum in a fixed order (no
+float atomics): two launches on the same inputs give the same bits. Mesh
+mode's sums run over the blocks its card holds at once (``MESH_SMEM_BUDGET``
+places the texels' share of a block's table).
 
 Depth policy: one cap, ``MAX_BOUNCES = 48`` (the mesh backward's cap,
 ``raytpu/kernels/trace_scene.py:1937``), for the kernels and the plain
@@ -68,6 +74,10 @@ BIG = 3.0e38
 
 launches = 0   # K2 launches by sphere_backward and mesh_backward
                # (CPU calls do not count)
+# Mesh mode keeps a block's texel cotangents in shared memory when its
+# shared memory with them is at most this many bytes (two blocks an SM of
+# the card's 227 KB), else in the block's row of its scratch buffer
+MESH_SMEM_BUDGET = 113 * 1024
 
 
 class Tables(NamedTuple):
@@ -318,15 +328,15 @@ def replay_reference(tabs: Tables, rays, draws: Tensor, idx: Tensor, aof,
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 17          # sph tri mats atlas, ox..dz, draws, keys,
-                                    # idx, aof, g, d_rays, partial
+    [ctypes.c_void_p] * 16          # sph tri mats atlas, ox..dz, keys, idx,
+                                    # aof, g, d_rays, partial
     + [ctypes.c_int] * 9            # n_rays n_spheres n_tris n_mats n_tex
                                     # atlas_w atlas_h bounces n_draws
     + [ctypes.c_float] * 7          # sphere/det/tri eps, alpha lo/hi,
                                     # bright boost/threshold
     + [ctypes.c_int] + [ctypes.c_float]       # use_ao, e_scale_mult
     + [ctypes.c_int] + [ctypes.c_float] * 2   # hsl_on, hsl_l, hsl_s
-    + [ctypes.c_int]                # sky_idx
+    + [ctypes.c_int] * 2            # sky_idx, smem_budget
     + [ctypes.c_void_p] * 5         # d_sph d_tri d_mat d_atlas, stream
 )
 
@@ -338,7 +348,7 @@ def _library():
     lib = _build.load("trace_scene_bwd")
     fn, blocks = lib.raytpu_backward, lib.raytpu_backward_blocks
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    blocks.argtypes, blocks.restype = [ctypes.c_int] * 4, ctypes.c_int
+    blocks.argtypes, blocks.restype = [ctypes.c_int] * 7, ctypes.c_int
     return fn, blocks
 
 
@@ -352,25 +362,52 @@ def _check(tensors, dev) -> None:
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(tabs: Tables, rays, src: Tensor, idx: Tensor, aof, g: Tensor,
+def scratch_shape(b: int, k: MeshKnobs) -> tuple[int, int]:
+    """(blocks, entries) of the kernel's scratch buffer for b rays on the
+    current card: a row of partial table sums a block (at least one row),
+    14 S entries in sphere mode, 14 S + 6 T + 6 M + 3 n_tex in mesh mode,
+    whose blocks are as many as the card holds at once."""
+    n_blocks = _library()[1]
+    blocks = n_blocks(b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex,
+                      MESH_SMEM_BUDGET, int(k.sky_idx >= 0))
+    if blocks < 0:
+        raise RuntimeError(f"trace_scene_bwd kernel's grid: cudaError "
+                           f"{-blocks}")
+    entries = 14 * k.n_spheres + (6 * (k.n_tris + k.n_mats) + 3 * k.n_tex
+                                  if k.n_tris else 0)
+    return max(blocks, 1), entries
+
+
+def mesh_func_attrs(sky: bool) -> dict:
+    """Mesh mode's attributes on the current card, as
+    ``cudaFuncGetAttributes`` reports them: registers and local bytes a
+    thread, static shared bytes, and the dynamic shared bytes of its last
+    launch."""
+    from raytpu_torch.kernels import _build
+
+    fn = _build.load("trace_scene_bwd").raytpu_backward_mesh_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return _build.func_attrs(fn, int(sky))
+
+
+def _launch(tabs: Tables, rays, keys: Tensor, idx: Tensor, aof, g: Tensor,
             k: MeshKnobs):
     """Launch ``csrc/trace_scene_bwd.cu`` (reverse sweep, then the
-    fixed-order sum over blocks of d_sph and d_mat) on the current stream:
-    what ``replay_reference`` returns. Sphere mode where ``k.n_tris`` is 0,
-    ``src`` the ray keys (2, B) int32; mesh mode ``src`` the draw buffer
-    (bounces * n_draws, B) f32."""
+    fixed-order sum over blocks of the table cotangents) on the current
+    stream with the ray keys (2, B) int32: what ``replay_reference``
+    returns for the keys' draws (``rng.bounce_draws``). Sphere mode where
+    ``k.n_tris`` is 0."""
     global launches
     dev = tabs.sph.device
     b = rays[0].shape[0]
-    sphere_mode = k.n_tris == 0
-    src_shape = ((2, b), torch.int32) if sphere_mode else \
-        ((k.bounces * k.n_draws, b), torch.float32)
+    rng.check_keys(keys, b, dev, "trace_scene_bwd")
     shapes = [(tabs.sph, (14, k.n_spheres), torch.float32),
               (tabs.tri, (25, k.n_tris), torch.float32),
               (tabs.mats, (9, k.n_mats), torch.float32),
               (tabs.atlas, (4, k.n_tex), torch.float32),
               *((r, (b,), torch.float32) for r in rays),
-              (src, *src_shape),
+              (keys, (2, b), torch.int32),
               (idx, (k.bounces, b), torch.int32),
               (g, (g_planes(k), b), torch.float32)]
     if k.use_ao:
@@ -378,18 +415,16 @@ def _launch(tabs: Tables, rays, src: Tensor, idx: Tensor, aof, g: Tensor,
     _check(shapes, dev)
     if k.n_draws < 3:
         raise ValueError("trace_scene_bwd kernel: fewer than 3 draws a bounce")
-    fn, n_blocks = _library()
+    fn = _library()[0]
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     d_rays, d_sph = empty(6, b), empty(14, k.n_spheres)
     d_tri, d_mat, d_atlas = empty(25, k.n_tris), empty(9, k.n_mats), empty(4, k.n_tex)
-    blocks = n_blocks(b, k.n_spheres, k.n_tris, k.n_mats)
-    partial = empty(max(blocks, 1), 14 * k.n_spheres + 6 * k.n_mats)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        partial = empty(*scratch_shape(b, k))
         err = fn(
             *(t.data_ptr() for t in tabs), *(t.data_ptr() for t in rays),
-            None if sphere_mode else src.data_ptr(),
-            src.data_ptr() if sphere_mode else None, idx.data_ptr(),
+            keys.data_ptr(), idx.data_ptr(),
             aof.data_ptr() if k.use_ao else None, g.data_ptr(),
             d_rays.data_ptr(), partial.data_ptr(),
             b, k.n_spheres, k.n_tris, k.n_mats, k.n_tex, k.atlas_w,
@@ -397,8 +432,8 @@ def _launch(tabs: Tables, rays, src: Tensor, idx: Tensor, aof, g: Tensor,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold, int(k.use_ao),
             k.e_scale_mult, int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx,
-            d_sph.data_ptr(), d_tri.data_ptr(), d_mat.data_ptr(),
-            d_atlas.data_ptr(), stream,
+            MESH_SMEM_BUDGET, d_sph.data_ptr(), d_tri.data_ptr(),
+            d_mat.data_ptr(), d_atlas.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -423,12 +458,11 @@ def mesh_backward(tabs: Tables, rays, src: Tensor, idx: Tensor, aof,
                   g: Tensor, k):
     """(d_sph, d_tri, d_mat, d_atlas, six ray cotangents) for output
     cotangent g (9, B), (12, B) with the sky slot, from the winners idx
-    (bounces, B) int32 and, with
-    AO, the factors aof (bounces, B) that K3 recorded; ``k`` is K3's
-    ``MeshKnobs``. The kernel for CUDA tensors (its d_tri and d_atlas are
-    sums of float atomics, equal between launches to rounding; ``src`` the
-    ray keys in sphere mode, the draw buffer in mesh mode), the plain
-    version for CPU tensors (``src`` either)."""
+    (bounces, B) int32 and, with AO, the factors aof (bounces, B) that K3
+    recorded, and the draw source K3 read; ``k`` is K3's ``MeshKnobs``.
+    The kernel for CUDA tensors (``src`` the ray keys; every sum in a fixed
+    order), the plain version for CPU tensors (``src`` the keys or a draw
+    buffer)."""
     check_depth(k.bounces)
     dev = tabs.sph.device
     if dev.type == "cuda":

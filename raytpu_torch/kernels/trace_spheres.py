@@ -289,7 +289,7 @@ def _launch(sph: Tensor, rays: tuple, keys: Tensor, k: Knobs,
     global launches
     b = rays[0].shape[0]
     dev = sph.device
-    _check_keys(keys, b, dev, "trace_spheres")
+    rng.check_keys(keys, b, dev, "trace_spheres")
     tensors = (sph, *rays, keys)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("trace_spheres kernel needs contiguous inputs")
@@ -315,17 +315,6 @@ def _launch(sph: Tensor, rays: tuple, keys: Tensor, k: Knobs,
         raise RuntimeError(f"trace_spheres kernel launch failed: cudaError {err}")
     launches += 1
     return (out, idx, aof) if record else out
-
-
-def _check_keys(keys: Tensor, b: int, dev, what: str) -> None:
-    """Raise unless ``keys`` are (2, b) int32 ray keys on ``dev``: the
-    kernels hash their draws and take no draw buffer."""
-    if (keys.dtype != torch.int32 or tuple(keys.shape) != (2, b)
-            or keys.device != dev):
-        raise ValueError(
-            f"{what} kernel: want the (2, {b}) int32 ray keys of "
-            f"rng.sample_stream on {dev} (it hashes its draws), got "
-            f"{keys.dtype} {tuple(keys.shape)} on {keys.device}")
 
 
 def _forward(sph, rays, src, k: Knobs, record: bool = False):
@@ -381,7 +370,7 @@ def _launch_ad(sph: Tensor, rays, keys: Tensor, g: Tensor, k: Knobs):
     global ad_launches
     dev = sph.device
     b = rays[0].shape[0]
-    _check_keys(keys, b, dev, "trace_spheres_bwd")
+    rng.check_keys(keys, b, dev, "trace_spheres_bwd")
     for t, shape in ((sph, (14, k.n_spheres)), *((r, (b,)) for r in rays),
                      (g, (g_planes(k), b))):
         if (t.dtype != torch.float32 or tuple(t.shape) != shape
