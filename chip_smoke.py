@@ -48,15 +48,19 @@ Phases, each of which raises on failure (exit code non-zero):
   10. K3 bit-equal to its plain version at the main path's shape (the
      600-triangle world, 1200x900 rays, 6 bounces, the RNG kernel's keys),
      both timed, the plain version counting the search work and the
-     hashed draws for the bound;
+     hashed draws for the bound, and its warps' issue: the lane slots of
+     triangle tests that the union of a warp's lanes' chunks issues over
+     those the rays need, and the warp search's split (chunks scanned
+     lane by lane, (ray, chunk) entries searched together); the kernel's
+     registers and dynamic shared memory;
   11. the mesh forward path: the 600-triangle world at 1200x900, 16 spp,
      6 bounces through ``render`` over all block-ordered pixel ids,
      checked finite and lit, with one K3 launch and one RNG kernel launch
      of 4 rows per sample and no K1 or K2 launch; where its time goes (``torch.profiler``); a small frame on
      the card against the CPU; the PPM;
   12. K3 in recording mode against its plain version on the six mesh
-     scenes of phase 9 (planes bit-equal and unchanged, winners, AO
-     factors where used);
+     scenes of phase 9 (planes, winners and, where a hit is recorded, AO
+     factors bit-equal; planes unchanged by recording);
   13. K2's mesh mode (on the keys) against its plain version on those
      scenes, with the winners K3 recorded: ray cotangents and every row of
      the four table cotangents (the rows that get no cotangent,
@@ -98,7 +102,17 @@ Phases, each of which raises on failure (exit code non-zero):
      then bilinear Adam steps towards a target with perturbed atlas and
      material colours: 2 of every float leaf, printed, and 3 of all but
      those that place a surface or turn a ray (``SCAN_STEP_FROZEN``),
-     whose losses must fall;
+     whose losses must fall; a second fwd+bwd must give the same bits on
+     every leaf (ROADMAP P-F8: the winner gathers' backward sums in a
+     fixed order, through the segment-sum kernel), and the profile must
+     hold no ``index_add_`` / ``index_put_(accumulate=True)`` kernel;
+  21. the segment-sum kernel (``csrc/segment_sum.cu``) on two calls of
+     phase 20's backward, the largest and the one with the longest row:
+     against the exact row sums (its plain version, ``index_add_``, in
+     float64 on the CPU; SEG_REL), the longest rows summed by the warp
+     (its heavy branch), two launches bit-identical, timed beside the
+     plain version, ``index_add_`` and the index's stable sort, with its
+     bound;
   22. the equirect sky's kernel modes against their plain versions at
      64x48 rays: a generated SKY_SIZE sky (``scenes.write_sky_showcase``,
      the read timed) and block worlds with ``sky=``; K1's sky slot (16
@@ -106,8 +120,8 @@ Phases, each of which raises on failure (exit code non-zero):
      boost, and with a cutout sphere), K3's on the 60-triangle sky world
      (also with AO and with every texel a cutout) and the MESH_WORLD one,
      rays that leave K3's loop early among them, K3 bit-equal to its
-     plain version; K2's sky cotangent in sphere and mesh modes, two
-     launches bit-identical;
+     plain version, its recording too; K2's sky cotangent in sphere and
+     mesh modes, two launches bit-identical;
   23. the texel index on the card: the 0-dim tensor divisor's quotient
      correctly rounded, and texel indices of the same directions on the
      card and the CPU;
@@ -148,7 +162,7 @@ Phases, each of which raises on failure (exit code non-zero):
 Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
 per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
-Each path's launch counts (K1-K5 and the RNG kernel) are set to 0 just
+Each path's launch counts (K1-K5, the RNG kernel, the segment sum) are set to 0 just
 before it and read just after; every render draws through the RNG
 kernel (the scan path reads its bounce rows, K1, K2, K3 and K5 hash
 theirs from its keys, so the megakernel routes' launches write 4 rows). The last lines are the card, a JSON line
@@ -218,6 +232,13 @@ IDX_AGREE = 0.98
 # sphere table's cotangent is a sum over all rays: each row may differ by
 # at most DSPH_REL times that row's largest |entry|.
 G_ATOL, G_RTOL, DSPH_REL = 1e-4, 1e-4, 1e-3
+# the segment sum against the exact row sums (float64): each row within
+# SEG_REL of its sum of |cotangents|. Its f32 tree errs by under 2e-7 of
+# it on rows of up to 1e6 entries (PERF.md); a 256-entry tile or a
+# cross-warp carry left out errs by 2e-2 and more (kernel_variants.py's
+# seg_* variants); a serial f32 sum, index_add_ on the CPU, by up to
+# 2.5e-5 on one-signed rows of 1e6.
+SEG_REL = 1e-5
 # K2 sums every table cotangent in a fixed order, without float atomics:
 # two launches on the same inputs must give the same bits in all four
 # tables and the ray cotangents. QUIET_ROWS get no cotangent: the rows that enter only
@@ -994,11 +1015,17 @@ def phase_k2_timing(dev):
                 n_spheres=s, counts=counts)
 
 
-def _profile(work):
+# ATen's kernels of index_add_ / index_put_(accumulate=True): float atomics
+ATOMIC_SCATTERS = ("indexFuncSmallIndex", "indexFuncLargeIndex",
+                   "indexing_backward_kernel")
+
+
+def _profile(work, names=None):
     """Device time by kernel over one call of ``work``, and the idle
     share of the window: torch.profiler with CUDA activity. A first call
     of ``work`` is the schedule's warm-up step, whose events are dropped:
-    a window of a few ms opened cold lost most of its kernels."""
+    a window of a few ms opened cold lost most of its kernels. ``names``,
+    a set, receives the window's kernel names."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1017,7 +1044,8 @@ def _profile(work):
     buckets = {"RNG kernel": 0.0, "K1 trace_spheres": 0.0,
                "K2 backward": 0.0, "K5 spheres_ad": 0.0,
                "K2/K5 sum_blocks": 0.0, "K3 trace_scene": 0.0,
-               "K4 intersect": 0.0, "index gather/scatter": 0.0,
+               "K4 intersect": 0.0, "segment sum": 0.0,
+               "index sort": 0.0, "index gather/scatter": 0.0,
                "eager threefry (int64 bitwise)": 0.0, "other": 0.0}
     n_kernels = 0
     for ev in prof.key_averages():
@@ -1030,6 +1058,8 @@ def _profile(work):
             continue
         n_kernels += ev.count
         name = ev.key
+        if names is not None:
+            names.add(name)
         low = name.lower()
         if "rng_sample_kernel" in name:
             buckets["RNG kernel"] += dev_us
@@ -1039,9 +1069,15 @@ def _profile(work):
             buckets["K3 trace_scene"] += dev_us
         elif "intersect_kernel" in name:
             buckets["K4 intersect"] += dev_us
+        elif "tile_sums" in name or "row_sums" in name:
+            # the gathers' backward (csrc/segment_sum.cu)
+            buckets["segment sum"] += dev_us
+        elif "sort" in low:
+            # the gathers' index sorts (stable radix sorts) for the backward
+            buckets["index sort"] += dev_us
         elif any(w in name.lower() for w in ("index", "scatter", "gather")):
-            # the scan path's winner gathers (index_select) and their
-            # backward (index_add); their int64 indices are not threefry
+            # the scan path's winner gathers (index_select); their int64
+            # indices are not threefry
             buckets["index gather/scatter"] += dev_us
         elif "::backward_kernel" in name or "sphere_backward_kernel" in name:
             buckets["K2 backward"] += dev_us
@@ -1345,8 +1381,19 @@ def phase_k3_timing(dev):
           f"{counts['slab'] / counts['live']:.2f} slab and "
           f"{counts['tri'] / counts['live']:.2f} triangle tests; "
           f"{scene.triangles.count} triangles in {k.n_chunks} chunks")
+    ratio = counts["tri_issued"] / counts["tri"]
+    attrs = tsc.func_attrs(False, False, merged=False)
+    print(f"  warps of 32 rays (lane slots of triangle tests): the union of "
+          f"the lanes' chunks issues {counts['tri_issued']} for "
+          f"{counts['tri']} needed, issued / needed {ratio:.3f}; "
+          f"the warp search scans {counts['tri_loop']} slots lane by lane "
+          f"(chunks {tsc.COOP_MIN} or more lanes enter) and "
+          f"{counts['coop']} (ray, chunk) entries together; registers "
+          f"{attrs['registers']}, local {attrs['local_bytes']} B, dynamic "
+          f"shared memory {attrs['dynamic_smem']} B a block")
     return dict(ms=ms, plain_ms=plain_ms, rng_ms=rng_ms, max_abs_err=max_err,
-                outlier_frac=frac, bound=bound, counts=counts)
+                outlier_frac=frac, bound=bound, counts=counts,
+                issued_over_needed=ratio, smem=attrs["dynamic_smem"])
 
 
 def phase_mesh(dev, card, timing):
@@ -1435,20 +1482,31 @@ def _mesh_inputs(scene, cfg, origin, direction, keys):
             rng.bounce_draws(keys, nd, cfg.max_bounces), k)
 
 
-def _check_mesh_record(name, kern, plain, forward):
+def _check_mesh_record(name, kern, plain, forward, bit_equal=False):
     """K3's recording launch against its plain version and its own launch
     without recording: the nine planes bit-equal, at least IDX_AGREE of
     the winners equal, and the AO factors equal where they are used (a
     bounce that accumulates has a recorded hit, so this compares them on
     every entry where both record the same hit) up to OUTLIER_FRAC of
     those entries (a flipped winner earlier on the ray moves its later
-    hit points). Returns (winner agreement, max |diff| of the planes and
-    the AO factors compared)."""
+    hit points). With ``bit_equal`` (the per-triangle search) the planes
+    and every winner must equal the plain version's, and the AO factors
+    too wherever a hit is recorded. Returns (winner agreement, max |diff|
+    of the planes and the AO factors compared)."""
     import torch
 
     out, idx, aof = kern
     if not torch.equal(out, forward):
         raise AssertionError(f"{name}: recording changed the 9 planes")
+    if bit_equal:
+        _bit_equal(f"{name} recording", plain[0], out)
+        if not torch.equal(idx, plain[1]):
+            raise AssertionError(f"{name}: recorded winners differ from the "
+                                 "plain version's")
+        hit = idx >= 0
+        if aof is not None and not torch.equal(aof[hit], plain[2][hit]):
+            raise AssertionError(f"{name}: recorded AO factors differ from "
+                                 "the plain version's")
     max_err = (out - plain[0]).abs().max().item()
     same = idx == plain[1]
     agree = same.float().mean().item()
@@ -1489,7 +1547,7 @@ def phase_k3_record(dev):
         _check_mesh_record(
             name, tsc._launch(tb, rays, keys, k, record=True),
             tsc.trace_scene_reference(tb, *rays, flat, k, record=True),
-            forward)
+            forward, bit_equal=True)
 
 
 def _compare_mesh_grads(name, ref, got, again):
@@ -1643,7 +1701,8 @@ def phase_mesh_bwd_timing(dev):
     kern = tsc._launch(mt, rays, keys, k, record=True)
     plain = tsc.trace_scene_reference(mt, *rays, flat, k, counts, record=True)
     rec_agree, rec_err = _check_mesh_record(name, kern, plain,
-                                            tsc._launch(mt, rays, keys, k))
+                                            tsc._launch(mt, rays, keys, k),
+                                            bit_equal=True)
     del plain
     _, idx, aof = kern
     tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
@@ -2010,8 +2069,10 @@ def _reset_launches():
     from raytpu_torch.kernels import trace_scene_bwd as tb
     from raytpu_torch.kernels import trace_spheres as ts
 
+    from raytpu_torch.kernels import gather
+
     ts.launches = tb.launches = tsc.launches = intersect.launches = 0
-    ts.ad_launches = rng.launches = rng.rows_written = 0
+    ts.ad_launches = rng.launches = rng.rows_written = gather.launches = 0
 
 
 def _check_rng(what, want, rows=None):
@@ -2132,6 +2193,8 @@ def phase_scan_train(dev, card):
                                     photometric_loss)
     from raytpu_torch.train.inverse import ADAM_BETAS, ADAM_EPS
 
+    from raytpu_torch.kernels import gather
+
     scene, cam, cfg = _per_triangle(_block_world(SCAN_WORLD), dev)
     cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SCAN_TRAIN_SPP,
                       max_bounces=6, bilinear_textures=True)
@@ -2145,7 +2208,23 @@ def phase_scan_train(dev, card):
         sums = render(combine_scene(params, static), cam, c, pids, key)
         return photometric_loss(sums.radiance * (1.0 / c.spp), target)
 
-    loss_fn(cfg.replace(spp=1)).backward()        # warm up
+    # the warm-up's backward keeps for phase 21 its largest segment sum
+    # and the one with the longest row
+    calls = {}
+    launch = gather._launch
+
+    def keep(g, index):
+        longest = int(index.sorted_plan()[2].diff().max().item())
+        for what, size in (("largest", g.numel()), ("longest row", longest)):
+            if size > calls.get(what, (0,))[0]:
+                calls[what] = (size, g.detach().clone(), index)
+        return launch(g, index)
+
+    gather._launch = keep
+    try:
+        loss_fn(cfg.replace(spp=1)).backward()        # warm up
+    finally:
+        gather._launch = launch
     for p in params.values():
         p.grad = None
     _reset_launches()
@@ -2157,10 +2236,24 @@ def phase_scan_train(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
+    seg = gather.launches
     _check_rng("scan fwd+bwd", 2 * cfg.spp)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     grads = {n: p.grad for n, p in params.items()}
+    # P-F8: the gathers' backward sums in a fixed order, so a second
+    # fwd+bwd on the same inputs gives the same bits on every leaf
+    for p in params.values():
+        p.grad = None
+    loss_fn().backward()
+    differ = [n for n, p in params.items()
+              if (p.grad is None) != (grads[n] is None) or (
+                  p.grad is not None and not torch.equal(p.grad, grads[n]))]
+    if differ:
+        raise AssertionError(f"scan fwd+bwd: two runs' gradients differ on "
+                             f"{len(differ)} leaves: {differ[:8]}")
+    if seg == 0:
+        raise AssertionError("scan fwd+bwd: no segment-sum launch")
     if not (loss.isfinite().item() and all(
             g is None or g.isfinite().all() for g in grads.values())):
         raise AssertionError("scan fwd+bwd: non-finite loss or gradient")
@@ -2179,12 +2272,20 @@ def phase_scan_train(dev, card):
           f"{cfg.max_bounces}, d loss / d every float leaf ({len(params)} "
           f"leaves): {elapsed:.4f} s, {rays / elapsed:.1f} rays/s on {card}, "
           f"{elapsed / cfg.spp * 1e3:.2f} ms per sample, peak "
-          f"{peak_gb:.2f} GB; loss {loss.item():.6f}; K4 launches {k4}; max "
+          f"{peak_gb:.2f} GB; loss {loss.item():.6f}; K4 launches {k4}; "
+          f"segment-sum launches {seg}; a second fwd+bwd bit-identical on "
+          f"all {len(params)} leaves; max "
           + ", ".join(f"|d {leaf}| {grads[leaf].abs().max().item():.4e}"
                       for leaf in ("triangles.a.x", "triangles.a.y",
                                    "triangles.a.z", "atlas.rgb.x")))
-    _print_profile("scan fwd+bwd at spp=1",
-                   *_profile(lambda: loss_fn(cfg.replace(spp=1)).backward()))
+    names = set()
+    prof = _profile(lambda: loss_fn(cfg.replace(spp=1)).backward(), names)
+    _print_profile("scan fwd+bwd at spp=1", *prof)
+    atomic = sorted(n for n in names if any(a in n for a in ATOMIC_SCATTERS))
+    if atomic or not prof[3]["segment sum"] > 0.0:
+        raise AssertionError(f"scan fwd+bwd: index_add_ / index_put_ kernels "
+                             f"{atomic[:4]}, segment sum "
+                             f"{prof[3]['segment sum']} ms in the profile")
 
     tparams = {n: p.detach().clone()
                for n, p in partition_scene(scene)[0].items()}
@@ -2232,7 +2333,87 @@ def phase_scan_train(dev, card):
           "a perturbed atlas/material target: losses "
           + " ".join(f"{x:.6e}" for x in losses)
           + f"; {step_s:.4f} s per step")
-    return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed)
+    return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed,
+                seconds=elapsed, segment_sum=seg,
+                seg_calls={w: c[1:] for w, c in calls.items()})
+
+
+def phase_segment_sum(dev, strain):
+    """The gathers' segment sum (csrc/segment_sum.cu) on two calls of the
+    scan fwd+bwd's backward (phase 20), the largest and the one with the
+    longest row: every row within SEG_REL of its sum of |cotangents| from
+    the exact row sums (the plain version, ``index_add_``, in float64 on
+    the CPU; the plain version on the card, f32 atomics, is printed
+    beside it); on the second, rows summed by the warp (more than the
+    kernel's heavy tiles); two launches bit-identical; each timed beside
+    the plain version, ``index_add_`` on the same tensors (the library
+    call) and the index's stable sort, with its bound. Returns the
+    largest call's numbers and the other's under "longest row"."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.kernels import gather
+
+    tile, heavy = gather.kernel_tiles()
+    out = {}
+    for what in ("largest", "longest row"):
+        g, index = strain["seg_calls"][what]
+        c, b = g.shape
+        got = gather._launch(g, index)
+        if not torch.equal(got, gather._launch(g, index)):
+            raise AssertionError(f"segment sum ({what}): two launches differ")
+        cpu = gather.GatherIndex(index.idx.cpu(), index.n_rows)
+        exact = gather.segment_sum_reference(g.cpu().double(), cpu)
+        scale = gather.segment_sum_reference(g.cpu().double().abs(), cpu)
+        err = {}
+        for who, sums in (("kernel", got), ("index_add_ on the card",
+                                            gather.segment_sum_reference(g, index))):
+            diff = (sums.cpu().double() - exact).abs()
+            err[who] = ((diff / (scale + 1e-30)).max().item(),
+                        diff.max().item())
+        off = index.sorted_plan()[2].long()
+        span = torch.where(off[1:] > off[:-1], (off[1:] - 1) // tile
+                           - off[:-1] // tile + 1, 0)
+        n_heavy = int((span > heavy).sum().item())
+        print(f"  segment sum ({what}) vs the exact row sums: worst |diff| "
+              f"over the row's sum of |g| {err['kernel'][0]:.3e} (limit "
+              f"{SEG_REL}; index_add_ on the card "
+              f"{err['index_add_ on the card'][0]:.3e}), max |diff| "
+              f"{err['kernel'][1]:.3e}; longest row {int(span.max())} tiles "
+              f"of {tile}, {n_heavy} rows over {heavy} tiles (summed by "
+              "the warp)")
+        if not err["kernel"][0] <= SEG_REL:
+            raise AssertionError(f"segment sum ({what}) vs the exact row "
+                                 f"sums: {err['kernel'][0]:.3e} > {SEG_REL}")
+        if what == "longest row" and n_heavy == 0:
+            raise AssertionError("segment sum: no row of the longest-row "
+                                 "call took the warp's branch")
+        zeros = torch.zeros((c, index.n_rows), device=dev)
+        fns = {"kernel": lambda: gather._launch(g, index),
+               "plain": lambda: gather.segment_sum_reference(g, index),
+               "library": lambda: zeros.index_add_(1, index.idx, g),
+               "sort": lambda: gather.GatherIndex(index.idx,
+                                                  index.n_rows).sorted_plan()}
+        t = {w: [] for w in fns}
+        for which in ("plain", "kernel", "library", "sort", "sort",
+                      "library", "kernel", "plain"):
+            t[which].append(_time_ms(fns[which], 10))
+        ms = {w: float(np.mean(v)) for w, v in t.items()}
+        rows = int((off.diff() > 0).sum().item())
+        bound = _bound(4 * (c * b + 2 * b + index.n_rows + 1
+                            + c * index.n_rows), c * b)
+        print(f"segment sum, {what} call ({c} channels, {b} entries, "
+              f"{index.n_rows} rows, {rows} of them gathered): kernel "
+              f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, index_add_ "
+              f"{ms['library']:.4f} ms, the index's stable sort "
+              f"{ms['sort']:.4f} ms per call; bound {bound[0]:.4f} ms "
+              f"({bound[1]}); turns {t}")
+        out[what] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                         library_ms=ms["library"], sort_ms=ms["sort"],
+                         bound=bound, max_abs_err=err["kernel"][1],
+                         max_rel_err=err["kernel"][0], shape=(c, b, index.n_rows),
+                         heavy_rows=n_heavy)
+    return dict(out["largest"], longest_row=out["longest row"])
 
 
 def _on(obj, dev):
@@ -2410,7 +2591,7 @@ def phase_sky_kernels(dev):
         _bit_equal(name, ref, out)
         kern = tsc._launch(mt, rays, keys, k, record=True)
         _check_mesh_record(name, kern, tsc.trace_scene_reference(
-            mt, *rays, flat, k, record=True), out)
+            mt, *rays, flat, k, record=True), out, bit_equal=True)
         _, idx, aof = kern
         # rays that left the loop before its last bounce with the slot
         # taken: their slot planes are written after the loop
@@ -2564,7 +2745,7 @@ def phase_sky_timing(dev):
     del ref
     kern = tsc._launch(mt, rays, keys, k, record=True)
     _, rec_err = _check_mesh_record(name, kern, tsc.trace_scene_reference(
-        mt, *rays, flat, k, record=True), out)
+        mt, *rays, flat, k, record=True), out, bit_equal=True)
     _, idx, aof = kern
     tabs = tb.Tables(mt.sph, mt.tri, mt.mats, mt.atlas)
     g = torch.tensor(np.random.default_rng(12).uniform(
@@ -3101,7 +3282,7 @@ def phase_merged_timing(dev):
                                  " planes differ from the plain version's")
         rec = tsc._launch(mt, rays, keys, k, record=True)
         # the dynamic shared memory each launch set, as the driver holds it
-        smem = {r: tsc.merged_func_attrs(r, sky)["dynamic_smem"]
+        smem = {r: tsc.func_attrs(r, sky)["dynamic_smem"]
                 for r in (False, True)}
         print(f"  merged K3 {key}: {smem[False]} / {smem[True]} B of dynamic "
               "shared memory a block (forward / recording)")
@@ -3457,6 +3638,7 @@ def main() -> int:
     phase_scan_checks(dev)
     scan = phase_scan_frame(dev, card, mesh)
     strain = phase_scan_train(dev, card)
+    seg = phase_segment_sum(dev, strain)
     sky_k = phase_sky_kernels(dev)
     sky_tex = phase_sky_texels(dev)
     sky_t = phase_sky_timing(dev)
@@ -3545,6 +3727,23 @@ def main() -> int:
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
         "library_ms": None, "outlier_frac": k3["outlier_frac"],
+        "issued_over_needed": k3["issued_over_needed"],
+        "ptxas": _ptxas_of(ptxas, "trace_scene_kernel<false, false>",
+                           "18trace_scene_kernelILb0ELb0E"),
+        "dynamic_smem_bytes": k3["smem"],
+    }, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "raytpu_torch/csrc/segment_sum.cu", "replaces": None,
+        "launches": strain["segment_sum"],
+        "max_abs_err": seg["max_abs_err"], "ms": seg["ms"],
+        "plain_ms": seg["plain_ms"], "bound_ms": seg["bound"][0],
+        "bound_by": seg["bound"][1], "library_ms": seg["library_ms"],
+        "sort_ms": seg["sort_ms"], "shape": seg["shape"],
+        "max_rel_err": seg["max_rel_err"],
+        "longest_row": {k: seg["longest_row"][k] for k in (
+            "ms", "plain_ms", "library_ms", "max_abs_err", "max_rel_err",
+            "shape", "heavy_rows")},
+        "ptxas": _ptxas_of(ptxas, "tile_sums", "row_sums"),
     }, {
         "name": "trace_scene (recording mode)", "route": "cuda",
         "source": "raytpu_torch/csrc/trace_scene.cu",

@@ -25,7 +25,9 @@ kernel's keys); K4 on the camera rays and on the bounce-2 rays (through
 the scan path) of the 600- and 4096-triangle block worlds at 1200x900; K3's
 merged and per-triangle modes (forward, recording, sky, sky recording) at
 1200x900, 6 bounces on the 600-triangle world and its sky twin; K2's mesh
-mode on K3's recording of both.
+mode on K3's recording of both; the segment sum at the bilinear scan
+backward's shapes, with its error reading (``_READINGS``; the
+``seg_*`` variants plant faults in it).
 
 ``--tree DIR`` first times every workload in another checkout (for
 example the parent commit, unpacked by ``git archive``): this script runs
@@ -35,16 +37,19 @@ there in a subprocess with ``--here`` and imports that tree's
 names match there too (``k2m0_*``: the K2 mesh mode of this change's
 parent).
 With ``--frames`` it first times, in turns (the tree, this checkout twice,
-the tree), the frames K3 and K4 set the pace of: the merged 600-triangle
-block world and its sky twin, forward at 16 spp and forward+backward at 4
-spp, and the scan path's 4096-triangle world forward at 4 spp (1200x900, 6
-bounces, wall seconds). Needs a CUDA card; imports no JAX.
+the tree), the frames K3, K4 and the gathers' backward set the pace of:
+the 600-triangle block world (merged, its sky twin, and per-triangle),
+forward at 16 spp and forward+backward at 4 spp, and the scan path's
+4096-triangle world forward at 4 spp and bilinear forward+backward at 2
+spp (1200x900, 6 bounces, wall seconds; this script's frames, run on
+each tree's package). Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import re
@@ -106,8 +111,6 @@ _K3_DRAWS = ("    const CalledDraws draws = called_draws(k0, k1, i, "
 # K2 mesh mode's three draws of a bounce, hashed by the called copy
 _K2M_CALLED = "  const CalledDraws d = called_draws(k0, k1, i, n_draws);"
 _K3_ROULETTE = "refr_case && draws(2) > alpha;"
-_K3_KEY = ("  uint32_t k0, k1;   // the ray's threefry key\n"
-           "  load_key(keys, B, ray, k0, k1);\n")
 _K3_SCATTER = ("      const float theta = kTwoPi * draws(0);\n"
                "      const float cph = clampf(2.0f * draws(1) - 1.0f, -1.0f, "
                "1.0f);")
@@ -169,6 +172,95 @@ _K2M_FWD = ("      for (int i = 0; i < k.bounces && c.active; ++i) {\n"
 _K2M_MATCH = "    const unsigned peers = __match_any_sync(0xffffffffu, key[q]);"
 _K2M_PAIRS = ("    const int pairs = shared[q] ? __popc(lead[q]) * rows : 0;")
 _K2M_BLOCKS = "constexpr int kMeshMinBlocks = 2;"
+
+# K3's per-triangle modes. The lanes of a warp entering a chunk from
+# which each scans it alone, in place of what the launch passes (1:
+# always, the union of the lanes' chunks as before the warp search; 33:
+# never).
+_K3T_COOP = "hsl_s, sky_idx, coop_min};"
+# The warps' 32-ray groups grid-stride over the card's warps, in place of
+# the counter's next.
+_K3T_GRID_STRIDE = ("""    auto next_group = [&]() {
+      unsigned v = 0u;
+      if (lane == 0) v = atomicAdd(&g_next, 1u);
+      return (int)__shfl_sync(0xffffffffu, v, 0);
+    };
+    for (int g = next_group(); g < n_groups; g = next_group()) {
+""", """    auto next_group = [&](int g) {
+      const int first = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+      return g < 0 ? first : g + (int)((gridDim.x * blockDim.x) >> 5);
+    };
+    for (int g = next_group(-1); g < n_groups; g = next_group(g)) {
+""")
+# One block per 256 rays, each staging its tables (with grid-stride each
+# warp then takes one group: the parent's schedule), in place of as many
+# blocks as fit.
+_K3T_NOT_PERSISTENT = (
+    "    blocks = blocks < sms * per_sm ? blocks : sms * per_sm;\n", "")
+# Each lane takes the counter's next ray when its own ends, in place of
+# the warp's 32-ray groups.
+_K3T_REFILL = (_K3T_GRID_STRIDE[0] + """      const int r = g * 32 + lane;
+      const bool has = r < n_rays;
+      if (has) start(r); else active = false;
+      for (;;) {
+        const bool go = has && i < k.bounces && active;
+        if (!__any_sync(0xffffffffu, go)) break;
+        bounce(go);
+      }
+      if (has) finish();
+    }
+""", """    bool has = false, done = false;
+    for (;;) {
+      const bool ended = has && !(i < k.bounces && active);
+      if (ended) finish();
+      const bool need = !done && (!has || ended);
+      const unsigned want = __ballot_sync(0xffffffffu, need);
+      if (want != 0u) {
+        const int lead = __ffs(want) - 1;
+        unsigned base = 0u;
+        if (lane == lead) base = atomicAdd(&g_next, (unsigned)__popc(want));
+        base = __shfl_sync(0xffffffffu, base, lead);
+        if (need) {
+          const unsigned r = base + __popc(want & ((1u << lane) - 1u));
+          has = r < (unsigned)n_rays;
+          done = !has;
+          if (has) start((int)r);
+        }
+      }
+      const bool go = has && i < k.bounces && active;
+      if (!__any_sync(0xffffffffu, go)) {
+        if (!__any_sync(0xffffffffu, has && !done)) break;
+        continue;
+      }
+      bounce(go);
+    }
+""")
+# The search table staged as the parent staged it, a channel a row (12 x
+# T), and read word by word, in place of three float4s a triangle.
+_K3T_WORDS = [
+    ("struct Staged {\n  const float4* p;\n",
+     "struct Staged {\n  const float4* p;\n  int nt;\n"),
+    ("""    const float4 a = p[3 * t], b = p[3 * t + 1], c = p[3 * t + 2];
+    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+    s[8] = c.x; s[9] = c.y; s[10] = c.z; s[11] = c.w;
+""", """    const float* w = reinterpret_cast<const float*>(p);
+#pragma unroll
+    for (int r = 0; r < kSearch; ++r) s[r] = w[r * nt + t];
+"""),
+    ("tri_s = Staged{reinterpret_cast<const float4*>(smem)};",
+     "tri_s = Staged{reinterpret_cast<const float4*>(smem), nt};"),
+    ("e += blockDim.x) smem[e] = search_g[e];",
+     "e += blockDim.x) smem[(e % kSearch) * nt + e / kSearch] = search_g[e];"),
+]
+_K3T_BOUNDS = "__launch_bounds__(kThreads)\ntrace_scene_kernel(TRACE_SCENE_PARAMS)"
+# The segment sum with a planted fault (wrong sums on purpose, to read
+# what chip_smoke's check of it sees): a row summed by the warp drops its
+# first tile, or a run that crosses warps in a tile drops the warps below.
+_SEG_DROP_TILE = ("      for (int t = lt0 + lane; t <= lt1; t += 32) {",
+                  "      for (int t = lt0 + lane + (lane == 0 ? 32 : 0); "
+                  "t <= lt1; t += 32) {")
+_SEG_NO_CARRY = ("      v = carry + v;", "      v = v + 0.0f * carry;")
 
 # name -> (library, [(text, replacement), ...]); each text occurs once in
 # the library's sources
@@ -237,15 +329,6 @@ VARIANTS = {
         "    const KeyDraws draws = key_draws(k0, k1, i, k.n_draws);\n"))]),
     "k2m_hash_inlined": ("trace_scene_bwd", [(_K2M_CALLED, (
         "  const KeyDraws d = key_draws(k0, k1, i, n_draws);"))]),
-    # K3's key read where the bounce's draws are hashed (an L1 hit), not
-    # held in two registers across the search
-    "k3_key_in_loop": ("trace_scene", [
-        (_K3_KEY, ""),
-        (_K3_DRAWS, "    uint32_t k0, k1;\n"
-                    "    asm volatile(\"ld.global.u32 %0, [%1];\" : \"=r\"(k0) "
-                    ": \"l\"(keys + ray));\n"
-                    "    asm volatile(\"ld.global.u32 %0, [%1];\" : \"=r\"(k1) "
-                    ": \"l\"(keys + B + ray));\n" + _K3_DRAWS)]),
     # the search run twice (paths unchanged: the difference is one search)
     "k3m_search_twice": ("trace_scene", [_search_twice(_K3M_CALL)]),
     # K2's mesh mode without its table sums (the staged cotangents kept:
@@ -306,6 +389,29 @@ VARIANTS = {
     "k2m_unbounded": ("trace_scene_bwd", [(
         "__launch_bounds__(kMeshThreads, kMeshMinBlocks)",
         "__launch_bounds__(kMeshThreads)")]),
+    # K3 per-triangle: the warp search's threshold, refill, the parent's
+    # staged layout, and Step 0: the persistent staging alone (coop_min 1)
+    # and the warp search alone (one block per 256 rays), each against the
+    # shipped build (both)
+    **{f"k3t_coop_min_{m}": ("trace_scene", [(_K3T_COOP, _K3T_COOP.replace(
+        "coop_min", str(m)))]) for m in (8, 12, 20, 24, 28, 33)},
+    "k3t_refill": ("trace_scene", [_K3T_REFILL]),
+    "k3t_refill_coop_min_33": ("trace_scene", [
+        _K3T_REFILL, (_K3T_COOP, _K3T_COOP.replace("coop_min", "33"))]),
+    "k3t_grid_stride": ("trace_scene", [_K3T_GRID_STRIDE]),
+    "k3t_words_soa": ("trace_scene", _K3T_WORDS),
+    "k3t_min_blocks_4": ("trace_scene", [(_K3T_BOUNDS, _K3T_BOUNDS.replace(
+        "(kThreads)", "(kThreads, 4)"))]),
+    "k3t_step0_staging_only": ("trace_scene", [(_K3T_COOP, _K3T_COOP.replace(
+        "coop_min", "1"))]),
+    "k3t_step0_search_only": ("trace_scene", [_K3T_NOT_PERSISTENT,
+                                               _K3T_GRID_STRIDE]),
+    "k3t_step0_neither": ("trace_scene", [
+        _K3T_NOT_PERSISTENT, _K3T_GRID_STRIDE,
+        (_K3T_COOP, _K3T_COOP.replace("coop_min", "1"))]),
+    # the segment sum with a planted fault (wrong on purpose)
+    "seg_drop_heavy_tile": ("segment_sum", [_SEG_DROP_TILE]),
+    "seg_no_carry": ("segment_sum", [_SEG_NO_CARRY]),
     # Step 0: the parent's K2 mesh mode (--tree-only '^k2m0_')
     "k2m0_cut_at_last": ("trace_scene_bwd", _K2M0_CUT),
     "k2m0_no_atomics": ("trace_scene_bwd", _K2M0_NO_ATOMICS),
@@ -503,12 +609,54 @@ def _k2_mesh(dev):
     return out
 
 
+# name -> a reading of a workload's result (the segment sum's error)
+_READINGS = {}
+
+
+def _segment_sum(dev):
+    """The segment sum at the bilinear scan backward's shapes: 18
+    channels of 1.08 M cotangents over 4,096 rows (a skewed index, as
+    triangles are hit) and over 11 rows (one of them ~90% of the
+    entries, as a material under most rays), half the channels in
+    [-1, 1) and half in [0, 1). Each workload's reading: the worst
+    |sum - exact| over the row's sum of |g| (the exact sums in float64 on
+    the CPU), chip_smoke's SEG_REL check."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.kernels import gather
+
+    gen = np.random.default_rng(9)
+    b, c = 1_080_000, 18
+    g = gen.uniform(-1.0, 1.0, (c, b)).astype(np.float32)
+    g[c // 2:] = np.abs(g[c // 2:])
+    p11 = np.array([0.9] + [0.01] * 10)
+    out = {}
+    for rows, idx in ((4096, (4096 * gen.uniform(size=b) ** 2).astype(np.int64)),
+                      (11, gen.choice(11, size=b, p=p11 / p11.sum()))):
+        index = gather.GatherIndex(torch.as_tensor(idx, device=dev), rows)
+        gt = torch.as_tensor(g, device=dev)
+        exact = gather.segment_sum_reference(
+            torch.as_tensor(g, dtype=torch.float64),
+            gather.GatherIndex(torch.as_tensor(idx), rows))
+        scale = gather.segment_sum_reference(
+            torch.as_tensor(np.abs(g), dtype=torch.float64),
+            gather.GatherIndex(torch.as_tensor(idx), rows))
+        name = f"seg_{rows}_rows"
+        out[name] = ("segment_sum", lambda a=(gt, index): gather._launch(*a))
+        _READINGS[name] = lambda got, e=exact, sc=scale: float(
+            ((got.cpu().double() - e).abs() / (sc + 1e-30)).max())
+    return out
+
+
 def _frames(dev):
-    """The frames K3 and K4 set the pace of, at 1200x900, 6 bounces, over
-    all block-ordered pixel ids, ended by a synchronize: the merged
-    600-triangle block world forward at 16 spp and forward+backward of
-    every float leaf at 4 spp, its sky twin likewise (the sky texels
-    too), and the scan path's 4096-triangle world forward at 4 spp."""
+    """The frames K3, K4 and the gathers' backward set the pace of, at
+    1200x900, 6 bounces, over all block-ordered pixel ids, ended by a
+    synchronize: the merged 600-triangle block world forward at 16 spp
+    and forward+backward of every float leaf at 4 spp, its sky twin
+    likewise (the sky texels too), the same world with the per-triangle
+    search likewise, and the scan path's 4096-triangle world forward at
+    4 spp and, with bilinear textures, forward+backward at 2 spp."""
     import torch
 
     import chip_smoke as cs
@@ -546,9 +694,17 @@ def _frames(dev):
         out[f"{key}_fwd_16spp"] = frame(scene, cam, cfg.replace(spp=16), False)
         out[f"{key}_fwd_bwd_4spp"] = frame(scene, cam, cfg.replace(spp=4),
                                            True)
+    scene, cam, cfg = cs._per_triangle(cs._block_world(cs.MESH_WORLD), dev)
+    cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1], max_bounces=6,
+                      use_megakernel=True)
+    out["block_tri_fwd_16spp"] = frame(scene, cam, cfg.replace(spp=16), False)
+    out["block_tri_fwd_bwd_4spp"] = frame(scene, cam, cfg.replace(spp=4),
+                                          True)
     scene, cam, cfg = cs._per_triangle(cs._block_world(cs.SCAN_WORLD), dev)
-    out["scan4096_fwd_4spp"] = frame(scene, cam, cfg.replace(
-        width=cs.FRAME[0], height=cs.FRAME[1], spp=4, max_bounces=6), False)
+    cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1], max_bounces=6)
+    out["scan4096_fwd_4spp"] = frame(scene, cam, cfg.replace(spp=4), False)
+    out["scan4096_bilinear_fwd_bwd_2spp"] = frame(scene, cam, cfg.replace(
+        spp=2, bilinear_textures=True), True)
     return out
 
 
@@ -579,6 +735,9 @@ def workloads(dev, libs, chunk=None):
         out.update(_k3_merged(dev, chunk))
     if "trace_scene_bwd" in libs:
         out.update(_k2_mesh(dev))
+    if "segment_sum" in libs and importlib.util.find_spec(
+            "raytpu_torch.kernels.gather"):
+        out.update(_segment_sum(dev))
     return {n: w for n, w in out.items() if w[0] in libs}
 
 
@@ -614,6 +773,13 @@ def _time_all(fns) -> dict:
     return {n: round(_time_ms(f), 4) for n, (_, f) in fns.items()}
 
 
+def _read_all(fns) -> str:
+    """The readings of the workloads that have one (``_READINGS``)."""
+    got = {n: f"{_READINGS[n](f()):.3e}" for n, (_, f) in fns.items()
+           if n in _READINGS}
+    return f"; readings {json.dumps(got)}" if got else ""
+
+
 def time_variants(dev, names, fns) -> None:
     """Build the variants ``names`` of the checkout whose ``raytpu_torch``
     is imported, then time each beside that checkout's build on its
@@ -628,15 +794,15 @@ def time_variants(dev, names, fns) -> None:
                     if name in CHUNK_OF else shipped)
             shipped_lib = _build._loaded.get(lib)
             _build._loaded[lib] = ctypes.CDLL(so)
-            ms = _time_all(mine)
+            ms, read = _time_all(mine), _read_all(mine)
             _build._loaded[lib] = shipped_lib
             again = _time_all(shipped)
             print(f"{name}: ms {json.dumps(ms)} (shipped {json.dumps(again)} "
-                  f"after it); ptxas registers {regs}, spill stores {spills}",
-                  flush=True)
+                  f"after it); ptxas registers {regs}, spill stores "
+                  f"{spills}{read}", flush=True)
 
 
-_ALL = {*_CORNELL, "intersect", "trace_scene"}
+_ALL = {*_CORNELL, "intersect", "trace_scene", "segment_sum"}
 
 
 def here(frames: bool, only: str) -> int:
@@ -655,7 +821,7 @@ def here(frames: bool, only: str) -> int:
         print(json.dumps(time_frames(dev)))
         return 0
     fns = workloads(dev, _ALL)
-    print(json.dumps(_time_all(fns)), flush=True)
+    print(json.dumps(_time_all(fns)) + _read_all(fns), flush=True)
     time_variants(dev, names, fns)
     return 0
 
@@ -744,7 +910,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     libs = {VARIANTS[n][0] for n in names} | (_ALL if args.tree else set())
     fns = workloads(dev, libs)
-    print("shipped build: ms " + json.dumps(_time_all(fns)), flush=True)
+    print("shipped build: ms " + json.dumps(_time_all(fns)) + _read_all(fns),
+          flush=True)
     time_variants(dev, names, fns)
     return 0
 

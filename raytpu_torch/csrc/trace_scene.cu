@@ -19,7 +19,11 @@
 // threefry key (csrc/threefry.cuh: 76 INT32 operations a draw), against
 // 8 bytes of key a ray, so it is bound by FP32 operations (PERF.md gives
 // the count and the card's time). So:
-//   * one thread per ray on a 1-D grid, the ragged edge masked here;
+//   * one thread per ray; the merged modes on a 1-D grid, the ragged edge
+//     masked here; the per-triangle modes on persistent blocks (as many
+//     as fit on the card), each of whose warps takes the launch counter's
+//     next 32 consecutive rays until none are left, so each block stages
+//     its tables once and the warps stay busy to the end;
 //   * the draws hashed where the loop reads them, at K1's counters: draw
 //     j of bounce b is the key's draw 4 + b * n_draws + j (the scatter's
 //     two only for a ray that scatters, the roulette only where the
@@ -27,15 +31,24 @@
 //     where the probes run), in place of a (bounces * n_draws, B) buffer
 //     of them that the RNG kernel would write and this kernel read;
 //   * the search channels of every triangle (a, b - a, c - a, the raw
-//     normal: 12 x T f32, 96 KB at 2048 triangles), the chunk boxes, the
-//     sphere table and the material table staged in dynamic shared memory
-//     and read as broadcasts: every thread of a warp that tests a chunk
-//     reads the same triangle;
-//   * the cull decided per thread (a chunk is scanned only by the rays
+//     normal: T x 12 f32, 96 KB at 2048 triangles), the chunk boxes, the
+//     sphere table and the material table staged in dynamic shared
+//     memory; a triangle is three float4s, so a warp reads one triangle
+//     as three broadcasts, or 32 consecutive ones without a bank conflict
+//     (Staged);
+//   * the cull decided per ray (a chunk is scanned only for the rays
 //     whose line enters its box before their current best, a conservative
 //     prune: a hit inside the box has t >= tmin), where the TPU decides per
 //     8192-ray tile; the slab's min/max propagate NaN as the plain
-//     version's torch.minimum/maximum do, so both skip the same chunks;
+//     version's torch.minimum/maximum do, so both skip the same chunks.
+//     A warp whose lanes each scanned their own chunks would issue the
+//     union of them (3-4x the tests its rays need past the first bounce,
+//     PERF.md), so the warp searches together (warp_search): a chunk that
+//     k.coop_min or more lanes enter is scanned by each of them, triangle
+//     by triangle as broadcasts; for fewer, each lane holds one of the
+//     chunk's triangles and the warp tests it against each entering
+//     lane's ray in turn, a (t, index) argmin picking the chunk's
+//     winner, which is the sequential strict fold's;
 //   * after the search only the winner's raw b and c, UVs and material id
 //     (global, cached) and its texel (the f32 atlas in global memory) are
 //     read: the TPU's bf16 limbs and one-hot MXU extraction and fetch
@@ -100,6 +113,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "box.cuh"
 #include "threefry.cuh"        // the draws, hashed from the ray's key
 
@@ -114,6 +129,9 @@ constexpr int kSphRows = 14;       // cx cy cz r | dif3 emi3 estr refl alpha ior
 constexpr int kMatRows = 9;        // emi3 estr refl ior alpha_c use_c eft
 constexpr int kThreads = 256;
 constexpr float kBig = 3.0e38f;
+
+// the next 32-ray group of a per-triangle launch, zeroed before it
+__device__ unsigned int g_next;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
 
 struct Knobs {
@@ -125,6 +143,9 @@ struct Knobs {
   int hsl_on;
   float hsl_l, hsl_s;
   int sky_idx;
+  int coop_min;   // the per-triangle search's lanes of a warp entering a
+                  // chunk from which each scans it alone (warp_search;
+                  // trace_scene.py: COOP_MIN)
 };
 
 // The merged search's tables (global; rows of n columns each) and layout.
@@ -221,6 +242,30 @@ __device__ __forceinline__ bool slab(const float* box, int n_chunks, int c,
   return tmax >= tmin && tmax >= 0.0f;
 }
 
+// The search channels a3 ab3 ac3 n3 of triangle t into s[0..11]:
+// tri.load(t, s). The per-triangle search stages the (T, 12) table in
+// shared memory and reads a triangle as three float4s (Staged: one
+// LDS.128 each; a triangle is 48 bytes, so the 8 lanes of a quarter-warp
+// that read 8 consecutive triangles' float4 touch 32 distinct banks: no
+// conflict); the merged search reads the (T, 12) table in global memory
+// (AoS).
+struct Staged {
+  const float4* p;
+  __device__ __forceinline__ void load(int t, float* s) const {
+    const float4 a = p[3 * t], b = p[3 * t + 1], c = p[3 * t + 2];
+    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+    s[8] = c.x; s[9] = c.y; s[10] = c.z; s[11] = c.w;
+  }
+};
+struct AoS {
+  const float* p;
+  __device__ __forceinline__ void load(int t, float* s) const {
+#pragma unroll
+    for (int r = 0; r < kSearch; ++r) s[r] = p[t * kSearch + r];
+  }
+};
+
 // Moller-Trumbore against one triangle's search channels s[0..11]: the
 // distance of a valid hit, or kBig.
 __device__ __forceinline__ float triangle_hit(const float* s, float ox,
@@ -242,12 +287,75 @@ __device__ __forceinline__ float triangle_hit(const float* s, float ox,
   return valid ? dst : kBig;
 }
 
+// The per-triangle search of one warp (the plain version's
+// _closest_triangle, bit for bit): each lane continues its running (best,
+// bidx) over the chunks its line enters before its best, in chunk order.
+// For chunk c the warp takes the ballot of those lanes. Many (at least
+// k.coop_min): each of them runs the chunk's triangles in order, reading
+// them as broadcasts. Few: lane j holds triangle 32c + j in registers; for
+// each lane l of the ballot, in lane order, l's ray goes to every lane by
+// shuffles, every lane tests its triangle, and a warp argmin of (t,
+// index) gives the chunk's first least t, which l folds in with the strict
+// t < best: what the sequential fold keeps. A lane whose `go` is false
+// takes part in the shuffles only.
+template <class Tri>
+__device__ __forceinline__ void warp_search(const Tri& tri_s, const float* box,
+                                            int n_chunks, int lane, bool go,
+                                            float rox, float roy, float roz,
+                                            float rdx, float rdy, float rdz,
+                                            float& best, int& bidx,
+                                            const Knobs& k) {
+  const int nt = k.n_tris, ns = k.n_spheres;
+  const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
+  for (int c = 0; c < n_chunks; ++c) {
+    float tmin;
+    const bool in = go && slab(box, n_chunks, c, rox, roy, roz, inv_x, inv_y,
+                               inv_z, tmin) && tmin < best;
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (m == 0u) continue;
+    const int end = min(nt, (c + 1) * kChunk);
+    if (__popc(m) >= k.coop_min) {
+      if (in) {
+        for (int t = c * kChunk; t < end; ++t) {
+          float s[kSearch];
+          tri_s.load(t, s);
+          const float d = triangle_hit(s, rox, roy, roz, rdx, rdy, rdz, k);
+          if (d < best) { best = d; bidx = ns + t; }
+        }
+      }
+      continue;
+    }
+    const int mine = c * kChunk + lane;
+    const bool has = mine < end;
+    float s[kSearch];
+    tri_s.load(has ? mine : c * kChunk, s);
+    for (unsigned todo = m; todo != 0u; todo &= todo - 1u) {
+      const int l = __ffs(todo) - 1;
+      const float ox = __shfl_sync(0xffffffffu, rox, l);
+      const float oy = __shfl_sync(0xffffffffu, roy, l);
+      const float oz = __shfl_sync(0xffffffffu, roz, l);
+      const float dx = __shfl_sync(0xffffffffu, rdx, l);
+      const float dy = __shfl_sync(0xffffffffu, rdy, l);
+      const float dz = __shfl_sync(0xffffffffu, rdz, l);
+      float d = has ? triangle_hit(s, ox, oy, oz, dx, dy, dz, k) : kBig;
+      int t = mine;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float d2 = __shfl_xor_sync(0xffffffffu, d, off);
+        const int t2 = __shfl_xor_sync(0xffffffffu, t, off);
+        if (d2 < d || (d2 == d && t2 < t)) { d = d2; t = t2; }
+      }
+      if (lane == l && d < best) { best = d; bidx = ns + t; }
+    }
+  }
+}
+
 // Ambient occlusion (main.c:94-116): hemisphere probes from the hit point,
 // occluded by any sphere root at t >= eps or any valid triangle of the
 // chunks the probe enters; occluded probes / (ao_samples * ao_intensity).
 // Probe a reads the bounce's draws 3 + 2a and 4 + 2a.
-template <class Draws>
-__device__ float ao_factor(const float* sph, const float* tri_s,
+template <class Tri, class Draws>
+__device__ float ao_factor(const float* sph, const Tri& tri_s,
                            const float* box, int n_chunks, float px,
                            float py, float pz, float nX, float nY, float nZ,
                            const Draws& draws, const Knobs& k) {
@@ -282,7 +390,9 @@ __device__ float ao_factor(const float* sph, const float* tri_s,
       if (!slab(box, n_chunks, c, px, py, pz, inv_x, inv_y, inv_z, tmin)) continue;
       const int end = min(k.n_tris, (c + 1) * kChunk);
       for (int t = c * kChunk; t < end && !hit; ++t) {
-        hit = triangle_hit(tri_s + t * kSearch, px, py, pz, aox, aoy, aoz, k) < kBig;
+        float s[kSearch];
+        tri_s.load(t, s);
+        hit = triangle_hit(s, px, py, pz, aox, aoy, aoz, k) < kBig;
       }
     }
     occ = occ + (hit ? 1.0f : 0.0f);
@@ -471,7 +581,13 @@ __device__ __forceinline__ void merged_search(
 }
 
 // The kernel's body: trace_scene_kernel instantiates it for the
-// per-triangle search, trace_scene_kernel_merged for the merged one.
+// per-triangle search, trace_scene_kernel_merged for the merged one. The
+// merged modes run one ray a thread on a grid of one block per kThreads
+// rays. The per-triangle modes are persistent (the host launches as many
+// blocks as fit on the card): each block stages its tables once, then
+// each warp takes the launch counter's next 32 consecutive rays and runs
+// the bounce loop while any lane's ray is in its loop, its lanes
+// searching together (warp_search).
 template <bool kRecord, bool kSky, bool kMerged>
 __device__ __forceinline__ void
 trace_scene_body(const float* __restrict__ sph_g,
@@ -489,10 +605,18 @@ trace_scene_body(const float* __restrict__ sph_g,
   // shared: tri search (T x 12, per-triangle mode) | spheres (14 x S) |
   // boxes (6 x C) | mats (9 x M) | merged mode: aa | aa3 | quad | qbox |
   // left | lbox | aa_box | aa3_box | gmin (6)
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ns = k.n_spheres, nt = k.n_tris, nm = k.n_mats;
   const int n_chunks = (nt + kChunk - 1) / kChunk;
-  const float* tri_s = kMerged ? search_g : smem;
+  // the search channels: the (T, 12) table staged (per-triangle mode), or
+  // read in global memory (merged mode)
+  using Tri = typename std::conditional<kMerged, AoS, Staged>::type;
+  Tri tri_s;
+  if constexpr (kMerged) {
+    tri_s = AoS{search_g};
+  } else {
+    tri_s = Staged{reinterpret_cast<const float4*>(smem)};
+  }
   float* sph = kMerged ? smem : smem + kSearch * nt;
   float* box = sph + kSphRows * ns;
   float* mats = box + 6 * n_chunks;
@@ -545,35 +669,51 @@ trace_scene_body(const float* __restrict__ sph_g,
     __syncthreads();
   }
 
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n_rays) return;
   const size_t B = (size_t)n_rays;
   const size_t n_tex = (size_t)k.n_tex;
-
-  uint32_t k0, k1;   // the ray's threefry key
-  load_key(keys, B, ray, k0, k1);
-  float rox = ox[ray], roy = oy[ray], roz = oz[ray];
-  float rdx = dx[ray], rdy = dy[ray], rdz = dz[ray];
-  float rcx = 1.0f, rcy = 1.0f, rcz = 1.0f;      // throughput
-  float ix = 0.0f, iy = 0.0f, iz = 0.0f;         // incoming radiance
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;         // albedo AOV
-  float nx = 0.0f, ny = 0.0f, nz = 0.0f;         // normal AOV
-  bool active = true, is_alpha = false;
-  int alpha_depth = 0;
-  float medium_n2 = 1.0f;
+  // the state of the thread's ray
+  int ray = 0;
+  uint32_t k0 = 0u, k1 = 0u;   // the ray's threefry key
+  float rox = 0.0f, roy = 0.0f, roz = 0.0f, rdx = 1.0f, rdy = 1.0f, rdz = 1.0f;
+  float rcx, rcy, rcz;      // throughput
+  float ix, iy, iz;         // incoming radiance
+  float ax, ay, az;         // albedo AOV
+  float nx, ny, nz;         // normal AOV
+  bool active = false, is_alpha;
+  int alpha_depth;
+  float medium_n2;
   // the sky slot: scale, unit direction, early flag, taken flag
-  float sklx = 0.0f, skly = 0.0f, sklz = 0.0f;
-  float skdx = 0.0f, skdy = 0.0f, skdz = 0.0f;
-  bool early = false, slot = false;
-
+  float sklx, skly, sklz, skdx, skdy, skdz;
+  bool early, slot;
   int i = 0;
-  for (; i < k.bounces && active; ++i) {
+  auto start = [&](int r) {
+    ray = r;
+    load_key(keys, B, ray, k0, k1);
+    rox = ox[ray]; roy = oy[ray]; roz = oz[ray];
+    rdx = dx[ray]; rdy = dy[ray]; rdz = dz[ray];
+    rcx = 1.0f; rcy = 1.0f; rcz = 1.0f;
+    ix = 0.0f; iy = 0.0f; iz = 0.0f;
+    ax = 0.0f; ay = 0.0f; az = 0.0f;
+    nx = 0.0f; ny = 0.0f; nz = 0.0f;
+    active = true; is_alpha = false;
+    alpha_depth = 0;
+    medium_n2 = 1.0f;
+    sklx = 0.0f; skly = 0.0f; sklz = 0.0f;
+    skdx = 0.0f; skdy = 0.0f; skdz = 0.0f;
+    early = false; slot = false;
+    i = 0;
+  };
+
+  // one bounce of the ray; `go`: the ray is in its loop (merged modes:
+  // always; per-triangle modes: a lane whose ray is not joins the warp's
+  // search and returns)
+  auto bounce = [&](bool go) {
     // ---- closest sphere: strict t < best in sphere order -------------
     const float a_quad = rdx * rdx + rdy * rdy + rdz * rdz;
     const float inv_2a = 0.5f / fmaxf(a_quad, 1e-20f);
     float best = kBig;
     int bidx = -1;
-    for (int s = 0; s < ns; ++s) {
+    for (int s = 0; s < (go ? ns : 0); ++s) {
       const float ocx = rox - sph[s], ocy = roy - sph[ns + s];
       const float ocz = roz - sph[2 * ns + s], r = sph[3 * ns + s];
       const float b_ = 2.0f * (ocx * rdx + ocy * rdy + ocz * rdz);
@@ -588,26 +728,15 @@ trace_scene_body(const float* __restrict__ sph_g,
       if (t < best) { best = t; bidx = s; }
     }
 
-    if (kMerged) {
+    if constexpr (kMerged) {
       merged_search(aa, aa3, quad, qbox, left, lbox, aa_box, aa3_box, gmin,
                     q, k, rox, roy, roz, rdx, rdy, rdz, best, bidx);
     } else {
       // ---- triangles of the chunks the ray enters before its best ----
-      const float inv_x = 1.0f / rdx, inv_y = 1.0f / rdy, inv_z = 1.0f / rdz;
-      for (int c = 0; c < n_chunks; ++c) {
-        float tmin;
-        if (!slab(box, n_chunks, c, rox, roy, roz, inv_x, inv_y, inv_z, tmin) ||
-            !(tmin < best)) {
-          continue;
-        }
-        const int end = min(nt, (c + 1) * kChunk);
-        for (int t = c * kChunk; t < end; ++t) {
-          const float d = triangle_hit(tri_s + t * kSearch, rox, roy, roz, rdx,
-                                       rdy, rdz, k);
-          if (d < best) { best = d; bidx = ns + t; }
-        }
-      }
+      warp_search(tri_s, box, n_chunks, threadIdx.x & 31, go, rox, roy, roz,
+                  rdx, rdy, rdz, best, bidx, k);
     }
+    if (!go) return;
 
     if (kRecord) idx_out[(size_t)i * B + ray] = bidx;
 
@@ -636,9 +765,10 @@ trace_scene_body(const float* __restrict__ sph_g,
     } else {
       const int t = bidx - ns;
       const size_t T = (size_t)nt;
-      const float* s = tri_s + t * kSearch;
-      const float wax = s[0], way = s[1], waz = s[2];
-      float tnX = s[9], tnY = s[10], tnZ = s[11];
+      float ws[kSearch];
+      tri_s.load(t, ws);
+      const float wax = ws[0], way = ws[1], waz = ws[2];
+      float tnX = ws[9], tnY = ws[10], tnZ = ws[11];
       normalize3(tnX, tnY, tnZ);
       float wt[13];   // raw b3 c3, ua va ub vb uc vc, mat (rows 12-24)
 #pragma unroll
@@ -836,19 +966,50 @@ trace_scene_body(const float* __restrict__ sph_g,
       rdz = ddz + (rfz - ddz) * refl;
     }
     active = active && did_hit;
-  }
-  for (; kRecord && i < k.bounces; ++i) {   // skip_body
-    idx_out[(size_t)i * B + ray] = -1;
-    if (k.use_ao) aof_out[(size_t)i * B + ray] = 0.0f;
-  }
+    ++i;
+  };
 
-  out[0 * B + ray] = ix; out[1 * B + ray] = iy; out[2 * B + ray] = iz;
-  out[3 * B + ray] = ax; out[4 * B + ray] = ay; out[5 * B + ray] = az;
-  out[6 * B + ray] = nx; out[7 * B + ray] = ny; out[8 * B + ray] = nz;
-  if (kSky) {
-    out[9 * B + ray] = sklx; out[10 * B + ray] = skly; out[11 * B + ray] = sklz;
-    out[12 * B + ray] = skdx; out[13 * B + ray] = skdy; out[14 * B + ray] = skdz;
-    out[15 * B + ray] = early ? 1.0f : 0.0f;
+  auto finish = [&]() {
+    for (; kRecord && i < k.bounces; ++i) {   // skip_body
+      idx_out[(size_t)i * B + ray] = -1;
+      if (k.use_ao) aof_out[(size_t)i * B + ray] = 0.0f;
+    }
+    out[0 * B + ray] = ix; out[1 * B + ray] = iy; out[2 * B + ray] = iz;
+    out[3 * B + ray] = ax; out[4 * B + ray] = ay; out[5 * B + ray] = az;
+    out[6 * B + ray] = nx; out[7 * B + ray] = ny; out[8 * B + ray] = nz;
+    if (kSky) {
+      out[9 * B + ray] = sklx; out[10 * B + ray] = skly; out[11 * B + ray] = sklz;
+      out[12 * B + ray] = skdx; out[13 * B + ray] = skdy; out[14 * B + ray] = skdz;
+      out[15 * B + ray] = early ? 1.0f : 0.0f;
+    }
+  };
+
+  if constexpr (kMerged) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= n_rays) return;
+    start(r);
+    while (i < k.bounces && active) bounce(true);
+    finish();
+  } else {
+    // 32 consecutive rays a warp: the counter's next group
+    const int lane = threadIdx.x & 31;
+    const int n_groups = (n_rays + 31) >> 5;
+    auto next_group = [&]() {
+      unsigned v = 0u;
+      if (lane == 0) v = atomicAdd(&g_next, 1u);
+      return (int)__shfl_sync(0xffffffffu, v, 0);
+    };
+    for (int g = next_group(); g < n_groups; g = next_group()) {
+      const int r = g * 32 + lane;
+      const bool has = r < n_rays;
+      if (has) start(r); else active = false;
+      for (;;) {
+        const bool go = has && i < k.bounces && active;
+        if (!__any_sync(0xffffffffu, go)) break;
+        bounce(go);
+      }
+      if (has) finish();
+    }
   }
 }
 
@@ -892,7 +1053,8 @@ trace_scene_kernel_merged(TRACE_SCENE_PARAMS) {
 // keys (2, n_rays) uint32, each ray's threefry key
 // (raytpu_torch/core/rng.py: sample_stream), whose draw 4 + b * n_draws
 // + j is draw j of bounce b; out (9, n_rays), or (16, n_rays) with
-// the sky slot of sphere sky_idx (-1: no sky). Recording mode when
+// the sky slot of sphere sky_idx (-1: no sky); coop_min, 1 to 33, the
+// per-triangle search's Knobs::coop_min. Recording mode when
 // idx_out is not null: idx_out (bounces, n_rays) i32 winners and, with
 // use_ao, aof_out (bounces, n_rays) f32 AO factors (else null). The
 // merged search when `layout`, a host array of 6 x 3 ints (per (axis,
@@ -902,8 +1064,10 @@ trace_scene_kernel_merged(TRACE_SCENE_PARAMS) {
 // 32)), aa_box and aa3_box (6, the sub-lists' ceil(n / kWalkChunk)
 // summed) are trace_scene.py's walk_tables / pack_quads tables, hi_eps
 // is 1 - tri_eps. Sets the kernel's dynamic shared memory (up to ~105 KB
-// at 2048 triangles, above the 48 KB default), launches on `stream`
-// without synchronising and returns the launch's cudaError_t.
+// at 2048 triangles, above the 48 KB default); the per-triangle search's
+// grid is as many blocks as fit on the card (the occupancy API), its ray
+// counter zeroed on `stream` first. Launches on `stream` without
+// synchronising and returns the first failing call's cudaError_t.
 extern "C" int raytpu_trace_scene(
     const float* sph, const float* search, const float* tri,
     const float* boxes, const float* mats, const float* atlas,
@@ -914,13 +1078,14 @@ extern "C" int raytpu_trace_scene(
     float det_eps, float tri_eps, float alpha_lo, float alpha_hi,
     float bright_boost, float bright_threshold, int use_ao, int ao_samples,
     float ao_e_scale, float ao_inv, int hsl_on, float hsl_l, float hsl_s,
-    int sky_idx, const float* aa, const float* aa3, const float* quad,
-    const float* qbox, const float* left, const float* lbox,
+    int sky_idx, int coop_min, const float* aa, const float* aa3,
+    const float* quad, const float* qbox, const float* left, const float* lbox,
     const float* aa_box, const float* aa3_box, int n_aa, int n_aa3,
     int n_quad, int n_left, const int* layout, float hi_eps, void* stream) {
   if (n_spheres < 0 || n_spheres > kMaxSpheres || n_tris < 1 ||
-      sky_idx < -1 || sky_idx >= n_spheres ||
-      n_tris > kMaxTris || n_mats < 0 || n_mats > kMaxMats || n_tex < 0 ||
+      sky_idx < -1 || sky_idx >= n_spheres || coop_min < 1 ||
+      coop_min > 33 || n_tris > kMaxTris || n_mats < 0 ||
+      n_mats > kMaxMats || n_tex < 0 ||
       (n_tex > 0 && (atlas == nullptr || atlas_w < 1 || atlas_h < 1)) ||
       n_rays < 0 || bounces < 0 || keys == nullptr ||
       n_draws < 3 + (use_ao ? 2 * ao_samples : 0) ||
@@ -952,7 +1117,7 @@ extern "C" int raytpu_trace_scene(
   Knobs k{n_spheres, n_tris, n_mats, n_tex, atlas_w, atlas_h, bounces,
           n_draws, sphere_eps, det_eps, tri_eps, alpha_lo, alpha_hi,
           bright_boost, bright_threshold, use_ao, ao_samples, ao_e_scale,
-          ao_inv, hsl_on, hsl_l, hsl_s, sky_idx};
+          ao_inv, hsl_on, hsl_l, hsl_s, sky_idx, coop_min};
   const int n_chunks = (n_tris + kChunk - 1) / kChunk;
   size_t floats = (size_t)kSphRows * n_spheres + 6 * (size_t)n_chunks +
                   (size_t)kMatRows * n_mats;
@@ -966,6 +1131,7 @@ extern "C" int raytpu_trace_scene(
   }
   const size_t smem = sizeof(float) * floats;
   const bool record = idx_out != nullptr, sky = sky_idx >= 0;
+  const cudaStream_t st = (cudaStream_t)stream;
   const auto kernel =
       merged ? (record ? (sky ? trace_scene_kernel_merged<true, true>
                               : trace_scene_kernel_merged<true, false>)
@@ -978,22 +1144,46 @@ extern "C" int raytpu_trace_scene(
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  int blocks = (n_rays + kThreads - 1) / kThreads;
+  if (!merged) {   // as many blocks as fit on the card, the counter zeroed
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem)) != cudaSuccess) {
+      return (int)err;
+    }
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    blocks = blocks < sms * per_sm ? blocks : sms * per_sm;
+    void* next = nullptr;
+    if ((err = cudaGetSymbolAddress(&next, g_next)) != cudaSuccess ||
+        (err = cudaMemsetAsync(next, 0, sizeof(unsigned int), st)) != cudaSuccess) {
+      return (int)err;
+    }
+  }
+  kernel<<<blocks, kThreads, smem, st>>>(
       sph, search, tri, boxes, mats, atlas, ox, oy, oz, dx, dy, dz, keys,
       out, idx_out, aof_out, n_rays, k, q);
   return (int)cudaGetLastError();
 }
 
-// A merged instantiation's attributes as the driver holds them: out[0..3]
-// = registers a thread, local (stack and spill) bytes a thread, static
-// shared bytes, and the dynamic shared bytes its last launch set. Returns
-// the cudaError_t of the query.
-extern "C" int raytpu_trace_scene_merged_attrs(int record, int sky, int* out) {
-  const auto kernel = record ? (sky ? trace_scene_kernel_merged<true, true>
-                                    : trace_scene_kernel_merged<true, false>)
-                             : (sky ? trace_scene_kernel_merged<false, true>
-                                    : trace_scene_kernel_merged<false, false>);
+// An instantiation's attributes as the CUDA runtime reports them (the merged or
+// the per-triangle search, recording, sky): out[0..3] = registers a
+// thread, local (stack and spill) bytes a thread, static shared bytes,
+// and the dynamic shared bytes its last launch set. Returns the
+// cudaError_t of the query.
+extern "C" int raytpu_trace_scene_attrs(int merged, int record, int sky,
+                                        int* out) {
+  const auto kernel =
+      merged ? (record ? (sky ? trace_scene_kernel_merged<true, true>
+                              : trace_scene_kernel_merged<true, false>)
+                       : (sky ? trace_scene_kernel_merged<false, true>
+                              : trace_scene_kernel_merged<false, false>))
+             : (record ? (sky ? trace_scene_kernel<true, true>
+                              : trace_scene_kernel<true, false>)
+                       : (sky ? trace_scene_kernel<false, true>
+                              : trace_scene_kernel<false, false>));
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;

@@ -15,10 +15,12 @@ recompute:
 * The winner's distance is then recomputed from the gathered primitive
   (``sphere_distance_one``, ``triangle_distance_one``), the same f32 value,
   differentiable in the ray and the primitive; its normal, material and
-  texel follow by ``index_select`` (``raytpu``'s ``gather_channels`` is a
-  TPU layout trick). Its backward adds with atomics, where that of
-  ``table[idx]`` walks each distinct index's duplicates serially: slow on
-  the card for a few spheres or materials hit by a million rays.
+  texel follow by ``kernels.gather.gather`` (``raytpu``'s
+  ``gather_channels`` is a TPU layout trick): all the sphere channels at
+  the sphere index in one call, all the triangle channels at the
+  triangle index in another, so each index is sorted once for the
+  backward, which sums each row's cotangents in a fixed order without
+  float atomics (``csrc/segment_sum.cu``).
 
 The equirect sky (``Scene.sky_index``): where the sky sphere wins, its
 emission is the sky texel at the hit (``materials.texture.sky_emission``),
@@ -43,6 +45,7 @@ from raytpu_torch.geometry.triangle import (TriangleGeom, precompute,
                                             triangle_distance_one,
                                             triangle_distances)
 from raytpu_torch.kernels import intersect
+from raytpu_torch.kernels.gather import GatherIndex, gather
 from raytpu_torch.materials.texture import sky_emission, triangle_material
 
 _logged: set = set()
@@ -160,21 +163,29 @@ def closest_hit(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
             s_idx, t_idx = _matrix_argmin(scene, geom, o_sg, d_sg, cfg)
             found = tri_wins = None   # decided on the recomputed distances
 
-    # the winner's distance, recomputed differentiably
-    take_s = lambda c: c.index_select(0, s_idx)
-    take_t = lambda c: c.index_select(0, t_idx)
+    # the winners' rows: every sphere channel (centre, radius, material)
+    # in one gather, every triangle channel in another
     if n_spheres > 0:
         sph = scene.spheres
-        centers = Vec3(*map(take_s, sph.center))
-        radii = take_s(sph.radius)
+        sm = sph.mat
+        w = gather(GatherIndex(s_idx, n_spheres), (
+            *sph.center, sph.radius, *sm.diffuse, *sm.emission,
+            sm.emission_strength, sm.reflection, sm.alpha, sm.ior))
+        centers, radii = Vec3(*w[0:3]), w[3]
+        m_s = Materials(Vec3(*w[4:7]), Vec3(*w[7:10]), *w[10:14])
+        # the winner's distance, recomputed differentiably
         s_t = sphere_distance_one(origin, direction, centers, radii,
                                   eps=cfg.sphere_eps)
     else:
         s_t = inf
     if n_tris > 0:
-        win_a, win_ab, win_ac, win_nraw = (
-            Vec3(*map(take_t, v))
-            for v in (geom.a, geom.edge_ab, geom.edge_ac, geom.normal_raw))
+        tris = scene.triangles
+        w = gather(GatherIndex(t_idx, n_tris), (
+            *geom.a, *geom.edge_ab, *geom.edge_ac, *geom.normal_raw,
+            *tris.b, *tris.c, tris.ua, tris.va, tris.ub, tris.vb, tris.uc,
+            tris.vc, tris.mat_id))
+        win_a, win_ab, win_ac, win_nraw, win_b, win_c = (
+            Vec3(*w[j:j + 3]) for j in range(0, 18, 3))
         t_t = triangle_distance_one(origin, direction, win_a, win_ab, win_ac,
                                     win_nraw, det_eps=cfg.tri_det_eps,
                                     eps=cfg.tri_eps)
@@ -194,11 +205,6 @@ def closest_hit(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
     normal = Vec3.zeros((b,), dev)
     mat = Materials.zeros((b,), dev)
     if n_spheres > 0:
-        sm = scene.spheres.mat
-        m_s = Materials(Vec3(*map(take_s, sm.diffuse)),
-                        Vec3(*map(take_s, sm.emission)),
-                        *map(take_s, (sm.emission_strength, sm.reflection,
-                                      sm.alpha, sm.ior)))
         if scene.sky_index >= 0:
             # the sky sphere's emission is the texel it shows at the hit
             sky_rgb = sky_emission(scene.sky, point, centers, radii)
@@ -213,13 +219,11 @@ def closest_hit(scene: Scene, geom: Optional[TriangleGeom], origin: Vec3,
         normal = Vec3.where(sphere_sel, sphere_normal(point, centers), normal)
         mat = Materials.where(sphere_sel, m_s, mat)
     if n_tris > 0:
-        tris = scene.triangles
         n_t = win_nraw.normalize()
         m_t = triangle_material(
-            win_a, Vec3(*map(take_t, tris.b)), Vec3(*map(take_t, tris.c)),
-            (take_t(tris.ua), take_t(tris.va)), (take_t(tris.ub), take_t(tris.vb)),
-            (take_t(tris.uc), take_t(tris.vc)), n_t, point, take_t(tris.mat_id),
-            scene.atlas, scene.mat_table, bilinear=cfg.bilinear_textures)
+            win_a, win_b, win_c, (w[18], w[19]), (w[20], w[21]),
+            (w[22], w[23]), n_t, point, w[24], scene.atlas, scene.mat_table,
+            bilinear=cfg.bilinear_textures)
         tri_sel = did_hit & tri_wins
         normal = Vec3.where(tri_sel, n_t, normal)
         mat = Materials.where(tri_sel, m_t, mat)

@@ -9,9 +9,13 @@ then the triangles, the winner's barycentric UVs, nearest texel and
 material-table row, the AO probes, and ``shade_bounce``.
 
 The triangle search has two modes, as in ``raytpu``. Triangle by
-triangle (``merge_quads=False``, or no quad pairs): the triangles of every
-32-triangle chunk whose box the ray enters before its current best
-(Moller-Trumbore). Merged (``merge_quads`` with the pairs ``config``
+triangle (``merge_quads=False``, or no quad pairs: ``quad_plan`` is None
+for any mesh without coplanar parallelogram pairs and any scene built in
+code without them): the triangles of every 32-triangle chunk whose box
+the ray enters before its current best (Moller-Trumbore); the kernel
+searches a warp's 32 rays together, and ``_closest_triangle`` counts the
+work of its warps (``tests/test_torch_k3_warp.py`` emulates their
+schedule). Merged (``merge_quads`` with the pairs ``config``
 detected, ``geometry/quads``; ``MeshKnobs.plan``): candidates rank as
 fractions t = num / den, with one division per ray and bounce at the end.
 The six (normal axis, sign) groups of axis-aligned rectangles and unpaired
@@ -98,6 +102,9 @@ MAX_MATS = 64
 MAX_TEX_W4 = 256    # raytpu's texture-row fetch bounds (4 * atlas width,
 MAX_TEX_ROWS = 512  # texture rows), kept for the same reason
 CULL_CHUNK = 32     # triangles per cull box
+WARP = 32           # rays a warp of the per-triangle kernel searches together
+COOP_MIN = 16       # lanes entering a chunk from which each scans it alone
+                    # (the kernel's Knobs::coop_min, passed at each launch)
 WALK_CHUNK = 8      # columns per chunk box of the merged search's walk
                     # (csrc/trace_scene.cu: kWalkChunk)
 
@@ -866,17 +873,41 @@ def _chunks(k: MeshKnobs):
         yield c, c * CULL_CHUNK, min(k.n_tris, (c + 1) * CULL_CHUNK)
 
 
+def warp_entries(enter: Tensor) -> Tensor:
+    """(W,) how many of each warp's 32 consecutive rays (the last warp
+    padded) ``enter`` holds: the ballot the kernel's warp takes."""
+    pad = -enter.shape[0] % WARP
+    return torch.nn.functional.pad(enter, (0, pad)).reshape(-1, WARP).sum(1)
+
+
 def _closest_triangle(tb: MeshTables, k: MeshKnobs, o, d, active, best,
                       bidx, counts):
     """Continue the search over the triangle chunks that a live ray's
     line enters before its current best (the kernel's per-ray cull, so
-    a skipped chunk never holds the winner); winners are n_spheres + t."""
+    a skipped chunk never holds the winner); winners are n_spheres + t.
+
+    ``counts`` (a dict) gets ``tri``, the triangle tests the rays need,
+    and for the kernel's warps of 32 consecutive rays, in lane slots (a
+    warp's test of one triangle is 32 slots, its idle lanes' included):
+    ``tri_issued``, those of a warp that scans the union of its lanes'
+    chunks (the per-thread cull of the kernel before its warp search);
+    ``tri_loop``, those of the chunks that COOP_MIN or more of a warp's
+    lanes enter, which the kernel's lanes scan each on its own; ``coop``,
+    the (ray, chunk) entries of the others, each a warp-wide test of the
+    chunk's triangles and a (t, index) argmin."""
     inv = [1.0 / c for c in d]
     for c, lo, hi in _chunks(k):
         hit_box, tmin = _slab(tb.boxes, c, *o, *inv)
         enter = hit_box & active & (tmin < best)
         if counts is not None:
             counts["tri"] += int(enter.sum()) * (hi - lo)
+            pc = warp_entries(enter)
+            many = pc >= COOP_MIN
+            slots = WARP * (hi - lo)
+            for key, v in (("tri_issued", int((pc > 0).sum()) * slots),
+                           ("tri_loop", int(many.sum()) * slots),
+                           ("coop", int(pc[~many].sum()))):
+                counts[key] = counts.get(key, 0) + v
         if not bool(enter.any()):
             continue
         t, _ = _triangle_hits(tb.tri, lo, hi, o, d, k)
@@ -1220,7 +1251,8 @@ def trace_scene_reference(tb: MeshTables, ox: Tensor, oy: Tensor, oz: Tensor,
     (``k.sky_idx >= 0``) (16, B): those, then the slot's scale xyz, unit
     direction xyz and early flag. ``counts``, a dict, receives the search
     work this input needs: ``live`` (ray, bounce) entries, ``sphere`` and
-    ``slab`` tests, and ``tri`` tests of entered chunks, or in the merged
+    ``slab`` tests, and ``tri`` tests of entered chunks (with the kernel's
+    warps' issue, ``_closest_triangle``), or in the merged
     search (``k.plan``) the ``aa_rect``, ``aa_tri``, ``quad`` and ``left``
     tests of ``_closest_merged`` (AO probes not counted); and the draws the
     kernel hashes: ``draws``, the scatter's two where a bounce scatters and
@@ -1344,7 +1376,7 @@ _ARGTYPES = (
     + [ctypes.c_int] * 2                   # use_ao, ao_samples
     + [ctypes.c_float] * 2                 # ao_e_scale, ao_inv
     + [ctypes.c_int] + [ctypes.c_float] * 2  # hsl_on, hsl_l, hsl_s
-    + [ctypes.c_int]                       # sky_idx
+    + [ctypes.c_int] * 2                   # sky_idx, coop_min
     + [ctypes.c_void_p] * 8                # merged: aa aa3 (walk order) quad
                                            # qbox left lbox aa_box aa3_box
     + [ctypes.c_int] * 4                   # n_aa n_aa3 n_quad n_left
@@ -1418,7 +1450,8 @@ def _launch(tb: MeshTables, rays: tuple, keys: Tensor, k: MeshKnobs,
             k.sphere_eps, k.det_eps, k.tri_eps, k.alpha_lo, k.alpha_hi,
             k.bright_boost, k.bright_threshold,
             int(k.use_ao), k.ao_samples, k.ao_e_scale, k.ao_inv,
-            int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx, *merged, n_aa, n_aa3,
+            int(k.hsl_on), k.hsl_l, k.hsl_s, k.sky_idx, COOP_MIN, *merged,
+            n_aa, n_aa3,
             k.n_quads, k.n_leftover, layout, 1.0 - k.tri_eps, stream,
         )
     if err != 0:
@@ -1427,17 +1460,17 @@ def _launch(tb: MeshTables, rays: tuple, keys: Tensor, k: MeshKnobs,
     return (out, idx, aof) if record else out
 
 
-def merged_func_attrs(record: bool, sky: bool) -> dict:
-    """A merged instantiation's attributes as the driver of the current
-    card holds them (``cudaFuncGetAttributes``): registers and local bytes
-    a thread, static shared bytes, and the dynamic shared bytes of its last
+def func_attrs(record: bool, sky: bool, merged: bool = True) -> dict:
+    """An instantiation's attributes as the CUDA runtime reports them for
+    the current card (``cudaFuncGetAttributes``): registers and local bytes a
+    thread, static shared bytes, and the dynamic shared bytes of its last
     launch."""
     from raytpu_torch.kernels import _build
 
-    fn = _build.load("trace_scene").raytpu_trace_scene_merged_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = _build.load("trace_scene").raytpu_trace_scene_attrs
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return _build.func_attrs(fn, int(record), int(sky))
+    return _build.func_attrs(fn, int(merged), int(record), int(sky))
 
 
 def _forward(tb: MeshTables, rays, src: Tensor, k: MeshKnobs,

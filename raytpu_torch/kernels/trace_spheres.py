@@ -50,6 +50,7 @@ from raytpu_torch.core.color import hsl_boost
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.core.vec3 import Vec3
 from raytpu_torch.integrator.path import n_bounce_draws
+from raytpu_torch.kernels.gather import GatherIndex, gather
 from raytpu_torch.kernels.trace_scene import (TWO_PI, Knobs, initial_carry,
                                              initial_sky, out_planes,
                                              shade_bounce, sky_direction,
@@ -468,8 +469,8 @@ def compose_sky(scene: Scene, cfg: RenderConfig, out: Tensor
                 ) -> tuple[Vec3, Vec3, Vec3]:
     """(radiance, albedo AOV, normal AOV) from K1's or K3's 16 planes
     (``raytpu``'s ``compose_sky``): the slot's direction to its texel
-    (``materials.texture.sky_texel_index``, the scan path's chain), an
-    ``index_select`` of the sky table (detached unless
+    (``materials.texture.sky_texel_index``, the scan path's chain), a
+    ``kernels.gather.gather`` of the sky table (detached unless
     ``cfg.sky_texture_grads``), then radiance + texel * scale, or the
     HSL-boosted texel as radiance and albedo where the slot is an
     emissive early return. A ray with no sky event has scale 0 and no
@@ -478,7 +479,7 @@ def compose_sky(scene: Scene, cfg: RenderConfig, out: Tensor
     idx = sky_texel_index(Vec3(*out[12:15]), sky.width, sky.height)
     table = sky.rgb if cfg.sky_texture_grads else Vec3(*(c.detach()
                                                          for c in sky.rgb))
-    texel = Vec3(*(c.index_select(0, idx) for c in table))
+    texel = Vec3(*gather(GatherIndex(idx, table.x.shape[0]), table))
     early = out[15] > 0.0
     boosted = hsl_boost(texel, cfg.hsl_l_factor, cfg.hsl_s_factor)
     inc = Vec3.where(early, boosted, Vec3(*out[0:3]) + texel * Vec3(*out[9:12]))

@@ -22,6 +22,7 @@ from torch import Tensor
 from raytpu_torch.core.types import Materials, MatTable, SkyTexture, TextureAtlas
 from raytpu_torch.core.vec3 import Vec3
 from raytpu_torch.geometry.triangle import barycentric
+from raytpu_torch.kernels.gather import GatherIndex, gather
 
 UNTEXTURED_RGB = (0.784, 0.965, 1.0)   # mesh.h:207's default material
 PI32 = float(np.float32(math.pi))   # jnp.pi as it meets an f32 array
@@ -34,13 +35,17 @@ def wrap_uv(u: Tensor) -> Tensor:
     return torch.where(u < 0.0, u + 1.0, u)
 
 
-def _take(plane: Tensor, idx: Tensor, zero=0.0) -> Tensor:
-    """plane[idx], and ``zero`` where idx is outside the plane.
-    ``index_select``, whose backward adds with atomics: the backward of
-    ``plane[idx]`` walks each distinct index's duplicates serially, slow on
-    the card for a few materials hit by a million rays."""
-    ok = (idx >= 0) & (idx < plane.shape[0])
-    return torch.where(ok, plane.index_select(0, torch.where(ok, idx, 0)), zero)
+def _take(planes, idx: Tensor) -> list[Tensor]:
+    """plane[idx] for each of ``planes`` (all of one length), and zero
+    (False for a bool plane) where idx is outside them: one
+    ``kernels.gather.gather`` at one index, whose backward sorts the index
+    once and sums each row's cotangents in a fixed order."""
+    planes = list(planes)
+    n = planes[0].shape[0]
+    ok = (idx >= 0) & (idx < n)
+    got = gather(GatherIndex(torch.where(ok, idx, 0), n), planes)
+    return [torch.where(ok, g, False if g.dtype == torch.bool else 0.0)
+            for g in got]
 
 
 def atlas_fetch(atlas: TextureAtlas, mat_id: Tensor, u: Tensor,
@@ -51,7 +56,7 @@ def atlas_fetch(atlas: TextureAtlas, mat_id: Tensor, u: Tensor,
     x = torch.clamp(torch.floor(u * w).to(torch.int64), 0, w - 1)
     y = torch.clamp(torch.floor(v * h).to(torch.int64), 0, h - 1)
     idx = (y * w + x) + (h * w) * mat_id.to(torch.int64)
-    r, g, b, alpha = (_take(c, idx) for c in (*atlas.rgb, atlas.alpha))
+    r, g, b, alpha = _take((*atlas.rgb, atlas.alpha), idx)
     return Vec3(r, g, b), alpha
 
 
@@ -75,7 +80,7 @@ def atlas_fetch_bilinear(atlas: TextureAtlas, mat_id: Tensor, u: Tensor,
     y1i = torch.remainder(y0i + 1, h)
     base = (h * w) * mat_id.to(torch.int64)
     c00, c10, c01, c11 = (
-        Vec3(*(_take(c, base + yi * w + xi) for c in atlas.rgb))
+        Vec3(*_take(atlas.rgb, base + yi * w + xi))
         for yi, xi in ((y0i, x0i), (y0i, x1i), (y1i, x0i), (y1i, x1i)))
     rgb = (c00 * ((1 - tx) * (1 - ty)) + c10 * (tx * (1 - ty))
            + c01 * ((1 - tx) * ty) + c11 * (tx * ty))
@@ -97,17 +102,17 @@ def triangle_material(tri_a: Vec3, tri_b: Vec3, tri_c: Vec3,
     else:
         full = lambda c: torch.full_like(u, c)
         rgb, tex_alpha = Vec3(*map(full, UNTEXTURED_RGB)), full(1.0)
-    m = mat_id.to(torch.int64)
-    em = Vec3(*(_take(c, m) for c in table.emission))
-    eft = _take(table.emission_from_texture, m, False)
-    use_const = _take(table.use_alpha_const, m, False)
+    (*em, eft, use_const, estr, refl, alpha_c, ior) = _take(
+        (*table.emission, table.emission_from_texture, table.use_alpha_const,
+         table.emission_strength, table.reflection, table.alpha_const,
+         table.ior), mat_id.to(torch.int64))
     return Materials(
         diffuse=rgb,
         emission=Vec3(*(torch.where(eft, e * t, e) for e, t in zip(em, rgb))),
-        emission_strength=_take(table.emission_strength, m),
-        reflection=_take(table.reflection, m),
-        alpha=torch.where(use_const, _take(table.alpha_const, m), tex_alpha),
-        ior=_take(table.ior, m),
+        emission_strength=estr,
+        reflection=refl,
+        alpha=torch.where(use_const, alpha_c, tex_alpha),
+        ior=ior,
     )
 
 
@@ -144,7 +149,8 @@ def sky_texel_index(d: Vec3, w: int, h: int) -> Tensor:
 def sky_emission(sky: SkyTexture, hit_point: Vec3, center: Vec3,
                  radius: Tensor) -> Vec3:
     """The sky texel seen at a hit on the sky sphere: d = (p - c) / r,
-    ``sky_texel_index``, then an ``index_select`` of each channel."""
+    ``sky_texel_index``, then one ``kernels.gather.gather`` of the three
+    channels."""
     d = Vec3(*((p - c) / radius for p, c in zip(hit_point, center)))
     idx = sky_texel_index(d, sky.width, sky.height)
-    return Vec3(*(c.index_select(0, idx) for c in sky.rgb))
+    return Vec3(*gather(GatherIndex(idx, sky.rgb.x.shape[0]), sky.rgb))
