@@ -104,15 +104,18 @@ Phases, each of which raises on failure (exit code non-zero):
      those that place a surface or turn a ray (``SCAN_STEP_FROZEN``),
      whose losses must fall; a second fwd+bwd must give the same bits on
      every leaf (ROADMAP P-F8: the winner gathers' backward sums in a
-     fixed order, through the segment-sum kernel), and the profile must
-     hold no ``index_add_`` / ``index_put_(accumulate=True)`` kernel;
-  21. the segment-sum kernel (``csrc/segment_sum.cu``) on two calls of
-     phase 20's backward, the largest and the one with the longest row:
-     against the exact row sums (its plain version, ``index_add_``, in
-     float64 on the CPU; SEG_REL), the longest rows summed by the warp
-     (its heavy branch), two launches bit-identical, timed beside the
-     plain version, ``index_add_`` and the index's stable sort, with its
-     bound;
+     fixed order, through the index-sort and segment-sum kernels), and
+     the profile must hold no ``index_add_`` /
+     ``index_put_(accumulate=True)`` and no ``torch.sort`` kernel;
+  21. the gathers' plan (the radix sort ``csrc/index_sort.cu``) and
+     segment sum (``csrc/segment_sum.cu``) on three calls: the largest and
+     the longest-row call of phase 20's backward and the sky texels' call
+     of the sky world's fwd+bwd (``compose_sky``): the plan bit-equal to
+     ``torch.sort(stable=True)`` + ``searchsorted``, the sums against the
+     exact row sums (their plain version, ``index_add_``, in float64 on
+     the CPU; SEG_REL), the longest rows summed by the warp (its heavy
+     branch), two launches bit-identical; both timed beside their plain
+     versions and library calls, with their bounds;
   22. the equirect sky's kernel modes against their plain versions at
      64x48 rays: a generated SKY_SIZE sky (``scenes.write_sky_showcase``,
      the read timed) and block worlds with ``sky=``; K1's sky slot (16
@@ -162,7 +165,8 @@ Phases, each of which raises on failure (exit code non-zero):
 Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
 per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
-Each path's launch counts (K1-K5, the RNG kernel, the segment sum) are set to 0 just
+Each path's launch counts (K1-K5, the RNG kernel, the index sort and the
+segment sum) are set to 0 just
 before it and read just after; every render draws through the RNG
 kernel (the scan path reads its bounce rows, K1, K2, K3 and K5 hash
 theirs from its keys, so the megakernel routes' launches write 4 rows). The last lines are the card, a JSON line
@@ -403,6 +407,31 @@ def _time_ms(fn, iters):
     import torch
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=10):
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``) that outlasts
+    the host's launches, so the events time the device's work back to
+    back. Events around a loop alone time the host's launches where those
+    take longer (the gathers' wrappers launch 3 to 11 kernels a call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(4e9 * loop_s) + 2_000_000)   # ~2x the loop at 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -1045,7 +1074,8 @@ def _profile(work, names=None):
                "K2 backward": 0.0, "K5 spheres_ad": 0.0,
                "K2/K5 sum_blocks": 0.0, "K3 trace_scene": 0.0,
                "K4 intersect": 0.0, "segment sum": 0.0,
-               "index sort": 0.0, "index gather/scatter": 0.0,
+               "index sort": 0.0, "torch.sort": 0.0,
+               "index gather/scatter": 0.0,
                "eager threefry (int64 bitwise)": 0.0, "other": 0.0}
     n_kernels = 0
     for ev in prof.key_averages():
@@ -1072,9 +1102,12 @@ def _profile(work, names=None):
         elif "tile_sums" in name or "row_sums" in name:
             # the gathers' backward (csrc/segment_sum.cu)
             buckets["segment sum"] += dev_us
-        elif "sort" in low:
-            # the gathers' index sorts (stable radix sorts) for the backward
+        elif "isort_" in name:
+            # the gathers' plans: the radix sort csrc/index_sort.cu
             buckets["index sort"] += dev_us
+        elif "sort" in low:
+            # torch.sort's kernels (the merged K3's walk tables)
+            buckets["torch.sort"] += dev_us
         elif any(w in name.lower() for w in ("index", "scatter", "gather")):
             # the scan path's winner gathers (index_select); their int64
             # indices are not threefry
@@ -2073,6 +2106,7 @@ def _reset_launches():
 
     ts.launches = tb.launches = tsc.launches = intersect.launches = 0
     ts.ad_launches = rng.launches = rng.rows_written = gather.launches = 0
+    gather.sort_launches = 0
 
 
 def _check_rng(what, want, rows=None):
@@ -2210,21 +2244,8 @@ def phase_scan_train(dev, card):
 
     # the warm-up's backward keeps for phase 21 its largest segment sum
     # and the one with the longest row
-    calls = {}
-    launch = gather._launch
-
-    def keep(g, index):
-        longest = int(index.sorted_plan()[2].diff().max().item())
-        for what, size in (("largest", g.numel()), ("longest row", longest)):
-            if size > calls.get(what, (0,))[0]:
-                calls[what] = (size, g.detach().clone(), index)
-        return launch(g, index)
-
-    gather._launch = keep
-    try:
-        loss_fn(cfg.replace(spp=1)).backward()        # warm up
-    finally:
-        gather._launch = launch
+    calls = _keep_segment_calls(lambda: loss_fn(cfg.replace(spp=1)).backward(),
+                                ("largest", "longest row"))
     for p in params.values():
         p.grad = None
     _reset_launches()
@@ -2236,7 +2257,7 @@ def phase_scan_train(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
-    seg = gather.launches
+    seg, isort = gather.launches, gather.sort_launches
     _check_rng("scan fwd+bwd", 2 * cfg.spp)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -2252,8 +2273,9 @@ def phase_scan_train(dev, card):
     if differ:
         raise AssertionError(f"scan fwd+bwd: two runs' gradients differ on "
                              f"{len(differ)} leaves: {differ[:8]}")
-    if seg == 0:
-        raise AssertionError("scan fwd+bwd: no segment-sum launch")
+    if seg == 0 or isort == 0:
+        raise AssertionError(f"scan fwd+bwd: {seg} segment-sum and {isort} "
+                             "index-sort launches")
     if not (loss.isfinite().item() and all(
             g is None or g.isfinite().all() for g in grads.values())):
         raise AssertionError("scan fwd+bwd: non-finite loss or gradient")
@@ -2273,7 +2295,8 @@ def phase_scan_train(dev, card):
           f"leaves): {elapsed:.4f} s, {rays / elapsed:.1f} rays/s on {card}, "
           f"{elapsed / cfg.spp * 1e3:.2f} ms per sample, peak "
           f"{peak_gb:.2f} GB; loss {loss.item():.6f}; K4 launches {k4}; "
-          f"segment-sum launches {seg}; a second fwd+bwd bit-identical on "
+          f"segment-sum launches {seg}, index-sort launches {isort}; a "
+          f"second fwd+bwd bit-identical on "
           f"all {len(params)} leaves; max "
           + ", ".join(f"|d {leaf}| {grads[leaf].abs().max().item():.4e}"
                       for leaf in ("triangles.a.x", "triangles.a.y",
@@ -2282,10 +2305,14 @@ def phase_scan_train(dev, card):
     prof = _profile(lambda: loss_fn(cfg.replace(spp=1)).backward(), names)
     _print_profile("scan fwd+bwd at spp=1", *prof)
     atomic = sorted(n for n in names if any(a in n for a in ATOMIC_SCATTERS))
-    if atomic or not prof[3]["segment sum"] > 0.0:
+    if (atomic or prof[3]["torch.sort"] > 0.0
+            or not prof[3]["segment sum"] > 0.0
+            or not prof[3]["index sort"] > 0.0):
         raise AssertionError(f"scan fwd+bwd: index_add_ / index_put_ kernels "
-                             f"{atomic[:4]}, segment sum "
-                             f"{prof[3]['segment sum']} ms in the profile")
+                             f"{atomic[:4]}, torch.sort "
+                             f"{prof[3]['torch.sort']} ms, segment sum "
+                             f"{prof[3]['segment sum']} ms, index sort "
+                             f"{prof[3]['index sort']} ms in the profile")
 
     tparams = {n: p.detach().clone()
                for n, p in partition_scene(scene)[0].items()}
@@ -2334,35 +2361,104 @@ def phase_scan_train(dev, card):
           + " ".join(f"{x:.6e}" for x in losses)
           + f"; {step_s:.4f} s per step")
     return dict(k1=k1, k2=k2, k3=k3, k4=k4, rays_per_s=rays / elapsed,
-                seconds=elapsed, segment_sum=seg,
-                seg_calls={w: c[1:] for w, c in calls.items()})
+                seconds=elapsed, segment_sum=seg, index_sort=isort,
+                seg_calls=calls)
+
+
+def _keep_segment_calls(work, whats):
+    """Runs ``work`` with the segment-sum wrapper watched; for each of
+    ``whats`` the call it names, as (channels copied, index): "largest"
+    (the most cotangents), "longest row" (the most entries on one row),
+    "sky" (the index over the most rows)."""
+    from raytpu_torch.kernels import gather
+
+    sizes, calls, seen = {}, {}, {}
+    launch = gather._launch
+
+    def keep(g, index):
+        chans = gather._channels(g)
+        size = {"largest": len(chans) * chans[0].numel(),
+                "longest row": int(index.sorted_plan()[2].diff().max().item()),
+                "sky": index.n_rows}
+        shape = (len(chans), index.n_rows, size["longest row"])
+        seen[shape] = seen.get(shape, 0) + 1
+        for what in whats:
+            if size[what] > sizes.get(what, 0):
+                sizes[what] = size[what]
+                calls[what] = ([x.detach().clone() for x in chans], index)
+        return launch(g, index)
+
+    gather._launch = keep
+    try:
+        work()
+    finally:
+        gather._launch = launch
+    print("  segment-sum calls (channels, rows, longest row: count): "
+          + ", ".join(f"{c}, {r}, {n}: {k}" for (c, r, n), k in
+                      sorted(seen.items(), key=lambda x: -x[1])))
+    return calls
 
 
 def phase_segment_sum(dev, strain):
-    """The gathers' segment sum (csrc/segment_sum.cu) on two calls of the
-    scan fwd+bwd's backward (phase 20), the largest and the one with the
-    longest row: every row within SEG_REL of its sum of |cotangents| from
-    the exact row sums (the plain version, ``index_add_``, in float64 on
-    the CPU; the plain version on the card, f32 atomics, is printed
-    beside it); on the second, rows summed by the warp (more than the
-    kernel's heavy tiles); two launches bit-identical; each timed beside
-    the plain version, ``index_add_`` on the same tensors (the library
-    call) and the index's stable sort, with its bound. Returns the
-    largest call's numbers and the other's under "longest row"."""
+    """The gathers' plan (csrc/index_sort.cu) and segment sum
+    (csrc/segment_sum.cu) on three calls: the largest and the longest-row
+    call of the scan fwd+bwd's backward (phase 20), and the sky texels'
+    call (``compose_sky``) of the MESH_WORLD sky world's fwd+bwd at 1 spp,
+    run here. The plan must equal its plain version
+    (``torch.sort(stable=True)`` + ``searchsorted``) on the same card
+    tensors bit for bit; every row of the sums within SEG_REL of its sum
+    of |cotangents| from the exact row sums (the plain version,
+    ``index_add_``, in float64 on the CPU; ``index_add_`` on the card, f32
+    atomics, printed beside it); on the longest-row call rows summed by
+    the warp (more than the kernel's heavy tiles); two launches
+    bit-identical. Each timed (device time; CUDA events too) beside its
+    plain version and library call (the plan: ``torch.sort`` +
+    ``searchsorted``; the sums: ``index_add_``), with its bound. Returns
+    {call: numbers}."""
     import numpy as np
     import torch
 
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render
     from raytpu_torch.kernels import gather
+    from raytpu_torch.train import (combine_scene, partition_scene,
+                                    photometric_loss)
 
+    scene, cam, cfg = _sky_scene(MESH_WORLD, dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=1, max_bounces=6,
+                      use_megakernel=True, sky_texture_grads=True)
+    params, static = partition_scene(scene)
+    params = {n: p.detach().clone().requires_grad_() for n, p in params.items()}
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+
+    def sky_fwd_bwd():
+        sums = render(combine_scene(params, static), cam, cfg, pids,
+                      rng.prng_key(0))
+        photometric_loss(sums.radiance, target).backward()
+
+    calls = dict(strain["seg_calls"])
+    calls.update(_keep_segment_calls(sky_fwd_bwd, ("sky",)))
+    del params
     tile, heavy = gather.kernel_tiles()
     out = {}
-    for what in ("largest", "longest row"):
-        g, index = strain["seg_calls"][what]
-        c, b = g.shape
-        got = gather._launch(g, index)
-        if not torch.equal(got, gather._launch(g, index)):
+    for what in ("largest", "longest row", "sky"):
+        chans, index = calls[what]
+        idx, rows = index.idx, index.n_rows
+        c, b = len(chans), idx.shape[0]
+        mine = gather.GatherIndex(idx, rows).sorted_plan()
+        plain = gather.sorted_plan_reference(idx, rows)
+        differ = [n for n, x, y in zip(("perm", "seg", "off"), mine, plain)
+                  if not torch.equal(x, y)]
+        if differ:
+            raise AssertionError(f"index sort ({what}): {differ} differ from "
+                                 "torch.sort(stable=True) + searchsorted")
+        index = gather.GatherIndex(idx, rows)
+        got = gather._launch(chans, index)
+        if not torch.equal(got, gather._launch(chans, index)):
             raise AssertionError(f"segment sum ({what}): two launches differ")
-        cpu = gather.GatherIndex(index.idx.cpu(), index.n_rows)
+        g = torch.stack(chans)
+        cpu = gather.GatherIndex(idx.cpu(), rows)
         exact = gather.segment_sum_reference(g.cpu().double(), cpu)
         scale = gather.segment_sum_reference(g.cpu().double().abs(), cpu)
         err = {}
@@ -2371,7 +2467,7 @@ def phase_segment_sum(dev, strain):
             diff = (sums.cpu().double() - exact).abs()
             err[who] = ((diff / (scale + 1e-30)).max().item(),
                         diff.max().item())
-        off = index.sorted_plan()[2].long()
+        off = plain[2].long()
         span = torch.where(off[1:] > off[:-1], (off[1:] - 1) // tile
                            - off[:-1] // tile + 1, 0)
         n_heavy = int((span > heavy).sum().item())
@@ -2380,40 +2476,58 @@ def phase_segment_sum(dev, strain):
               f"{SEG_REL}; index_add_ on the card "
               f"{err['index_add_ on the card'][0]:.3e}), max |diff| "
               f"{err['kernel'][1]:.3e}; longest row {int(span.max())} tiles "
-              f"of {tile}, {n_heavy} rows over {heavy} tiles (summed by "
-              "the warp)")
+              f"of {tile} ({-(-int(span.max()) // tile)} second-level "
+              f"partials), {n_heavy} rows over {heavy} tiles (summed by the "
+              "warp); the plan equals torch.sort + searchsorted")
         if not err["kernel"][0] <= SEG_REL:
             raise AssertionError(f"segment sum ({what}) vs the exact row "
                                  f"sums: {err['kernel'][0]:.3e} > {SEG_REL}")
         if what == "longest row" and n_heavy == 0:
             raise AssertionError("segment sum: no row of the longest-row "
                                  "call took the warp's branch")
-        zeros = torch.zeros((c, index.n_rows), device=dev)
-        fns = {"kernel": lambda: gather._launch(g, index),
-               "plain": lambda: gather.segment_sum_reference(g, index),
-               "library": lambda: zeros.index_add_(1, index.idx, g),
-               "sort": lambda: gather.GatherIndex(index.idx,
-                                                  index.n_rows).sorted_plan()}
+        zeros = torch.zeros((c, rows), device=dev)
+        ar = torch.arange(rows + 1, device=dev)
+        fns = {"sums": lambda: gather._launch(chans, index),
+               "sums plain": lambda: gather.segment_sum_reference(g, index),
+               "index_add_": lambda: zeros.index_add_(1, idx, g),
+               "plan": lambda: gather.GatherIndex(idx, rows).sorted_plan(),
+               "plan plain": lambda: gather.sorted_plan_reference(idx, rows),
+               "torch.sort + searchsorted": lambda: torch.searchsorted(
+                   torch.sort(idx, stable=True)[0], ar)}
         t = {w: [] for w in fns}
-        for which in ("plain", "kernel", "library", "sort", "sort",
-                      "library", "kernel", "plain"):
+        for which in ("sums plain", "sums", "index_add_", "index_add_",
+                      "sums", "sums plain", "plan plain", "plan",
+                      "torch.sort + searchsorted", "torch.sort + searchsorted",
+                      "plan", "plan plain"):
             t[which].append(_time_ms(fns[which], 10))
-        ms = {w: float(np.mean(v)) for w, v in t.items()}
-        rows = int((off.diff() > 0).sum().item())
-        bound = _bound(4 * (c * b + 2 * b + index.n_rows + 1
-                            + c * index.n_rows), c * b)
+        events = {w: float(np.mean(v)) for w, v in t.items()}
+        ms = {w: _device_ms(f) for w, f in fns.items()}
+        n_rows_hit = int((off.diff() > 0).sum().item())
+        bound = _bound(4 * (c * b + 2 * b + rows + 1 + c * rows), c * b)
+        plan_bound = _bound(idx.element_size() * b + 8 * b + 4 * (rows + 1), 0)
+        passes = gather.sort_sizes(b, rows)[1]
         print(f"segment sum, {what} call ({c} channels, {b} entries, "
-              f"{index.n_rows} rows, {rows} of them gathered): kernel "
-              f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, index_add_ "
-              f"{ms['library']:.4f} ms, the index's stable sort "
-              f"{ms['sort']:.4f} ms per call; bound {bound[0]:.4f} ms "
-              f"({bound[1]}); turns {t}")
-        out[what] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                         library_ms=ms["library"], sort_ms=ms["sort"],
-                         bound=bound, max_abs_err=err["kernel"][1],
-                         max_rel_err=err["kernel"][0], shape=(c, b, index.n_rows),
-                         heavy_rows=n_heavy)
-    return dict(out["largest"], longest_row=out["longest row"])
+              f"{rows} rows, {n_rows_hit} of them gathered): sums "
+              f"{ms['sums']:.4f} ms (plain {ms['sums plain']:.4f}, index_add_ "
+              f"{ms['index_add_']:.4f}; bound {bound[0]:.4f} ms, "
+              f"{bound[1]}); plan {ms['plan']:.4f} ms, {passes} radix "
+              f"passes (plain {ms['plan plain']:.4f}, torch.sort + "
+              f"searchsorted {ms['torch.sort + searchsorted']:.4f}; bound "
+              f"{plan_bound[0]:.4f} ms, {plan_bound[1]}): device time "
+              "(10 calls queued behind a spin kernel); CUDA events around "
+              f"10 calls, the host's launches included: {events}, turns {t}")
+        out[what] = dict(ms=ms["sums"], plain_ms=ms["sums plain"],
+                         library_ms=ms["index_add_"], bound=bound,
+                         max_abs_err=err["kernel"][1],
+                         max_rel_err=err["kernel"][0], shape=(c, b, rows),
+                         heavy_rows=n_heavy, plan_ms=ms["plan"],
+                         plan_plain_ms=ms["plan plain"],
+                         plan_library_ms=ms["torch.sort + searchsorted"],
+                         plan_bound=plan_bound, passes=passes,
+                         events_ms=events["sums"],
+                         plan_events_ms=events["plan"])
+        del fns, zeros, g, exact, scale
+    return out
 
 
 def _on(obj, dev):
@@ -3735,15 +3849,45 @@ def main() -> int:
         "name": "segment_sum", "route": "cuda",
         "source": "raytpu_torch/csrc/segment_sum.cu", "replaces": None,
         "launches": strain["segment_sum"],
-        "max_abs_err": seg["max_abs_err"], "ms": seg["ms"],
-        "plain_ms": seg["plain_ms"], "bound_ms": seg["bound"][0],
-        "bound_by": seg["bound"][1], "library_ms": seg["library_ms"],
-        "sort_ms": seg["sort_ms"], "shape": seg["shape"],
-        "max_rel_err": seg["max_rel_err"],
-        "longest_row": {k: seg["longest_row"][k] for k in (
-            "ms", "plain_ms", "library_ms", "max_abs_err", "max_rel_err",
-            "shape", "heavy_rows")},
-        "ptxas": _ptxas_of(ptxas, "tile_sums", "row_sums"),
+        "max_abs_err": seg["largest"]["max_abs_err"],
+        "ms": seg["largest"]["ms"], "plain_ms": seg["largest"]["plain_ms"],
+        "bound_ms": seg["largest"]["bound"][0],
+        "bound_by": seg["largest"]["bound"][1],
+        "library_ms": seg["largest"]["library_ms"],
+        "shape": seg["largest"]["shape"],
+        "max_rel_err": seg["largest"]["max_rel_err"],
+        "events_ms": seg["largest"]["events_ms"],
+        **{f"{key}_{what.replace(' ', '_')}": (
+            r[field][0] if field == "bound" else r[field])
+           for what, r in seg.items() if what != "largest"
+           for key, field in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                              ("library_ms", "library_ms"),
+                              ("bound_ms", "bound"),
+                              ("max_rel_err", "max_rel_err"),
+                              ("shape", "shape"),
+                              ("heavy_rows", "heavy_rows"))},
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("segment_sum:")},
+    }, {
+        "name": "index_sort", "route": "cuda",
+        "source": "raytpu_torch/csrc/index_sort.cu", "replaces": None,
+        "launches": strain["index_sort"], "max_abs_err": 0.0,
+        "ms": seg["largest"]["plan_ms"],
+        "plain_ms": seg["largest"]["plan_plain_ms"],
+        "bound_ms": seg["largest"]["plan_bound"][0],
+        "bound_by": seg["largest"]["plan_bound"][1],
+        "library_ms": seg["largest"]["plan_library_ms"],
+        "passes": seg["largest"]["passes"],
+        "events_ms": seg["largest"]["plan_events_ms"],
+        **{f"{key}_{what.replace(' ', '_')}": (
+            r[field][0] if field == "plan_bound" else r[field])
+           for what, r in seg.items() if what != "largest"
+           for key, field in (("ms", "plan_ms"), ("plain_ms", "plan_plain_ms"),
+                              ("library_ms", "plan_library_ms"),
+                              ("bound_ms", "plan_bound"),
+                              ("passes", "passes"))},
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("index_sort:")},
     }, {
         "name": "trace_scene (recording mode)", "route": "cuda",
         "source": "raytpu_torch/csrc/trace_scene.cu",

@@ -25,9 +25,13 @@ kernel's keys); K4 on the camera rays and on the bounce-2 rays (through
 the scan path) of the 600- and 4096-triangle block worlds at 1200x900; K3's
 merged and per-triangle modes (forward, recording, sky, sky recording) at
 1200x900, 6 bounces on the 600-triangle world and its sky twin; K2's mesh
-mode on K3's recording of both; the segment sum at the bilinear scan
-backward's shapes, with its error reading (``_READINGS``; the
-``seg_*`` variants plant faults in it).
+mode on K3's recording of both; the gathers' segment sum and its plan
+on three calls at their backward's shapes (``_segment_calls``), with
+their readings (``_READINGS``: the sums' error, the plan's mismatches;
+``seg_drop_heavy_tile``, ``seg_no_carry`` and ``sort_unstable_rank``
+plant faults), the parent's PyTorch pieces for Step 0, and their device
+time by kernel (``_device_ms``). ``--libs`` keeps the workloads of the
+libraries it matches.
 
 ``--tree DIR`` first times every workload in another checkout (for
 example the parent commit, unpacked by ``git archive``): this script runs
@@ -254,13 +258,34 @@ _K3T_WORDS = [
      "e += blockDim.x) smem[(e % kSearch) * nt + e / kSearch] = search_g[e];"),
 ]
 _K3T_BOUNDS = "__launch_bounds__(kThreads)\ntrace_scene_kernel(TRACE_SCENE_PARAMS)"
-# The segment sum with a planted fault (wrong sums on purpose, to read
-# what chip_smoke's check of it sees): a row summed by the warp drops its
-# first tile, or a run that crosses warps in a tile drops the warps below.
-_SEG_DROP_TILE = ("      for (int t = lt0 + lane; t <= lt1; t += 32) {",
-                  "      for (int t = lt0 + lane + (lane == 0 ? 32 : 0); "
-                  "t <= lt1; t += 32) {")
-_SEG_NO_CARRY = ("      v = carry + v;", "      v = v + 0.0f * carry;")
+# The segment sum and its plan with a planted fault (wrong on purpose, to
+# read what chip_smoke's checks of them see): a row summed by the warp
+# drops its first level-1 partial (its first 256 tiles), a run that
+# crosses warps in a tile drops the warps below, or the sort ranks equal
+# digits of a round in reverse lane order (unstable: a permutation that
+# still sorts the keys)
+_SEG_DROP_TILE = ("      for (int u = u0 + lane; u <= u1; u += 32) {",
+                  "      for (int u = u0 + lane + (lane == 0 ? 32 : 0); "
+                  "u <= u1; u += 32) {")
+_SEG_NO_CARRY = ("        v[k] = carry + v[k];",
+                 "        v[k] = v[k] + 0.0f * carry;")
+_SORT_UNSTABLE = ("rank[i] = valid ? run[warp][d] + __popc(peers & lower) : 0;",
+                  "rank[i] = valid ? run[warp][d] + __popc(peers & ~lower & "
+                  "~(1u << lane)) : 0;")
+# the segment sum's channel group and launch bounds
+_SEG_GROUP = "constexpr int kGroup = 4; "
+_SEG_TILES_BOUNDS = "__launch_bounds__(kTile)\ntile_sums("
+_SEG_ROWS_BOUNDS = "__launch_bounds__(kRowThreads)\nrow_sums("
+# the sort's entries a thread in a pass
+_SORT_ITEMS = "constexpr int kItems = 16;"
+# Step 0 of the segment sum's redesign, built in a checkout of its parent
+# (``--tree DIR --tree-only '^seg0_'``): tile_sums alone, row_sums alone
+# (on an unwritten scratch plane: its sums are garbage, its time is its
+# own), no row summed by the warp (every row a thread's), and the warp's
+# rows left unsummed (wrong sums on purpose: the branch's cost)
+_SEG0_ROWS = ("  row_sums<<<(n_rows + kRowThreads - 1) / kRowThreads, "
+              "kRowThreads, 0, st>>>(")
+_SEG0_TILES = "    tile_sums<<<(n + kTile - 1) / kTile, kTile, 0, st>>>("
 
 # name -> (library, [(text, replacement), ...]); each text occurs once in
 # the library's sources
@@ -412,6 +437,35 @@ VARIANTS = {
     # the segment sum with a planted fault (wrong on purpose)
     "seg_drop_heavy_tile": ("segment_sum", [_SEG_DROP_TILE]),
     "seg_no_carry": ("segment_sum", [_SEG_NO_CARRY]),
+    "sort_unstable_rank": ("index_sort", [_SORT_UNSTABLE]),
+    # the segment sum's channels loaded together, and its kernels held to
+    # 8 blocks an SM (32 registers)
+    "seg_group_2": ("segment_sum", [(_SEG_GROUP, _SEG_GROUP.replace("4", "2"))]),
+    "seg_group_8": ("segment_sum", [(_SEG_GROUP, _SEG_GROUP.replace("4", "8"))]),
+    "seg_group_16": ("segment_sum", [(_SEG_GROUP, _SEG_GROUP.replace("4",
+                                                                     "16"))]),
+    "seg_tiles_8_blocks": ("segment_sum", [(_SEG_TILES_BOUNDS,
+                                            _SEG_TILES_BOUNDS.replace(
+                                                "(kTile)", "(kTile, 8)"))]),
+    "seg_rows_8_blocks": ("segment_sum", [(_SEG_ROWS_BOUNDS,
+                                           _SEG_ROWS_BOUNDS.replace(
+                                               "(kRowThreads)",
+                                               "(kRowThreads, 8)"))]),
+    # the sort's entries a thread in a pass (tiles of 2,048 and 1,024)
+    "sort_items_8": ("index_sort", [(_SORT_ITEMS, _SORT_ITEMS.replace(
+        "16", "8"))]),
+    "sort_items_4": ("index_sort", [(_SORT_ITEMS, _SORT_ITEMS.replace(
+        "16", "4"))]),
+    # Step 0 of the segment sum's redesign (--tree-only '^seg0_')
+    "seg0_tiles_only": ("segment_sum", [(_SEG0_ROWS, "  if (false) "
+                                          + _SEG0_ROWS.lstrip())]),
+    "seg0_rows_only": ("segment_sum", [(_SEG0_TILES, "    if (false) "
+                                         + _SEG0_TILES.lstrip())]),
+    "seg0_no_warp_rows": ("segment_sum", [("constexpr int kHeavy = 8;",
+                                           "constexpr int kHeavy = 1 << 30;")]),
+    "seg0_skip_warp_rows": ("segment_sum", [(
+        "unsigned todo = __ballot_sync(0xffffffffu, has && heavy);",
+        "unsigned todo = 0u & __ballot_sync(0xffffffffu, has && heavy);")]),
     # Step 0: the parent's K2 mesh mode (--tree-only '^k2m0_')
     "k2m0_cut_at_last": ("trace_scene_bwd", _K2M0_CUT),
     "k2m0_no_atomics": ("trace_scene_bwd", _K2M0_NO_ATOMICS),
@@ -427,6 +481,8 @@ CHUNK_OF = {**{f"k4_chunk_{c}": c for c in (16, 64, 128)},
             **{f"k3m_walk_chunk_{c}": c for c in (4, 16)}}
 
 _CORNELL = ("trace_spheres", "trace_scene_bwd", "trace_spheres_bwd")
+# the gathers' workloads: the sums, the plan, the parent's PyTorch pieces
+_SEGMENT = {"segment_sum", "index_sort", "segment_pieces"}
 
 
 def _time_ms(fn, iters=30):
@@ -440,6 +496,32 @@ def _time_ms(fn, iters=30):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=10):
+    """(device ms per call, {kernel: device ms per call}) of ``fn``:
+    torch.profiler's CUDA time after two warm-up calls, so the wrapper's
+    host time, which CUDA events around a loop include when it is the
+    longer, is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(), fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us:
+            name = ev.key.replace("(anonymous namespace)::", "")[:60]
+            by[name] = by.get(name, 0.0) + us / 1e3 / iters
+    return round(sum(by.values()), 4), {k: round(v, 4) for k, v in by.items()}
 
 
 def _cornell(dev):
@@ -609,43 +691,91 @@ def _k2_mesh(dev):
     return out
 
 
-# name -> a reading of a workload's result (the segment sum's error)
+# name -> a reading of a workload's result (the segment sum's error, the
+# plan's mismatches)
 _READINGS = {}
 
 
-def _segment_sum(dev):
-    """The segment sum at the bilinear scan backward's shapes: 18
-    channels of 1.08 M cotangents over 4,096 rows (a skewed index, as
-    triangles are hit) and over 11 rows (one of them ~90% of the
-    entries, as a material under most rays), half the channels in
-    [-1, 1) and half in [0, 1). Each workload's reading: the worst
-    |sum - exact| over the row's sum of |g| (the exact sums in float64 on
-    the CPU), chip_smoke's SEG_REL check."""
+def _segment_calls(dev):
+    """The gathers' three calls at the shapes of their backward, made
+    from a seed: (name, channels, index, rows). ``largest``: 18 channels
+    of 1.08 M cotangents over 4,096 rows (the bilinear scan's triangle
+    rows; 97% of the entries on row 0, where rays whose winner is no
+    triangle go, the rest skewed); ``longest_row``: 4 channels over 11
+    rows (one ~90% of the entries, as a material under most rays);
+    ``sky``: 3 channels over a 4096x2048 sky's 8,388,608 texels (60% on
+    one texel, the rays without a sky event reading direction 0's, the
+    rest over the upper half). Half the channels in [-1, 1), half in
+    [0, 1)."""
     import numpy as np
+    import torch
+
+    gen = np.random.default_rng(9)
+    b = 1_080_000
+    p11 = np.array([0.9] + [0.01] * 10)
+    skewed = (4096 * gen.uniform(size=b) ** 2).astype(np.int64)
+    cases = (("largest", 18, 4096, np.where(gen.uniform(size=b) < 0.97, 0,
+                                            skewed)),
+             ("longest_row", 4, 11, gen.choice(11, size=b, p=p11 / p11.sum())),
+             ("sky", 3, 4096 * 2048, np.where(
+                 gen.uniform(size=b) < 0.6, 4096 * 1024 + 2048,
+                 gen.integers(0, 4096 * 1024, b))))
+    out = []
+    for name, c, rows, idx in cases:
+        g = gen.uniform(-1.0, 1.0, (c, b)).astype(np.float32)
+        g[c // 2:] = np.abs(g[c // 2:])
+        out.append((name, torch.as_tensor(g, device=dev),
+                    torch.as_tensor(idx, device=dev), rows))
+    return out
+
+
+def _segment_sum(dev):
+    """The segment sum and its plan on ``_segment_calls``: ``seg_<call>``
+    the sums with the plan made (its reading: the worst |sum - exact|
+    over the row's sum of |g|, the exact sums in float64 on the CPU,
+    chip_smoke's SEG_REL check); ``seg_<call>_plan`` the plan of a fresh
+    index (its reading: the entries of (perm, seg, off) that differ from
+    ``torch.sort(stable=True)`` + ``searchsorted``); and, for Step 0 of
+    the redesign, the PyTorch pieces of the parent's plan and backward
+    (``seg0_<call>_sort``, ``_searchsorted``, ``_casts``: its
+    ``torch.sort``, ``searchsorted`` over ``arange(rows + 1)`` and three
+    int32 copies; ``_stack``: the (C, B) copy of the channels that
+    ``_Gather.backward`` stacked)."""
     import torch
 
     from raytpu_torch.kernels import gather
 
-    gen = np.random.default_rng(9)
-    b, c = 1_080_000, 18
-    g = gen.uniform(-1.0, 1.0, (c, b)).astype(np.float32)
-    g[c // 2:] = np.abs(g[c // 2:])
-    p11 = np.array([0.9] + [0.01] * 10)
     out = {}
-    for rows, idx in ((4096, (4096 * gen.uniform(size=b) ** 2).astype(np.int64)),
-                      (11, gen.choice(11, size=b, p=p11 / p11.sum()))):
-        index = gather.GatherIndex(torch.as_tensor(idx, device=dev), rows)
-        gt = torch.as_tensor(g, device=dev)
-        exact = gather.segment_sum_reference(
-            torch.as_tensor(g, dtype=torch.float64),
-            gather.GatherIndex(torch.as_tensor(idx), rows))
-        scale = gather.segment_sum_reference(
-            torch.as_tensor(np.abs(g), dtype=torch.float64),
-            gather.GatherIndex(torch.as_tensor(idx), rows))
-        name = f"seg_{rows}_rows"
-        out[name] = ("segment_sum", lambda a=(gt, index): gather._launch(*a))
-        _READINGS[name] = lambda got, e=exact, sc=scale: float(
+    for name, g, idx, rows in _segment_calls(dev):
+        index = gather.GatherIndex(idx, rows)
+        index.sorted_plan()
+        cpu = gather.GatherIndex(idx.cpu(), rows)
+        exact = gather.segment_sum_reference(g.cpu().double(), cpu)
+        scale = gather.segment_sum_reference(g.cpu().double().abs(), cpu)
+        seg, perm = torch.sort(idx, stable=True)
+        ar = torch.arange(rows + 1, device=dev)
+        off = torch.searchsorted(seg, ar)
+        want = (perm.int(), seg.int(), off.int())
+        chans = [x.clone() for x in g]
+        out[f"seg_{name}"] = ("segment_sum",
+                              lambda a=(g, index): gather._launch(*a))
+        _READINGS[f"seg_{name}"] = lambda got, e=exact, sc=scale: float(
             ((got.cpu().double() - e).abs() / (sc + 1e-30)).max())
+        out[f"seg_{name}_plan"] = (
+            "index_sort",
+            lambda a=(idx, rows): gather.GatherIndex(*a).sorted_plan())
+        _READINGS[f"seg_{name}_plan"] = lambda got, w=want: int(sum(
+            (x.long() != y.long()).sum().item() for x, y in zip(got, w)))
+        out[f"seg0_{name}_sort"] = (
+            "segment_pieces", lambda i=idx: torch.sort(i, stable=True))
+        out[f"seg0_{name}_searchsorted"] = (
+            "segment_pieces", lambda s=seg, r=rows: torch.searchsorted(
+                s, torch.arange(r + 1, device=s.device, dtype=s.dtype)))
+        out[f"seg0_{name}_casts"] = (
+            "segment_pieces", lambda a=(perm, seg, off): tuple(
+                x.to(torch.int32) for x in a))
+        out[f"seg0_{name}_stack"] = ("segment_pieces",
+                                     lambda c=chans: torch.stack(c))
     return out
 
 
@@ -735,7 +865,7 @@ def workloads(dev, libs, chunk=None):
         out.update(_k3_merged(dev, chunk))
     if "trace_scene_bwd" in libs:
         out.update(_k2_mesh(dev))
-    if "segment_sum" in libs and importlib.util.find_spec(
+    if _SEGMENT & set(libs) and importlib.util.find_spec(
             "raytpu_torch.kernels.gather"):
         out.update(_segment_sum(dev))
     return {n: w for n, w in out.items() if w[0] in libs}
@@ -773,6 +903,12 @@ def _time_all(fns) -> dict:
     return {n: round(_time_ms(f), 4) for n, (_, f) in fns.items()}
 
 
+def _device_all(fns) -> str:
+    """The gathers' workloads' device time (``_device_ms``), by kernel."""
+    got = {n: _device_ms(f) for n, (lib, f) in fns.items() if lib in _SEGMENT}
+    return f"device ms {json.dumps(got)}" if got else ""
+
+
 def _read_all(fns) -> str:
     """The readings of the workloads that have one (``_READINGS``)."""
     got = {n: f"{_READINGS[n](f()):.3e}" for n, (_, f) in fns.items()
@@ -794,21 +930,22 @@ def time_variants(dev, names, fns) -> None:
                     if name in CHUNK_OF else shipped)
             shipped_lib = _build._loaded.get(lib)
             _build._loaded[lib] = ctypes.CDLL(so)
-            ms, read = _time_all(mine), _read_all(mine)
+            ms, read, device = _time_all(mine), _read_all(mine), _device_all(mine)
             _build._loaded[lib] = shipped_lib
             again = _time_all(shipped)
             print(f"{name}: ms {json.dumps(ms)} (shipped {json.dumps(again)} "
                   f"after it); ptxas registers {regs}, spill stores "
-                  f"{spills}{read}", flush=True)
+                  f"{spills}{read}" + (f"; {device}" if device else ""),
+                  flush=True)
 
 
-_ALL = {*_CORNELL, "intersect", "trace_scene", "segment_sum"}
+_ALL = {*_CORNELL, "intersect", "trace_scene", *_SEGMENT}
 
 
-def here(frames: bool, only: str) -> int:
-    """Time every workload (or, with ``frames``, every frame) with the
-    checkout in the working directory, then its variants matching
-    ``only`` (none if empty)."""
+def here(frames: bool, only: str, libs: str = "") -> int:
+    """Time every workload of the libraries matching ``libs`` (or, with
+    ``frames``, every frame) with the checkout in the working directory,
+    then its variants matching ``only`` (none if empty)."""
     import torch
 
     from raytpu_torch.kernels import _build
@@ -820,18 +957,22 @@ def here(frames: bool, only: str) -> int:
     if frames:
         print(json.dumps(time_frames(dev)))
         return 0
-    fns = workloads(dev, _ALL)
+    fns = workloads(dev, {x for x in _ALL if re.search(libs, x)})
     print(json.dumps(_time_all(fns)) + _read_all(fns), flush=True)
+    device = _device_all(fns)
+    if device:
+        print(device, flush=True)
     time_variants(dev, names, fns)
     return 0
 
 
-def _run_here(tree: str, frames: bool, only: str = "") -> str:
+def _run_here(tree: str, frames: bool, only: str = "", libs: str = "") -> str:
     """This script's ``--here`` in ``tree``: what it prints (the timings
     of the tree's build on the first line, then its variants')."""
     out = subprocess.run([sys.executable, os.path.abspath(__file__), "--here",
                           *(["--frames"] if frames else []),
-                          *(["--only", only] if only else [])], cwd=tree,
+                          *(["--only", only] if only else []),
+                          *(["--libs", libs] if libs else [])], cwd=tree,
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"kernel_variants: {tree}:\n{out.stderr}")
@@ -877,11 +1018,14 @@ def main() -> int:
                     help="with --tree: time the K3 and K4 frames of the tree "
                          "and this checkout in turns (tree, this, this, "
                          "tree) before the kernels")
+    ap.add_argument("--libs", default="",
+                    help="with --tree: time the workloads of the libraries "
+                         "whose names match (default: all)")
     ap.add_argument("--here", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.here:
         sys.path.insert(0, os.getcwd())
-        return here(args.frames, args.only)
+        return here(args.frames, args.only, args.libs)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
@@ -902,16 +1046,21 @@ def main() -> int:
             for who in (tree, root, root, tree):
                 print(f"frames of {who}: s {_run_here(who, True)}",
                       flush=True)
-        first, *rest = _run_here(tree, False, args.tree_only).splitlines()
+        first, *rest = _run_here(tree, False, args.tree_only,
+                                 args.libs).splitlines()
         print(f"tree {tree}: ms {first}", flush=True)
         for line in rest:
             print(f"tree {tree}: {line}", flush=True)
     _build.build_all()
     dev = torch.device("cuda", 0)
-    libs = {VARIANTS[n][0] for n in names} | (_ALL if args.tree else set())
+    libs = {VARIANTS[n][0] for n in names} | {
+        x for x in (_ALL if args.tree else ()) if re.search(args.libs, x)}
     fns = workloads(dev, libs)
     print("shipped build: ms " + json.dumps(_time_all(fns)) + _read_all(fns),
           flush=True)
+    device = _device_all(fns)
+    if device:
+        print("shipped build: " + device, flush=True)
     time_variants(dev, names, fns)
     return 0
 
