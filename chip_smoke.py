@@ -10,21 +10,29 @@ Phases, each of which raises on failure (exit code non-zero):
      memory from the report kept beside its library (the dynamic shared
      memory of K3's merged modes and K4, as the driver holds it after
      their launches, follows in phases 17 and 30);
-  3. RNG parity: the eager threefry stream and the RNG kernel
-     (``csrc/rng.cu``: each ray's key and its draw rows, one launch a
-     sample) on the card reproduce a table of ``jax.random`` values
-     (computed with JAX 0.9.0, pasted below); the kernel bit-equal to the
-     eager stream (its plain version) over the full frame's keys for
-     every row layout (RNG_ROWS); both timed;
+  3. RNG parity: the eager threefry stream and the RNG kernel's
+     draws-only mode (``csrc/rng.cu``: each ray's key and its draw rows)
+     on the card reproduce a table of ``jax.random`` values (computed
+     with JAX 0.9.0, pasted below); the kernel bit-equal to the eager
+     stream (its plain version) over the full frame's keys for every row
+     layout (RNG_ROWS); then the sample start (the same kernel's other
+     mode: keys, camera rays and the route's draw rows in one launch a
+     sample, what ``render`` runs first every sample) bit-equal to its
+     plain version (the eager stream, then ``render.sample_rays``) over
+     the full frame for every row layout, on Cornell and the DoF scene
+     (aperture on), also with rows 0-3 for the camera's backward; both
+     modes timed behind a spin kernel, with the CUDA-events figure;
   4. the sphere megakernel (K1), which takes each ray's key and hashes its
      draws, bit-equal to its plain PyTorch version (on the keys' draws)
      on the card, on five scenes at 64x48 rays, then at the main path's
      shape (1200x900 rays, 6 bounces), timed;
   5. the forward path: a 1200x900, 6-bounce Cornell frame through
      ``render`` over all block-ordered pixel ids, checked finite and lit,
-     with one K1 and one RNG kernel launch per sample and no eager
-     threefry in the profile; a small frame on the card against the same
-     frame on the CPU; the PPM through ``render_image``/``write_ppm``;
+     with one K1 and one sample-start launch per sample, no eager
+     threefry and no eager camera-ray kernel in the profile; a small
+     frame on the card against the same frame on the CPU, and its camera
+     rays against the CPU's word for word (ROADMAP P-F1); the PPM through
+     ``render_image``/``write_ppm``;
   6. K1 in recording mode bit-equal to its plain version (planes, winner
      indices, AO factors) and its planes to its own launch without
      recording, on the five scenes of phase 4 at 64x48 rays;
@@ -36,8 +44,8 @@ Phases, each of which raises on failure (exit code non-zero):
   8. the training path: value and gradient of the photometric loss
      through ``render`` at 1200x900, 8 spp, 6 bounces with every sphere
      leaf requiring grad (K2 launches == spp), where its time goes
-     (``torch.profiler``: RNG kernel launches == 2 x spp, no eager
-     threefry), then 3 Adam steps of ``train.make_train_step`` towards a
+     (``torch.profiler``: sample starts == 2 x spp, no eager threefry),
+     then 3 Adam steps of ``train.make_train_step`` towards a
      target the port renders with perturbed colours;
   9. the mesh megakernel (K3), which takes each ray's key and hashes its
      draws, bit-equal to its plain PyTorch version (on the keys' draws)
@@ -55,8 +63,8 @@ Phases, each of which raises on failure (exit code non-zero):
      registers and dynamic shared memory;
   11. the mesh forward path: the 600-triangle world at 1200x900, 16 spp,
      6 bounces through ``render`` over all block-ordered pixel ids,
-     checked finite and lit, with one K3 launch and one RNG kernel launch
-     of 4 rows per sample and no K1 or K2 launch; where its time goes (``torch.profiler``); a small frame on
+     checked finite and lit, with one K3 launch and one sample start
+     (no draw rows) per sample and no K1 or K2 launch; where its time goes (``torch.profiler``); a small frame on
      the card against the CPU; the PPM;
   12. K3 in recording mode against its plain version on the six mesh
      scenes of phase 9 (planes, winners and, where a hit is recorded, AO
@@ -73,7 +81,8 @@ Phases, each of which raises on failure (exit code non-zero):
   15. the mesh training path: value and gradient of the photometric loss
      through ``render`` on that world at 1200x900, 4 spp, 6 bounces with
      every float leaf requiring grad (K3 recording launches == 2 x spp,
-     K2 mesh launches == spp, RNG launches of 4 rows), where its time goes, then 3 Adam steps
+     K2 mesh launches == spp, sample starts of no draw rows), where its
+     time goes, then 3 Adam steps
      towards a target with perturbed atlas and material colours, whose
      losses must fall;
   16. the scan path's closest-hit kernel (K4) against its plain version,
@@ -160,16 +169,23 @@ Phases, each of which raises on failure (exit code non-zero):
      phase 7's six scenes and the sky showcase at 64x48 rays; two
      launches bit-identical;
   33. K5 timed at the Cornell 1200x900, 6-bounce shape beside its plain
-     version, K2 and its bound, and the Cornell fwd+bwd frame with
-     ``RAYTPU_SPH_BWD=ad`` (K5 launches == spp, no K2).
+     version, K2 and its bound, with K5's and K2's sphere-mode ptxas
+     summaries (their shared table sum), and the Cornell fwd+bwd frame
+     with ``RAYTPU_SPH_BWD=ad`` (K5 launches == spp, no K2);
+  34. the camera's gradient through the sample start (the kernel writes
+     rows 0-3; ``render.camera_rays_vjp``) against autograd through the
+     plain ``sample_rays`` on the card (CAM_RTOL), on the Cornell and DoF
+     frames, and 3 Adam steps of ``make_train_step(train_camera=True)``
+     whose losses must fall.
 Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
 per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
 Each path's launch counts (K1-K5, the RNG kernel, the index sort and the
 segment sum) are set to 0 just
-before it and read just after; every render draws through the RNG
-kernel (the scan path reads its bounce rows, K1, K2, K3 and K5 hash
-theirs from its keys, so the megakernel routes' launches write 4 rows). The last lines are the card, a JSON line
+before it and read just after; every render starts each sample with the
+sample-start kernel (the scan path reads its bounce rows, K1, K2, K3 and
+K5 hash theirs from its keys, so the megakernel routes' launches write
+no draw rows). The last lines are the card, a JSON line
 per kernel and mode, and the result line. Imports no JAX.
 """
 
@@ -305,6 +321,13 @@ INT32_OPS_PER_S = 128 * 132 * 1.98e9
 # draw (a hash and its conversion to U[0, 1)), three-input LOP3 / IADD3
 # counted once
 FOLD_OPS, DRAW_OPS = 73, 76
+# The sample start's FP32 operations a ray for its camera ray (csrc/rng.cu:
+# u and v 3 each, the jitter 4, 9 an axis for get_rays, the normalisation
+# 12; divisions and the square root counted once)
+CAM_OPS = 49
+# the camera's cotangent through the sample-start kernel against autograd
+# through the plain sample_rays, both reduced in float64
+CAM_RTOL = 1e-5
 # The RNG kernel's row layouts checked against the eager stream at the
 # full frame: K1 / K2 / K5's camera rows, then K3's and the scan path's
 # 4 + bounces x n_bounce_draws (without AO, one and two AO probes, and the
@@ -500,19 +523,200 @@ def phase_rng(dev):
           + ", ".join(f"{n} ({r} rows)" for n, r in RNG_ROWS.items()))
     res = {}
     for rows in (4, 22):
-        fns = {"kernel": lambda: rng._launch(key, pids, 0, rows),
-               "plain": lambda: rng.stream_reference(key, pids, 0, rows)}
-        fns["kernel"](), fns["plain"]()
-        t = {w: [] for w in fns}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            t[which].append(_time_ms(fns[which], 20 if which == "kernel" else 3))
-        ms = {w: float(np.mean(v)) for w, v in t.items()}
-        bound = _rng_bound(pids.shape[0], rows)
-        res[rows] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound=bound)
-        print(f"  RNG kernel, {rows} rows at {pids.shape[0]} rays: "
-              f"{ms['kernel']:.4f} ms (eager plain {ms['plain']:.4f} ms; "
-              f"bound {bound[0]:.4f} ms, {bound[1]}; turns {t})")
+        res[rows] = _time_start(
+            f"RNG kernel (draws only), {rows} rows",
+            lambda r=rows: rng._launch(key, pids, 0, r),
+            lambda r=rows: rng.stream_reference(key, pids, 0, r),
+            _rng_bound(pids.shape[0], rows))
     return res
+
+
+def _time_start(what, kernel, plain, bound):
+    """A sample-start or RNG kernel call timed at the frame's shape: its
+    device time queued behind a spin kernel (``_device_ms``), CUDA events
+    around 20 calls in turns with its plain version (3 calls), printed
+    beside the bound."""
+    import numpy as np
+
+    kernel(), plain()
+    t = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t[which].append(_time_ms(kernel if which == "kernel" else plain,
+                                 20 if which == "kernel" else 3))
+    ev, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+    dev_ms = _device_ms(kernel)
+    print(f"  {what}: device {dev_ms:.4f} ms (behind a spin kernel), events "
+          f"{ev:.4f} ms; plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms, "
+          f"{bound[1]}; turns {t}")
+    return dict(ms=dev_ms, events_ms=ev, plain_ms=plain_ms, bound=bound)
+
+
+def _start_words(start):
+    """A sample start (keys, origin, direction, rows) as one int32 tensor of
+    its words on the CPU."""
+    import torch
+
+    keys, o, d, rows = start
+    return torch.cat([t.reshape(-1).cpu() for t in (
+        keys, torch.stack([*o, *d]).view(torch.int32),
+        rows.contiguous().view(torch.int32))])
+
+
+def phase_sample_start(dev):
+    """The sample-start kernel (``csrc/rng.cu``: each ray's key, camera ray
+    and the route's draw rows, one launch a sample) bit-equal to its plain
+    version (``render.sample_start_reference``: the eager stream, then
+    ``sample_rays``) over the full frame's block-ordered pixel ids, for
+    every row layout of RNG_ROWS, on Cornell (no aperture) and
+    ``cornell_box_dof_ao`` (aperture); the camera-gradient layout (rows
+    0-3 written too) the same planes; then timed at the frame's shape for
+    the megakernel routes (keys and rays) and the scan path's 22 rows."""
+    import torch
+
+    from raytpu_torch import scenes
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator import render as rd
+
+    key = rng.prng_key(0, device=dev)
+    for name, (_, cam, cfg) in (("cornell", scenes.cornell_box(dev)),
+                                ("dof+ao", scenes.cornell_box_dof_ao(dev))):
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1])
+        pids = torch.as_tensor(rd.blocked_pixel_order(cfg), device=dev).long()
+        pack = rd.pack_camera(cam)
+        for rname, rows in RNG_ROWS.items():
+            got = _start_words(rd.kernel_start(pack, cfg, key, pids, 7, rows))
+            want = _start_words(rd.sample_start_reference(pack, cfg, key,
+                                                          pids, 7, rows))
+            bad = int((got != want).sum())
+            if bad:
+                raise AssertionError(f"sample start, {name}, rows {rname}: "
+                                     f"{bad} of {got.numel()} words differ "
+                                     "from the plain version")
+        ap = (cfg.aperture_x, cfg.aperture_y)
+        full = rng.launch_start(key, pids, pack, 7, cfg.width, cfg.height, ap,
+                                cfg.focus_distance, 0, 22)
+        draws = rng.stream_reference(key, pids, 7, 22)[1]
+        part = rng.launch_start(key, pids, pack, 7, cfg.width, cfg.height, ap,
+                                cfg.focus_distance, 4, 22)
+        if not (torch.equal(full[8:].view(torch.int32),
+                            draws.view(torch.int32))
+                and torch.equal(full[:8].view(torch.int32),
+                                part[:8].view(torch.int32))):
+            raise AssertionError(f"sample start, {name}: the camera-gradient "
+                                 "layout (rows 0-3 written) differs")
+        print(f"sample start bit-equal to its plain version over the "
+              f"{cfg.width}x{cfg.height} frame on {name} (aperture "
+              f"{cfg.aperture_x}, {cfg.aperture_y}): keys, origin, direction "
+              "and rows for every row layout ("
+              + ", ".join(f"{r}" for r in RNG_ROWS.values())
+              + "), and with rows 0-3 for the camera's backward")
+
+    _, cam, cfg = scenes.cornell_box(dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], max_bounces=6)
+    pids = torch.as_tensor(rd.blocked_pixel_order(cfg), device=dev).long()
+    pack = rd.pack_camera(cam)
+    res = {}
+    for what, rows in (("megakernel routes (keys + rays)", 4),
+                       ("scan path (+ 18 bounce rows)", 22)):
+        res[rows] = _time_start(
+            f"sample start, {what}",
+            lambda r=rows: rd.kernel_start(pack, cfg, key, pids, 0, r),
+            lambda r=rows: rd.sample_start_reference(pack, cfg, key, pids, 0,
+                                                     r),
+            _start_bound(pids.shape[0], rows))
+    return res
+
+
+def _start_bound(b, n_rows, row0=4):
+    """Least sample-start time: 8 B of pixel id in, 8 B of key, 24 B of ray
+    and 4 B a written row (row0 .. n_rows-1) out per ray, the camera's 48
+    B once; two fold_ins and n_rows draws per ray at the INT32 issue rate,
+    CAM_OPS per ray at the FP32 rate."""
+    return _bound(b * (8 + 8 + 24 + 4 * (n_rows - row0)) + 16 + 48,
+                  b * CAM_OPS, b * (2 * FOLD_OPS + n_rows * DRAW_OPS))
+
+
+def phase_camera_grad(dev, card):
+    """The camera's gradient through the sample-start kernel (the forward
+    writes rows 0-3 too; the backward ``render.camera_rays_vjp``) against
+    autograd through the plain ``sample_rays`` on the same draws, both on
+    the card and reduced in float64, within CAM_RTOL, on the Cornell and
+    DoF frames' rays with random cotangents; then 3 Adam steps of
+    ``make_train_step(train_camera=True)`` at the flagship frame, whose
+    losses must fall, every camera leaf given a finite gradient."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch import scenes
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator import render as rd
+    from raytpu_torch.train import combine_scene, make_train_step, partition_scene
+
+    key = rng.prng_key(0, device=dev)
+    worst = 0.0
+    for i, (name, (_, cam, cfg)) in enumerate((
+            ("cornell", scenes.cornell_box(dev)),
+            ("dof+ao", scenes.cornell_box_dof_ao(dev)))):
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1])
+        pids = torch.as_tensor(rd.blocked_pixel_order(cfg), device=dev).long()
+        pack = rd.pack_camera(cam).detach().requires_grad_()
+        gen = np.random.default_rng(40 + i)
+        g_o, g_d = (torch.tensor(gen.uniform(-1, 1, (3, cfg.n_pixels)).astype(
+            np.float32), device=dev) for _ in range(2))
+        _reset_launches()
+        _, o, d, _ = rd.sample_start(pack, cfg, key, pids, 3, 4)
+        if rng.start_launches != 1 or rng.rows_written != 4:
+            raise AssertionError(f"camera grad, {name}: {rng.start_launches} "
+                                 f"sample starts writing {rng.rows_written} "
+                                 "rows, want 1 writing rows 0-3")
+        loss = sum((g * x).sum() for g, x in zip(g_o, o)) + sum(
+            (g * x).sum() for g, x in zip(g_d, d))
+        got = torch.autograd.grad(loss, pack)[0]
+        c = pack.detach().double().requires_grad_()
+        draws = rng.stream_reference(key, pids, 3, 4)[1]
+        po, pd = rd.sample_rays(rd.unpack_camera(c), cfg, pids, draws.double())
+        ploss = sum((g.double() * x).sum() for g, x in zip(g_o, po)) + sum(
+            (g.double() * x).sum() for g, x in zip(g_d, pd))
+        want = torch.autograd.grad(ploss, c)[0].float()
+        rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+        worst = max(worst, rel)
+        print(f"  camera grad, {name}: the kernel route's (camera_rays_vjp) "
+              f"against autograd through the plain sample_rays: max rel "
+              f"{rel:.3e} (limit {CAM_RTOL}); |grad| "
+              f"{want.abs().max().item():.4e}")
+        if not rel <= CAM_RTOL:
+            raise AssertionError(f"camera grad, {name}: rel {rel:.3e}")
+
+    scene, cam, cfg = scenes.cornell_box(dev)
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=TRAIN_SPP,
+                      max_bounces=6, use_megakernel=True)
+    pids = torch.arange(cfg.n_pixels, device=dev)
+    tparams, static = partition_scene(scene)
+    tparams = {n: p.detach().clone() for n, p in tparams.items()}
+    for c in "xyz":
+        tparams[f"spheres.mat.diffuse.{c}"] = (
+            tparams[f"spheres.mat.diffuse.{c}"] * 0.8).clamp(0.0, 1.0)
+    with torch.no_grad():
+        tsums = rd.render(combine_scene(tparams, static), cam, cfg, pids, key)
+        tgt = (tsums.radiance * (1.0 / cfg.spp)).to_array()
+    init_fn, step_fn = make_train_step(cfg, 1e-2, train_camera=True)
+    state, static = init_fn(scene, cam)
+    losses = []
+    _reset_launches()
+    for _ in range(3):
+        state, loss = step_fn(state, static, cam, pids, tgt, key)
+        losses.append(loss.item())
+    _check_rng("train_camera steps", 3 * 2 * cfg.spp, rows=4)
+    grads = [p.grad for p in state.cam_params.values()]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and all(g is not None and g.isfinite().all() for g in grads)):
+        raise AssertionError(f"train_camera: losses {losses}, camera grads "
+                             f"{grads}")
+    print(f"train_camera: 3 Adam steps (lr 1e-2, every sphere and camera "
+          f"leaf) at {cfg.width}x{cfg.height} spp={cfg.spp} on {card}: "
+          "losses " + " ".join(f"{x:.6e}" for x in losses)
+          + "; sample starts write rows 0-3 for the camera's backward")
+    return dict(max_rel=worst, losses=losses)
 
 
 def _rng_bound(b, rows):
@@ -562,31 +766,31 @@ def _kernel_inputs(scene, cam, cfg, seed, dev):
 
 def _frame_sample(cam, cfg, dev, rows=None):
     """Sample 0 of the frame's block-ordered pixel ids under key 0 through
-    the RNG kernel: (origin, direction, ray keys (2, B), bounce draws
-    (max_bounces, n_draws, B), a callable that redoes the sample's RNG
-    kernel and camera rays for timing, the row count it makes). ``rows``:
-    the rows a route's RNG launch makes (default: every row, the scan
-    path's; 4 for K1's and K3's)."""
+    the sample-start kernel: (origin, direction, ray keys (2, B), bounce
+    draws (max_bounces, n_draws, B), a callable that redoes the sample's
+    start for timing, the row count it makes). ``rows``: the rows a
+    route's start makes (default: every row, the scan path's; 4 for K1's
+    and K3's, which hash their bounce draws from the keys)."""
     import torch
 
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import (
-        blocked_pixel_order, n_bounce_draws, sample_rays)
+        blocked_pixel_order, n_bounce_draws, pack_camera, sample_start)
 
     pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev).long()
     key = rng.prng_key(0, device=dev)
     nd = n_bounce_draws(cfg)
     all_rows = 4 + cfg.max_bounces * nd
-    keys, draws = rng.sample_stream(key, pids, 0, all_rows)
-    origin, direction = sample_rays(cam, cfg, pids, draws[:4])
+    pack = pack_camera(cam)
+    keys, origin, direction, draws = sample_start(pack, cfg, key, pids, 0,
+                                                  all_rows)
     rows = all_rows if rows is None else rows
 
     def redo():
-        return sample_rays(cam, cfg, pids,
-                           rng.sample_stream(key, pids, 0, rows)[1][:4])
+        return sample_start(pack, cfg, key, pids, 0, rows)
 
-    return (origin, direction, keys,
-            draws[4:].view(cfg.max_bounces, nd, -1), redo)
+    return (origin, direction, keys, draws.view(cfg.max_bounces, nd, -1),
+            redo)
 
 
 def _both(scene, cfg, origin, direction, draws, keys, counts=None):
@@ -682,7 +886,8 @@ def phase_k1_timing(dev):
     ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
     print(f"  K1 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call "
           f"(turns: kernel {t['kernel']}, plain {t['plain']}); bit-equal; "
-          f"RNG kernel + camera rays {rng_ms:.4f} ms per sample; draws "
+          f"sample start (RNG kernel: keys + camera rays) {rng_ms:.4f} ms "
+          f"per sample (events); draws "
           f"hashed {counts['draws']} (+{counts.get('probe_draws', 0)} AO) "
           f"over {counts['live']} live (ray, bounce) entries")
     return dict(ms=ms, plain_ms=plain_ms, rng_ms=float(rng_ms),
@@ -713,9 +918,7 @@ def phase_main(dev, card, timing):
     elapsed = time.perf_counter() - t0
     launches, k2_launches, k3_launches, k4_launches, _ = _launches()
     rng_launches = _rng_launches()
-    if rng_launches != cfg.spp:
-        raise AssertionError(f"main path: {rng_launches} RNG kernel launches, "
-                             f"want {cfg.spp}")
+    _check_rng("main path", cfg.spp, rows=0)
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -734,7 +937,8 @@ def phase_main(dev, card, timing):
           f"{rays / elapsed:.1f} rays/s end to end on {card}; "
           f"K1 launches {launches}, RNG kernel launches {rng_launches}; "
           f"mean radiance {mean:.6f}")
-    print(f"  per sample (CUDA events, same shapes): RNG kernel + camera rays "
+    print(f"  per sample (CUDA events, same shapes): sample start (keys + "
+          f"camera rays) "
           f"{timing['rng_ms']:.4f} ms, K1 {timing['ms']:.4f} ms -> "
           f"RNG {cfg.spp * timing['rng_ms'] / 1e3:.4f} s, "
           f"K1 {cfg.spp * timing['ms'] / 1e3:.4f} s of the frame; "
@@ -754,6 +958,35 @@ def phase_main(dev, card, timing):
     _compare("40x30x2spp card vs cpu",
              torch.cat([v.to_array().T for v in a[:3]]),
              torch.cat([v.to_array().T.cpu() for v in b[:3]]))
+    # ROADMAP P-F1: the card's camera rays against the CPU's on the same
+    # keys, the kernel's and the plain version's on the card: from the same
+    # camera values (the card's, copied), and from each device's own camera
+    # (make_camera's tan and normalisations run on each)
+    from raytpu_torch.integrator.render import (
+        pack_camera, sample_start, sample_start_reference)
+
+    ids, pack = torch.as_tensor(small_ids), pack_camera(cam)
+    on_card = (small, rng.prng_key(3, device=dev), ids.to(dev), 1, 4)
+    kern = _start_words(sample_start(pack, *on_card))
+    plain = _start_words(sample_start_reference(pack, *on_card))
+    pf1 = {"words": kern.numel(),
+           "cameras_differ": int((pack.cpu().view(torch.int32)
+                                  != pack_camera(cpu_cam).view(torch.int32))
+                                 .sum())}
+    for what, cpu_pack in (("same_camera", pack.cpu()),
+                           ("own_camera", pack_camera(cpu_cam))):
+        cpu = _start_words(sample_start(cpu_pack, small, rng.prng_key(3),
+                                        ids, 1, 4))
+        pf1[what] = {"kernel": int((kern != cpu).sum()),
+                     "plain_on_card": int((plain != cpu).sum())}
+    print(f"  P-F1, camera rays at {small.width}x{small.height} (keys, "
+          f"origin, direction: {pf1['words']} words): words that differ from "
+          f"the CPU's, from the card's camera values: the sample-start kernel "
+          f"{pf1['same_camera']['kernel']}, the plain version on the card "
+          f"{pf1['same_camera']['plain_on_card']}; from each device's own "
+          f"camera ({pf1['cameras_differ']} of its 12 values differ): "
+          f"{pf1['own_camera']['kernel']} and "
+          f"{pf1['own_camera']['plain_on_card']}")
 
     img = render_image(scene, cam, cfg.replace(pixel_tile=cfg.n_pixels), key)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -763,7 +996,7 @@ def phase_main(dev, card, timing):
     print(f"wrote {os.path.relpath(path, ROOT)}: canvas channel means "
           f"r={means[0]:.3f} g={means[1]:.3f} b={means[2]:.3f}")
     return (launches, k2_launches, k3_launches, k4_launches, rng_launches,
-            frame)
+            frame, pf1)
 
 
 def _stack_scene(dev):
@@ -1070,7 +1303,8 @@ def _profile(work, names=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
-    buckets = {"RNG kernel": 0.0, "K1 trace_spheres": 0.0,
+    buckets = {"RNG kernel": 0.0, "eager camera rays": 0.0,
+               "K1 trace_spheres": 0.0,
                "K2 backward": 0.0, "K5 spheres_ad": 0.0,
                "K2/K5 sum_blocks": 0.0, "K3 trace_scene": 0.0,
                "K4 intersect": 0.0, "segment sum": 0.0,
@@ -1091,8 +1325,12 @@ def _profile(work, names=None):
         if names is not None:
             names.add(name)
         low = name.lower()
-        if "rng_sample_kernel" in name:
+        if "rng_sample_kernel" in name or "sample_start_kernel" in name:
             buckets["RNG kernel"] += dev_us
+        elif "div_floor" in name:
+            # render.sample_rays's pixel row (no other eager floor division
+            # of the frames): the camera rays made eagerly
+            buckets["eager camera rays"] += dev_us
         elif "trace_spheres_kernel" in name:
             buckets["K1 trace_spheres"] += dev_us
         elif "trace_scene_kernel" in name:
@@ -1148,6 +1386,11 @@ def _no_eager_threefry(what, buckets):
 
 
 def _print_profile(what, wall_ms, busy_ms, n_k, buckets):
+    """Prints where a profiled window's time went; raises if it shows the
+    camera rays made eagerly (the sample-start kernel makes them)."""
+    if buckets["eager camera rays"] > 0.0:
+        raise AssertionError(f"{what}: eager camera-ray kernels in the "
+                             "profile")
     print(f"  where the time goes (torch.profiler, {what}): wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle "
           f"{max(0.0, 1 - busy_ms / wall_ms):.1%}), {n_k} kernels; "
@@ -1202,10 +1445,10 @@ def phase_train(dev, card):
             raise AssertionError(f"fwd+bwd: d loss / d {leaf} is all zero")
     if k2_launches != cfg.spp:
         raise AssertionError(f"fwd+bwd: {k2_launches} K2 launches, want {cfg.spp}")
-    if k1_launches != 2 * cfg.spp or rng_launches != 2 * cfg.spp:
-        raise AssertionError(f"fwd+bwd: {k1_launches} K1 and {rng_launches} "
-                             f"RNG kernel launches, want {2 * cfg.spp} each "
-                             "(forward + checkpoint recompute)")
+    if k1_launches != 2 * cfg.spp:
+        raise AssertionError(f"fwd+bwd: {k1_launches} K1 launches, want "
+                             f"{2 * cfg.spp} (forward + checkpoint recompute)")
+    _check_rng("fwd+bwd", 2 * cfg.spp, rows=0)
     if k3_launches != 0 or k4_launches != 0 or k5_launches != 0:
         raise AssertionError(f"fwd+bwd: {k3_launches} K3, {k4_launches} K4 "
                              f"and {k5_launches} K5 launches on the "
@@ -1405,7 +1648,7 @@ def phase_k3_timing(dev):
     b = cfg.n_pixels
     print(f"  K3 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms per call (turns: "
           f"kernel {t['kernel']}, plain {t['plain']}); bound {bound[0]:.4f} "
-          f"ms ({bound[1]}); RNG kernel + camera rays {rng_ms:.4f} ms per "
+          f"ms ({bound[1]}); sample start {rng_ms:.4f} ms per "
           "sample")
     print(f"  search work (plain version's counts): {counts['live']} live "
           f"(ray, bounce) entries of {b * cfg.max_bounces}, draws hashed "
@@ -1454,7 +1697,7 @@ def phase_mesh(dev, card, timing):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
-    _check_rng("mesh path", cfg.spp, rows=4)
+    _check_rng("mesh path", cfg.spp, rows=0)
 
     rad = sums.radiance.to_array()
     mean = rad.double().mean().item() / cfg.spp
@@ -1472,8 +1715,8 @@ def phase_mesh(dev, card, timing):
           f"spp={cfg.spp} bounces={cfg.max_bounces}: {elapsed:.4f} s, "
           f"{rays / elapsed:.1f} rays/s end to end on {card}; K3 launches "
           f"{k3}; mean radiance {mean:.6f}")
-    print(f"  per sample (CUDA events, same shapes): RNG kernel + camera "
-          f"rays {timing['rng_ms']:.4f} ms, K3 {timing['ms']:.4f} ms -> "
+    print(f"  per sample (CUDA events, same shapes): sample start (keys + "
+          f"camera rays) {timing['rng_ms']:.4f} ms, K3 {timing['ms']:.4f} ms -> "
           f"RNG {cfg.spp * timing['rng_ms'] / 1e3:.4f} s, "
           f"K3 {cfg.spp * timing['ms'] / 1e3:.4f} s of the frame")
 
@@ -1840,7 +2083,7 @@ def phase_mesh_train(dev, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     k1, k2, k3, k4, _ = _launches()
-    _check_rng("mesh fwd+bwd", 2 * cfg.spp, rows=4)
+    _check_rng("mesh fwd+bwd", 2 * cfg.spp, rows=0)
 
     grads = {n: p.grad for n, p in params.items()}
     if not (loss.isfinite().item() and all(
@@ -2106,19 +2349,22 @@ def _reset_launches():
 
     ts.launches = tb.launches = tsc.launches = intersect.launches = 0
     ts.ad_launches = rng.launches = rng.rows_written = gather.launches = 0
+    rng.start_launches = 0
     gather.sort_launches = 0
 
 
 def _check_rng(what, want, rows=None):
     """Raises unless the path launched the RNG kernel ``want`` times (one a
-    sample, twice under the checkpoint's recompute), and with ``rows``
-    unless each launch wrote that many draw rows (4 on the megakernel
-    routes, whose kernels hash their bounce draws from the keys)."""
+    sample, twice under the checkpoint's recompute), each launch the
+    sample start (keys and camera rays), and with ``rows`` unless each
+    launch wrote that many draw rows (0 on the megakernel routes, whose
+    kernels hash their draws from the keys)."""
     from raytpu_torch.core import rng
 
-    if _rng_launches() != want:
+    if _rng_launches() != want or rng.start_launches != want:
         raise AssertionError(f"{what}: {_rng_launches()} RNG kernel "
-                             f"launches, want {want}")
+                             f"launches, {rng.start_launches} of them "
+                             f"sample starts, want {want}")
     if rows is not None and rng.rows_written != want * rows:
         raise AssertionError(f"{what}: the RNG kernel wrote "
                              f"{rng.rows_written} rows in {want} launches, "
@@ -2126,7 +2372,7 @@ def _check_rng(what, want, rows=None):
 
 
 def _rng_launches():
-    """The RNG kernel's launch count (``rng.sample_stream``)."""
+    """The RNG kernel's launch count, both modes (``rng.launches``)."""
     from raytpu_torch.core import rng
 
     return rng.launches
@@ -2932,9 +3178,9 @@ def _frame(what, dev, card, scene, cam, cfg, want, fwd_bwd=None):
     if got != want:
         raise AssertionError(f"{what}: (K1, K2, K3, K4, K5) launches {got}, "
                              f"want {want}")
-    # the megakernel routes' RNG launches write the 4 camera rows
+    # the megakernel routes' sample starts write no draw rows
     _check_rng(what, cfg.spp * (1 if fwd_bwd is None else 2),
-               rows=4 if want[0] or want[2] else None)
+               rows=0 if want[0] or want[2] else None)
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     wall, busy, n_k, buckets = _profile(lambda: work(cfg.replace(spp=1)))
     idle = max(0.0, 1 - busy / wall)
@@ -3616,11 +3862,12 @@ def phase_k5(dev):
     return res
 
 
-def phase_k5_timing(dev, card, k2):
+def phase_k5_timing(dev, card, k2, ptxas):
     """Phase 33: K5 at the main path's shape (the Cornell 1200x900, 6-bounce
     sample of phase 7's timing) beside its plain version, K2 and its
-    bound; then the Cornell fwd+bwd frame with RAYTPU_SPH_BWD=ad (K5
-    launches == spp, no K2)."""
+    bound, with K5's and K2's sphere-mode ptxas summaries (their shared
+    table sum, replay.cuh); then the Cornell fwd+bwd frame with
+    RAYTPU_SPH_BWD=ad (K5 launches == spp, no K2)."""
     import numpy as np
     import torch
 
@@ -3664,6 +3911,15 @@ def phase_k5_timing(dev, card, k2):
     print(f"  K5 {ms['k5']:.4f} ms (plain {ms['plain']:.4f} ms; bound "
           f"{bound[0]:.4f} ms, {bound[1]}); K2 on K1's recording "
           f"{ms['k2']:.4f} ms; turns {t}; K5 bit-equal to K2")
+    k5_ptxas = {sky: _ptxas_of(ptxas, f"spheres_ad_kernel<{sky}>",
+                               f"17spheres_ad_kernelILb{int(sky == 'true')}E")
+                for sky in ("false", "true")}
+    k2_ptxas = {sky: _ptxas_of(ptxas, f"sphere_backward_kernel<{sky}>",
+                               f"22sphere_backward_kernelILb"
+                               f"{int(sky == 'true')}E")
+                for sky in ("false", "true")}
+    print(f"  ptxas (without / with the sky slot): K5 {k5_ptxas}; K2 sphere "
+          f"mode {k2_ptxas}")
     del fns, idx, aof
 
     cfg = cfg.replace(spp=TRAIN_SPP, use_megakernel=True)
@@ -3699,6 +3955,7 @@ def phase_k5_timing(dev, card, k2):
         raise AssertionError("cornell fwd+bwd (K5): d loss / d diffuse is 0")
     return dict(ms=ms["k5"], plain_ms=ms["plain"], k2_ms=ms["k2"],
                 bound=bound, max_abs_err=max_err, outlier_frac=frac,
+                ptxas=k5_ptxas, k2_ptxas=k2_ptxas,
                 frame=dict(s=el, rate=rate, launches=got, idle=idle))
 
 
@@ -3732,10 +3989,11 @@ def main() -> int:
               "static shared memory")
 
     rng_t = phase_rng(dev)
+    start_t = phase_sample_start(dev)
     phase_k1(dev)
     timing = phase_k1_timing(dev)
     (launches, render_k2, render_k3, render_k4, render_rng,
-     main_prof) = phase_main(dev, card, timing)
+     main_prof, pf1) = phase_main(dev, card, timing)
     phase_k1_record(dev)
     phase_k2(dev)
     k2 = phase_k2_timing(dev)
@@ -3764,7 +4022,8 @@ def main() -> int:
     merged_t = phase_merged_timing(dev)
     merged_f = phase_merged_frames(dev, card)
     k5_k = phase_k5(dev)
-    k5 = phase_k5_timing(dev, card, k2)
+    k5 = phase_k5_timing(dev, card, k2, ptxas)
+    cam_g = phase_camera_grad(dev, card)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], timing["counts"],
                          k2["n_spheres"], record=False)
@@ -3786,16 +4045,26 @@ def main() -> int:
           + f"; K5 Cornell fwd+bwd {k5['frame']['rate']:.1f} rays/s")
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "rng_sample", "route": "cuda",
+        "name": "sample_start (RNG kernel)", "route": "cuda",
         "source": "raytpu_torch/csrc/rng.cu", "replaces": None,
-        "launches": train["rng_launches"],
+        "launches": render_rng,
         "launches_by_path": {"render": render_rng,
-                             "fwd_bwd": train["rng_launches"]},
-        "max_abs_err": 0.0, "ms": rng_t[4]["ms"],
-        "plain_ms": rng_t[4]["plain_ms"], "bound_ms": rng_t[4]["bound"][0],
-        "bound_by": rng_t[4]["bound"][1], "library_ms": None,
-        "ms_22_rows": rng_t[22]["ms"], "plain_ms_22_rows": rng_t[22]["plain_ms"],
-        "bound_ms_22_rows": rng_t[22]["bound"][0],
+                             "fwd_bwd": train["rng_launches"],
+                             "train_camera_steps": 6 * TRAIN_SPP},
+        "max_abs_err": 0.0, "ms": start_t[4]["ms"],
+        "plain_ms": start_t[4]["plain_ms"], "bound_ms": start_t[4]["bound"][0],
+        "bound_by": start_t[4]["bound"][1], "library_ms": None,
+        "events_ms": start_t[4]["events_ms"],
+        "ms_scan_22_rows": start_t[22]["ms"],
+        "events_ms_scan_22_rows": start_t[22]["events_ms"],
+        "plain_ms_scan_22_rows": start_t[22]["plain_ms"],
+        "bound_ms_scan_22_rows": start_t[22]["bound"][0],
+        "draws_only": {f"{r}_rows": {
+            "ms": rng_t[r]["ms"], "events_ms": rng_t[r]["events_ms"],
+            "plain_ms": rng_t[r]["plain_ms"], "bound_ms": rng_t[r]["bound"][0]}
+            for r in (4, 22)},
+        "camera_grad_max_rel": cam_g["max_rel"], "p_f1_words": pf1,
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("rng:")},
     }, {
         "name": "trace_spheres", "route": "cuda",
         "source": "raytpu_torch/csrc/trace_spheres.cu",
@@ -3826,6 +4095,7 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
         "library_ms": None, "outlier_frac": k2["outlier_frac"],
+        "ptxas": k5["k2_ptxas"]["false"],
     }, {
         "name": "trace_scene", "route": "cuda",
         "source": "raytpu_torch/csrc/trace_scene.cu",
@@ -3998,7 +4268,7 @@ def main() -> int:
         "bound_ms": k5["bound"][0], "bound_by": k5["bound"][1],
         "library_ms": None, "outlier_frac": max(k5["outlier_frac"],
                                                 k5_k["outlier_frac"]),
-        "k2_ms": k5["k2_ms"],
+        "k2_ms": k5["k2_ms"], "ptxas": k5["ptxas"]["false"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

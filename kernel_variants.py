@@ -7,7 +7,7 @@ Each variant is a copy of ``raytpu_torch/csrc`` with text substitutions
 variants at once, one nvcc each), loaded in place of the shipped library
 and timed with CUDA events on its library's workloads (``workloads``),
 beside the shipped build in the same process; its ptxas registers and
-spill stores are printed. ``--only`` keeps the variants whose names match.
+spill stores are printed. ``--only REGEX`` picks the variants (none without it).
 A text that does not occur exactly once in its library's sources stops
 the script before anything is built. Some variants compute wrong results
 on purpose, to measure what a part of a kernel costs (``*_no_hash``: draws
@@ -19,9 +19,14 @@ it times less work, not the draws alone. A variant built for another cull
 box size (``CHUNK_OF``: K4's ``kChunk``, the walk's ``kWalkChunk``) is
 timed on its workloads rebuilt with tables of that size.
 
-The workloads, at the main paths' shapes: K1, K1's recording, K2's sphere
-mode and K5 at the Cornell sample (1200x900 rays, 6 bounces, the RNG
-kernel's keys); K4 on the camera rays and on the bounce-2 rays (through
+The workloads, at the main paths' shapes: the start of a sample
+(``_sample_start``, library ``rng``: the keys, camera rays and route rows
+as the checkout's ``render`` makes them, the eager camera rays alone, the
+RNG kernel's draws-only mode; their device time behind a spin kernel and
+by torch.profiler, with its kernels a call; where the checkout has the
+sample-start kernel, its words that differ from its plain version); K1,
+K1's recording, K2's sphere mode and K5 at the Cornell sample (1200x900
+rays, 6 bounces, the RNG kernel's keys); K4 on the camera rays and on the bounce-2 rays (through
 the scan path) of the 600- and 4096-triangle block worlds at 1200x900; K3's
 merged and per-triangle modes (forward, recording, sky, sky recording) at
 1200x900, 6 bounces on the 600-triangle world and its sky twin; K2's mesh
@@ -31,7 +36,10 @@ their readings (``_READINGS``: the sums' error, the plan's mismatches;
 ``seg_drop_heavy_tile``, ``seg_no_carry`` and ``sort_unstable_rank``
 plant faults), the parent's PyTorch pieces for Step 0, and their device
 time by kernel (``_device_ms``). ``--libs`` keeps the workloads of the
-libraries it matches.
+libraries it matches. ``k5s0_*`` are Step 0's variants of the parent of
+K5's redesign (``--tree <parent> --tree-only '^k5s0_'``, or ``--only``
+on that checkout); ``k5_run_unroll_*`` / ``k2_run_unroll_*`` unroll the
+sphere modes' table sum (its runs of a group's columns) otherwise.
 
 ``--tree DIR`` first times every workload in another checkout (for
 example the parent commit, unpacked by ``git archive``): this script runs
@@ -41,12 +49,15 @@ there in a subprocess with ``--here`` and imports that tree's
 names match there too (``k2m0_*``: the K2 mesh mode of this change's
 parent).
 With ``--frames`` it first times, in turns (the tree, this checkout twice,
-the tree), the frames K3, K4 and the gathers' backward set the pace of:
-the 600-triangle block world (merged, its sky twin, and per-triangle),
-forward at 16 spp and forward+backward at 4 spp, and the scan path's
-4096-triangle world forward at 4 spp and bilinear forward+backward at 2
-spp (1200x900, 6 bounces, wall seconds; this script's frames, run on
-each tree's package). Needs a CUDA card; imports no JAX.
+the tree), the frames (``_frames``): Cornell forward at 32 spp and
+forward+backward at 8 spp (also under ``RAYTPU_SPH_BWD=ad``), the sky
+showcase forward at 16 spp, the 600-triangle block world (merged, its
+sky twin, and per-triangle) forward at 16 spp and forward+backward at 4
+spp, and the scan path's 4096-triangle world forward at 4 spp and
+bilinear forward+backward at 2 spp (1200x900, 6 bounces unless noted;
+wall seconds of 3 runs, then one profiled run's kernels a sample and
+idle share; this script's frames, run on each tree's package). Needs a
+CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -287,6 +298,92 @@ _SEG0_ROWS = ("  row_sums<<<(n_rows + kRowThreads - 1) / kRowThreads, "
               "kRowThreads, 0, st>>>(")
 _SEG0_TILES = "    tile_sums<<<(n + kTile - 1) / kTile, kTile, 0, st>>>("
 
+# Step 0 of K5's redesign (``--only '^k5s0_'`` on the parent of the
+# redesign): its reverse loop and carries, its table sum's call, and the
+# grouping loop of that table sum (replay.cuh, shared with K2's sphere
+# mode; only K5's library is rebuilt)
+_K5_REV = ("  for (int i = k.bounces - 1; i >= 0; --i) {\n"
+           "    const int bidx = i < last ? win[i] : -1;")
+_K5_SAVED = ("  Carry saved[kMaxBounces];\n  int win[kMaxBounces];\n"
+             "  float aofs[kMaxBounces];")
+_K5_SUM = ("    warp_table_sum(wsum, stage, lane, i < last && is_hit(bidx, ns),"
+           " bidx, gw);\n  }\n  if (ray < n_rays) {")
+_K5_GROUPS = """  unsigned todo = hits;
+  while (todo != 0u) {
+    const int win = __shfl_sync(0xffffffffu, bidx, __ffs(todo) - 1);
+    const unsigned grp = __ballot_sync(0xffffffffu, hit && bidx == win);
+    todo &= ~grp;
+    if (lane < kRows) {
+      float acc = 0.0f;
+      for (unsigned m = grp; m != 0u; m &= m - 1u) {
+        acc += stage[lane * kStagePitch + __ffs(m) - 1];
+      }
+      wsum[win * kRows + lane] += acc;
+    }
+  }
+"""
+# the sphere modes' table sum (replay.cuh): the unrolling of a group's
+# run of columns
+_RUN_UNROLL = "#pragma unroll 4\n    for (int t = 0; t < n; ++t) acc += run[t];"
+# the table sum's grouping, and a path for a warp whose hit lanes share
+# one winner
+_ONE_GROUP = ("  const unsigned peers = __match_any_sync(0xffffffffu, hit ? bidx : "
+              "-1);\n")
+_ONE_GROUP_PATH = """  if (__all_sync(0xffffffffu, !hit || peers == hits)) {
+    const int win = __shfl_sync(0xffffffffu, bidx, __ffs(hits) - 1);
+    if (hit) {
+      const int col = __popc(hits & ((1u << lane) - 1u));
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) stage[r * kStagePitch + col] = gw[r];
+    }
+    __syncwarp();
+    if (lane < kRows) {
+      const float* run = stage + lane * kStagePitch;
+      const int n = __popc(hits);
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int t = 0; t < n; ++t) acc += run[t];
+      wsum[win * kRows + lane] += acc;
+    }
+    __syncwarp();
+    return;
+  }
+"""
+# the groups by __match_any_sync, their (group, row) pairs spread over the
+# lanes, each pair's members summed in lane order (the same bits)
+_K5_MATCH = """  const unsigned peers = __match_any_sync(0xffffffffu, hit ? bidx : -1);
+  const unsigned lead = __ballot_sync(0xffffffffu,
+                                      hit && __ffs(peers) - 1 == lane);
+  const int pairs = __popc(lead) * kRows;
+  for (int p0 = 0; p0 < pairs; p0 += 32) {
+    const int p = p0 + lane, grp = p / kRows, r = p - grp * kRows;
+    unsigned lm = lead;
+    for (int t = 0; t < grp && lm != 0u; ++t) lm &= lm - 1u;
+    const int src = (p < pairs && lm != 0u) ? __ffs(lm) - 1 : 0;
+    const unsigned m = __shfl_sync(0xffffffffu, peers, src);
+    const int win = __shfl_sync(0xffffffffu, bidx, src);
+    if (p < pairs) {
+      float acc = 0.0f;
+      for (unsigned mm = m; mm != 0u; mm &= mm - 1u) {
+        acc += stage[r * kStagePitch + __ffs(mm) - 1];
+      }
+      wsum[win * kRows + r] += acc;
+    }
+  }
+"""
+# every saved carry field read where the (never taken) branch reads it,
+# so the forward sweep alone still stores them
+_K5_KEEP_SAVED = """  if (k.bounces < 0) {   // never: keeps the forward's stores
+    for (int i = 0; i < last; ++i) {
+      const Carry& s = saved[i];
+      g.o[0] += s.o[0] + s.o[1] + s.o[2] + s.d[0] + s.d[1] + s.d[2] + s.rc[0]
+          + s.rc[1] + s.rc[2] + s.med + (float)s.depth + (s.active ? 1.f : 0.f)
+          + (s.is_alpha ? 1.f : 0.f) + (s.slot ? 1.f : 0.f) + aofs[i]
+          + (float)win[i];
+    }
+  }
+"""
+
 # name -> (library, [(text, replacement), ...]); each text occurs once in
 # the library's sources
 VARIANTS = {
@@ -309,6 +406,57 @@ VARIANTS = {
         "k.bounces - 1;")]),
     "k5_unbounded": ("trace_spheres_bwd", [(_K5_BOUNDS, _K5_BOUNDS.replace(
         ", kSphereMinBlocks", ""))]),
+    # Step 0 of K5's redesign, on its parent: the forward sweep alone
+    # (search, AO, replay, the carries stored; the ray cotangents from the
+    # initial g: wrong on purpose); the reverse sweep without its table
+    # sums (wrong d_sph on purpose); the carries sized for 8 bounces (the
+    # 6-bounce workload only); the reverse loop from the warp's largest
+    # ray loop; 4 and 6 blocks an SM; the table sum grouped by
+    # __match_any_sync
+    "k5s0_forward_only": ("trace_spheres_bwd", [(
+        _K5_REV, _K5_KEEP_SAVED + _K5_REV.replace(
+            "i >= 0;", "i >= 0 && k.bounces < 0;"))]),
+    "k5s0_no_table_sum": ("trace_spheres_bwd", [(_K5_SUM, (
+        "    if (i < last && is_hit(bidx, ns)) {   // kept live, not summed\n"
+        "      float acc = 0.0f;\n"
+        "      for (int r = 0; r < kRows; ++r) acc += gw[r];\n"
+        "      asm volatile(\"\" :: \"f\"(acc));\n    }\n  }\n"
+        "  if (ray < n_rays) {"))]),
+    "k5s0_carries_8": ("trace_spheres_bwd", [(
+        _K5_SAVED, _K5_SAVED.replace("kMaxBounces", "8"))]),
+    "k5s0_warp_last": ("trace_spheres_bwd", [(_K5_REV, _K5_REV.replace(
+        "  for (int i = k.bounces - 1;",
+        "  const int wlast = __reduce_max_sync(0xffffffffu, last);\n"
+        "  for (int i = wlast - 1;"))]),
+    **{f"k5s0_min_blocks_{m}": ("trace_spheres_bwd", [(
+        _K5_BOUNDS, _K5_BOUNDS.replace("kSphereMinBlocks", str(m)))])
+       for m in (4, 6)},
+    "k5s0_match_any": ("trace_spheres_bwd", [(_K5_GROUPS, _K5_MATCH)]),
+    # K5's table sum cut to its parts (wrong d_sph on purpose; gw kept
+    # live): only the ballot of the hit lanes; the grouping, the scan and
+    # the staging without the pairs' sums; the pairs with runs of one
+    "k5_sum_ballot_only": ("trace_spheres_bwd", [(_K5_SUM, (
+        "    {\n      const bool h = i < last && is_hit(bidx, ns);\n"
+        "      float acc = 0.0f;\n"
+        "      for (int r = 0; r < kRows; ++r) acc += h ? gw[r] : 0.0f;\n"
+        "      asm volatile(\"\" :: \"f\"(acc), "
+        "\"r\"(__ballot_sync(0xffffffffu, h)));\n    }\n  }\n"
+        "  if (ray < n_rays) {"))]),
+    "k5_sum_stage_only": ("trace_spheres_bwd", [(
+        "  const int pairs = __popc(leaders) * kRows;",
+        "  const int pairs = 0 * __popc(leaders);")]),
+    "k5_sum_no_runs": ("trace_spheres_bwd", [(
+        _RUN_UNROLL, "    for (int t = 0; t < 1; ++t) acc += run[t];")]),
+    # one winner in the warp summed without the scan and the group table,
+    # in K5 and K2's sphere mode
+    **{f"{k}_one_group_path": (lib, [(_ONE_GROUP, _ONE_GROUP + _ONE_GROUP_PATH)])
+       for k, lib in (("k5", "trace_spheres_bwd"), ("k2", "trace_scene_bwd"))},
+    # the table sum's runs unrolled 1 or 8 times in place of 4, in K5 and
+    # K2's sphere mode
+    **{f"{k}_run_unroll_{u}": (lib, [(_RUN_UNROLL, _RUN_UNROLL.replace(
+        "unroll 4", f"unroll {u}"))])
+       for k, lib in (("k5", "trace_spheres_bwd"), ("k2", "trace_scene_bwd"))
+       for u in (1, 8)},
     # K4: blocks of 512 or 256 threads in place of 1024; 16, 64 or 128
     # triangles a cull box in place of 32; the warp's cull on the box
     # alone, without the running best
@@ -483,6 +631,9 @@ CHUNK_OF = {**{f"k4_chunk_{c}": c for c in (16, 64, 128)},
 _CORNELL = ("trace_spheres", "trace_scene_bwd", "trace_spheres_bwd")
 # the gathers' workloads: the sums, the plan, the parent's PyTorch pieces
 _SEGMENT = {"segment_sum", "index_sort", "segment_pieces"}
+# the workloads whose device time is read by kernel: the gathers' and the
+# sample start's (library "rng")
+_PROFILED = _SEGMENT | {"rng"}
 
 
 def _time_ms(fn, iters=30):
@@ -499,10 +650,10 @@ def _time_ms(fn, iters=30):
 
 
 def _device_ms(fn, iters=10):
-    """(device ms per call, {kernel: device ms per call}) of ``fn``:
-    torch.profiler's CUDA time after two warm-up calls, so the wrapper's
-    host time, which CUDA events around a loop include when it is the
-    longer, is not in it."""
+    """(device ms per call, {kernel: device ms per call}, kernels per
+    call) of ``fn``: torch.profiler's CUDA time after two warm-up calls,
+    so the wrapper's host time, which CUDA events around a loop include
+    when it is the longer, is not in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -513,7 +664,7 @@ def _device_ms(fn, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    by = {}
+    by, count = {}, 0
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -521,7 +672,9 @@ def _device_ms(fn, iters=10):
         if ev.device_type == torch.autograd.DeviceType.CUDA and us:
             name = ev.key.replace("(anonymous namespace)::", "")[:60]
             by[name] = by.get(name, 0.0) + us / 1e3 / iters
-    return round(sum(by.values()), 4), {k: round(v, 4) for k, v in by.items()}
+            count += ev.count
+    return (round(sum(by.values()), 4), {k: round(v, 4) for k, v in by.items()},
+            count / iters)
 
 
 def _cornell(dev):
@@ -779,24 +932,94 @@ def _segment_sum(dev):
     return out
 
 
-def _frames(dev):
-    """The frames K3, K4 and the gathers' backward set the pace of, at
-    1200x900, 6 bounces, over all block-ordered pixel ids, ended by a
-    synchronize: the merged 600-triangle block world forward at 16 spp
-    and forward+backward of every float leaf at 4 spp, its sky twin
-    likewise (the sky texels too), the same world with the per-triangle
-    search likewise, and the scan path's 4096-triangle world forward at
-    4 spp and, with bilinear textures, forward+backward at 2 spp."""
+def _start(cam, cfg, key, pids, rows):
+    """A sample's start as the checkout's ``render`` makes it: the ray
+    keys, the camera rays and the draw rows ``rows`` of the route
+    (``render.sample_start`` on its packed camera; before it, the RNG
+    kernel's keys and rows, then ``render.sample_rays``)."""
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator import render as rd
+
+    if hasattr(rd, "sample_start"):
+        return lambda p=rd.pack_camera(cam): rd.sample_start(
+            p, cfg, key, pids, 0, rows)
+
+    def run():
+        keys, draws = rng.sample_stream(key, pids, 0, rows)
+        return keys, *rd.sample_rays(cam, cfg, pids, draws[:4]), draws[4:]
+    return run
+
+
+def _sample_start(dev):
+    """The start of one sample at 1200x900, 6 bounces, under key 0
+    (library "rng"): ``start_<scene>_<rows>`` (``_start``) with the 4 rows
+    of the megakernel routes and the scan path's 4 + 6 x n_bounce_draws,
+    on Cornell, ``cornell_box_dof_ao`` (aperture on) and the MESH_WORLD
+    block world; ``sample_rays_<scene>`` the eager camera rays alone on
+    the RNG kernel's draws; ``rng_<rows>`` the RNG kernel's draws-only
+    launch (``rng._launch``). Where the checkout has the sample-start
+    kernel, each ``start_`` workload's reading is the count of words
+    (keys, rays, rows) that differ from its plain version's."""
     import torch
 
     import chip_smoke as cs
+    from raytpu_torch import scenes
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator import render as rd
+
+    key = rng.prng_key(0, device=dev)
+    out = {}
+    for name, (scene, cam, cfg) in (
+            ("cornell", scenes.cornell_box(dev)),
+            ("dof", scenes.cornell_box_dof_ao(dev)),
+            ("block", load_scene_file(cs._block_world(cs.MESH_WORLD), dev))):
+        cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1],
+                          max_bounces=6)
+        pids = torch.as_tensor(rd.blocked_pixel_order(cfg), device=dev).long()
+        for rows in (4, 4 + cfg.max_bounces * rd.n_bounce_draws(cfg)):
+            run = _start(cam, cfg, key, pids, rows)
+            out[f"start_{name}_{rows}"] = ("rng", run)
+            if hasattr(rd, "sample_start_reference"):
+                _READINGS[f"start_{name}_{rows}"] = (
+                    lambda got, a=(rd.pack_camera(cam), cfg, key, pids, 0,
+                                   rows): int((cs._start_words(got)
+                                               != cs._start_words(
+                                                   rd.sample_start_reference(
+                                                       *a))).sum()))
+        draws = rng.sample_stream(key, pids, 0, 4)[1]
+        out[f"sample_rays_{name}"] = (
+            "rng", lambda a=(cam, cfg, pids, draws): rd.sample_rays(*a))
+    pids = torch.arange(cs.FRAME[0] * cs.FRAME[1], device=dev)
+    for rows in (4, 22):
+        out[f"rng_{rows}"] = (
+            "rng", lambda r=rows, p=pids: rng._launch(key, p, 0, r))
+    return out
+
+
+def _frames(dev):
+    """The frames, at 1200x900, 6 bounces unless noted, over all
+    block-ordered pixel ids, ended by a synchronize: name -> (run, spp).
+    Cornell (``scenes.cornell_box``) forward at 32 spp and
+    forward+backward of every sphere leaf at 8 spp, also with
+    ``RAYTPU_SPH_BWD=ad`` (K5); the sky showcase (1000x750, 4 bounces,
+    K1) forward at 16 spp; the merged 600-triangle block world forward
+    at 16 spp and forward+backward of every float leaf at 4 spp, its sky
+    twin likewise (the sky texels too), the same world with the
+    per-triangle search likewise, and the scan path's 4096-triangle world
+    forward at 4 spp and, with bilinear textures, forward+backward at 2
+    spp."""
+    import torch
+
+    import chip_smoke as cs
+    from raytpu_torch import scenes
     from raytpu_torch.config import load_scene_file
     from raytpu_torch.core import rng
     from raytpu_torch.integrator.render import blocked_pixel_order, render
     from raytpu_torch.train import (combine_scene, partition_scene,
                                     photometric_loss)
 
-    def frame(scene, cam, cfg, grads):
+    def frame(scene, cam, cfg, grads, env=None):
         pids = torch.as_tensor(blocked_pixel_order(cfg), device=dev)
         params, static = partition_scene(scene)
         params = {n: p.detach().clone().requires_grad_(grads)
@@ -806,15 +1029,34 @@ def _frames(dev):
         def run():
             for p in params.values():
                 p.grad = None
-            s = render(combine_scene(params, static), cam, cfg, pids,
-                       rng.prng_key(0))
-            if grads:
-                photometric_loss(s.radiance * (1.0 / cfg.spp),
-                                 target).backward()
-            torch.cuda.synchronize()
-        return run
+            old = os.environ.get("RAYTPU_SPH_BWD")
+            if env:
+                os.environ["RAYTPU_SPH_BWD"] = env
+            try:
+                s = render(combine_scene(params, static), cam, cfg, pids,
+                           rng.prng_key(0))
+                if grads:
+                    photometric_loss(s.radiance * (1.0 / cfg.spp),
+                                     target).backward()
+                torch.cuda.synchronize()
+            finally:
+                if env:
+                    os.environ.pop("RAYTPU_SPH_BWD")
+                    if old is not None:
+                        os.environ["RAYTPU_SPH_BWD"] = old
+        return run, cfg.spp
 
     out = {}
+    scene, cam, cfg = scenes.cornell_box(dev)
+    cfg = cfg.replace(width=cs.FRAME[0], height=cs.FRAME[1], max_bounces=6,
+                      use_megakernel=True)
+    out["cornell_fwd_32spp"] = frame(scene, cam, cfg.replace(spp=32), False)
+    out["cornell_fwd_bwd_8spp"] = frame(scene, cam, cfg.replace(spp=8), True)
+    out["cornell_fwd_bwd_8spp_ad"] = frame(scene, cam, cfg.replace(spp=8),
+                                           True, "ad")
+    scene, cam, cfg = cs._sky_scene("show", dev)
+    out["sky_show_fwd_16spp"] = frame(scene, cam, cfg.replace(
+        spp=16, use_megakernel=True), False)
     for key, path in (("block", cs._block_world(cs.MESH_WORLD)),
                       ("sky", cs._sky_files()[cs.MESH_WORLD])):
         scene, cam, cfg = load_scene_file(path, dev)
@@ -839,17 +1081,38 @@ def _frames(dev):
 
 
 def time_frames(dev, reps=3) -> dict:
-    """Seconds of wall per frame of ``_frames``: the mean of ``reps`` after
-    one warm-up run."""
+    """Per frame of ``_frames``: the wall seconds of ``reps`` runs after
+    one warm-up run (``s``: their mean; ``runs``), then one run under
+    torch.profiler: its kernels a sample and the device's idle share
+    against the unprofiled mean (1 - busy / ``s``)."""
     import time
 
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
-    for name, run in _frames(dev).items():
+    for name, (run, spp) in _frames(dev).items():
         run()
-        t0 = time.perf_counter()
+        runs = []
         for _ in range(reps):
+            t0 = time.perf_counter()
             run()
-        out[name] = round((time.perf_counter() - t0) / reps, 4)
+            runs.append(round(time.perf_counter() - t0, 4))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        busy_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if ev.device_type == torch.autograd.DeviceType.CUDA and us:
+                busy_us += us
+                count += ev.count
+        mean = sum(runs) / reps
+        out[name] = {"s": round(mean, 4), "runs": runs,
+                     "idle": round(max(0.0, 1 - busy_us / 1e6 / mean), 4),
+                     "kernels_a_sample": round(count / spp, 1)}
     return out
 
 
@@ -868,6 +1131,8 @@ def workloads(dev, libs, chunk=None):
     if _SEGMENT & set(libs) and importlib.util.find_spec(
             "raytpu_torch.kernels.gather"):
         out.update(_segment_sum(dev))
+    if "rng" in libs:
+        out.update(_sample_start(dev))
     return {n: w for n, w in out.items() if w[0] in libs}
 
 
@@ -904,8 +1169,19 @@ def _time_all(fns) -> dict:
 
 
 def _device_all(fns) -> str:
-    """The gathers' workloads' device time (``_device_ms``), by kernel."""
-    got = {n: _device_ms(f) for n, (lib, f) in fns.items() if lib in _SEGMENT}
+    """The device time of the gathers' and the sample start's workloads,
+    by kernel (``_device_ms``: [ms, {kernel: ms}, kernels a call]); the
+    sample start's also queued behind a spin kernel (``spin``,
+    ``chip_smoke._device_ms``)."""
+    import chip_smoke as cs
+
+    got = {}
+    for n, (lib, f) in fns.items():
+        if lib in _PROFILED:
+            got[n] = _device_ms(f)
+            if lib == "rng":
+                got[n] = {"spin": round(cs._device_ms(f), 4),
+                          "profiler": got[n]}
     return f"device ms {json.dumps(got)}" if got else ""
 
 
@@ -939,7 +1215,7 @@ def time_variants(dev, names, fns) -> None:
                   flush=True)
 
 
-_ALL = {*_CORNELL, "intersect", "trace_scene", *_SEGMENT}
+_ALL = {*_CORNELL, "intersect", "trace_scene", *_SEGMENT, "rng"}
 
 
 def here(frames: bool, only: str, libs: str = "") -> int:
@@ -1010,7 +1286,8 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[],
                     help="another checkout whose kernels to time first")
     ap.add_argument("--only", default="",
-                    help="time only the variants whose names match")
+                    help="time the variants whose names match (default: "
+                         "none; some apply only to a parent's sources)")
     ap.add_argument("--tree-only", default="",
                     help="with --tree: time the variants whose names match "
                          "built from the tree's sources, in its run")
@@ -1019,8 +1296,8 @@ def main() -> int:
                          "and this checkout in turns (tree, this, this, "
                          "tree) before the kernels")
     ap.add_argument("--libs", default="",
-                    help="with --tree: time the workloads of the libraries "
-                         "whose names match (default: all)")
+                    help="time the workloads of the libraries whose names "
+                         "match (with --tree, default: all)")
     ap.add_argument("--here", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.here:
@@ -1031,7 +1308,7 @@ def main() -> int:
 
     from raytpu_torch.kernels import _build
 
-    names = [n for n in VARIANTS if re.search(args.only, n)
+    names = [n for n in VARIANTS if args.only and re.search(args.only, n)
              and not (args.tree_only and re.search(args.tree_only, n))]
     check_variants(names)
     if not torch.cuda.is_available():
@@ -1054,7 +1331,8 @@ def main() -> int:
     _build.build_all()
     dev = torch.device("cuda", 0)
     libs = {VARIANTS[n][0] for n in names} | {
-        x for x in (_ALL if args.tree else ()) if re.search(args.libs, x)}
+        x for x in (_ALL if args.tree or args.libs else ())
+        if re.search(args.libs, x)}
     fns = workloads(dev, libs)
     print("shipped build: ms " + json.dumps(_time_all(fns)) + _read_all(fns),
           flush=True)

@@ -13,14 +13,17 @@ follows JAX 0.9.0 (``jax/_src/prng.py``: ``_threefry2x32_lowering``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable`` with
 ``jax_threefry_partitionable=True``) and ``jax/_src/random.py:_uniform``.
 
-``sample_stream`` is what ``render`` calls once per sample: each ray's key
+``sample_stream`` gives one sample's keys and draws: each ray's key
 ``fold_in(fold_in(key, pixel_id), sample_id)`` as (2, B) int32 words
 (uint32 bits; ``key_words`` / ``key_pairs`` convert) and the first
-``n_rows`` draws of that key. On CUDA tensors it launches the RNG kernel
-(``csrc/rng.cu``, hashing in native uint32 with ``csrc/threefry.cuh``); on
-CPU tensors it runs the eager code above, its plain version. The kernels
-K1, K2, K3 and K5 take the keys and hash their bounce draws themselves
-(``draws_at`` is their per-draw formula); the scan path reads every row.
+``n_rows`` draws of that key. On CUDA tensors it launches the RNG kernel's
+draws-only mode (``csrc/rng.cu``, hashing in native uint32 with
+``csrc/threefry.cuh``); on CPU tensors it runs the eager code above, its
+plain version. ``render`` starts each sample with the kernel's other mode
+(``launch_start``, through ``render.sample_start``): the keys, the camera
+rays and the rows the route reads in one launch. The kernels K1, K2, K3
+and K5 take the keys and hash their bounce draws themselves (``draws_at``
+is their per-draw formula); the scan path reads the bounce rows.
 """
 
 from __future__ import annotations
@@ -173,16 +176,39 @@ def plain_draws(src: Tensor, n_draws: int, bounces: int) -> Tensor:
     return bounce_draws(src, n_draws, bounces) if is_keys(src) else src
 
 
-launches = 0   # RNG kernel launches by sample_stream (CPU calls do not count)
+launches = 0   # RNG kernel launches, both modes (CPU calls do not count)
+start_launches = 0   # of them, the sample start's (render.sample_start)
 rows_written = 0   # draw rows those launches wrote, summed
 
+_ENTRY_ARGTYPES = {
+    "raytpu_rng_sample": ([ctypes.c_void_p] * 2
+                          + [ctypes.c_int, ctypes.c_uint, ctypes.c_int]
+                          + [ctypes.c_void_p] * 3),
+    "raytpu_sample_start": ([ctypes.c_void_p] * 3
+                            + [ctypes.c_int, ctypes.c_uint, ctypes.c_int]
+                            + [ctypes.c_float] * 5
+                            + [ctypes.c_int, ctypes.c_int]
+                            + [ctypes.c_void_p] * 2),
+}
+_BOUND: dict = {}
 
-def _launch(key: Tensor, pixel_ids: Tensor, sample_id: int, n_rows: int):
-    """Launch ``csrc/rng.cu`` on the current stream: (ray keys (2, B)
-    int32, draws (n_rows, B) f32)."""
+
+def _entry(name: str):
+    """``csrc/rng.cu``'s entry point ``name``, its argtypes set once for
+    each library loaded (a variant build swapped into ``_build`` is bound
+    anew)."""
     from raytpu_torch.kernels import _build
 
-    global launches, rows_written
+    lib = _build.load("rng")
+    got = _BOUND.get(name)
+    if got is None or got[0] is not lib:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _ENTRY_ARGTYPES[name], ctypes.c_int
+        got = _BOUND[name] = (lib, fn)
+    return got[1]
+
+
+def _check_ids(key: Tensor, pixel_ids: Tensor) -> None:
     dev = pixel_ids.device
     for t, shape in ((key, (2,)), (pixel_ids, (pixel_ids.shape[0],))):
         if (t.dtype != torch.int64 or tuple(t.shape) != shape
@@ -190,24 +216,61 @@ def _launch(key: Tensor, pixel_ids: Tensor, sample_id: int, n_rows: int):
             raise ValueError(f"rng kernel: want contiguous int64 {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    b = pixel_ids.shape[0]
-    fn = _build.load("rng").raytpu_rng_sample
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_uint,
-                                            ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
+
+
+def _launch(key: Tensor, pixel_ids: Tensor, sample_id: int, n_rows: int):
+    """Launch ``csrc/rng.cu``'s draws-only mode on the current stream: (ray
+    keys (2, B) int32, draws (n_rows, B) f32)."""
+    global launches, rows_written
+    _check_ids(key, pixel_ids)
+    dev, b = pixel_ids.device, pixel_ids.shape[0]
+    fn = _entry("raytpu_rng_sample")
     keys = torch.empty((2, b), dtype=torch.int32, device=dev)
     draws = torch.empty((n_rows, b), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(key.data_ptr(), pixel_ids.data_ptr(), b, sample_id & MASK,
                  n_rows, keys.data_ptr(),
-                 draws.data_ptr() if n_rows else None, stream)
+                 draws.data_ptr() if n_rows else None,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rng kernel launch failed: cudaError {err}")
     launches += 1
     rows_written += n_rows
     return keys, draws
+
+
+def launch_start(key: Tensor, pixel_ids: Tensor, cam: Tensor, sample_id: int,
+                 width: int, height: int, aperture: tuple, focus: float,
+                 row0: int, n_rows: int) -> Tensor:
+    """Launch ``csrc/rng.cu``'s sample start on the current stream: one
+    (8 + n_rows - row0, B) f32 tensor, its planes the ray keys' two words
+    (uint32 bits), the camera ray's origin x y z and direction x y z, then
+    draw rows row0 .. n_rows-1 (row0 0 or 4). cam: the (12,) f32 camera
+    (``render.pack_camera``) on the ids' device."""
+    global launches, start_launches, rows_written
+    _check_ids(key, pixel_ids)
+    dev, b = pixel_ids.device, pixel_ids.shape[0]
+    if (cam.dtype != torch.float32 or tuple(cam.shape) != (12,)
+            or cam.device != dev or not cam.is_contiguous()):
+        raise ValueError(f"sample start: want a contiguous (12,) f32 camera "
+                         f"on {dev}, got {cam.dtype} {tuple(cam.shape)} on "
+                         f"{cam.device}")
+    if row0 not in (0, 4) or n_rows < 4:
+        raise ValueError(f"sample start: rows {row0} .. {n_rows - 1}")
+    fn = _entry("raytpu_sample_start")
+    out = torch.empty((8 + n_rows - row0, b), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(key.data_ptr(), pixel_ids.data_ptr(), cam.data_ptr(), b,
+                 sample_id & MASK, width, float(width - 1), float(height - 1),
+                 float(aperture[0]), float(aperture[1]), float(focus), row0,
+                 n_rows, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sample start launch failed: cudaError {err}")
+    launches += 1
+    start_launches += 1
+    rows_written += n_rows - row0
+    return out
 
 
 def stream_reference(key: Tensor, pixel_ids: Tensor, sample_id: int,

@@ -33,6 +33,9 @@ constexpr int kSphereThreads = 128;   // K2's sphere mode and K5: one block size
 // (PERF.md, kernel_variants.py)
 constexpr int kSphereMinBlocks = 5;
 constexpr int kStagePitch = 33;    // a warp's staged cotangent row: 32 lanes + 1
+// a warp's staging in the sphere kernels: 14 rows, then the table of its
+// lane groups (winner, first column, lanes) for warp_table_sum
+constexpr int kWarpStage = kRows * kStagePitch + 3 * 32;
 constexpr float kBig = 3.0e38f;
 constexpr float kTwoPi = 2.0f * 3.14159265358979323846f;  // 2 * f32(pi)
 
@@ -824,7 +827,8 @@ __device__ __forceinline__ bool replay_bounce(
 
 // The sphere kernels' dynamic shared memory: geo (cx cy cz r a sphere,
 // K5's search), tab (the 14 x S table, row-major), then each warp's table
-// sum wsum (S x 14, sphere-major) and staging (14 x kStagePitch).
+// sum wsum (S x 14, sphere-major) and staging (kWarpStage: 14 x
+// kStagePitch, then its group table).
 struct SphereSmem {
   float4* geo;
   float *tab, *wsum, *stage;
@@ -833,7 +837,7 @@ struct SphereSmem {
 __host__ __device__ inline size_t sphere_shared_floats(int ns, int nt) {
   const int nw = nt / 32;
   return (size_t)4 * ns + (size_t)kRows * ns + (size_t)nw * kRows * ns +
-         (size_t)nw * kRows * kStagePitch;
+         (size_t)nw * kWarpStage;
 }
 
 __device__ __forceinline__ SphereSmem sphere_smem(float* smem, int ns, int nt) {
@@ -848,33 +852,60 @@ __device__ __forceinline__ SphereSmem sphere_smem(float* smem, int ns, int nt) {
 
 // Adds each hit lane's 14-entry sphere cotangent gw into its warp's table
 // sum wsum (S x 14, sphere-major), without per-thread columns and without
-// atomics: the hit lanes stage their rows, are grouped by winner (the
-// lowest pending lane's winner, by ballot), and lanes 0-13 each sum one row
-// over the group's members in lane order and add it to the winner's
-// entry. Every addition's order is fixed by the lanes' winners, so two
-// launches give the same bits. All 32 lanes of the warp call it together.
+// atomics. The hit lanes are grouped by winner (__match_any_sync), the
+// groups taken in the order of their lowest lanes; each lane stages its
+// rows in the column of its rank in that order (its group's first column,
+// an exclusive scan of the groups' sizes over their lowest lanes, plus its
+// rank in the group), so that a group is a run of adjacent columns in lane
+// order, and the group's lowest lane writes (winner, first column, lanes)
+// to the warp's group table, after its staged rows. Then the (group, row)
+// pairs are spread over the lanes: each sums its row over the group's run
+// and adds the sum to the winner's entry (distinct pairs, distinct
+// entries). The additions are a walk over each group's lanes in lane
+// order, added to the entry once a bounce, so two launches give the same
+// bits, and K2's sphere mode and K5 the same bits on the same winners. All
+// 32 lanes of the warp call it together.
 __device__ __forceinline__ void warp_table_sum(float* wsum, float* stage,
                                                int lane, bool hit, int bidx,
                                                const float* gw) {
   const unsigned hits = __ballot_sync(0xffffffffu, hit);
   if (hits == 0u) return;
-  if (hit) {
+  const unsigned peers = __match_any_sync(0xffffffffu, hit ? bidx : -1);
+  const int lowest = __ffs(peers) - 1, size = __popc(peers);
+  const bool leads = hit && lowest == lane;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned leaders = __ballot_sync(0xffffffffu, leads);
+  int scan = leads ? size : 0;   // inclusive scan of the leaders' sizes
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) stage[r * kStagePitch + lane] = gw[r];
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, scan, off);
+    if (lane >= off) scan += up;
+  }
+  const int first = __shfl_sync(0xffffffffu, scan - (leads ? size : 0),
+                                lowest);
+  int* groups = reinterpret_cast<int*>(stage + kRows * kStagePitch);
+  if (hit) {
+    const int col = first + __popc(peers & below);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) stage[r * kStagePitch + col] = gw[r];
+  }
+  if (leads) {
+    int* e = groups + 3 * __popc(leaders & below);
+    e[0] = bidx;
+    e[1] = first;
+    e[2] = size;
   }
   __syncwarp();
-  unsigned todo = hits;
-  while (todo != 0u) {
-    const int win = __shfl_sync(0xffffffffu, bidx, __ffs(todo) - 1);
-    const unsigned grp = __ballot_sync(0xffffffffu, hit && bidx == win);
-    todo &= ~grp;
-    if (lane < kRows) {
-      float acc = 0.0f;
-      for (unsigned m = grp; m != 0u; m &= m - 1u) {
-        acc += stage[lane * kStagePitch + __ffs(m) - 1];
-      }
-      wsum[win * kRows + lane] += acc;
-    }
+  const int pairs = __popc(leaders) * kRows;
+  for (int p = lane; p < pairs; p += 32) {
+    const int gi = p / kRows, r = p - gi * kRows;
+    const int* e = groups + 3 * gi;
+    const float* run = stage + r * kStagePitch + e[1];
+    const int n = e[2];
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) acc += run[t];
+    wsum[e[0] * kRows + r] += acc;
   }
   __syncwarp();
 }

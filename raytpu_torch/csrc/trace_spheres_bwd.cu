@@ -98,7 +98,7 @@ spheres_ad_kernel(
   for (int e = tid; e < (nt >> 5) * kRows * ns; e += nt) sm.wsum[e] = 0.0f;
   __syncthreads();
   float* wsum = sm.wsum + warp * kRows * ns;
-  float* stage = sm.stage + warp * kRows * kStagePitch;
+  float* stage = sm.stage + warp * kWarpStage;
 
   const int ray = blockIdx.x * nt + tid;
   const size_t B = (size_t)n_rays;

@@ -1,12 +1,15 @@
 """Render orchestration: ray generation, sample accumulation, tiling.
 
-Port of ``raytpu/integrator/render.py``. For each sample index the
-per-(pixel, sample) threefry keys give the camera jitter and every
-bounce's draws (``rng.sample_stream``: one RNG kernel launch a sample on
-the card, the eager stream on the CPU), the camera makes one ray per
-pixel, and the bounce loop traces them. K1 and K3 take the keys and hash
-their bounce draws themselves, so the stream makes only the 4 camera rows
-for them; the scan path reads every row. Which loop follows
+Port of ``raytpu/integrator/render.py``. Each sample starts with
+``sample_start``: the per-(pixel, sample) threefry keys, the camera ray
+of every pixel from the keys' draws 0-3 (camera jitter and aperture) and
+the draw rows the route reads, in one launch of the sample-start kernel
+(``csrc/rng.cu``) on the card and by its plain version (the eager stream,
+then ``sample_rays``) on the CPU; then the bounce loop traces the rays.
+K1 and K3 take the keys and hash their bounce draws themselves, so the
+start makes no draw rows for them; the scan path reads every bounce row.
+A camera leaf that requires grad gets its gradient through
+``camera_rays_vjp``. Which loop follows
 ``raytpu.render``: with
 ``cfg.use_megakernel`` the sphere megakernel (K1) where
 ``trace_spheres.supported`` holds, else the mesh megakernel (K3) where
@@ -58,14 +61,138 @@ def sample_rays(cam: Camera, cfg: RenderConfig, pixel_ids: Tensor,
                 draws: Tensor) -> tuple[Vec3, Vec3]:
     """One camera ray per pixel id for one sample index.
     draws: (4, B) U(0,1) camera draws, rows 0-3 of a ray key's draws
-    (``rng.sample_stream``, ``rng.ray_uniforms``)."""
+    (``rng.sample_stream``, ``rng.ray_uniforms``). The divisors W - 1 and
+    H - 1 are 0-dim tensors on the draws' device: a Python number there
+    would be a reciprocal multiply on the card (ROADMAP P-F1), an IEEE
+    division on the CPU and in the sample-start kernel."""
+    full = lambda x: torch.full((), x, dtype=torch.float32, device=draws.device)
     i = (pixel_ids % cfg.width).to(torch.float32)
     j = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
-    u = (i + (draws[0] - 0.5)) / (cfg.width - 1)
-    v = (j + (draws[1] - 0.5)) / (cfg.height - 1)
+    u = (i + (draws[0] - 0.5)) / full(cfg.width - 1)
+    v = (j + (draws[1] - 0.5)) / full(cfg.height - 1)
     dx = (draws[2] - 0.5) * cfg.aperture_x
     dy = (draws[3] - 0.5) * cfg.aperture_y
     return get_rays(cam, u, v, cfg.focus_distance, dx, dy)
+
+
+def pack_camera(cam: Camera) -> Tensor:
+    """The camera's 12 values, origin, horizontal, vertical, lower_left
+    (``convert.CAMERA_LEAVES``' order), as one (12,) f32 tensor on their
+    device: what the sample-start kernel reads. Differentiable in the
+    camera's leaves; ``render`` packs once a call."""
+    return torch.stack([*cam.origin, *cam.horizontal, *cam.vertical,
+                        *cam.lower_left]).to(torch.float32)
+
+
+def unpack_camera(cam: Tensor) -> Camera:
+    """``pack_camera``'s inverse: a Camera of 0-dim views of ``cam``."""
+    return Camera(*(Vec3(cam[k], cam[k + 1], cam[k + 2])
+                    for k in range(0, 12, 3)))
+
+
+def sample_start_reference(cam: Tensor, cfg: RenderConfig, key: Tensor,
+                           pixel_ids: Tensor, s: int, n_rows: int):
+    """Plain version of the sample-start kernel, on any device: the eager
+    stream (``rng.stream_reference``), then ``sample_rays`` on its rows
+    0-3. Returns (ray keys (2, B) int32, origin, direction, draw rows 4 ..
+    n_rows-1 as (n_rows - 4, B))."""
+    keys, draws = rng.stream_reference(key, pixel_ids, s, n_rows)
+    origin, direction = sample_rays(unpack_camera(cam), cfg, pixel_ids,
+                                    draws[:4])
+    return keys, origin, direction, draws[4:]
+
+
+def camera_rays_vjp(cam: Tensor, cfg: RenderConfig, pixel_ids: Tensor,
+                    draws: Tensor, d_origin: Tensor,
+                    d_direction: Tensor) -> Tensor:
+    """The cotangent (12,) f32 of the packed camera (``pack_camera``) from
+    the cotangents (3, B) of ``sample_rays``' origin and direction, given
+    the rays' draws 0-3 (4, B). The rays are recomputed and the adjoint
+    reduced over B in float64; with r = dest - origin the unnormalised
+    direction (dest = o + f D, D = ll + h u + vv v - o, origin = o +
+    jitter): g_r = inv d_dir - inv^3 (d_dir . r) r (the normalisation's
+    adjoint; none where n2 < 1e-38, as through the clamp), then
+    d_o = sum(d_origin) - f sum(g_r), d_h = f sum(g_r u), d_vv = f
+    sum(g_r v), d_ll = f sum(g_r)."""
+    f64 = torch.float64
+    c = cam.detach().to(f64)
+    i = (pixel_ids % cfg.width).to(f64)
+    j = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(f64)
+    d = draws.to(f64)
+    u = (i + (d[0] - 0.5)) / (cfg.width - 1)
+    v = (j + (d[1] - 0.5)) / (cfg.height - 1)
+    jit = torch.stack([(d[2] - 0.5) * cfg.aperture_x,
+                       (d[3] - 0.5) * cfg.aperture_y, torch.zeros_like(u)])
+    o, h, vv, ll = (c[k:k + 3, None] for k in range(0, 12, 3))
+    dd = ll + (h * u + (vv * v - o))
+    r = (o + dd * cfg.focus_distance) - (o + jit)
+    n2 = (r * r).sum(0)
+    inv = torch.where(n2 > 0, 1.0 / torch.sqrt(n2.clamp(min=1e-38)), 0.0)
+    g_dir = d_direction.to(f64)
+    pass_n2 = (n2 >= 1e-38).to(f64)
+    g_r = g_dir * inv - r * ((g_dir * r).sum(0) * inv ** 3 * pass_n2)
+    f = cfg.focus_distance
+    g_sum = g_r.sum(1)
+    return torch.cat([d_origin.to(f64).sum(1) - f * g_sum,
+                      f * (g_r * u).sum(1), f * (g_r * v).sum(1),
+                      f * g_sum]).to(torch.float32)
+
+
+class _CameraRays(torch.autograd.Function):
+    """The sample-start kernel where a camera leaf requires grad: it also
+    writes draw rows 0-3, and the backward is ``camera_rays_vjp`` of them.
+    Outputs: ray keys (2, B) int32, the (6, B) origin and direction
+    planes (differentiable in the packed camera), the draw rows 4 ..
+    n_rows-1."""
+
+    @staticmethod
+    def forward(ctx, cam, cfg, key, pixel_ids, s, n_rows):
+        out = rng.launch_start(key, pixel_ids, cam.detach(), s, cfg.width,
+                               cfg.height, (cfg.aperture_x, cfg.aperture_y),
+                               cfg.focus_distance, 0, n_rows)
+        keys, rows = out[:2].view(torch.int32), out[12:]
+        ctx.mark_non_differentiable(keys, rows)
+        ctx.save_for_backward(cam, pixel_ids, out[8:12])
+        ctx.cfg = cfg
+        return keys, out[2:8], rows
+
+    @staticmethod
+    def backward(ctx, _keys, d_planes, _rows):
+        cam, pixel_ids, draws = ctx.saved_tensors
+        d_cam = camera_rays_vjp(cam, ctx.cfg, pixel_ids, draws, d_planes[:3],
+                                d_planes[3:])
+        return d_cam, None, None, None, None, None
+
+
+def kernel_start(cam: Tensor, cfg: RenderConfig, key: Tensor,
+                 pixel_ids: Tensor, s: int, n_rows: int):
+    """``sample_start``'s kernel route (``rng.launch_start``): planes as
+    views of the launch's one tensor, no copy."""
+    if cam.requires_grad and torch.is_grad_enabled():
+        keys, planes, rows = _CameraRays.apply(cam, cfg, key, pixel_ids, s,
+                                               n_rows)
+    else:
+        out = rng.launch_start(key, pixel_ids, cam.detach(), s, cfg.width,
+                               cfg.height, (cfg.aperture_x, cfg.aperture_y),
+                               cfg.focus_distance, 4, n_rows)
+        keys, planes, rows = out[:2].view(torch.int32), out[2:8], out[8:]
+    return keys, Vec3(*planes[:3]), Vec3(*planes[3:]), rows
+
+
+def sample_start(cam: Tensor, cfg: RenderConfig, key: Tensor,
+                 pixel_ids: Tensor, s: int, n_rows: int):
+    """The start of sample ``s``: (ray keys (2, B) int32, camera ray origin
+    and direction (Vec3 of (B,)), draw rows 4 .. n_rows-1 (n_rows - 4, B)).
+    cam: ``pack_camera``'s (12,) tensor; key (2,) int64 and pixel_ids (B,)
+    int64 on its device. On CUDA tensors one launch of the sample-start
+    kernel (``csrc/rng.cu``); on CPU tensors its plain version
+    (``sample_start_reference``)."""
+    dev = pixel_ids.device
+    if dev.type == "cuda":
+        return kernel_start(cam, cfg, key, pixel_ids, s, n_rows)
+    if dev.type == "cpu":
+        return sample_start_reference(cam, cfg, key, pixel_ids, s, n_rows)
+    raise NotImplementedError(f"sample start: no kernel for {dev}")
 
 
 def trace_fn(scene: Scene, cfg: RenderConfig):
@@ -92,11 +219,12 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     ... ``sample_offset + n - 1``) for a batch of pixel ids.
 
     ``pixel_ids`` and ``key`` (a ``rng.prng_key``) are placed on the
-    scene's device. Per sample one ``rng.sample_stream`` call, then one
+    scene's device, the camera is packed once (``pack_camera``). Per
+    sample one ``sample_start`` call, then one
     bounce loop (``trace_fn``): a K1 or K3 call, or the scan path with one
     closest-hit selection per bounce (and one per AO probe). When a scene
     or camera leaf requires grad, the backward recomputes each sample once
-    (the checkpoint): the stream again, and a megakernel then adds a
+    (the checkpoint): the sample start again, and a megakernel then adds a
     recording call and a K2 call per sample, the scan path its selections
     again.
     """
@@ -120,12 +248,12 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
             bounce_loop, selection=trace_scene.frame_selection(scene, cfg))
     n_draws = n_bounce_draws(cfg)
     n_rows = 4 if keyed else 4 + cfg.max_bounces * n_draws
+    cam_pack = pack_camera(cam).to(dev)
 
     def one_sample(s):
-        ray_keys, draws = rng.sample_stream(key, pixel_ids, s, n_rows)
-        origin, direction = sample_rays(cam, cfg, pixel_ids, draws[:4])
-        src = ray_keys if keyed else draws[4:].view(cfg.max_bounces,
-                                                    n_draws, b)
+        ray_keys, origin, direction, rows = sample_start(
+            cam_pack, cfg, key, pixel_ids, s, n_rows)
+        src = ray_keys if keyed else rows.view(cfg.max_bounces, n_draws, b)
         r, a, nm = bounce_loop(scene, cfg, origin, direction, src)
         return (*r, *a, *nm)
 

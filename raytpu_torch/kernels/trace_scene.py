@@ -47,7 +47,7 @@ kernel returns 16 planes instead of 9.
 
 ``trace_mesh_megakernel`` is the entry point. On CUDA tensors it launches
 the hand-written kernel in ``csrc/trace_scene.cu``, which takes the rays'
-threefry keys ((2, B) int32, ``rng.sample_stream``) and hashes each
+threefry keys ((2, B) int32, ``render.sample_start``) and hashes each
 bounce's draws where it reads them, at K1's counters; on CPU tensors it
 runs ``trace_scene_reference``, the plain PyTorch version of the same
 loop, on the keys' draws (``rng.bounce_draws``) or on a draw buffer,
@@ -1551,7 +1551,7 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     """(radiance, albedo AOV, normal AOV) for a batch of rays through a
     mesh scene.
 
-    src: the rays' threefry keys, (2, B) int32 (``rng.sample_stream``),
+    src: the rays' threefry keys, (2, B) int32 (``render.sample_start``),
     whose draws K3 hashes (n_bounce_draws(cfg) a bounce, after the 4
     camera draws); on CPU tensors also a (max_bounces, n_bounce_draws(cfg),
     B) U(0,1) draw buffer. Runs on the device of the scene: the CUDA
@@ -1581,7 +1581,7 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
         if dev.type != "cpu":
             raise ValueError(
                 "trace_scene: the kernel hashes its draws; pass the ray "
-                "keys of rng.sample_stream, not a draw buffer")
+                "keys of render.sample_start, not a draw buffer")
         bn, nd = src.shape[:2] if src.dim() == 3 else (-1, -1)
         if bn != cfg.max_bounces or nd < n_bounce_draws(cfg):
             raise ValueError(

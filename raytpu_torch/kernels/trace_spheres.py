@@ -14,7 +14,7 @@ hand-written kernel in ``csrc/trace_spheres.cu``; on CPU tensors it runs
 ``trace_spheres_reference``, the plain PyTorch version of the same loop,
 which the tests hold against ``raytpu`` and the chip check holds the
 kernel against. The kernel takes each ray's threefry key (the (2, B) int32
-words of ``core.rng.sample_stream``) and hashes the bounce draws itself,
+words of ``render.sample_start``) and hashes the bounce draws itself,
 draw j of bounce b at counter ``4 + b * n_draws + j`` with ``n_draws =
 integrator.path.n_bounce_draws(cfg)``; the plain version reads the same
 draws from the eager stream (``core.rng.bounce_draws``), or a draw buffer
@@ -492,7 +492,7 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
                      ) -> tuple[Vec3, Vec3, Vec3]:
     """(radiance, albedo AOV, normal AOV) for a batch of rays.
 
-    src: the rays' threefry keys, (2, B) int32 (``rng.sample_stream``),
+    src: the rays' threefry keys, (2, B) int32 (``render.sample_start``),
     whose draws K1 hashes (n_bounce_draws(cfg) a bounce, after the 4
     camera draws); on CPU tensors also a (max_bounces, n_bounce_draws(cfg),
     B) U(0,1) draw buffer. Runs on the device of the scene: the CUDA
@@ -518,7 +518,7 @@ def trace_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
         if dev.type != "cpu":
             raise ValueError(
                 "trace_spheres: the kernel hashes its draws; pass the ray "
-                "keys of rng.sample_stream, not a draw buffer")
+                "keys of render.sample_start, not a draw buffer")
         bn, nd = src.shape[:2] if src.dim() == 3 else (-1, -1)
         if bn != cfg.max_bounces or nd < n_bounce_draws(cfg):
             raise ValueError(

@@ -19,7 +19,7 @@ plain versions read the same draws from the eager stream
   mode, ``mesh_backward``), at ``test_torch_mesh_grad``'s tolerances;
 * ``render`` on the CPU mesh route bit-identical to the buffer route it
   replaced, sums and every leaf's gradient;
-* the RNG rows each route asks ``rng.sample_stream`` for: 4 on the mesh
+* the RNG rows each route's sample start asks for: 4 on the mesh
   megakernel route, 4 + bounces x n_bounce_draws on the scan path;
 * K3's and K2's ``_launch`` refuse a draw buffer before anything is
   built.
@@ -345,19 +345,20 @@ def test_render_mesh_route_is_the_buffer_route(worlds, case, search):
 @pytest.mark.parametrize("megakernel", [True, False])
 @pytest.mark.parametrize("case", ["world60", "world60_ao"])
 def test_rng_rows_of_each_route(worlds, case, megakernel, monkeypatch):
-    """The mesh megakernel route asks ``rng.sample_stream`` for the 4
-    camera rows (K3 hashes its bounce draws from the keys); the scan path
-    for every bounce row as well, AO probes included."""
+    """The mesh megakernel route starts each sample
+    (``render.sample_start``) with the 4 camera rows (K3 hashes its bounce
+    draws from the keys); the scan path with every bounce row as well, AO
+    probes included."""
     ts, tc, tcfg = _load(worlds, case, "per_triangle", width=3, height=2)
     tcfg = tcfg.replace(spp=2, max_bounces=2, use_megakernel=megakernel)
     rows = []
-    stream = trng.sample_stream
+    start = trender.sample_start
 
-    def counted(key, pixel_ids, sample_id, n_rows):
+    def counted(cam, cfg, key, pixel_ids, sample_id, n_rows):
         rows.append(n_rows)
-        return stream(key, pixel_ids, sample_id, n_rows)
+        return start(cam, cfg, key, pixel_ids, sample_id, n_rows)
 
-    monkeypatch.setattr(trng, "sample_stream", counted)
+    monkeypatch.setattr(trender, "sample_start", counted)
     sums = trender.render(ts, tc, tcfg, torch.arange(tcfg.n_pixels),
                           trng.prng_key(5))
     assert torch.isfinite(sums.radiance.to_array()).all()
