@@ -176,7 +176,25 @@ Phases, each of which raises on failure (exit code non-zero):
      rows 0-3; ``render.camera_rays_vjp``) against autograd through the
      plain ``sample_rays`` on the card (CAM_RTOL), on the Cornell and DoF
      frames, and 3 Adam steps of ``make_train_step(train_camera=True)``
-     whose losses must fall.
+     whose losses must fall;
+  35. the render command's output path: the 1200x900, 6-bounce Cornell
+     frame through ``io/checkpoint.render_image_checkpointed`` (K1, the
+     CLI's one tile a frame), OUT_SPP samples in flushes of OUT_FLUSH,
+     its sidecar re-labelled as the MAIN_SPP run and resumed, the sums
+     bit-equal to ``render_image``'s, one K1 launch and one sample start a
+     sample; the same on the merged MESH_WORLD block world (K3); one flush
+     timed (the sums' host copy, ``save_checkpoint``); the bilateral and
+     the KPCN (``denoise``) on the Cornell frame on the card against the
+     same call on the CPU (DN_TOL, KPCN_ATOL; the KPCN's drift with
+     cuDNN's TF32 printed beside), timed (wall a call by CUDA events, with
+     and without a spin kernel ahead, which their launches outrun; the
+     KPCN on weights loaded once, the load timed apart, and as the default
+     call that loads them) with their kernels a call and device busy time
+     (profiler); their PSNR on
+     a QUALITY_SPP Cornell pair against tests/test_denoise_quality.py's
+     bars; ``python -m raytpu_torch.cli render cornell`` with every output
+     flag as a subprocess: every file written, every stderr progress line
+     a JSON object.
 Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
 per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
@@ -303,6 +321,20 @@ K2_OPS_SPHERE, K2_OPS_TRI = 510, 1000
 # The equirect sky: the slot's 7 planes out of K1 / K3 (scale 3, unit
 # direction 3, early flag) and the scale's 3 cotangent planes into K2
 SKY_SLOT_BYTES, SKY_G_BYTES = 7 * 4, 3 * 4
+# phase 35, the render command's output path: the checkpointed Cornell
+# frame (OUT_SPP samples in flushes of OUT_FLUSH, re-labelled as the
+# MAIN_SPP run and resumed) and block world (OUT_MESH of MESH_OUT_SPP, in
+# flushes of OUT_MESH_FLUSH); the denoisers on the card against the same
+# call on the CPU: the bilateral within DN_TOL + DN_TOL|x|, the KPCN (TF32
+# off) within KPCN_ATOL (the card's expf and convolution order differ
+# from the CPU's); tests/test_denoise_quality.py's bars on a QUALITY_SPP
+# Cornell pair at QUALITY_SIZE, 4 bounces: KPCN over the bilateral by
+# KPCN_MARGIN_DB, the bilateral over the noisy image by BILATERAL_GAIN_DB
+OUT_SPP, OUT_FLUSH = 16, 8
+OUT_MESH, MESH_OUT_SPP, OUT_MESH_FLUSH = 2, 4, 2
+DN_TOL, KPCN_ATOL = 1e-5, 1e-4
+QUALITY_SPP, QUALITY_SIZE = (4, 160), (48, 36)
+KPCN_MARGIN_DB, BILATERAL_GAIN_DB = 0.5, 1.0
 # H100 SXM HBM bytes/s (NVIDIA data sheet), for the bound_ms column.
 HBM_BYTES_PER_S = 3.35e12
 # FP32 (non-tensor) operations: the SM's issue limit, 4 schedulers x 32
@@ -3959,6 +3991,263 @@ def phase_k5_timing(dev, card, k2, ptxas):
                 frame=dict(s=el, rate=rate, launches=got, idle=idle))
 
 
+def _resume_check(what, scene, cam, cfg, first, flush):
+    """A checkpointed render of ``first`` of ``cfg.spp`` samples in flushes
+    of ``flush``, its sidecar rewritten as the ``cfg.spp`` run's (as
+    tests/test_checkpoint.py does), resumed to ``cfg.spp``: its sums
+    bit-equal to ``render_image``'s (spp a power of two, so means equal
+    bit for bit only where sums do), its launches (K1, K2, K3, K4, K5) and
+    sample starts one a sample in each run. Returns the walls (s) of both
+    runs and of the straight frame, the launches and the sums."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render_image
+    from raytpu_torch.io import checkpoint as ck
+
+    path = os.path.join(OUT_DIR, f"ckpt_{what.replace(' ', '_')}.npz")
+    for f in (path, path + ".json"):
+        if os.path.exists(f):
+            os.remove(f)
+    key = rng.prng_key(0)
+    walls, launches = [], []
+    for run_cfg in (cfg.replace(spp=first), cfg):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.render_image_checkpointed(scene, cam, run_cfg, key, path,
+                                     flush_every=flush)
+        walls.append(time.perf_counter() - t0)
+        launches.append(_launches())
+        _check_rng(f"checkpointed {what}", first if run_cfg.spp == first
+                   else cfg.spp - first, rows=0)
+        if run_cfg.spp == first:
+            rad, alb, nrm, done = ck.load_checkpoint(path, run_cfg, 0)
+            if done != first:
+                raise AssertionError(f"{what}: {done} samples checkpointed, "
+                                     f"want {first}")
+            ck.save_checkpoint(path, rad, alb, nrm, done, cfg, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straight = render_image(scene, cam, cfg, key)
+    walls.append(time.perf_counter() - t0)
+    rad, alb, nrm, done = ck.load_checkpoint(path, cfg, 0)
+    n_diff = sum(int((a != np.asarray(b)[::-1].reshape(-1, 3) * cfg.spp)
+                     .sum()) for a, b in ((rad, straight.image),
+                                          (alb, straight.albedo),
+                                          (nrm, straight.normal)))
+    if done != cfg.spp or n_diff:
+        raise AssertionError(f"checkpointed {what}: {n_diff} sums differ "
+                             f"from render_image's ({done} samples)")
+    if not (np.isfinite(rad).all() and rad.mean() > 0):
+        raise AssertionError(f"checkpointed {what}: non-finite or unlit")
+    return walls, launches, (rad, alb, nrm), straight
+
+
+def phase_outputs(dev, card):
+    """Phase 35, the render command's output path on the card: the
+    checkpointed Cornell frame (K1) and merged block world (K3), resumed
+    bit-equal to ``render_image``, with the time of a flush (one host copy
+    of the frame's sums, ``save_checkpoint``); both denoisers on the
+    Cornell frame on the card against the same call on the CPU, timed,
+    with the bilateral's kernel count; their quality on a rendered pair;
+    ``cli render`` with every output flag as a subprocess."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.denoise import denoise, learned
+    from raytpu_torch.denoise.quality import render_pair, score_denoisers
+    from raytpu_torch.io import checkpoint as ck
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.scenes import cornell_box
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    res = {}
+    scene, cam, cfg = cornell_box(dev)
+    n_pix = FRAME[0] * FRAME[1]
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=MAIN_SPP,
+                      max_bounces=6, use_megakernel=True, pixel_tile=n_pix)
+    walls, launches, sums, frame = _resume_check(
+        "cornell", scene, cam, cfg, OUT_SPP, OUT_FLUSH)
+    if launches != [(OUT_SPP, 0, 0, 0, 0), (cfg.spp - OUT_SPP, 0, 0, 0, 0)]:
+        raise AssertionError(f"checkpointed cornell: launches {launches}")
+    # one flush: the frame's sums from the card in one copy, then the npz
+    planes = torch.from_numpy(np.concatenate(sums, 1).T.copy()).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = planes.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    path = os.path.join(OUT_DIR, "ckpt_flush.npz")
+    t0 = time.perf_counter()
+    ck.save_checkpoint(path, host[0:3].T, host[3:6].T, host[6:9].T,
+                       cfg.spp, cfg, 0)
+    save_s = time.perf_counter() - t0
+    res["flush"] = dict(copy_s=copy_s, save_s=save_s,
+                        bytes=host.nbytes, npz_bytes=os.path.getsize(path))
+    res["cornell"] = dict(walls=walls, launches=launches)
+    print(f"outputs: checkpointed cornell {cfg.width}x{cfg.height} "
+          f"{cfg.max_bounces}b (K1): {OUT_SPP} spp in flushes of {OUT_FLUSH} "
+          f"{walls[0]:.4f} s, resumed to {cfg.spp} {walls[1]:.4f} s, "
+          f"render_image at {cfg.spp} spp {walls[2]:.4f} s; sums bit-equal; "
+          f"launches {launches} on {card}")
+    print(f"  one flush: host copy of the sums ({host.nbytes} B) "
+          f"{copy_s:.4f} s + save_checkpoint (npz {res['flush']['npz_bytes']}"
+          f" B) {save_s:.4f} s = {copy_s + save_s:.4f} s")
+
+    wscene, wcam, wcfg = load_scene_file(_block_world(MESH_WORLD), dev)
+    if tsc.quad_plan(wcfg, wscene.triangles.count) is None:
+        raise AssertionError("checkpointed block world: no quad plan")
+    wcfg = wcfg.replace(width=FRAME[0], height=FRAME[1], spp=MESH_OUT_SPP,
+                        max_bounces=6, use_megakernel=True, pixel_tile=n_pix)
+    wwalls, wlaunches, _, _ = _resume_check(
+        "block world", wscene, wcam, wcfg, OUT_MESH, OUT_MESH_FLUSH)
+    if wlaunches != [(0, 0, OUT_MESH, 0, 0),
+                     (0, 0, wcfg.spp - OUT_MESH, 0, 0)]:
+        raise AssertionError(f"checkpointed block world: launches {wlaunches}")
+    res["block_world"] = dict(walls=wwalls, launches=wlaunches)
+    print(f"outputs: checkpointed merged block world {MESH_WORLD} (K3): "
+          f"{OUT_MESH} spp in flushes of {OUT_MESH_FLUSH} {wwalls[0]:.4f} s, "
+          f"resumed to {wcfg.spp} {wwalls[1]:.4f} s, render_image "
+          f"{wwalls[2]:.4f} s; sums bit-equal; launches {wlaunches}")
+
+    # the denoisers on the Cornell frame: the card against the CPU. The
+    # KPCN runs on weights loaded once a device (the load timed apart);
+    # "kpcn_load" is the default call, which loads the shipped weights
+    # each time
+    host_in = [torch.from_numpy(np.ascontiguousarray(a))
+               for a in (frame.image, frame.albedo, frame.normal)]
+    dev_in = [a.to(dev) for a in host_in]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kpcn = learned.load_params(device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    kpcn_host = learned.load_params(device="cpu")
+    calls = {"bilateral": (denoise, denoise),
+             "kpcn": (lambda *a: learned.denoise_learned(*a, params=kpcn),
+                      lambda *a: learned.denoise_learned(*a,
+                                                         params=kpcn_host)),
+             "kpcn_load": (learned.denoise_learned, learned.denoise_learned)}
+    with torch.no_grad():
+        for name, (fn, host_fn) in calls.items():
+            got = fn(*dev_in)
+            if not (got.is_cuda and got.shape == dev_in[0].shape):
+                raise AssertionError(f"{name}: output on {got.device}")
+            want = host_fn(*host_in)    # the KPCN's stays for TF32's reading
+            diff = (got.cpu() - want).abs()
+            over = diff - (DN_TOL + DN_TOL * want.abs() if name == "bilateral"
+                           else KPCN_ATOL)
+            res[name] = dict(max_abs_err=diff.max().item(),
+                             wall_ms=_device_ms(lambda: fn(*dev_in), 5),
+                             events_ms=_time_ms(lambda: fn(*dev_in), 5))
+            if not (got.isfinite().all() and over.max().item() <= 0.0):
+                raise AssertionError(f"{name} on the card vs the CPU: max "
+                                     f"|diff| {res[name]['max_abs_err']}")
+        # the TF32 trap, measured: the KPCN with cuDNN's default TF32
+        keep = learned.fp32_convs
+        learned.fp32_convs = lambda _: torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=True)
+        try:
+            tf32 = learned.denoise_learned(*dev_in, params=kpcn)
+        finally:
+            learned.fp32_convs = keep
+        res["kpcn"]["tf32_max_abs_err"] = (tf32.cpu() - want).abs().max().item()
+        res["kpcn"]["load_ms"] = load_ms
+        for name, (fn, _) in calls.items():
+            wall, busy, n_k, _ = _profile(lambda: fn(*dev_in))
+            res[name].update(kernels=n_k, profiled_busy_ms=busy,
+                             profiled_wall_ms=wall)
+    for name in calls:
+        r = res[name]
+        print(f"outputs: {name} denoise {FRAME[0]}x{FRAME[1]} on {card}: "
+              f"wall {r['wall_ms']:.4f} ms a call (CUDA events behind a spin "
+              f"kernel, which the launches outrun), {r['events_ms']:.4f} ms "
+              f"(events alone), {r['kernels']} kernels a call (profiler: "
+              f"device busy {r['profiled_busy_ms']:.3f} ms of "
+              f"{r['profiled_wall_ms']:.3f} ms wall); card vs CPU max |diff| "
+              f"{r['max_abs_err']:.3e}"
+              + (f" (TF32 on: {r['tf32_max_abs_err']:.3e}); weights loaded "
+                 f"once, the load {r['load_ms']:.4f} ms"
+                 if name == "kpcn" else "")
+              + ("; the shipped weights loaded in every call"
+                 if name == "kpcn_load" else ""))
+
+    qcfg = cfg.replace(width=QUALITY_SIZE[0], height=QUALITY_SIZE[1],
+                       max_bounces=4, pixel_tile=QUALITY_SIZE[0] *
+                       QUALITY_SIZE[1])
+    lo, hi = render_pair(scene, cam, qcfg, rng.prng_key(3), *QUALITY_SPP)
+    scores = score_denoisers(lo, hi, {"bilateral": denoise,
+                                      "learned": calls["kpcn"][0]},
+                             device=dev)
+    res["quality"] = scores
+    print(f"outputs: quality on a {QUALITY_SPP} spp Cornell pair at "
+          f"{QUALITY_SIZE[0]}x{QUALITY_SIZE[1]}, 4 bounces (PSNR dB, SSIM): "
+          + "; ".join(f"{k} {v['psnr']:.4f} {v['ssim']:.5f}"
+                      for k, v in scores.items()))
+    if not (scores["learned"]["psnr"] >= scores["bilateral"]["psnr"]
+            + KPCN_MARGIN_DB and scores["bilateral"]["psnr"]
+            >= scores["noisy"]["psnr"] + BILATERAL_GAIN_DB):
+        raise AssertionError(f"denoiser quality bars missed: {scores}")
+
+    res["cli"] = _cli_outputs()
+    return res
+
+
+def _cli_outputs():
+    """``python -m raytpu_torch.cli render cornell`` at 320x240, 8 spp with
+    every output flag: it must exit 0 and write the image, both AOVs, an
+    8-sample checkpoint, the preview and a trace, with every progress line
+    on stderr a JSON object. Returns its wall seconds."""
+    import shutil
+
+    import numpy as np
+
+    from raytpu_torch.io.ppm import read_ppm
+
+    d = os.path.join(OUT_DIR, "cli")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    p = lambda name: os.path.join(d, name)
+    cmd = [sys.executable, "-m", "raytpu_torch.cli", "render", "cornell",
+           "--width", "320", "--height", "240", "--spp", "8",
+           "--denoise", "learned", "--aov", "--checkpoint", p("ck.npz"),
+           "--flush-every", "4", "--log-json", "--preview", p("prev.ppm"),
+           "--profile-dir", p("prof"), "--out", p("cornell.ppm")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli render: exit {res.returncode}\n"
+                             f"{res.stderr[-4000:]}")
+    for name in ("cornell.ppm", "cornell_albedo.ppm", "cornell_normal.ppm",
+                 "prev.ppm"):
+        img = read_ppm(p(name))
+        if img.shape != (240, 320, 3):
+            raise AssertionError(f"cli render: {name} is {img.shape}")
+    if int(np.load(p("ck.npz"))["samples_done"]) != 8:
+        raise AssertionError("cli render: the checkpoint is not at 8 samples")
+    traces = os.listdir(p("prof"))
+    if len(traces) != 1 or not json.load(open(os.path.join(
+            p("prof"), traces[0])))["traceEvents"]:
+        raise AssertionError(f"cli render: trace files {traces}")
+    lines = res.stderr.splitlines()
+    progress = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if ([r["samples"] for r in progress] != [4, 8]
+            or any(ln.startswith("[render]") for ln in lines)):
+        raise AssertionError(f"cli render: progress lines {lines}")
+    print(f"outputs: cli render cornell 320x240 8 spp --denoise learned --aov "
+          f"--checkpoint --flush-every 4 --log-json --preview --profile-dir: "
+          f"exit 0 in {wall:.2f} s (process start and the kernels' load "
+          f"included); image, AOVs, 8-sample checkpoint, preview and trace "
+          f"({os.path.getsize(os.path.join(p('prof'), traces[0]))} B) "
+          f"written; {len(progress)} JSON progress lines")
+    return wall
+
+
 def main() -> int:
     import torch
 
@@ -4024,6 +4313,7 @@ def main() -> int:
     k5_k = phase_k5(dev)
     k5 = phase_k5_timing(dev, card, k2, ptxas)
     cam_g = phase_camera_grad(dev, card)
+    phase_outputs(dev, card)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], timing["counts"],
                          k2["n_spheres"], record=False)

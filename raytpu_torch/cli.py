@@ -1,17 +1,30 @@
 """Command line: ``python -m raytpu_torch.cli render|train <scene> [options]``.
 
-    render cornell|cornell_cuda|cornell_dof_ao|<scene.toml> [--spp N
-           --width W --height H --bounces B --seed S --out x.ppm
-           --device cuda|cpu --no-megakernel --pallas --bilinear]
+    render cornell|cornell_cuda|cornell_dof_ao|<scene.toml> [--scene S
+           --spp N --width W --height H --bounces B --seed S --out x.ppm
+           --device cuda|cpu --no-megakernel --pallas --bilinear
+           --denoise [bilateral|learned] --aov --checkpoint c.npz
+           --flush-every K --preview p.ppm --log-json --profile-dir D]
     train  cornell|cornell_cuda|cornell_dof_ao|<scene.toml> --target t.ppm
            [--steps N --lr LR --out x.ppm --log-every K --spp --width
            --height --bounces --seed --device cuda|cpu --no-megakernel
            --pallas --bilinear]
 
 ``render`` renders a built-in sphere scene or a TOML scene spec (spheres
-and a textured OBJ mesh, ``config.load_scene_file``) and writes a PPM;
-elapsed seconds and rays/s go to stderr. ``train`` fits every float
-parameter of the scene (spheres; a mesh's vertices, UVs, texels and
+and a textured OBJ mesh, ``config.load_scene_file``; ``--scene`` names it
+too) and writes a PPM, by default
+``<scene>_<spp>RAYS_<bounces-1>RB_<dd>-<mm>_<HH>h<MM>.ppm``; elapsed
+seconds and rays/s go to stderr. Its output path, as ``raytpu``'s:
+``--checkpoint`` flushes the sums to a file every ``--flush-every``
+samples and resumes from it, bit-identical to an uninterrupted render
+(``io/checkpoint``), with a progress line a flush (``--log-json``: one
+JSON object a line) and a ``--preview`` PPM of the running mean
+(``observe.RenderMonitor``); ``--denoise`` filters the image on the
+render's device with the joint bilateral (the flag alone) or the learned
+KPCN (``denoise``); ``--aov`` also writes ``<out>_albedo.ppm`` and
+``<out>_normal.ppm``; ``--profile-dir`` writes a ``torch.profiler``
+trace of the render there. ``train`` fits every float parameter of the
+scene (spheres; a mesh's vertices, UVs, texels and
 material table) to a target image (ASCII PPM of the configured size) with
 Adam on the L2 loss in linear radiance, logs the loss, and writes the
 final render. ``--device`` defaults to ``cuda`` and fails when CUDA is
@@ -29,6 +42,7 @@ differentiable mode).
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import sys
 import time
@@ -110,26 +124,94 @@ def _ppm_out(path: str) -> str:
 
 def cmd_render(argv) -> int:
     ap = _parser("raytpu_torch render")
+    ap.add_argument("--scene", dest="scene_flag", default=None,
+                    help="the scene, in place of the positional argument")
     ap.add_argument("--out", default=None,
-                    help="output .ppm; default <scene>_<spp>RAYS_<bounces-1>RB.ppm")
+                    help="output .ppm; default <scene>_<spp>RAYS_"
+                         "<bounces-1>RB_<dd>-<mm>_<HH>h<MM>.ppm")
+    ap.add_argument("--denoise", nargs="?", const="bilateral", default=None,
+                    choices=["bilateral", "learned"],
+                    help="denoise on the render's device: the joint "
+                         "bilateral (the flag alone) or the learned KPCN")
+    ap.add_argument("--aov", action="store_true",
+                    help="also write <out>_albedo.ppm and <out>_normal.ppm")
+    ap.add_argument("--checkpoint", default=None,
+                    help="flush the sums to this file and resume from it "
+                         "(bit-identical) if it exists")
+    ap.add_argument("--flush-every", type=int, default=64,
+                    help="samples between checkpoint flushes")
+    ap.add_argument("--preview", default=None,
+                    help="with --checkpoint, write a preview .ppm here at "
+                         "every flush")
+    ap.add_argument("--log-json", action="store_true",
+                    help="progress lines as JSON objects")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the render here")
     args = ap.parse_args(argv)
+    args.scene = args.scene_flag or args.scene
 
+    import numpy as np
     import torch
 
     from raytpu_torch.core.rng import prng_key
-    from raytpu_torch.integrator.render import render_image
     from raytpu_torch.io.ppm import write_ppm
+    from raytpu_torch.observe import RenderMonitor, trace_profile
 
     dev, scene, cam, cfg = _setup(args)
-    name = os.path.splitext(os.path.basename(args.scene))[0]
-    out_path = _ppm_out(args.out or (
-        f"{name}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB.ppm"
-    ))
+    if args.out is None:
+        name = os.path.splitext(os.path.basename(args.scene))[0]
+        args.out = (f"{name}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB_"
+                    f"{datetime.datetime.now():%d-%m_%Hh%M}.ppm")
+    out_path = _ppm_out(args.out)
+    if args.preview:
+        _ppm_out(args.preview)
+    key = prng_key(args.seed)
 
     t0 = time.perf_counter()
-    out = render_image(scene, cam, cfg, prng_key(args.seed))  # ends in a copy to host
+    with trace_profile(args.profile_dir, dev):
+        if args.checkpoint:
+            from raytpu_torch.io.checkpoint import render_image_checkpointed
+
+            mon = RenderMonitor(cfg, preview_path=args.preview,
+                                preview_every=args.flush_every,
+                                structured=args.log_json)
+
+            def log(msg):
+                if not args.log_json:   # the monitor prints the JSON lines
+                    print(f"[render] {msg}", file=sys.stderr, flush=True)
+
+            out = render_image_checkpointed(
+                scene, cam, cfg, key, args.checkpoint,
+                flush_every=args.flush_every, log=log, progress=mon.update)
+        else:
+            from raytpu_torch.integrator.render import render_image
+
+            out = render_image(scene, cam, cfg, key)  # ends in a copy to host
     elapsed = time.perf_counter() - t0
-    write_ppm(out_path, out.canvas)
+
+    canvas = out.canvas
+    if args.denoise:
+        from raytpu_torch.core.color import quantize, tonemap
+        from raytpu_torch.core.vec3 import Vec3
+
+        if args.denoise == "learned":
+            from raytpu_torch.denoise.learned import denoise_learned as denoise
+        else:
+            from raytpu_torch.denoise import denoise
+
+        # the images are top-down views with negative strides
+        on_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        with torch.no_grad():
+            image = denoise(on_dev(out.image), on_dev(out.albedo),
+                            on_dev(out.normal))
+            canvas = quantize(tonemap(Vec3.from_array(image))).to_array()
+        canvas = canvas.cpu().numpy().astype(np.int32)
+    write_ppm(out_path, canvas)
+    if args.aov:
+        base = out_path.removesuffix(".ppm")
+        for name, aov in (("albedo", out.albedo), ("normal", out.normal)):
+            write_ppm(f"{base}_{name}.ppm",
+                      np.clip(np.abs(aov) * 255.0, 0, 255).astype(np.int32))
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"rendered {cfg.width}x{cfg.height} spp={cfg.spp} "
