@@ -194,12 +194,35 @@ Phases, each of which raises on failure (exit code non-zero):
      a QUALITY_SPP Cornell pair against tests/test_denoise_quality.py's
      bars; ``python -m raytpu_torch.cli render cornell`` with every output
      flag as a subprocess: every file written, every stderr progress line
-     a JSON object.
+     a JSON object;
+  36. the mesh importers: the MESH_WORLD world's mesh as binary PLY with
+     UVs, GLB and binary STL, each with an OBJ twin of the arrays it
+     parses to (``scenes.write_mesh_twins``), loaded through TOMLs and
+     rendered at 1200x900, FMT_SPP spp through merged K3 (a launch a
+     sample), each frame bit-equal to its twin's; the native loaders
+     (``raytpu_torch/native``, g++) must have built; parse times of each
+     format and of the SCAN_WORLD OBJ, native against Python;
+  37. ``sharding.render_image_sharded`` of the 1200x900 Cornell frame
+     (SHARD_SPP spp, K1) on the grids SHARD_GRIDS of ``cuda:0`` against
+     ``render_image``: radiance within SHARD_REL, canvases within 1 on
+     every pixel and equal on CANVAS_EQUAL of them, one K1 launch a sample
+     in every cell, each grid's wall;
+  38. ``cli render cornell --sharded`` as two processes sharing ``cuda:0``
+     (gloo on a free localhost port, ``RAYTPU_*`` variables): rank 0's PPM
+     against phase 37's frame by the same rule, SHARD_SPP / 2 K1 launches
+     a rank, each process's wall with its start apart, its all-reduce;
+     a gloo all-reduce of one frame's 38.9 MB of sums between two CPU
+     processes, timed;
+  39. ROADMAP P-F14: one Adam step at DEEP_BOUNCES bounces, 1200x900,
+     DEEP_SPP spp, on Cornell and the MESH_WORLD world with
+     ``use_megakernel`` on: routed to the scan path (said once on
+     stderr), K4 on the world, no K1-K3; loss, gradients and stepped
+     leaves finite and bit-equal to the same step with it off.
 Phases 9-28 load their mesh worlds with ``merge_quads`` off (the
 per-triangle search), so they compare K3 bit for bit with the scan path
 and with the per-triangle times in PERF.md; phases 29-31 take the default.
 Each path's launch counts (K1-K5, the RNG kernel, the index sort and the
-segment sum) are set to 0 just
+segment sum; per cell and per process in phases 37 and 38) are set to 0 just
 before it and read just after; every render starts each sample with the
 sample-start kernel (the scan path reads its bounce rows, K1, K2, K3 and
 K5 hash theirs from its keys, so the megakernel routes' launches write
@@ -335,6 +358,20 @@ OUT_MESH, MESH_OUT_SPP, OUT_MESH_FLUSH = 2, 4, 2
 DN_TOL, KPCN_ATOL = 1e-5, 1e-4
 QUALITY_SPP, QUALITY_SIZE = (4, 160), (48, 36)
 KPCN_MARGIN_DB, BILATERAL_GAIN_DB = 0.5, 1.0
+# phases 36-39: the mesh formats (FMT_SPP through merged K3), the sharded
+# Cornell frame (SHARD_SPP, the grids SHARD_GRIDS of cuda:0: radiance
+# within SHARD_REL of render_image's, canvases within 1 everywhere and
+# equal on CANVAS_EQUAL of pixels), the two-process run, and ROADMAP
+# P-F14's gradients at DEEP_BOUNCES (DEEP_SPP, in tiles of DEEP_TILE
+# pixels: the scan path's backward keeps a sample's 50 bounces, ~37 KB a
+# ray on Cornell and ~50 KB on the block world on the card, whose tiles
+# of 270,000 pixels peaked at 9.92 and 13.37 GB); each sharded frame and
+# its straight twin timed SHARD_RUNS times (host-bound frames spread)
+FMT_SPP = 4
+SHARD_SPP, SHARD_GRIDS = 16, ((1, 1), (1, 2), (2, 1), (2, 2))
+SHARD_REL, CANVAS_EQUAL = 1e-5, 0.999
+SHARD_RUNS = 3
+DEEP_BOUNCES, DEEP_SPP, DEEP_TILE = 50, 2, 270000
 # H100 SXM HBM bytes/s (NVIDIA data sheet), for the bound_ms column.
 HBM_BYTES_PER_S = 3.35e12
 # FP32 (non-tensor) operations: the SM's issue limit, 4 schedulers x 32
@@ -2810,17 +2847,9 @@ def phase_segment_sum(dev, strain):
 
 def _on(obj, dev):
     """A scene or camera with every tensor moved to ``dev``."""
-    import dataclasses
+    from raytpu_torch.sharding.mesh import to_device
 
-    import torch
-
-    if isinstance(obj, torch.Tensor):
-        return obj.to(dev)
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: _on(getattr(obj, f.name), dev)
-            for f in dataclasses.fields(obj) if f.init})
-    return obj
+    return to_device(obj, dev)
 
 
 _SKY_FILES = {}
@@ -4248,6 +4277,425 @@ def _cli_outputs():
     return wall
 
 
+def phase_formats(dev, card):
+    """Phase 36: the mesh importers. The MESH_WORLD block world's mesh
+    written as binary PLY with UVs, GLB and binary STL, each with an OBJ
+    twin of the arrays it parses to (``scenes.write_mesh_twins``); each
+    scene loaded through its TOML on the card and rendered at 1200x900,
+    FMT_SPP spp, 6 bounces through merged K3 (one launch a sample, no
+    other kernel of K1-K5), its frame bit-equal to its twin's. The native
+    loaders must have built here; the parse times of each format and of
+    the SCAN_WORLD world's OBJ, native against Python (arrays equal)."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch import native
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render_image
+    from raytpu_torch.io.mesh_formats import parse_mesh
+    from raytpu_torch.io.obj import parse_obj
+    from raytpu_torch.kernels import trace_scene as tsc
+    from raytpu_torch.scenes import write_mesh_twins
+
+    if native.load() is None:
+        raise AssertionError("formats: the native loaders did not build")
+    big = os.path.join(os.path.dirname(_block_world(SCAN_WORLD)),
+                       "block_world.obj")
+    parse = {}
+    for what, use in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        mesh = parse_obj(big, use_native=use)
+        parse[what] = (time.perf_counter() - t0, mesh)
+    a, b = parse["native"][1], parse["python"][1]
+    if not (a.mat_names == b.mat_names and all(
+            np.array_equal(getattr(a, f), getattr(b, f))
+            for f in a._fields if f != "mat_names")):
+        raise AssertionError("formats: native and Python OBJ parses differ")
+    res = {"obj_native_s": parse["native"][0],
+           "obj_python_s": parse["python"][0], "formats": {}}
+    print(f"formats: the native loaders built ({native._SO}); OBJ of the "
+          f"{SCAN_WORLD}-triangle world parsed natively in "
+          f"{res['obj_native_s'] * 1e3:.3f} ms, by the Python parser in "
+          f"{res['obj_python_s'] * 1e3:.3f} ms; arrays equal")
+
+    toml = _block_world(MESH_WORLD)
+    twins = write_mesh_twins(toml)
+    base = os.path.dirname(toml)
+    n_pix = FRAME[0] * FRAME[1]
+    for fmt, specs in twins.items():
+        t0 = time.perf_counter()
+        mesh = parse_mesh(os.path.join(base, f"block_world_{fmt}.{fmt}"))
+        parse_s = time.perf_counter() - t0
+        frames, launches = [], []
+        for spec in specs:
+            scene, cam, cfg = load_scene_file(spec, dev)
+            cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=FMT_SPP,
+                              max_bounces=6, use_megakernel=True,
+                              pixel_tile=n_pix)
+            if tsc.quad_plan(cfg, scene.triangles.count) is None:
+                raise AssertionError(f"formats {spec}: no quad plan")
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames.append(render_image(scene, cam, cfg, rng.prng_key(0)))
+            wall = time.perf_counter() - t0
+            launches.append(_launches())
+        if launches != [(0, 0, FMT_SPP, 0, 0)] * 2:
+            raise AssertionError(f"formats {fmt}: launches {launches}")
+        got, want = frames
+        if not (all(np.array_equal(getattr(got, f), getattr(want, f))
+                    for f in got._fields)
+                and np.isfinite(got.image).all() and got.image.mean() > 0):
+            raise AssertionError(f"formats {fmt}: the frame differs from "
+                                 "its OBJ twin's, or is unlit")
+        res["formats"][fmt] = dict(parse_s=parse_s, wall_s=wall,
+                                   triangles=len(mesh.face_v),
+                                   materials=len(mesh.mat_names))
+        print(f"formats: {fmt} ({len(mesh.face_v)} triangles, "
+              f"{len(mesh.mat_names)} materials) parsed in "
+              f"{parse_s * 1e3:.3f} ms; {FRAME[0]}x{FRAME[1]} {FMT_SPP} spp "
+              f"6b through merged K3 ({launches[0][2]} launches) "
+              f"{wall:.4f} s on {card}, bit-equal to its OBJ twin's frame")
+    return res
+
+
+def _canvas_rule(what, got, want):
+    """Canvases of one frame: within 1 on every pixel and equal on at
+    least CANVAS_EQUAL of them. Returns (max diff, equal share)."""
+    import numpy as np
+
+    diff = np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64))
+    same = (diff == 0).all(-1).mean()
+    if diff.max() > 1 or same < CANVAS_EQUAL:
+        raise AssertionError(f"{what}: canvas max diff {diff.max()}, equal "
+                             f"on {same:.6f} of pixels")
+    return int(diff.max()), float(same)
+
+
+def phase_sharded(dev, card):
+    """Phase 37: the Cornell frame (1200x900, SHARD_SPP spp, 6 bounces,
+    K1) through ``sharding.render_image_sharded`` on the grids
+    SHARD_GRIDS of ``cuda:0`` against ``render_image``: radiance within
+    SHARD_REL (relative), the canvas rule, and in every cell one K1 launch
+    a sample of its share (``render`` wrapped to count each cell's
+    launches). Returns the straight frame and each grid's wall."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator.render import render_image
+    from raytpu_torch.kernels import trace_spheres as ts
+    from raytpu_torch.scenes import cornell_box
+    from raytpu_torch.sharding import make_mesh, mesh as smesh
+    from raytpu_torch.sharding import render_image_sharded
+
+    scene, cam, cfg = cornell_box(dev)
+    n_pix = FRAME[0] * FRAME[1]
+    cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=SHARD_SPP,
+                      max_bounces=6, use_megakernel=True, pixel_tile=n_pix)
+    key = rng.prng_key(0)
+    render_image(scene, cam, cfg.replace(spp=1), key)      # warm up
+    walls = []
+    for _ in range(SHARD_RUNS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        straight = render_image(scene, cam, cfg, key)
+        walls.append(time.perf_counter() - t0)
+        if _launches() != (cfg.spp, 0, 0, 0, 0):
+            raise AssertionError(f"sharded: straight launches {_launches()}")
+    res = {"straight_s": walls, "grids": {}}
+    cells = []
+    plain_render = smesh.render
+
+    def counted(scene, cam, cfg, ids, key, **kw):
+        before = ts.launches
+        out = plain_render(scene, cam, cfg, ids, key, **kw)
+        cells.append((scene.device, kw["sample_offset"], len(ids),
+                      ts.launches - before))
+        return out
+
+    smesh.render = counted
+    try:
+        for grid in SHARD_GRIDS:
+            mesh = make_mesh(*grid, devices=[dev] * (grid[0] * grid[1]))
+            walls = []
+            for _ in range(SHARD_RUNS):
+                cells.clear()
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = render_image_sharded(scene, cam, cfg, key, mesh)
+                walls.append(time.perf_counter() - t0)
+            spp_local = cfg.spp // grid[1]
+            if (len(cells) != grid[0] * grid[1]
+                    or any(c[3] != spp_local for c in cells)
+                    or _launches() != (cfg.spp * grid[0], 0, 0, 0, 0)):
+                raise AssertionError(f"sharded {grid}: cells {cells}, "
+                                     f"launches {_launches()}")
+            x, y = straight.image, out.image
+            rel = float((np.abs(x - y) / np.maximum(np.abs(x), 1e-30)).max())
+            if not (np.isfinite(y).all() and (np.abs(x - y)
+                                              <= SHARD_REL * np.abs(x)).all()):
+                raise AssertionError(f"sharded {grid}: radiance off by {rel} "
+                                     "relative")
+            canvas = _canvas_rule(f"sharded {grid}", out.canvas,
+                                  straight.canvas)
+            res["grids"][grid] = dict(wall_s=walls, max_rel=rel,
+                                      canvas=canvas,
+                                      cell_launches=[c[3] for c in cells])
+            fmt = lambda w: ", ".join(f"{t:.4f}" for t in w)
+            print(f"sharded: grid {grid} of {dev} {FRAME[0]}x{FRAME[1]} "
+                  f"{cfg.spp} spp 6b: {fmt(walls)} s (render_image "
+                  f"{fmt(res['straight_s'])} s) on {card}; K1 launches a "
+                  f"cell {[c[3] for c in cells]}; radiance max rel. diff "
+                  f"{rel:.3e}; canvas max diff {canvas[0]}, equal on "
+                  f"{canvas[1]:.6f}")
+    finally:
+        smesh.render = plain_render
+    res["straight"] = straight
+    return res
+
+
+# one rank of phase 38: the CLI's main with the all-reduces timed and the
+# rank's K1 launches and wall printed as the last line of its stdout
+_RANK = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch.distributed as dist
+from raytpu_torch import cli
+from raytpu_torch.kernels import trace_spheres as ts
+reduces, plain = [], dist.all_reduce
+def timed(t, *a, **k):
+    t1 = time.perf_counter()
+    out = plain(t, *a, **k)
+    reduces.append((time.perf_counter() - t1, t.numel() * t.element_size()))
+    return out
+dist.all_reduce = timed
+t1 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"k1": ts.launches, "reduces": reduces,
+                  "imports_s": t1 - t0, "main_s": time.perf_counter() - t1}))
+raise SystemExit(rc)
+"""
+
+# a gloo all-reduce of one 1200x900 frame's sums between two CPU processes
+_GLOO = """
+import json, os, sys, time, torch, torch.distributed as dist
+dist.init_process_group("gloo", init_method="tcp://" + sys.argv[1],
+                        world_size=2, rank=int(sys.argv[2]))
+x = torch.zeros((9, int(sys.argv[3])), dtype=torch.float32)
+times = []
+for _ in range(6):
+    dist.barrier()
+    t0 = time.perf_counter()
+    dist.all_reduce(x)
+    times.append(time.perf_counter() - t0)
+dist.destroy_process_group()
+print(json.dumps(times[1:]))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _pair(argv_of, env_of, timeout):
+    """Two processes (rank 0, 1), started together; (returncodes, stdout,
+    stderr, walls). Both are killed if either outlives ``timeout``."""
+    procs, t0 = [], time.perf_counter()
+    for r in range(2):
+        procs.append(subprocess.Popen(argv_of(r), cwd=ROOT, env=env_of(r),
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs, walls = [], []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ([p.returncode for p in procs], [o[0] for o in outs],
+            [o[1] for o in outs], walls)
+
+
+def phase_two_process(card, straight):
+    """Phase 38: ``python -m raytpu_torch.cli render cornell --sharded``
+    (the CLI's main, through a wrapper that reads its counts) as two
+    processes sharing ``cuda:0``, ranks of a gloo group on a free
+    localhost port: rank 0's PPM against phase 37's straight frame by the
+    canvas rule, SHARD_SPP / 2 K1 launches a rank; the walls of each
+    process, with the CLI's render apart; then a gloo all-reduce of one
+    frame's sums (1,080,000 x 9 f32 = 38.9 MB) between two CPU processes,
+    after a barrier, 5 times."""
+    import numpy as np
+
+    from raytpu_torch.io.ppm import read_ppm
+
+    out = os.path.join(OUT_DIR, "chip_smoke_cornell_two_process.ppm")
+    if os.path.exists(out):
+        os.remove(out)
+    port = _free_port()
+    argv = [sys.executable, "-c", _RANK, "render", "cornell", "--sharded",
+            "--width", str(FRAME[0]), "--height", str(FRAME[1]), "--spp",
+            str(SHARD_SPP), "--bounces", "6", "--out", out]
+    env = lambda r: dict(os.environ, PYTHONPATH=ROOT,
+                         RAYTPU_COORDINATOR=f"127.0.0.1:{port}",
+                         RAYTPU_NUM_PROCESSES="2", RAYTPU_PROCESS_ID=str(r))
+    rcs, stdout, stderr, walls = _pair(lambda r: argv, env, 600)
+    if rcs != [0, 0]:
+        raise AssertionError(f"two processes: exit codes {rcs}\n"
+                             + "\n----\n".join(e[-3000:] for e in stderr))
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in stdout]
+    # rank 0's render, from the CLI's line (rank 1 prints none)
+    line = [ln for ln in stderr[0].splitlines() if ln.startswith("rendered")]
+    render_s = float(line[0].split(" in ")[1].split("s ")[0])
+    if [r["k1"] for r in ranks] != [SHARD_SPP // 2] * 2:
+        raise AssertionError(f"two processes: K1 launches "
+                             f"{[r['k1'] for r in ranks]}, want "
+                             f"{SHARD_SPP // 2} a rank")
+    canvas = np.rint(read_ppm(out, bottom_up=False) * 255).astype(np.int64)
+    rule = _canvas_rule("two processes", canvas, straight.canvas)
+    n_pix = FRAME[0] * FRAME[1]
+    gport = _free_port()
+    grcs, gout, gerr, _ = _pair(
+        lambda r: [sys.executable, "-c", _GLOO, f"127.0.0.1:{gport}", str(r),
+                   str(n_pix)],
+        lambda r: dict(os.environ, CUDA_VISIBLE_DEVICES=""), 300)
+    if grcs != [0, 0]:
+        raise AssertionError(f"gloo all-reduce: exit codes {grcs}\n"
+                             + "\n----\n".join(e[-2000:] for e in gerr))
+    gloo = [json.loads(o.strip().splitlines()[-1]) for o in gout]
+    res = dict(walls=walls, imports_s=[r["imports_s"] for r in ranks],
+               main_s=[r["main_s"] for r in ranks], render_s=render_s,
+               canvas=rule, k1=[r["k1"] for r in ranks],
+               in_render_reduces=[r["reduces"] for r in ranks],
+               gloo_s=gloo, gloo_bytes=9 * 4 * n_pix)
+    print(f"two processes: cli render cornell --sharded {FRAME[0]}x{FRAME[1]}"
+          f" {SHARD_SPP} spp 6b, ranks 0 and 1 on cuda:0 ({card}): process "
+          f"walls {walls[0]:.3f} / {walls[1]:.3f} s, of which the start "
+          f"(interpreter and imports) {res['imports_s'][0]:.3f} / "
+          f"{res['imports_s'][1]:.3f} s and the CLI's main "
+          f"{res['main_s'][0]:.3f} / {res['main_s'][1]:.3f} s (group join, "
+          f"scene, kernels' load, render, all-reduce, rank 0's write); rank "
+          f"0's render {render_s:.3f} s; K1 launches {res['k1']}; in-render "
+          f"all-reduce (s, B) {res['in_render_reduces']}; canvas max diff "
+          f"{rule[0]}, equal on {rule[1]:.6f}")
+    print(f"  gloo all-reduce of {res['gloo_bytes']} B between two CPU "
+          f"processes, after a barrier (s): rank 0 "
+          f"{[round(t, 4) for t in gloo[0]]}, rank 1 "
+          f"{[round(t, 4) for t in gloo[1]]}")
+    return res
+
+
+def phase_deep_grad(dev, card):
+    """Phase 39, ROADMAP P-F14: one Adam step (``make_train_step``'s, the
+    frame's loss and gradient summed over tiles of DEEP_TILE pixels) at
+    DEEP_BOUNCES bounces, 1200x900, DEEP_SPP spp on Cornell and the
+    MESH_WORLD world (merged load), with ``use_megakernel`` on: the render
+    goes through the scan path (the log says so once), launches no K1-K3
+    and, on the world (>= 128 triangles), K4 twice a bounce of a sample;
+    its loss, gradients and stepped parameters finite and bit-equal to the
+    same step with ``use_megakernel`` off (``--no-megakernel``)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.core import rng
+    from raytpu_torch.integrator import hit
+    from raytpu_torch.integrator.render import render
+    from raytpu_torch.scenes import cornell_box
+    from raytpu_torch.train import (combine_scene, make_train_step,
+                                    photometric_loss)
+
+    res = {}
+    for name, (scene, cam, cfg) in (
+            ("cornell", cornell_box(dev)),
+            ("block world", load_scene_file(_block_world(MESH_WORLD), dev))):
+        cfg = cfg.replace(width=FRAME[0], height=FRAME[1], spp=DEEP_SPP,
+                          max_bounces=DEEP_BOUNCES)
+        n_pix = cfg.n_pixels
+        target = torch.zeros((n_pix, 3), device=dev)
+        runs = {}
+        for mk in (True, False):
+            run_cfg = cfg.replace(use_megakernel=mk)
+            init_fn, _ = make_train_step(run_cfg, 1e-2)
+            state, static = init_fn(scene, cam)
+            hit._logged.clear()
+            log = io.StringIO()
+            _reset_launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = torch.zeros((), device=dev)
+            with contextlib.redirect_stderr(log):
+                for lo in range(0, n_pix, DEEP_TILE):
+                    ids = torch.arange(lo, min(lo + DEEP_TILE, n_pix),
+                                       device=dev)
+                    sums = render(combine_scene(state.params, static), cam,
+                                  run_cfg, ids, rng.prng_key(0))
+                    part = photometric_loss(sums.radiance * (1.0 / cfg.spp),
+                                            target[ids]) * (len(ids) / n_pix)
+                    part.backward()
+                    loss = loss + part.detach()
+            grads = {k: (torch.zeros_like(p) if p.grad is None
+                         else p.grad.clone()) for k, p in state.params.items()}
+            for p in state.params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            state.optimizer.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[mk] = dict(loss=loss, grads=grads, wall=wall,
+                            params={k: p.detach().clone()
+                                    for k, p in state.params.items()},
+                            launches=_launches(), log=log.getvalue(),
+                            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        on, off = runs[True], runs[False]
+        n_tiles = -(-n_pix // DEEP_TILE)
+        k4 = 2 * cfg.spp * cfg.max_bounces * n_tiles if name != "cornell" else 0
+        if on["log"].count("scan path") != 1 or "scan path" in off["log"]:
+            raise AssertionError(f"deep grad {name}: log {on['log']!r} / "
+                                 f"{off['log']!r}")
+        for r in (on, off):
+            if r["launches"] != (0, 0, 0, k4, 0):
+                raise AssertionError(f"deep grad {name}: launches "
+                                     f"{r['launches']}, want K4 {k4} only")
+        finite = on["loss"].isfinite().item() and all(
+            g.isfinite().all().item() for g in on["grads"].values())
+        same = (torch.equal(on["loss"], off["loss"]) and all(
+            torch.equal(on[f][k], off[f][k]) for f in ("grads", "params")
+            for k in on["grads"]))
+        lit = sum(g.abs().max().item() > 0 for g in on["grads"].values()
+                  if g.numel())
+        if not (finite and same and lit >= 5):
+            raise AssertionError(f"deep grad {name}: finite {finite}, "
+                                 f"bit-equal to --no-megakernel {same}, "
+                                 f"{lit} leaves with gradient")
+        res[name] = dict(wall_s=[on["wall"], off["wall"]], k4=on["launches"][3],
+                         peak_gb=on["peak_gb"], leaves=len(on["grads"]),
+                         lit=lit, loss=on["loss"].item())
+        print(f"deep grad (P-F14): {name} {FRAME[0]}x{FRAME[1]} {cfg.spp} spp "
+              f"{cfg.max_bounces}b, one Adam step over {n_tiles} tiles, "
+              f"use_megakernel on / off: {on['wall']:.3f} / {off['wall']:.3f} s "
+              f"on {card}; routed to the scan path (logged once); K4 "
+              f"launches {on['launches'][3]}; loss {on['loss'].item():.6f}; "
+              f"{len(on['grads'])} leaves ({lit} with gradient), finite, "
+              f"gradients and stepped leaves bit-equal to --no-megakernel; "
+              f"peak memory {on['peak_gb']:.2f} GB")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4314,6 +4762,10 @@ def main() -> int:
     k5 = phase_k5_timing(dev, card, k2, ptxas)
     cam_g = phase_camera_grad(dev, card)
     phase_outputs(dev, card)
+    fmt = phase_formats(dev, card)
+    shard = phase_sharded(dev, card)
+    two = phase_two_process(card, shard["straight"])
+    deep = phase_deep_grad(dev, card)
 
     k1_bound = _k1_bound(k2["n_rays"], k2["bounces"], timing["counts"],
                          k2["n_spheres"], record=False)
@@ -4333,6 +4785,17 @@ def main() -> int:
         f"{key} {r['fwd']['rate']:.1f} {r['bwd']['rate']:.1f} {r['losses']}"
         for key, r in merged_f.items())
           + f"; K5 Cornell fwd+bwd {k5['frame']['rate']:.1f} rays/s")
+    print("last modules: parse ms " + json.dumps(
+        {f: round(r["parse_s"] * 1e3, 3) for f, r in fmt["formats"].items()})
+          + f", OBJ {SCAN_WORLD} native / Python "
+          f"{fmt['obj_native_s'] * 1e3:.3f} / {fmt['obj_python_s'] * 1e3:.3f}"
+          f"; sharded (1, 2) / straight min wall "
+          f"{min(shard['grids'][(1, 2)]['wall_s']):.4f} / "
+          f"{min(shard['straight_s']):.4f} s; two processes' walls "
+          f"{[round(w, 3) for w in two['walls']]} s; gloo all-reduce of "
+          f"{two['gloo_bytes']} B min {min(min(g) for g in two['gloo_s']):.4f}"
+          f" s; P-F14 steps (on, off) " + json.dumps(
+              {n: [round(w, 3) for w in r["wall_s"]] for n, r in deep.items()}))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "sample_start (RNG kernel)", "route": "cuda",
@@ -4364,7 +4827,11 @@ def main() -> int:
                              "mesh_render": mesh["k1"],
                              "mesh_fwd_bwd": mtrain["k1"],
                              "scan_render": scan[SCAN_WORLD]["k1"],
-                             "scan_fwd_bwd": strain["k1"]},
+                             "scan_fwd_bwd": strain["k1"],
+                             "sharded_render_cells": {
+                                 "x".join(map(str, g)): r["cell_launches"]
+                                 for g, r in shard["grids"].items()},
+                             "two_process_ranks": two["k1"]},
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
@@ -4482,7 +4949,9 @@ def main() -> int:
                              "mesh_fwd_bwd": mtrain["k4"],
                              "scan_render": scan[SCAN_WORLD]["k4"],
                              "scan_render_600": scan[MESH_WORLD]["k4"],
-                             "scan_fwd_bwd": strain["k4"]},
+                             "scan_fwd_bwd": strain["k4"],
+                             "deep_grad_world": deep["block world"]["k4"],
+                             "deep_grad_cornell": deep["cornell"]["k4"]},
         "max_abs_err": max(r["max_abs_err"] for w in k4.values()
                            for r in w.values()),
         "ms": k4[SCAN_WORLD]["camera"]["ms"],
@@ -4536,6 +5005,9 @@ def main() -> int:
             f"trace_scene_kernel_mergedILb{int(ms == 'rec_ms')}"
             f"ELb{int(r is merged_t['sky'])}E"),
         "dynamic_smem_bytes": r["smem"][ms == "rec_ms"],
+        **({"launches_by_path": {"formats_render": {
+            f: FMT_SPP for f in fmt["formats"]}}}
+           if name == "trace_scene (merged)" else {}),
     } for name, r, ms, plain, bound, err, launches in (
         ("trace_scene (merged)", merged_t["world"], "ms", "plain_ms", "bound",
          0.0, merged_f["world"]["fwd"]["launches"][2]),

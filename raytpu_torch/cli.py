@@ -4,31 +4,44 @@
            --spp N --width W --height H --bounces B --seed S --out x.ppm
            --device cuda|cpu --no-megakernel --pallas --bilinear
            --denoise [bilateral|learned] --aov --checkpoint c.npz
-           --flush-every K --preview p.ppm --log-json --profile-dir D]
+           --flush-every K --preview p.ppm --log-json --profile-dir D
+           --sharded]
     train  cornell|cornell_cuda|cornell_dof_ao|<scene.toml> --target t.ppm
            [--steps N --lr LR --out x.ppm --log-every K --spp --width
            --height --bounces --seed --device cuda|cpu --no-megakernel
            --pallas --bilinear]
 
 ``render`` renders a built-in sphere scene or a TOML scene spec (spheres
-and a textured OBJ mesh, ``config.load_scene_file``; ``--scene`` names it
-too) and writes a PPM, by default
+and a textured mesh: OBJ, PLY, STL, glTF or GLB, ``config.load_scene_file``;
+``--scene`` names it too) and writes an image, by default the PPM
 ``<scene>_<spp>RAYS_<bounces-1>RB_<dd>-<mm>_<HH>h<MM>.ppm``; elapsed
-seconds and rays/s go to stderr. Its output path, as ``raytpu``'s:
+seconds and rays/s go to stderr. An output path that does not end in
+``.ppm`` (``.png``, ...) is written by PIL, which the card's machine does
+not have: the CLI checks for it before the render. Its output path, as
+``raytpu``'s:
 ``--checkpoint`` flushes the sums to a file every ``--flush-every``
 samples and resumes from it, bit-identical to an uninterrupted render
 (``io/checkpoint``), with a progress line a flush (``--log-json``: one
 JSON object a line) and a ``--preview`` PPM of the running mean
 (``observe.RenderMonitor``); ``--denoise`` filters the image on the
 render's device with the joint bilateral (the flag alone) or the learned
-KPCN (``denoise``); ``--aov`` also writes ``<out>_albedo.ppm`` and
-``<out>_normal.ppm``; ``--profile-dir`` writes a ``torch.profiler``
-trace of the render there. ``train`` fits every float parameter of the
-scene (spheres; a mesh's vertices, UVs, texels and
-material table) to a target image (ASCII PPM of the configured size) with
-Adam on the L2 loss in linear radiance, logs the loss, and writes the
-final render. ``--device`` defaults to ``cuda`` and fails when CUDA is
-absent; ``--device cpu`` runs the plain PyTorch path.
+KPCN (``denoise``); ``--aov`` also writes ``<out>_albedo`` and
+``<out>_normal`` images of the output's suffix; ``--profile-dir`` writes a
+``torch.profiler`` trace of the render there. ``--sharded`` renders over
+the (tiles, samples) grid of ``sharding``: in one process every CUDA
+device on the samples axis (``render_image_sharded``); when
+``RAYTPU_COORDINATOR`` (host:port), ``RAYTPU_NUM_PROCESSES`` and
+``RAYTPU_PROCESS_ID`` are set, each process joins a gloo process group
+(``init_distributed``), renders its cell on ``cuda:{rank %
+device_count}`` and the sums are all-reduced
+(``render_image_multihost``); only rank 0 writes the files. With both,
+``--checkpoint`` wins, as in ``raytpu``. ``train`` fits every float
+parameter of the scene (spheres; a mesh's vertices, UVs, texels and
+material table) to a target image (PPM, or PNG through PIL, of the
+configured size) with Adam on the L2 loss in linear radiance, logs the
+loss, and writes the final render (``trained.ppm`` by default).
+``--device`` defaults to ``cuda`` and fails when CUDA is absent;
+``--device cpu`` runs the plain PyTorch path.
 
 On ``cuda`` the megakernels (K1, K3) serve the scenes they support and
 the scan path the rest, as ``raytpu``'s CLI does on an accelerator;
@@ -116,10 +129,32 @@ def _setup(args):
     return dev, scene, cam, cfg
 
 
-def _ppm_out(path: str) -> str:
+def _check_out(path: str) -> str:
+    """``path``, once it is known that ``_save`` can write it: any suffix
+    but ``.ppm`` needs PIL, so a missing PIL fails before the render."""
     if not path.endswith(".ppm"):
-        raise SystemExit("raytpu_torch: only .ppm output is supported")
+        from raytpu_torch.io.image import pil_image
+
+        try:
+            pil_image(path)
+        except ImportError as e:
+            raise SystemExit(f"raytpu_torch: {e}")
     return path
+
+
+def _save(path: str, canvas) -> None:
+    """Write a quantized (H, W, 3) image: ``.ppm`` by ``io.ppm`` (the
+    reference's format), any other suffix (``.png``, ...) by PIL."""
+    import numpy as np
+
+    if path.endswith(".ppm"):
+        from raytpu_torch.io.ppm import write_ppm
+
+        write_ppm(path, canvas)
+    else:
+        from raytpu_torch.io.image import pil_image
+
+        pil_image(path).fromarray(np.asarray(canvas, np.uint8)).save(path)
 
 
 def cmd_render(argv) -> int:
@@ -127,14 +162,20 @@ def cmd_render(argv) -> int:
     ap.add_argument("--scene", dest="scene_flag", default=None,
                     help="the scene, in place of the positional argument")
     ap.add_argument("--out", default=None,
-                    help="output .ppm; default <scene>_<spp>RAYS_"
-                         "<bounces-1>RB_<dd>-<mm>_<HH>h<MM>.ppm")
+                    help="output image, .ppm or (with PIL) .png; default "
+                         "<scene>_<spp>RAYS_<bounces-1>RB_<dd>-<mm>_<HH>h"
+                         "<MM>.ppm")
     ap.add_argument("--denoise", nargs="?", const="bilateral", default=None,
                     choices=["bilateral", "learned"],
                     help="denoise on the render's device: the joint "
                          "bilateral (the flag alone) or the learned KPCN")
+    ap.add_argument("--sharded", action="store_true",
+                    help="render over the (tiles, samples) grid: every CUDA "
+                         "device, or one cell a process when RAYTPU_"
+                         "COORDINATOR, RAYTPU_NUM_PROCESSES and RAYTPU_"
+                         "PROCESS_ID are set")
     ap.add_argument("--aov", action="store_true",
-                    help="also write <out>_albedo.ppm and <out>_normal.ppm")
+                    help="also write <out>_albedo and <out>_normal images")
     ap.add_argument("--checkpoint", default=None,
                     help="flush the sums to this file and resume from it "
                          "(bit-identical) if it exists")
@@ -150,21 +191,42 @@ def cmd_render(argv) -> int:
     args = ap.parse_args(argv)
     args.scene = args.scene_flag or args.scene
 
+    import torch
+
+    from raytpu_torch.sharding import init_distributed
+
+    # a no-op unless RAYTPU_COORDINATOR / RAYTPU_NUM_PROCESSES /
+    # RAYTPU_PROCESS_ID configure a process group; raises if joining fails
+    multihost = init_distributed()
+    try:
+        return _render(args, multihost)
+    finally:
+        if multihost:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args, multihost: bool) -> int:
+    """``cmd_render`` after the process group (if any) is up."""
     import numpy as np
     import torch
 
     from raytpu_torch.core.rng import prng_key
-    from raytpu_torch.io.ppm import write_ppm
     from raytpu_torch.observe import RenderMonitor, trace_profile
 
+    rank = torch.distributed.get_rank() if multihost else 0
+    if multihost and args.device == "cuda" and torch.cuda.is_available():
+        # rank r renders on cuda:{r % device_count} (make_global_mesh)
+        args.device = f"cuda:{rank % torch.cuda.device_count()}"
+    if args.out is not None:
+        _check_out(args.out)
+    if args.preview and not args.preview.endswith(".ppm"):
+        raise SystemExit("raytpu_torch: --preview writes only .ppm")
     dev, scene, cam, cfg = _setup(args)
     if args.out is None:
         name = os.path.splitext(os.path.basename(args.scene))[0]
         args.out = (f"{name}_{cfg.spp}RAYS_{cfg.max_bounces - 1}RB_"
                     f"{datetime.datetime.now():%d-%m_%Hh%M}.ppm")
-    out_path = _ppm_out(args.out)
-    if args.preview:
-        _ppm_out(args.preview)
+    out_path = args.out
     key = prng_key(args.seed)
 
     t0 = time.perf_counter()
@@ -183,6 +245,17 @@ def cmd_render(argv) -> int:
             out = render_image_checkpointed(
                 scene, cam, cfg, key, args.checkpoint,
                 flush_every=args.flush_every, log=log, progress=mon.update)
+        elif args.sharded and multihost:
+            from raytpu_torch.sharding import (make_global_mesh,
+                                               render_image_multihost)
+
+            out = render_image_multihost(scene, cam, cfg, key,
+                                         make_global_mesh(device=dev))
+        elif args.sharded:
+            from raytpu_torch.sharding import make_mesh, render_image_sharded
+
+            mesh = make_mesh(devices=None if dev.type == "cuda" else [dev])
+            out = render_image_sharded(scene, cam, cfg, key, mesh)
         else:
             from raytpu_torch.integrator.render import render_image
 
@@ -206,12 +279,14 @@ def cmd_render(argv) -> int:
                             on_dev(out.normal))
             canvas = quantize(tonemap(Vec3.from_array(image))).to_array()
         canvas = canvas.cpu().numpy().astype(np.int32)
-    write_ppm(out_path, canvas)
+    if rank != 0:
+        return 0   # every process holds the frame; rank 0 writes it
+    _save(out_path, canvas)
     if args.aov:
-        base = out_path.removesuffix(".ppm")
+        base, dot, ext = out_path.rpartition(".")
         for name, aov in (("albedo", out.albedo), ("normal", out.normal)):
-            write_ppm(f"{base}_{name}.ppm",
-                      np.clip(np.abs(aov) * 255.0, 0, 255).astype(np.int32))
+            _save(f"{base}_{name}{dot}{ext}",
+                  np.clip(np.abs(aov) * 255.0, 0, 255).astype(np.int32))
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rays = cfg.n_pixels * cfg.spp * cfg.max_bounces
     print(f"rendered {cfg.width}x{cfg.height} spp={cfg.spp} "
@@ -223,10 +298,13 @@ def cmd_render(argv) -> int:
 
 def cmd_train(argv) -> int:
     ap = _parser("raytpu_torch train")
-    ap.add_argument("--target", required=True, help="target image (.ppm)")
+    ap.add_argument("--target", required=True,
+                    help="target image (.ppm, or with PIL .png)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-2)
-    ap.add_argument("--out", default="trained.ppm")
+    ap.add_argument("--out", default="trained.ppm",
+                    help="final render, .ppm (the default: the card's "
+                         "machine has no PIL) or with PIL .png")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -235,11 +313,10 @@ def cmd_train(argv) -> int:
     from raytpu_torch.core.rng import prng_key
     from raytpu_torch.integrator.render import render_image
     from raytpu_torch.io.image import load_rgb
-    from raytpu_torch.io.ppm import write_ppm
     from raytpu_torch.train import combine_scene, make_train_step
 
+    out_path = _check_out(args.out)
     dev, scene, cam, cfg = _setup(args)
-    out_path = _ppm_out(args.out)
     tgt = load_rgb(args.target)  # (H, W, 3) bottom-up, like pixel ids
     if tgt.shape[:2] != (cfg.height, cfg.width):
         raise SystemExit(f"target is {tgt.shape[1]}x{tgt.shape[0]}, "
@@ -260,7 +337,7 @@ def cmd_train(argv) -> int:
 
     out = render_image(combine_scene(state.params, static), cam, cfg,
                        prng_key(args.seed))
-    write_ppm(out_path, out.canvas)
+    _save(out_path, out.canvas)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"trained {args.steps} steps of {cfg.width}x{cfg.height} "
           f"spp={cfg.spp} bounces={cfg.max_bounces} on {where} in "

@@ -8,16 +8,18 @@ Port of ``raytpu/config.py`` (``load_scene_file``, ``load_scene``):
     [mesh]        obj/mtl/translate/textures/mtl_physics
                   + [[mesh.materials]] per-id overrides
     [[meshes]]    several meshes, concatenated
-    [sky]         file (an equirect P3 PPM), sphere_index (default: the
-                  last sphere, "derniere sphere = ciel")
+    [sky]         file (an equirect P3 PPM, or PNG with PIL),
+                  sphere_index (default: the last sphere, "derniere
+                  sphere = ciel")
     morton        top-level flag (default true)
     merge_quads   top-level flag (default true): detect the coplanar
                   triangle pairs for K3's merged-quad search
 
 Paths resolve relative to the TOML file. The scene is built on ``device``
-(the CUDA card when ``None``). Triangles are Morton-ordered as
-``raytpu``'s are. Not ported yet: meshes other than ``.obj``
-(``raytpu.io.mesh_formats``) raise ``NotImplementedError``. With
+(the CUDA card when ``None``). A mesh's ``obj`` may name a ``.obj``,
+``.ply``, ``.stl``, ``.gltf`` or ``.glb`` file (``io.mesh_formats``
+routes by extension). Triangles are Morton-ordered as
+``raytpu``'s are. With
 ``merge_quads`` on (the default) and more than one triangle, the loader
 detects the quad pairs (``geometry/quads``) and carries them on the
 config (``quad_pairs``, ``quad_aa_rects``, ``quad_aa_tris``), as
@@ -79,24 +81,15 @@ def _mat_table_from_spec(n: int, overrides: list[dict], device) -> MatTable:
     return MatTable.from_arrays(em, es, rf, io, ac, ua, eft, device)
 
 
-def _parse_mesh(path: str):
-    from raytpu_torch.io.obj import parse_obj
-
-    if not path.lower().endswith(".obj"):
-        raise NotImplementedError(
-            f"{path}: raytpu_torch reads .obj meshes only (raytpu's "
-            ".ply/.stl/.gltf importers are not ported yet)")
-    return parse_obj(path)
-
-
 def _load_mesh(m: dict, base: str, device, single: bool):
     """One [mesh] (``single``) or [[meshes]] entry -> (Triangles, the MTL
     entry of each atlas tile, MatTable, slot count). A [[meshes]] entry
     gives every slot a tile; a single [mesh] gets tiles only with a MTL
     (else it renders untextured)."""
+    from raytpu_torch.io.mesh_formats import parse_mesh
     from raytpu_torch.io.obj import mesh_to_triangles, parse_mtl
 
-    mesh = _parse_mesh(os.path.join(base, m["obj"]))
+    mesh = parse_mesh(os.path.join(base, m["obj"]))
     tris = mesh_to_triangles(mesh, tuple(m.get("translate", (0.0, 0.0, 0.0))),
                              device)
     n_mat = max(len(mesh.mat_names), 1)

@@ -17,7 +17,9 @@ A camera leaf that requires grad gets its gradient through
 ``use_megakernel``, the scan path (``integrator/path.trace``, whose
 closest-hit selection is K4 where ``integrator/hit`` turns it on). A
 render that asked for a megakernel and is served by the scan path says
-why once on stderr. Sums accumulate in f32 in sample order, as
+why once on stderr; so does one that needs gradients past
+``trace_scene_bwd.MAX_BOUNCES`` bounces, where the megakernels' backward
+stops and the scan path serves it (ROADMAP P-F14). Sums accumulate in f32 in sample order, as
 ``raytpu``'s scan does. Pixel coordinates follow the reference: u = (i +
 U - .5)/(W-1), v = (j + U - .5)/(H-1) with j counted from the bottom row,
 and the aperture jitter is (U - .5) * aperture.
@@ -46,6 +48,7 @@ from raytpu_torch.core.vec3 import Vec3
 from raytpu_torch.integrator.hit import log_once
 from raytpu_torch.integrator.path import n_bounce_draws, trace
 from raytpu_torch.kernels import trace_scene, trace_spheres
+from raytpu_torch.kernels.trace_scene_bwd import MAX_BOUNCES
 
 
 class RenderSums(NamedTuple):
@@ -195,11 +198,20 @@ def sample_start(cam: Tensor, cfg: RenderConfig, key: Tensor,
     raise NotImplementedError(f"sample start: no kernel for {dev}")
 
 
-def trace_fn(scene: Scene, cfg: RenderConfig):
+def trace_fn(scene: Scene, cfg: RenderConfig, differentiate: bool = False):
     """The bounce loop ``render`` runs for this scene and config:
     ``trace_spheres.trace_megakernel``, ``trace_scene.trace_mesh_megakernel``
-    or ``path.trace`` (see the module docstring)."""
+    or ``path.trace`` (see the module docstring). ``differentiate``: the
+    render needs gradients; past ``MAX_BOUNCES`` bounces, where the
+    megakernels' backward replay stops, the scan path (whose autograd has
+    no cap) serves it, as ``raytpu``'s mesh route falls back to its scan
+    replay past ``BWD_KERNEL_MAX_BOUNCES``."""
     if cfg.use_megakernel:
+        if differentiate and cfg.max_bounces > MAX_BOUNCES:
+            log_once(f"gradients of {cfg.max_bounces} bounces: the "
+                     f"megakernels' backward stops at {MAX_BOUNCES}; scan "
+                     "path serves this render")
+            return trace
         if trace_spheres.supported(scene, cfg):
             return trace_spheres.trace_megakernel
         if trace_scene.supported(scene, cfg):
@@ -237,7 +249,8 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
         zeros = Vec3.zeros((b,), device=dev)
         init = RenderSums(zeros, zeros, zeros, 0)
     rad, alb, nrm, count = init
-    bounce_loop = trace_fn(scene, cfg)
+    differentiate = torch.is_grad_enabled() and requires_grad(scene, cam)
+    bounce_loop = trace_fn(scene, cfg, differentiate)
     # K1 and K3 hash their bounce draws from the ray keys; the scan path
     # reads them
     keyed = bounce_loop in (trace_spheres.trace_megakernel,
@@ -262,7 +275,6 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     # draws, rays, recorded indices or the scan's intermediates) are
     # dropped after the forward and rebuilt from the base key in the
     # backward, so memory holds one sample's worth, not spp's.
-    differentiate = torch.is_grad_enabled() and requires_grad(scene, cam)
     for s in range(sample_offset, sample_offset + n):
         if differentiate:
             # the draws hang off the keys, not torch's generator: no RNG

@@ -1,10 +1,11 @@
 """OBJ/MTL mesh loading into the scene's SoA tensors.
 
-Port of ``raytpu/io/obj.py`` (its pure-Python parser; ``raytpu``'s C++
-fast path gives the same arrays and is not ported):
+Port of ``raytpu/io/obj.py``:
   * ``parse_obj``: list_of_mesh (mesh.h:96-218). Each ``usemtl`` opens a
     new material slot (duplicate names get duplicate slots), faces are
-    fan-triangulated, indices are 1-based ``v/t/n``.
+    fan-triangulated, indices are 1-based ``v/t/n``. The C++ parser of
+    ``native`` serves it where it builds; the Python parser here is the
+    reference it equals (``use_native=False`` or ``RAYTPU_NO_NATIVE=1``).
   * ``parse_mtl``: ``map_Kd`` (relative to the MTL, a leading ``./``
     stripped), ``Kd``, ``Ns`` and ``d`` per ``newmtl``.
   * ``build_atlas``: create_mat_list_mtl (texture.h:175-354). One flat
@@ -14,7 +15,8 @@ fast path gives the same arrays and is not ported):
   * ``mesh_to_triangles`` / ``load_obj_scene``: the triangle SoA with
     move_mesh's translation (mesh.h:220-234) and the scene.
   * ``load_sky``: the equirect sky texture (create_mat_list on the sky
-    file, main.c:374), PPM only, without ``raytpu``'s u8-packed twin.
+    file, main.c:374), a PPM or (through PIL) a PNG, without
+    ``raytpu``'s u8-packed twin.
 Arrays are built in numpy exactly as ``raytpu`` builds them and become
 tensors on ``device`` (the CUDA card when ``None``).
 """
@@ -44,8 +46,17 @@ class ObjMesh(NamedTuple):
     mat_names: list         # usemtl name per slot (duplicates kept)
 
 
-def parse_obj(path: str) -> ObjMesh:
-    """list_of_mesh's parse (mesh.h:96-218), one pass."""
+def parse_obj(path: str, use_native: bool = True) -> ObjMesh:
+    """list_of_mesh's parse (mesh.h:96-218), one pass: by the C++ parser
+    (``native.parse_obj_native``) unless ``use_native`` is False or
+    ``RAYTPU_NO_NATIVE=1``, or it is unavailable or cannot read the file;
+    else by this Python reference, which gives the same arrays."""
+    if use_native and os.environ.get("RAYTPU_NO_NATIVE") != "1":
+        from raytpu_torch.native import parse_obj_native
+
+        mesh = parse_obj_native(path)
+        if mesh is not None:
+            return mesh
     vertices, uvs = [], []
     face_v, face_t, face_mat = [], [], []
     mat_names: list = []
@@ -250,8 +261,8 @@ def load_obj_scene(obj_path: str, mtl_path: Optional[str] = None,
 
 
 def load_sky(path: str, device=None) -> SkyTexture:
-    """Equirect sky texture from a ``.ppm`` (rows bottom-up, as
-    ``raytpu``'s ``load_sky`` leaves them), on ``device``."""
+    """Equirect sky texture from a ``.ppm`` or, through PIL, a PNG (rows
+    bottom-up, as ``raytpu``'s ``load_sky`` leaves them), on ``device``."""
     device = resolve_device(device)
     rgb = load_rgb(path)
     h, w = rgb.shape[:2]

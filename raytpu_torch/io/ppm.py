@@ -1,13 +1,15 @@
 """PPM (P3 ASCII) read/write, as ``raytpu.io.ppm``.
 
 ``write_ppm`` is byte-identical to ``raytpu``'s: a header, then one
-"r g b" int triplet per line, rows top-down. ``read_ppm`` is its reader
-(``raytpu``'s C++ fast path gives the same values); numpy parses the
-samples, so a 4096x2048 sky (25 M numbers) reads in seconds.
+"r g b" int triplet per line, rows top-down. ``read_ppm`` is its reader:
+the C++ parser of ``native`` where it builds, else numpy parses the
+samples (the reference the native parser equals), so a 4096x2048 sky
+(25 M numbers) reads in seconds either way.
 """
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -22,10 +24,20 @@ def write_ppm(path: str, canvas: np.ndarray) -> None:
         f.write(("%d %d %d\n" * (h * w)) % tuple(flat))
 
 
-def read_ppm(path: str, bottom_up: bool = True) -> np.ndarray:
+def read_ppm(path: str, bottom_up: bool = True,
+             use_native: bool = True) -> np.ndarray:
     """Read ASCII P3 -> (H, W, 3) float32 in [0, 1], samples scaled as
     ``n * f32(1/maxval)``. ``bottom_up`` stores rows bottom-up (row 0 =
-    image bottom), the layout pixel ids and textures index."""
+    image bottom), the layout pixel ids and textures index. By the C++
+    parser (``native.read_ppm_native``) unless ``use_native`` is False or
+    ``RAYTPU_NO_NATIVE=1``, or it is unavailable or refuses the file (a
+    comment among the samples); else in numpy, with the same values."""
+    if use_native and os.environ.get("RAYTPU_NO_NATIVE") != "1":
+        from raytpu_torch.native import read_ppm_native
+
+        rgb = read_ppm_native(path, bottom_up=bottom_up)
+        if rgb is not None:
+            return rgb
     with open(path, "rb") as f:
         data = f.read()
     if b"#" in data:      # comments run to the end of the line

@@ -52,7 +52,10 @@ places the texels' share of a block's table).
 
 Depth policy: one cap, ``MAX_BOUNCES = 48`` (the mesh backward's cap,
 ``raytpu/kernels/trace_scene.py:1937``), for the kernels and the plain
-version alike; deeper gradients raise ``NotImplementedError``.
+version alike; a direct call for deeper gradients raises
+``NotImplementedError`` (``check_depth``). ``render`` sends such
+renders to the scan path (``integrator/render.trace_fn``), as
+``raytpu``'s mesh route falls back to its scan replay.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ reaches every branch of K3's merged-quad search, which the block world's
 all axis-aligned faces do not. The reference's sky texture is not part of it
 either: ``equirect_sky`` makes one with numpy, ``write_equirect_sky``
 writes it as a PPM, and ``write_sky_showcase`` writes
-``scenes/sky.toml``'s scene around it.
+``scenes/sky.toml``'s scene around it. ``write_mesh_twins`` writes a
+mesh scene's mesh as PLY, GLB and STL, each with an OBJ twin of the
+same arrays (``write_obj``), for the other importers.
 """
 
 from __future__ import annotations
@@ -472,6 +474,164 @@ def write_quad_fixture(directory: str, seed: int = 0, n_boxes: int = 24,
         f.write(_QUAD_TOML.format(seed=seed, n_tris=n_v // 3, n_boxes=n_boxes,
                                   n_aa=n_aa, n_quads=n_quads, n_left=n_left))
     return path
+
+
+MESH_FORMATS = ("ply", "glb", "stl")
+
+
+def _corners(mesh, faces: np.ndarray):
+    """Positions (3F, 3) and UVs (3F, 2) of the faces' corners, in face
+    order (a missing UV index reads (0, 0), as ``io.obj`` does)."""
+    pos = mesh.vertices[mesh.face_v[faces]].reshape(-1, 3)
+    ft = mesh.face_t[faces]
+    uv = (np.where(ft[..., None] >= 0,
+                   mesh.uvs[np.clip(ft, 0, len(mesh.uvs) - 1)], 0.0)
+          if len(mesh.uvs) else np.zeros(ft.shape + (2,)))
+    return pos.astype("<f4"), uv.reshape(-1, 2).astype("<f4")
+
+
+def _write_ply(path: str, mesh) -> None:
+    """Binary little-endian PLY: a vertex (x y z s t) per face corner."""
+    pos, uv = _corners(mesh, np.arange(len(mesh.face_v)))
+    n_f = len(mesh.face_v)
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {3 * n_f}\n"
+            + "".join(f"property float {c}\n" for c in "xyzst")
+            + f"element face {n_f}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    faces = np.zeros(n_f, [("n", "u1"), ("v", "<i4", 3)])
+    faces["n"] = 3
+    faces["v"] = np.arange(3 * n_f).reshape(-1, 3)
+    with open(path, "wb") as f:
+        f.write(head.encode())
+        f.write(np.concatenate([pos, uv], 1).astype("<f4").tobytes())
+        f.write(faces.tobytes())
+
+
+def _write_stl(path: str, mesh) -> None:
+    """Binary STL (no UVs, no materials), its header starting "solid"."""
+    pos, _ = _corners(mesh, np.arange(len(mesh.face_v)))
+    rec = np.zeros(len(mesh.face_v), [("n", "<f4", 3), ("v", "<f4", 9),
+                                      ("attr", "<u2")])
+    rec["v"] = pos.reshape(-1, 9)
+    with open(path, "wb") as f:
+        f.write(b"solid binary STL from raytpu_torch".ljust(80, b"\0"))
+        f.write(np.uint32(len(rec)).astype("<u4").tobytes() + rec.tobytes())
+
+
+def _write_glb(path: str, mesh) -> None:
+    """GLB: one triangle primitive a material slot (positions,
+    TEXCOORD_0, u32 indices; faces before any material first, without a
+    material), one node, the slots' names as materials."""
+    import json
+    import struct
+
+    blob, views, accessors, prims = bytearray(), [], [], []
+
+    def add(arr, kind, comp):
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": arr.nbytes})
+        accessors.append({"bufferView": len(views) - 1,
+                          "componentType": comp, "count": len(arr),
+                          "type": kind})
+        blob.extend(arr.tobytes())
+        return len(accessors) - 1
+
+    for slot in range(-1, len(mesh.mat_names)):
+        faces = np.flatnonzero(mesh.face_mat == slot)
+        if faces.size == 0:
+            continue
+        pos, uv = _corners(mesh, faces)
+        p = add(pos, "VEC3", 5126)
+        accessors[p].update(min=pos.min(0).tolist(), max=pos.max(0).tolist())
+        prim = {"attributes": {"POSITION": p, "TEXCOORD_0": add(uv, "VEC2", 5126)},
+                "indices": add(np.arange(len(pos), dtype="<u4"), "SCALAR", 5125)}
+        if slot >= 0:
+            prim["material"] = slot
+        prims.append(prim)
+    gltf = {"asset": {"version": "2.0"}, "scene": 0,
+            "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+            "meshes": [{"primitives": prims}],
+            "materials": [{"name": n} for n in mesh.mat_names],
+            "accessors": accessors, "bufferViews": views,
+            "buffers": [{"byteLength": len(blob)}]}
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sII", b"glTF", 2, 28 + len(js) + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+
+
+def write_obj(path: str, mesh) -> None:
+    """An OBJ of ``io.obj.ObjMesh`` ``mesh`` that parses back to the same
+    arrays: faces before any material first, then a ``usemtl`` a slot
+    (``mesh.face_mat`` must not decrease), a corner's UV index written
+    only where it has one."""
+    if (np.diff(mesh.face_mat) < 0).any():
+        raise ValueError(f"{path}: faces are not grouped by material slot")
+    num = lambda v: repr(float(v))    # exact for f32 values
+    lines = [f"v {num(a)} {num(b)} {num(c)}" for a, b, c in mesh.vertices]
+    lines += [f"vt {num(a)} {num(b)}" for a, b in mesh.uvs]
+    corner = lambda v, t: f"{v + 1}/{t + 1}" if t >= 0 else f"{v + 1}"
+    for slot in range(-1, len(mesh.mat_names)):
+        if slot >= 0:
+            lines.append(f"usemtl {mesh.mat_names[slot]}")
+        for fv, ft in zip(mesh.face_v[mesh.face_mat == slot],
+                          mesh.face_t[mesh.face_mat == slot]):
+            lines.append("f " + " ".join(map(corner, fv, ft)))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _spec(text: str, obj: str, materials: bool) -> str:
+    """A TOML scene spec's text with its mesh file replaced by ``obj``;
+    without ``materials`` also without its MTL and material overrides."""
+    out, keep = [], True
+    for line in text.splitlines():
+        if line.startswith("["):
+            keep = materials or not line.startswith("[[mesh.materials]]")
+        if line.startswith("obj = "):
+            line = f'obj = "{obj}"'
+        elif line.startswith("mtl = ") and not materials:
+            continue
+        if keep:
+            out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def write_mesh_twins(toml_path: str, formats=MESH_FORMATS) -> dict:
+    """Beside a mesh scene spec (``write_block_world``'s), write its mesh
+    in each of ``formats`` (binary PLY with UVs, GLB, binary STL) and an
+    OBJ twin of each, written from the arrays that format parses to
+    (``io.mesh_formats``), with a TOML for each file: the spec with its
+    mesh replaced, its material overrides and MTL kept for GLB and
+    dropped for PLY and STL, which carry no materials. Returns {format:
+    (its TOML, its twin's TOML)}: the two scenes are identical."""
+    from raytpu_torch.io.mesh_formats import parse_mesh
+    from raytpu_torch.io.obj import parse_obj
+
+    base = os.path.dirname(toml_path)
+    text = open(toml_path).read()
+    src = [ln for ln in text.splitlines() if ln.startswith("obj = ")][0]
+    mesh = parse_obj(os.path.join(base, src.split('"')[1]))
+    writers = {"ply": _write_ply, "glb": _write_glb, "stl": _write_stl}
+    stem = os.path.splitext(os.path.basename(toml_path))[0]
+    out = {}
+    for fmt in formats:
+        name = f"{stem}_{fmt}"
+        writers[fmt](os.path.join(base, f"{name}.{fmt}"), mesh)
+        write_obj(os.path.join(base, f"{name}_twin.obj"),
+                  parse_mesh(os.path.join(base, f"{name}.{fmt}")))
+        tomls = []
+        for obj in (f"{name}.{fmt}", f"{name}_twin.obj"):
+            path = os.path.join(base, os.path.splitext(obj)[0] + ".toml")
+            with open(path, "w") as f:
+                f.write(_spec(text, obj, fmt == "glb"))
+            tomls.append(path)
+        out[fmt] = tuple(tomls)
+    return out
 
 
 def equirect_sky(width: int, height: int, seed: int = 0) -> np.ndarray:

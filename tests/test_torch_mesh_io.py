@@ -13,6 +13,7 @@ own.
 
 import dataclasses
 import os
+import sys
 
 import jax
 import numpy as np
@@ -193,16 +194,20 @@ def test_build_atlas_solid_tiles_match_raytpu(worlds):
         np.testing.assert_array_equal(got.alpha.numpy(), np.asarray(want.alpha))
 
 
-def test_png_textures_raise(tmp_path):
-    """The port reads only P3 PPM: a PNG with no PPM beside it raises
-    and says so, and so do PNG images handed to the image loaders."""
+def test_png_textures_raise(tmp_path, monkeypatch):
+    """A PNG texture needs PIL: without it (the card's machine) a PNG
+    with no PPM beside it raises an ImportError that names PIL and the
+    .ppm alternative, and so do PNG images handed to the image loaders;
+    a missing texture raises FileNotFoundError. PNG reads with PIL are
+    tests/test_torch_png.py's."""
     png = tmp_path / "t.png"
     png.write_bytes(b"\x89PNG\r\n\x1a\n")
+    monkeypatch.setitem(sys.modules, "PIL", None)
     for call in (lambda: timage.load_texture_pair(str(png)),
                  lambda: timage.load_rgb(str(png)),
                  lambda: timage.load_gray(str(png)),
                  lambda: tobj.build_atlas([str(png)], device="cpu")):
-        with pytest.raises(ValueError, match="only ASCII .ppm"):
+        with pytest.raises(ImportError, match=r"PIL.*\.ppm"):
             call()
     with pytest.raises(FileNotFoundError):
         timage.load_texture_pair(str(tmp_path / "missing.png"))
@@ -243,10 +248,12 @@ def test_material_tables_match_raytpu(n):
 
 
 def test_unported_spec_parts_raise(worlds, tmp_path):
+    """A mesh of another suffix goes to its importer (io.mesh_formats,
+    tests/test_torch_mesh_formats.py): a missing .ply raises there."""
     text = open(worlds[60]).read()
     ply = tmp_path / "ply.toml"
     ply.write_text(text.replace('obj = "block_world.obj"', 'obj = "m.ply"'))
-    with pytest.raises(NotImplementedError, match=".obj meshes only"):
+    with pytest.raises(FileNotFoundError, match="m.ply"):
         tconfig.load_scene_file(str(ply), device="cpu")
     with pytest.raises(ValueError, match="unknown scene"):
         tconfig.load_scene("no_such_scene", device="cpu")

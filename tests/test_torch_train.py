@@ -217,13 +217,16 @@ def test_read_ppm_matches_raytpu(tmp_path, bottom_up):
     np.testing.assert_array_equal(load_rgb(str(p)), read_ppm(str(p)))
 
 
-def test_read_ppm_round_trip_and_png_refused(tmp_path):
+def test_read_ppm_round_trip_and_png_refused(tmp_path, monkeypatch):
+    """PPM round trip; a PNG is refused where PIL is missing (the card's
+    machine), naming PIL (tests/test_torch_png.py reads PNG with it)."""
     canvas = np.random.default_rng(2).integers(0, 256, (5, 7, 3))
     p = tmp_path / "c.ppm"
     write_ppm(str(p), canvas)
     img = read_ppm(str(p), bottom_up=False)
     np.testing.assert_array_equal(np.rint(img * 255), canvas)
-    with pytest.raises(ValueError, match="PIL"):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="PIL"):
         load_rgb(str(tmp_path / "t.png"))
     bad = tmp_path / "b.ppm"
     bad.write_bytes(b"P6\n1 1\n255\n")
