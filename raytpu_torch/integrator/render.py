@@ -40,6 +40,7 @@ import torch
 from torch import Tensor
 from torch.utils.checkpoint import checkpoint
 
+from raytpu_torch import observe
 from raytpu_torch.camera import Camera, get_rays
 from raytpu_torch.core import rng
 from raytpu_torch.core.color import quantize, tonemap
@@ -239,6 +240,10 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     (the checkpoint): the sample start again, and a megakernel then adds a
     recording call and a K2 call per sample, the scan path its selections
     again.
+
+    Spans (``observe.span``), each once a sample: ``render.sample_start``,
+    ``render.bounce_loop`` (both again in the checkpoint's recompute) and
+    ``render.accumulate`` (the 9 sum adds).
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples
@@ -264,10 +269,12 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
     cam_pack = pack_camera(cam).to(dev)
 
     def one_sample(s):
-        ray_keys, origin, direction, rows = sample_start(
-            cam_pack, cfg, key, pixel_ids, s, n_rows)
+        with observe.span("render.sample_start"):
+            ray_keys, origin, direction, rows = sample_start(
+                cam_pack, cfg, key, pixel_ids, s, n_rows)
         src = ray_keys if keyed else rows.view(cfg.max_bounces, n_draws, b)
-        r, a, nm = bounce_loop(scene, cfg, origin, direction, src)
+        with observe.span("render.bounce_loop"):
+            r, a, nm = bounce_loop(scene, cfg, origin, direction, src)
         return (*r, *a, *nm)
 
     # Differentiated, each sample runs under checkpoint (raytpu's
@@ -283,9 +290,10 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
                              preserve_rng_state=False)
         else:
             out = one_sample(s)
-        rad = rad + Vec3(*out[0:3])
-        alb = alb + Vec3(*out[3:6])
-        nrm = nrm + Vec3(*out[6:9])
+        with observe.span("render.accumulate"):
+            rad = rad + Vec3(*out[0:3])
+            alb = alb + Vec3(*out[3:6])
+            nrm = nrm + Vec3(*out[6:9])
         count += 1
     return RenderSums(rad, alb, nrm, count)
 
@@ -318,22 +326,32 @@ def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
     order, each rendered with all ``cfg.spp`` samples. The last tile is
     padded by repeating the last id; its duplicates compute identical
     sums, so scattering back by id is idempotent. Not differentiated: the
-    frame leaves as numpy arrays."""
-    n_pix = cfg.n_pixels
-    tile = min(cfg.pixel_tile, n_pix)
-    n_tiles = (n_pix + tile - 1) // tile
-    all_ids = np.pad(blocked_pixel_order(cfg), (0, n_tiles * tile - n_pix),
-                     mode="edge")
-    rad = np.zeros((n_pix, 3), np.float32)
-    alb = np.zeros((n_pix, 3), np.float32)
-    nrm = np.zeros((n_pix, 3), np.float32)
-    for t in range(n_tiles):
-        ids = all_ids[t * tile:(t + 1) * tile]
-        sums = render(scene, cam, cfg, ids, key)
-        rad[ids] = sums.radiance.to_array().cpu().numpy()
-        alb[ids] = sums.albedo.to_array().cpu().numpy()
-        nrm[ids] = sums.normal.to_array().cpu().numpy()
-    return assemble_image(cfg, rad, alb, nrm)
+    frame leaves as numpy arrays.
+
+    Spans (``observe.span``): ``render_image`` the frame; in it, a tile's
+    ``render_image.fetch`` (its sums to the host, waiting for the
+    frame's queued kernels) and ``render_image.scatter`` (into the
+    frame's arrays by pixel id), then ``render_image.assemble``."""
+    with observe.span("render_image"):
+        n_pix = cfg.n_pixels
+        tile = min(cfg.pixel_tile, n_pix)
+        n_tiles = (n_pix + tile - 1) // tile
+        all_ids = np.pad(blocked_pixel_order(cfg),
+                         (0, n_tiles * tile - n_pix), mode="edge")
+        rad = np.zeros((n_pix, 3), np.float32)
+        alb = np.zeros((n_pix, 3), np.float32)
+        nrm = np.zeros((n_pix, 3), np.float32)
+        for t in range(n_tiles):
+            ids = all_ids[t * tile:(t + 1) * tile]
+            sums = render(scene, cam, cfg, ids, key)
+            with observe.span("render_image.fetch"):
+                r = sums.radiance.to_array().cpu().numpy()
+                a = sums.albedo.to_array().cpu().numpy()
+                nm = sums.normal.to_array().cpu().numpy()
+            with observe.span("render_image.scatter"):
+                rad[ids], alb[ids], nrm[ids] = r, a, nm
+        with observe.span("render_image.assemble"):
+            return assemble_image(cfg, rad, alb, nrm)
 
 
 def assemble_image(cfg: RenderConfig, rad_sums: np.ndarray,

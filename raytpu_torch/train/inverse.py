@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from raytpu_torch import observe
 from raytpu_torch.camera import Camera
 from raytpu_torch.convert import (camera_from_leaves, camera_leaves,
                                   scene_from_leaves, scene_leaves)
@@ -91,6 +92,12 @@ def make_train_step(cfg: RenderConfig, lr: float, train_camera: bool = False):
     loss)`` renders ``pixel_ids`` with ``cfg.spp`` samples, takes the loss
     against ``target`` (B, 3), and updates the parameters in place; the
     returned loss is the one before the update, as in ``raytpu``.
+
+    Spans (``observe.span``): ``train.step`` the call; in it
+    ``train.forward`` (the scene, the render and the loss),
+    ``train.backward`` (autograd, the checkpoint's recompute, the
+    backward kernels) and ``train.adam`` (zero gradients for the leaves
+    the loss missed, then Adam's update).
     """
 
     def init_fn(scene: Scene, cam: Camera):
@@ -107,23 +114,30 @@ def make_train_step(cfg: RenderConfig, lr: float, train_camera: bool = False):
 
     def step_fn(state: TrainState, static: dict, cam: Camera, pixel_ids,
                 target, key: Tensor):
-        scene = combine_scene(state.params, static)
-        dev = scene.device
-        if train_camera:
-            cam = camera_from_leaves(state.cam_params)
-        target = torch.as_tensor(target, dtype=torch.float32, device=dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        sums = render(scene, cam, cfg, pixel_ids, key)
-        loss = photometric_loss(sums.radiance * (1.0 / cfg.spp), target)
-        loss.backward()
-        # a leaf the loss does not reach gets a zero gradient, as from
-        # jax.grad, so that Adam still decays its moments as optax does
-        # (torch.optim skips a parameter whose grad is None)
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        state.optimizer.step()
-        return state, loss.detach()
+        with observe.span("train.step"):
+            with observe.span("train.forward"):
+                scene = combine_scene(state.params, static)
+                dev = scene.device
+                if train_camera:
+                    cam = camera_from_leaves(state.cam_params)
+                target = torch.as_tensor(target, dtype=torch.float32,
+                                         device=dev)
+                state.optimizer.zero_grad(set_to_none=True)
+                sums = render(scene, cam, cfg, pixel_ids, key)
+                loss = photometric_loss(sums.radiance * (1.0 / cfg.spp),
+                                        target)
+            with observe.span("train.backward"):
+                loss.backward()
+            with observe.span("train.adam"):
+                # a leaf the loss does not reach gets a zero gradient, as
+                # from jax.grad, so that Adam still decays its moments as
+                # optax does (torch.optim skips a parameter whose grad is
+                # None)
+                for group in state.optimizer.param_groups:
+                    for p in group["params"]:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                state.optimizer.step()
+            return state, loss.detach()
 
     return init_fn, step_fn
