@@ -312,6 +312,27 @@ def blocked_pixel_order(cfg: RenderConfig, block_w: int = 128,
     ])
 
 
+@functools.lru_cache(maxsize=16)
+def tiled_pixel_order(width: int, height: int, tile: int) -> np.ndarray:
+    """``blocked_pixel_order`` of a width x height frame, padded to whole
+    tiles of ``tile`` ids by repeating the last id; built once per
+    (width, height, tile) and read-only."""
+    n_pix = width * height
+    n_tiles = (n_pix + tile - 1) // tile
+    ids = np.pad(blocked_pixel_order(RenderConfig(width=width, height=height)),
+                 (0, n_tiles * tile - n_pix), mode="edge")
+    ids.setflags(write=False)
+    return ids
+
+
+@functools.lru_cache(maxsize=16)
+def tiled_pixel_order_on(width: int, height: int, tile: int,
+                         device: torch.device) -> Tensor:
+    """``tiled_pixel_order`` as int64 on ``device``, copied there once."""
+    ids = tiled_pixel_order(width, height, tile).astype(np.int64)
+    return torch.from_numpy(ids).to(device)
+
+
 class RenderOutput(NamedTuple):
     image: np.ndarray      # (H, W, 3) linear float mean radiance, row 0 = top
     canvas: np.ndarray     # (H, W, 3) quantized 0..255 ints
@@ -323,33 +344,43 @@ class RenderOutput(NamedTuple):
 def render_image(scene: Scene, cam: Camera, cfg: RenderConfig,
                  key: Tensor) -> RenderOutput:
     """Full frame: tiles of ``cfg.pixel_tile`` pixel ids in block-major
-    order, each rendered with all ``cfg.spp`` samples. The last tile is
-    padded by repeating the last id; its duplicates compute identical
-    sums, so scattering back by id is idempotent. Not differentiated: the
+    order (``tiled_pixel_order_on``, made once), each rendered with all
+    ``cfg.spp`` samples. The last tile is padded by repeating the last id;
+    its duplicates are rendered and not scattered. Not differentiated: the
     frame leaves as numpy arrays.
 
+    The sums stay on the scene's device: each tile's nine planes are
+    written by pixel id into one (3, n_pixels, 3) f32 frame buffer of
+    radiance, albedo and normal, and the buffer comes to the host once,
+    into page-locked memory on CUDA (PyTorch's caching host allocator),
+    used as it is on the CPU.
+
     Spans (``observe.span``): ``render_image`` the frame; in it, a tile's
-    ``render_image.fetch`` (its sums to the host, waiting for the
-    frame's queued kernels) and ``render_image.scatter`` (into the
-    frame's arrays by pixel id), then ``render_image.assemble``."""
+    ``render_image.scatter`` (its sums into the frame buffer by pixel id,
+    two launches), the frame's ``render_image.fetch`` (the buffer to the
+    host, waiting for the frame's queued kernels), then
+    ``render_image.assemble``."""
     with observe.span("render_image"):
+        dev = scene.device
         n_pix = cfg.n_pixels
         tile = min(cfg.pixel_tile, n_pix)
-        n_tiles = (n_pix + tile - 1) // tile
-        all_ids = np.pad(blocked_pixel_order(cfg),
-                         (0, n_tiles * tile - n_pix), mode="edge")
-        rad = np.zeros((n_pix, 3), np.float32)
-        alb = np.zeros((n_pix, 3), np.float32)
-        nrm = np.zeros((n_pix, 3), np.float32)
-        for t in range(n_tiles):
-            ids = all_ids[t * tile:(t + 1) * tile]
+        all_ids = tiled_pixel_order_on(cfg.width, cfg.height, tile, dev)
+        frame = torch.empty((3, n_pix, 3), dtype=torch.float32, device=dev)
+        for t in range(0, all_ids.shape[0], tile):
+            ids = all_ids[t:t + tile]
             sums = render(scene, cam, cfg, ids, key)
-            with observe.span("render_image.fetch"):
-                r = sums.radiance.to_array().cpu().numpy()
-                a = sums.albedo.to_array().cpu().numpy()
-                nm = sums.normal.to_array().cpu().numpy()
             with observe.span("render_image.scatter"):
-                rad[ids], alb[ids], nrm[ids] = r, a, nm
+                m = min(tile, n_pix - t)
+                planes = torch.stack([*sums.radiance, *sums.albedo,
+                                      *sums.normal], dim=1)
+                frame.index_copy_(1, ids[:m],
+                                  planes[:m].view(m, 3, 3).transpose(0, 1))
+        with observe.span("render_image.fetch"):
+            if dev.type != "cpu":
+                frame = torch.empty(frame.shape, dtype=frame.dtype,
+                                    pin_memory=dev.type == "cuda"
+                                    ).copy_(frame)
+            rad, alb, nrm = frame.numpy()
         with observe.span("render_image.assemble"):
             return assemble_image(cfg, rad, alb, nrm)
 

@@ -136,6 +136,74 @@ def test_render_image_canvas_matches():
     assert same.mean() >= 0.98, f"{1 - same.mean():.2%} pixels differ"
 
 
+def _frame_setup(**over):
+    from raytpu_torch.scenes import cornell_box
+    scene, cam, cfg = cornell_box(device="cpu")
+    return scene, cam, cfg.replace(width=20, height=15, spp=2, max_bounces=3,
+                                   **over)
+
+
+def test_render_image_tiles_equal_one_tile_and_hand_scatter():
+    """pixel_tile 96 over 20x15 (three tiles, the last padded) against one
+    tile of the whole frame, and against render's per-tile sums scattered
+    by hand over blocked_pixel_order: bit-identical."""
+    scene, cam, cfg = _frame_setup(pixel_tile=96)
+    key = trng.prng_key(7)
+    got = trender.render_image(scene, cam, cfg, key)
+    one = trender.render_image(scene, cam, cfg.replace(pixel_tile=10**6), key)
+    ids = np.pad(trender.blocked_pixel_order(cfg), (0, 4 * 96 - 300),
+                 mode="edge")
+    sums = [np.zeros((300, 3), np.float32) for _ in range(3)]
+    for t in range(0, 4 * 96, 96):
+        tile = trender.render(scene, cam, cfg, ids[t:t + 96], key)
+        for arr, v in zip(sums, tile[:3]):
+            arr[ids[t:t + 96]] = v.to_array().numpy()
+    hand = trender.assemble_image(cfg, *sums)
+    for f in got._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(one, f), f)
+        np.testing.assert_array_equal(getattr(got, f), getattr(hand, f), f)
+
+
+@pytest.mark.parametrize("tile", [96, 128])
+def test_tiled_pixel_order_is_made_once(tile, monkeypatch):
+    """The cached order is blocked_pixel_order padded by its last id to
+    whole tiles, read-only, and a second frame does not rebuild it or its
+    device copy."""
+    scene, cam, cfg = _frame_setup(pixel_tile=tile)
+    fresh = trender.blocked_pixel_order(cfg)
+    n = -(-300 // tile) * tile
+    cached = trender.tiled_pixel_order(20, 15, tile)
+    np.testing.assert_array_equal(
+        cached, np.pad(fresh, (0, n - 300), mode="edge"))
+    assert not cached.flags.writeable
+    trender.tiled_pixel_order.cache_clear()
+    trender.tiled_pixel_order_on.cache_clear()
+    built = []
+    real = trender.blocked_pixel_order
+    monkeypatch.setattr(trender, "blocked_pixel_order",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    trender.render_image(scene, cam, cfg, trng.prng_key(1))
+    on = trender.tiled_pixel_order_on(20, 15, tile, scene.device)
+    trender.render_image(scene, cam, cfg, trng.prng_key(2))
+    assert built == [1]
+    assert trender.tiled_pixel_order_on(20, 15, tile, scene.device) is on
+    assert on.dtype == torch.int64
+    np.testing.assert_array_equal(on.numpy(), cached)
+
+
+def test_render_image_frames_do_not_alias():
+    """Two back-to-back frames with different keys: the first frame's
+    arrays are unchanged after the second, and share no memory with it."""
+    scene, cam, cfg = _frame_setup(pixel_tile=96)
+    first = trender.render_image(scene, cam, cfg, trng.prng_key(3))
+    kept = [np.array(a) for a in first]
+    second = trender.render_image(scene, cam, cfg, trng.prng_key(4))
+    assert not np.array_equal(first.image, second.image)
+    for a, b, k in zip(first, second, kept):
+        np.testing.assert_array_equal(a, k)
+        assert not np.shares_memory(a, b)
+
+
 def test_write_ppm_byte_identical(tmp_path):
     rs = np.random.default_rng(1)
     canvas = rs.integers(0, 256, (7, 9, 3)).astype(np.int32)

@@ -4,8 +4,8 @@
   ``step_fn`` calls emit every span of the frame, the sample loop and the
   train step, each inside its caller's span in the trace, with one call
   a tile or a sample (the sample's start and bounce loop again in the
-  checkpoint's recompute), and ``span_stats`` counts what the trace
-  holds.
+  checkpoint's recompute; the frame's fetch once), and ``span_stats``
+  counts what the trace holds.
 * With no profiler recording (none, or one in its warm-up phase) a span
   is the shared no-op and the tally does not move; a second profiled
   session starts its tally from zero.
@@ -101,7 +101,8 @@ def test_frame_spans_nest_and_count():
     scene, cam, cfg = _scene(n_tiles=2)
     _, spans = _profiled(lambda: render_image(scene, cam, cfg, prng_key(1)))
     calls = Counter(e.name for e in spans)
-    assert calls == {"render_image": 1, "render_image.fetch": 2,
+    # the sums stay on the device: one fetch a frame, a scatter a tile
+    assert calls == {"render_image": 1, "render_image.fetch": 1,
                      "render_image.scatter": 2, "render_image.assemble": 1,
                      "render.sample_start": 2 * SPP,
                      "render.bounce_loop": 2 * SPP,
