@@ -243,7 +243,8 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
 
     Spans (``observe.span``), each once a sample: ``render.sample_start``,
     ``render.bounce_loop`` (both again in the checkpoint's recompute) and
-    ``render.accumulate`` (the 9 sum adds).
+    ``render.accumulate`` (the 9 sum adds); on K3's route also
+    ``render.frame_selection``, once a call (the selection tables).
     """
     dev = scene.device
     n = cfg.spp if n_samples is None else n_samples
@@ -262,8 +263,9 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig, pixel_ids,
                             trace_scene.trace_mesh_megakernel)
     if bounce_loop is trace_scene.trace_mesh_megakernel:
         # K3's selection tables depend on the scene alone: built once here
-        bounce_loop = functools.partial(
-            bounce_loop, selection=trace_scene.frame_selection(scene, cfg))
+        with observe.span("render.frame_selection"):
+            selection = trace_scene.frame_selection(scene, cfg)
+        bounce_loop = functools.partial(bounce_loop, selection=selection)
     n_draws = n_bounce_draws(cfg)
     n_rows = 4 if keyed else 4 + cfg.max_bounces * n_draws
     cam_pack = pack_camera(cam).to(dev)

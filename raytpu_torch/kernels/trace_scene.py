@@ -86,6 +86,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from raytpu_torch import observe
 from raytpu_torch.core import rng
 from raytpu_torch.core.color import hsl_boost
 from raytpu_torch.core.types import (MatTable, RenderConfig, Scene, TextureAtlas,
@@ -1538,10 +1539,19 @@ class TraceMesh(torch.autograd.Function):
 
 def frame_selection(scene: Scene, cfg: RenderConfig) -> dict:
     """``selection_tables`` of ``scene`` under ``cfg``'s plan, detached:
-    what every sample of a render call shares."""
+    what every sample of a render call shares. Counts (``observe.count``)
+    the scene's triangles, ``trace_scene.triangles``, and the candidates
+    its search tests, ``trace_scene.candidates``: the merged plan's rects,
+    unpaired axis-aligned triangles, general parallelograms and leftover
+    triangles, else every triangle."""
+    k = MeshKnobs.for_scene(cfg, scene, 0)
+    p = k.plan
+    observe.count("trace_scene.triangles", k.n_tris)
+    observe.count("trace_scene.candidates", k.n_tris if p is None else
+                  len(p.rects) + len(p.aa_tris) + len(p.quads)
+                  + len(p.leftovers))
     with torch.no_grad():
-        return selection_tables(pack_tri(scene),
-                                MeshKnobs.for_scene(cfg, scene, 0))
+        return selection_tables(pack_tri(scene), k)
 
 
 def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
@@ -1561,7 +1571,9 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
     composed with the sky texels by ``trace_spheres.compose_sky``. Raises
     ``NotImplementedError`` for scenes the kernel does not cover
     (``unsupported_reasons``). ``selection``: ``frame_selection`` of the
-    same scene and config, or None to build it here.
+    same scene and config, or None to build it here. Span
+    (``observe.span``) ``trace_scene.tables``, once a call: the packers
+    and, not differentiated, ``mesh_tables``.
     """
     from raytpu_torch.integrator.path import n_bounce_draws
     from raytpu_torch.kernels.trace_spheres import compose_sky, pack_spheres
@@ -1595,13 +1607,16 @@ def trace_mesh_megakernel(scene: Scene, cfg: RenderConfig, origin: Vec3,
             raise ValueError(
                 f"trace_scene: rays must be f32 (B,) with B={b} on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    tabs = (pack_spheres(scene), pack_tri(scene), pack_mats(scene),
-            pack_atlas(scene))
     rays = tuple(t.contiguous() for t in rays)
-    if torch.is_grad_enabled() and requires_grad(*tabs, *rays):
+    with observe.span("trace_scene.tables"):
+        tabs = (pack_spheres(scene), pack_tri(scene), pack_mats(scene),
+                pack_atlas(scene))
+        grad = torch.is_grad_enabled() and requires_grad(*tabs, *rays)
+        tables = None if grad else mesh_tables(*tabs, k, selection)
+    if grad:
         out = TraceMesh.apply(*tabs, *rays, src, k, selection)
     else:
-        out = _forward(mesh_tables(*tabs, k, selection), rays, src, k)
+        out = _forward(tables, rays, src, k)
     if k.sky_idx >= 0:
         return compose_sky(scene, cfg, out)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])

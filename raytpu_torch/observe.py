@@ -15,6 +15,8 @@ Port of ``raytpu/observe.py``:
     frame, the sample loop and the train step, recorded only while a
     ``torch.profiler`` records (``trace_profile``, or any other profiler
     around the call); without one a span costs one flag read.
+  * :func:`count` and :func:`count_stats`: the program's counters,
+    recorded and reset as the spans are.
 
 ``raytpu``'s ``enable_compilation_cache`` (a persistent XLA cache) has no
 counterpart: the port compiles nothing at run time but its CUDA kernel
@@ -140,21 +142,23 @@ _OFF = _Off()
 
 
 class _Tally:
-    """Calls and seconds by span name over the newest profiled session.
-    ``live`` says whether the last span found a profiler recording; the
-    first span that finds one after a span that found none starts the
-    tally from zero. Updated under a lock: the checkpoint's recompute
-    opens spans on the autograd engine's thread."""
+    """Calls and seconds by span name, and the counters' totals, over the
+    newest profiled session. ``live`` says whether the last span or count
+    found a profiler recording; the first that finds one after one that
+    found none starts both from zero. Updated under a lock: the
+    checkpoint's recompute opens spans on the autograd engine's thread."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.live = False
         self.stats: dict = {}
+        self.counts: dict = {}
 
     def begin(self) -> None:
         with self.lock:
             if not self.live:
                 self.stats = {}
+                self.counts = {}
                 self.live = True
 
     def add(self, name: str, seconds: float) -> None:
@@ -165,6 +169,10 @@ class _Tally:
             else:
                 entry[0] += 1
                 entry[1] += seconds
+
+    def count(self, name: str, n: int) -> None:
+        with self.lock:
+            self.counts[name] = self.counts.get(name, 0) + n
 
 
 _TALLY = _Tally()
@@ -222,3 +230,22 @@ def span_stats() -> dict:
     with no span between them share one tally."""
     with _TALLY.lock:
         return {name: tuple(entry) for name, entry in _TALLY.stats.items()}
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` while a ``torch.profiler``
+    records, in the session the spans tally (``span``); without one it is
+    one read of the profiler's flag and nothing is stored."""
+    if not _profiler._is_profiler_enabled:
+        _TALLY.live = False
+        return
+    if not _TALLY.live:
+        _TALLY.begin()
+    _TALLY.count(name, n)
+
+
+def count_stats() -> dict:
+    """``{name: total}`` of every counter of the newest profiled session,
+    which starts and ends with the span tally's (``span_stats``)."""
+    with _TALLY.lock:
+        return dict(_TALLY.counts)

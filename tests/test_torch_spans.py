@@ -265,3 +265,105 @@ def test_traced_cell_reports_its_span_metrics(workload):
     assert set(untraced["metrics"]) == {
         m["name"] for m in spec["end_to_end"]
         if workload in m.get("workloads", [workload])}
+
+
+# ---- the mesh route's spans and counters ------------------------------------
+
+MESH = ["render_image", "render_image.fetch", "render_image.scatter",
+        "render_image.assemble", "render.frame_selection",
+        "render.sample_start", "render.bounce_loop", "render.accumulate",
+        "trace_scene.tables"]
+
+
+@pytest.fixture(scope="module")
+def mesh_scene(tmp_path_factory):
+    """A 60-triangle block world at 8x6, two tiles, K3's merged search."""
+    from raytpu_torch.config import load_scene_file
+    from raytpu_torch.scenes import write_block_world
+
+    toml = write_block_world(str(tmp_path_factory.mktemp("bw")),
+                             n_triangles=60, seed=3)
+    scene, cam, cfg = load_scene_file(toml, "cpu")
+    cfg = cfg.replace(width=8, height=6, spp=SPP, max_bounces=3,
+                      pixel_tile=24, use_megakernel=True)
+    return scene, cam, cfg
+
+
+def _mesh_profiled(work):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = work()
+    return out, [e for e in prof.events() if e.name in MESH]
+
+
+def _mesh_counts(scene, cfg, calls: int) -> dict:
+    """The counters of ``calls`` render calls: the world's triangles and
+    its merged plan's candidates, each once a call."""
+    from raytpu_torch.kernels.trace_scene import quad_plan
+
+    p = quad_plan(cfg, scene.triangles.count)
+    n = len(p.rects) + len(p.aa_tris) + len(p.quads) + len(p.leftovers)
+    assert 0 < n < scene.triangles.count
+    return {"trace_scene.triangles": calls * scene.triangles.count,
+            "trace_scene.candidates": calls * n}
+
+
+def test_mesh_spans_count_once_a_call_and_a_sample(mesh_scene):
+    scene, cam, cfg = mesh_scene
+    _, spans = _mesh_profiled(
+        lambda: render_image(scene, cam, cfg, prng_key(1)))
+    calls = Counter(e.name for e in spans)
+    # a render call a tile: the selection once a call, the tables a sample
+    assert calls == {"render_image": 1, "render_image.fetch": 1,
+                     "render_image.scatter": 2, "render_image.assemble": 1,
+                     "render.frame_selection": 2,
+                     "render.sample_start": 2 * SPP,
+                     "render.bounce_loop": 2 * SPP,
+                     "render.accumulate": 2 * SPP,
+                     "trace_scene.tables": 2 * SPP}
+    by = lambda name: [e for e in spans if e.name == name]
+    assert all(_inside(e, by("render.bounce_loop"))
+               for e in by("trace_scene.tables"))
+    assert all(_inside(e, by("render_image"))
+               for e in by("render.frame_selection"))
+    _check_tally(spans)
+    assert observe.count_stats() == _mesh_counts(scene, cfg, 2)
+
+
+def test_counters_record_only_under_a_profiler(mesh_scene):
+    scene, cam, cfg = mesh_scene
+    with profile(activities=[ProfilerActivity.CPU]):
+        observe.count("c", 2)
+        observe.count("c", 3)
+    assert observe.count_stats() == {"c": 5}
+    observe.count("c", 7)   # no profiler: nothing stored
+    render_image(scene, cam, cfg, prng_key(2))
+    assert observe.count_stats() == {"c": 5}
+    prof = profile(activities=[ProfilerActivity.CPU],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    with prof:
+        observe.count("c", 11)   # warm-up phase: nothing stored
+        prof.step()
+        # the next recorded session starts the counters with the spans
+        render_image(scene, cam, cfg, prng_key(3))
+        prof.step()
+    assert observe.count_stats() == _mesh_counts(scene, cfg, 2)
+    assert observe.span_stats()["render.frame_selection"][0] == 2
+
+
+def test_mesh_results_bit_equal_with_and_without_profiler(mesh_scene):
+    scene, cam, cfg = mesh_scene
+    pids = torch.arange(cfg.n_pixels)
+
+    def work():
+        with torch.no_grad():
+            sums = render(scene, cam, cfg, pids, prng_key(7))
+        return sums, render_image(scene, cam, cfg, prng_key(8))
+
+    plain = work()
+    traced, spans = _mesh_profiled(work)
+    assert {e.name for e in spans} == set(MESH)
+    for field in ("radiance", "albedo", "normal"):
+        a, b = getattr(plain[0], field), getattr(traced[0], field)
+        assert torch.equal(a.to_array(), b.to_array()), field
+    for a, b in zip(plain[1], traced[1]):
+        np.testing.assert_array_equal(a, b)
